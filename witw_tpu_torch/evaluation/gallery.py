@@ -1,0 +1,124 @@
+"""Full-gallery retrieval evaluation on one device (port of the single-device
+path of witw_tpu/evaluation/gallery.py).
+
+- One paired O(N) pass gives every query's true-match distance (the rank
+  threshold), through the FFT matcher's arithmetic.
+- A blockwise sweep runs each block of queries against the gallery in
+  chunks, through the FFT matcher (default) or the fused CUDA kernel
+  (``use_fused``), and counts the gallery items at or under the threshold.
+
+Rank definition (ties count): rank(q) = #{g : d(g, q) <= d(q, q)}
+(reference cvig_fov.py:552). The true match is excluded from the sweep and
+counted as +1, so kernel-batching roundoff cannot drop it.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from witw_tpu_torch.match.distance import window_sq_norms
+from witw_tpu_torch.match.fft_matcher import (
+    candidates_vs_queries,
+    gallery_vs_queries,
+    query_fft,
+)
+from witw_tpu_torch.ops.fused_match import fused_chord_distance_nhwc
+
+
+def _paired_distance_batched(overhead: torch.Tensor, surface: torch.Tensor) -> torch.Tensor:
+    """True-match distances [N] through the same fft_matcher arithmetic as
+    the FFT sweep (query_fft padding + chord_scores' rsqrt/epsilon guards)."""
+    w = overhead.shape[2]
+    sw = surface.shape[2]
+    fs, s_norm = query_fft(surface, w)
+    fo = torch.fft.rfft(overhead.to(torch.float32), dim=2)[:, None]
+    wsq = window_sq_norms(overhead, sw)[:, None]
+    d, _ = candidates_vs_queries(fo, wsq, fs, s_norm, w)
+    return d[:, 0]
+
+
+class FovGalleryEvaluator:
+    """Rank computation for the FOV-DSM orientation-aligned chord distance.
+
+    Gallery (overhead) and query (surface) embeddings: [N, h, w(|sw), c]
+    NHWC, numpy or tensors. ``use_fused`` runs the sweep through the fused
+    correlation + distance kernel (witw_tpu_torch.ops.fused_match), which
+    never materializes the [G, Q, W] correlation. ``device`` is where the
+    sweep runs; None keeps tensors where they are and puts numpy on the CPU.
+    """
+
+    def __init__(
+        self,
+        query_block: int = 128,
+        gallery_chunk: int = 1024,
+        use_fused: bool = False,
+        device: Optional[torch.device] = None,
+    ):
+        self.query_block = query_block
+        self.gallery_chunk = gallery_chunk
+        self.use_fused = use_fused
+        self.device = device
+
+    def _tensor(self, x) -> torch.Tensor:
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device or x.device, torch.float32)
+        return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=self.device)
+
+    @torch.no_grad()
+    def ranks(self, overhead_embeds, surface_embeds,
+              true_match: Optional[np.ndarray] = None) -> np.ndarray:
+        """Rank of each query's true match in the gallery (ties count).
+        ``true_match``: gallery index of each query's true match [Q]; None =
+        arange (paired test sets, Q == G). Returns int32 [Q]."""
+        gal = self._tensor(overhead_embeds)
+        s_all = self._tensor(surface_embeds).to(gal.device)
+        n = s_all.shape[0]
+        n_gal = gal.shape[0]
+        if true_match is None:
+            if n_gal != n:
+                raise ValueError("asymmetric query/gallery requires explicit true_match indices")
+            tm = torch.arange(n, device=gal.device)
+            tm_rows = gal
+        else:
+            tm = torch.as_tensor(np.asarray(true_match), dtype=torch.int64, device=gal.device)
+            tm_rows = gal[tm]
+        d_true = _paired_distance_batched(tm_rows, s_all)
+
+        w = gal.shape[2]
+        sw = s_all.shape[2]
+        if not self.use_fused:
+            fo = torch.fft.rfft(gal, dim=2)  # [Ng, h, wf, c]
+            wsq = window_sq_norms(gal, sw)  # [Ng, w]
+        gal_idx = torch.arange(n_gal, device=gal.device)
+        counts = torch.zeros(n, dtype=torch.int64, device=gal.device)
+        for q0 in range(0, n, self.query_block):
+            q1 = min(q0 + self.query_block, n)
+            s_block = s_all[q0:q1]
+            if not self.use_fused:
+                fs, s_norm = query_fft(s_block, w)
+            for c0 in range(0, n_gal, self.gallery_chunk):
+                c1 = min(c0 + self.gallery_chunk, n_gal)
+                if self.use_fused:
+                    d, _ = fused_chord_distance_nhwc(gal[c0:c1], s_block)
+                else:
+                    d, _ = gallery_vs_queries(fo[c0:c1], wsq[c0:c1], fs, s_norm, w)
+                le = (d <= d_true[None, q0:q1]) & (gal_idx[c0:c1, None] != tm[None, q0:q1])
+                counts[q0:q1] += le.sum(dim=0)
+        return (counts + 1).cpu().numpy().astype(np.int32)
+
+
+def metrics_from_ranks(ranks: np.ndarray) -> Dict[str, float]:
+    """Reference metric suite (cvig_fov.py:553-567)."""
+    count = len(ranks)
+    return {
+        "top_1": float(np.sum(ranks <= 1) / count * 100.0),
+        "top_5": float(np.sum(ranks <= 5) / count * 100.0),
+        "top_10": float(np.sum(ranks <= 10) / count * 100.0),
+        "top_percent": float(np.sum(ranks * 100 <= count) / count * 100.0),
+        "avg_rank": float(np.mean(ranks)),
+        "med_rank": float(np.median(ranks)),
+        "locations": count,
+    }

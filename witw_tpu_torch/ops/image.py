@@ -1,0 +1,60 @@
+"""Batched NHWC image normalization (port of witw_tpu/ops/image.py)."""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+
+def _scale(c: int, scale_channels: int | None, device) -> torch.Tensor:
+    if scale_channels is None:
+        scale_channels = c
+    ar = torch.arange(c, device=device)
+    return torch.where(
+        ar < scale_channels,
+        torch.tensor(1.0 / 255.0, dtype=torch.float32, device=device),
+        torch.tensor(1.0, dtype=torch.float32, device=device),
+    )
+
+
+def normalize_images(
+    x: torch.Tensor,
+    mean: Sequence[float],
+    std: Sequence[float],
+    scale_channels: int | None = None,
+) -> torch.Tensor:
+    """Scale to [0,1] and standardize per channel. NHWC.
+
+    ``scale_channels`` limits the /255 scaling to the first k channels: the
+    semantic variant divides only RGB by 255 while the extra mask channels are
+    standardized raw (reference cvig_semantic.py:173-176, a quirk kept for
+    parity).
+    """
+    x = x.to(torch.float32)
+    scale = _scale(x.shape[-1], scale_channels, x.device)
+    mean_t = torch.tensor(mean, dtype=torch.float32, device=x.device)
+    std_t = torch.tensor(std, dtype=torch.float32, device=x.device)
+    return (x * scale - mean_t) / std_t
+
+
+def normalize_images_masked_bias(
+    x: torch.Tensor,
+    mean: Sequence[float],
+    std: Sequence[float],
+    bias_mask: torch.Tensor,
+    scale_channels: int | None = None,
+) -> torch.Tensor:
+    """``x*k + b*mask`` instead of ``(x*k + b)*mask``: the polar-then-normalize
+    path's correction at exact-boundary polar samples, where the gather
+    weights are all zero and only the normalization bias must be masked
+    (see witw_tpu/ops/image.py). bias_mask: [H, W] 0/1 float mask.
+    """
+    x = x.to(torch.float32)
+    scale = _scale(x.shape[-1], scale_channels, x.device)
+    mean_t = torch.tensor(mean, dtype=torch.float32, device=x.device)
+    std_t = torch.tensor(std, dtype=torch.float32, device=x.device)
+    k = scale / std_t
+    b = -mean_t / std_t
+    mask = torch.as_tensor(bias_mask, dtype=torch.float32, device=x.device)
+    return x * k + mask[..., None] * b
