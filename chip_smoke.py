@@ -17,11 +17,27 @@ Phases, each of which passes or raises:
    pipeline on the CPU, and equal ranks from the fused and FFT evaluators on
    planted embeddings.
 6. Time the kernel against the plain version, and embed+match pairs/s.
+7. Build the three static-int8 kernels (int8 conv, 2x2 max pool, fused VGG
+   block 2), one nvcc per source started together; print ptxas' lines.
+8. Hold each against its plain PyTorch version at every distinct layer
+   shape of both int8 towers at full CVUSA geometry, at batch 2 and at the
+   main path's batch 128, plus ragged, odd and other-width cases: int8
+   outputs equal, f32 within 1e-6.
+9. The static-int8 serving path at full width: calibrate both towers on 8
+   preprocessed samples (as bench.py), then batch 128 raw ->
+   preprocess_static_int8 -> both int8 towers -> the fused match, at fov 360
+   and 90. Then check_saturation on a held-out batch, int8 against f32
+   towers (cosine > 0.99), and the card against the CPU plain path on 2
+   samples (embeddings within 1e-6).
+10. Time int8 embed+match pairs/s and each int8 kernel against its plain
+   version at the main path's shapes (batch 128).
 
-The launch count is reset just before phase 4 and read right after test()
-in phase 5, so it counts the main path only: forward_distance at fov 360 and
-90, and test(). Each of the three must raise it. The second-to-last line is
-the kernels' JSON record; the last line is {"ok": true, "device": {...}}.
+The launch counts are reset just before the path they count and read right
+after it: the fused kernel's before phase 4 and after test() in phase 5
+(forward_distance at fov 360 and 90, and test(), must each raise it); all
+four kernels' before the int8 path of phase 9 and after it (its fov 360 and
+90 runs must each raise every count). The second-to-last line is the
+kernels' JSON record; the last line is {"ok": true, "device": {...}}.
 Without a GPU, or without the repo beside it, the script exits non-zero and
 prints no result.
 """
@@ -37,12 +53,16 @@ import time
 
 import numpy as np
 import torch
+from torch.func import functional_call
 
 from witw_tpu.configs import fov_experiment
 from witw_tpu_torch.evaluation.gallery import FovGalleryEvaluator, metrics_from_ranks
-from witw_tpu_torch.kernels.build import build_library
+from witw_tpu_torch.kernels.build import build_libraries, build_library
 from witw_tpu_torch.match.correlation import circular_correlation
-from witw_tpu_torch.ops import fused_match
+from witw_tpu_torch.models import quantize
+from witw_tpu_torch.models.backbones.vgg16 import VGG16_BLOCKS
+from witw_tpu_torch.models.fov_dsm import HEAD_CONVS, FovDsm
+from witw_tpu_torch.ops import fused_block2, fused_match, int8_conv, maxpool
 from witw_tpu_torch.train import loop
 from witw_tpu_torch.train.pipeline import FovPipeline
 from witw_tpu_torch.utils.device import require_cuda
@@ -147,6 +167,282 @@ def planted_embeddings(rng, n, h, w, c, sw):
         cols = [(start + k) % w for k in range(sw)]
         s[i] = o[i][:, cols, :] + 0.1 * s[i]
     return o, s
+
+
+# --- static-int8 serving path (phases 7-10) ---------------------------------
+
+INT8_KERNELS = {  # module name: (kernel name, source, TPU kernels it replaces)
+    "int8_conv": ("conv3x3_int8", "witw_tpu_torch/csrc/int8_conv.cu",
+                  "exp/int8_conv_pallas.py:48, exp/int8_conv_v2.py:38, exp/r4_conv_taps.py:69"),
+    "maxpool": ("maxpool2x2", "witw_tpu_torch/csrc/maxpool.cu", "exp/pallas_maxpool.py:30"),
+    "fused_block2": ("fused_block2", "witw_tpu_torch/csrc/fused_block2.cu",
+                     "exp/fused_block2.py:108, exp/fused_block2_v2.py:190"),
+}
+INT8_MODULES = {"int8_conv": int8_conv, "maxpool": maxpool, "fused_block2": fused_block2}
+INT8_RTOL = INT8_ATOL = 1e-6
+
+
+def tower_calls(h, w, cin, circ):
+    """The kernel calls of one static-int8 tower on an [h, w, cin] input, in
+    order: ("conv", (h, w, cin), co, stride_h, pad_w, epilogue),
+    ("pool", (h, w, c)) and ("block2", (h, w, 64))."""
+    pad = 0 if circ else 1
+    calls = []
+    for block_i, block in enumerate(VGG16_BLOCKS):
+        if block_i == 1:
+            calls.append(("block2", (h, w, cin)))
+            h, w, cin = h // 2, w // 2, block[-1][1]
+            continue
+        if circ:
+            w += 2 * len(block)
+        for _, co in block:
+            calls.append(("conv", (h, w, cin), co, 1, pad, "int8"))
+            w, cin = w + 2 * pad - 2, co
+        if block_i < 3:
+            calls.append(("pool", (h, w, cin)))
+            h, w = h // 2, w // 2
+    if circ:
+        w += 2 * len(HEAD_CONVS)
+    for i, (_, co, strides, _) in enumerate(HEAD_CONVS):
+        calls.append(("conv", (h, w, cin), co, strides[0], pad,
+                      "f32" if i + 1 == len(HEAD_CONVS) else "int8"))
+        h, w, cin = (h - 1) // strides[0] + 1, w + 2 * pad - 2, co
+    return calls
+
+
+def conv_case(gen, device, b, hwc, co):
+    """Random int8 input, packed weights and epilogue tables whose
+    requantized outputs spread over the int8 range."""
+    h, w, cin = hwc
+    acc_std = 3.0 * cin ** 0.5 * 73.3 * 73.3
+    k = torch.randint(-127, 128, (co, 3, 3, cin), generator=gen, device=device, dtype=torch.int8)
+
+    def uniform(lo, hi):
+        return lo + (hi - lo) * torch.rand(co, generator=gen, device=device)
+
+    return {
+        "x": torch.randint(-127, 128, (b, h, w, cin), generator=gen, device=device,
+                           dtype=torch.int8),
+        "w": torch.nn.functional.pad(k, (0, int8_conv.padded_channels(cin) - cin)),
+        "bias_q": uniform(-acc_std, acc_std).to(torch.int32),
+        "m": uniform(20.0, 60.0) / acc_std,
+        "dequant": uniform(1e-5, 1e-4),
+        "bias_f": torch.randn(co, generator=gen, device=device),
+    }
+
+
+def run_conv(t, stride_h, pad_w, epilogue, plain=False):
+    if epilogue == "f32":
+        fn = int8_conv.conv3x3_int8_dequant_plain if plain else int8_conv.conv3x3_int8_dequant
+        return fn(t["x"], t["w"], t["dequant"], t["bias_f"], stride_h, pad_w)
+    fn = int8_conv.conv3x3_int8_plain if plain else int8_conv.conv3x3_int8
+    return fn(t["x"], t["w"], t["bias_q"], t["m"], stride_h, pad_w)
+
+
+def block2_args(gen, device, b, h, w):
+    c1 = conv_case(gen, device, b, (h, w, 64), 128)
+    c2 = conv_case(gen, device, b, (h, w, 128), 128)
+    return (c1["x"].abs(), c1["w"], c1["bias_q"], c1["m"], c2["w"], c2["bias_q"], c2["m"])
+
+
+def check_equal(name, got, want):
+    """int8 outputs equal; float outputs within INT8_RTOL / INT8_ATOL.
+    Returns the max abs error."""
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} vs plain "
+                             f"{want.dtype} {tuple(want.shape)}")
+    err = float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
+    if got.dtype == torch.int8:
+        ok = torch.equal(got, want)
+    else:
+        ok = bool(torch.isclose(got.float(), want.float(), rtol=INT8_RTOL, atol=INT8_ATOL).all())
+    log(f"  {name}: {tuple(got.shape)} {str(got.dtype).replace('torch.', '')} "
+        f"max_abs_err={err:.3e}")
+    if not ok:
+        raise AssertionError(f"kernel disagrees with its plain version at {name}")
+    return err
+
+
+def int8_distance(data_cfg, sq_s, sq_o, batch):
+    """The static-int8 serving forward of bench.py: int8-first preprocessing,
+    both int8 towers, the fused match -> d [Bo, Bs]."""
+    surf_q, polar_q = quantize.preprocess_static_int8(data_cfg, sq_s, sq_o, batch)
+    s_emb = quantize.quantized_fov_forward_static(sq_s, surf_q, False, x_quantized=True)
+    o_emb = quantize.quantized_fov_forward_static(sq_o, polar_q, True, x_quantized=True)
+    return fused_match.fused_chord_distance_nhwc(o_emb, s_emb)[0]
+
+
+def cosine(a, b):
+    return float((a * b).sum() / (a.norm() * b.norm()))
+
+
+def int8_phases(card, device, cfg, pipeline, params):
+    """Phases 7-10; returns the three kernels' JSON records."""
+    # 7. build, one nvcc per source, all started together
+    t0 = time.perf_counter()
+    built = build_libraries(list(INT8_KERNELS))
+    for mod in INT8_MODULES.values():
+        mod._lib()
+    log(f"[7] built {', '.join(p.name for p, _ in built.values())} with nvcc (sm_90a) "
+        f"in {time.perf_counter() - t0:.2f} s")
+    for _, build_log in built.values():
+        for line in build_log.splitlines():
+            if "ptxas info" in line or "spill" in line:
+                log("    " + line.strip())
+
+    # 8. each kernel against its plain version at every layer shape of the
+    # towers, at batch 2 and at the main path's batch 128
+    d = cfg.data
+    log(f"[8] static-int8 kernels vs plain PyTorch, batch 2 and 128 at full CVUSA geometry "
+        f"(int8 equal; f32 rtol {INT8_RTOL}, atol {INT8_ATOL})")
+    gen = torch.Generator(device=device).manual_seed(7)
+    calls = (tower_calls(d.surface_height, d.surface_width_max, 3, False)
+             + tower_calls(d.surface_height, d.surface_width_max, 3, True))
+
+    def at_batches(kind, shape_of):
+        return list(dict.fromkeys((b,) + shape_of(c) for b in (2, 128)
+                                  for c in calls if c[0] == kind))
+
+    err = {name: 0.0 for name in INT8_KERNELS}
+    convs = at_batches("conv", lambda c: c[1:])
+    convs.append((1, (7, 9, 5), 64, 1, 1, "int8"))  # ragged: B 1, odd H and W, Cin 5
+    for b, hwc, co, sh, pad, ep in convs:
+        t = conv_case(gen, device, b, hwc, co)
+        e = check_equal(f"conv3x3_int8 B={b} HWC={hwc} Co={co} stride_h={sh} pad_w={pad} {ep}",
+                        run_conv(t, sh, pad, ep), run_conv(t, sh, pad, ep, plain=True))
+        err["int8_conv"] = max(err["int8_conv"], e)
+    for shape in at_batches("pool", lambda c: c[1]) + [(1, 7, 9, 6), (2, 33, 65, 64)]:
+        for dtype in (torch.int8, torch.bfloat16, torch.float32):
+            x = (torch.randn(shape, generator=gen, device=device) * 40).round().clamp(-127, 127)
+            x = x.to(dtype)
+            e = check_equal(f"maxpool2x2 {shape}", maxpool.maxpool2x2(x),
+                            maxpool.maxpool2x2_plain(x))
+            err["maxpool"] = max(err["maxpool"], e)
+    for b, h, w in at_batches("block2", lambda c: c[1][:2]) + [(2, 64, 100), (1, 31, 45)]:
+        args = block2_args(gen, device, b, h, w)
+        for circ in (False, True):
+            e = check_equal(f"fused_block2 B={b} H={h} W={w} circular={circ}",
+                            fused_block2.fused_block2(*args, circular=circ),
+                            fused_block2.fused_block2_plain(*args, circular=circ))
+            err["fused_block2"] = max(err["fused_block2"], e)
+
+    # 9. the int8 serving path at full width (random weights from phase 4)
+    log("[9] static-int8 serving path: calibrate on 8 preprocessed samples, then batch 128 "
+        "raw -> preprocess_static_int8 -> int8 towers -> fused match")
+    batch = raw_batch(np.random.default_rng(4), cfg, 128)
+    calib = {k: v[:8] for k, v in batch.items()}
+    s_in, p_in = pipeline.preprocess(calib)
+    t0 = time.perf_counter()
+    sq_s, sq_o = quantize.quantize_pipeline_static(params, [(s_in, p_in)])
+    torch.cuda.synchronize()
+    log(f"    calibrated both towers in {time.perf_counter() - t0:.2f} s")
+    counted = dict(INT8_MODULES, fused_match=fused_match)
+    for mod in counted.values():
+        mod.launches = 0
+    cfg90 = fov_experiment("cvusa", 90)
+    dists = {}
+    for fov, c in ((360, cfg), (90, cfg90)):
+        before = {n: m.launches for n, m in counted.items()}
+        dists[fov] = int8_distance(c.data, sq_s, sq_o, batch)
+        torch.cuda.synchronize()
+        dd = dists[fov]
+        if dd.shape != (len(batch["surface"]),) * 2 or not bool(torch.isfinite(dd).all()):
+            raise AssertionError(f"int8 fov {fov} distances: shape {tuple(dd.shape)}, finite "
+                                 f"{bool(torch.isfinite(dd).all())}")
+        idle = [n for n, m in counted.items() if m.launches <= before[n]]
+        if idle:
+            raise AssertionError(f"int8 fov {fov} path did not launch {idle}")
+    launches = {n: m.launches for n, m in counted.items()}
+    log(f"    int8 batch 128: fov 360 d [128, 128] mean {float(dists[360].mean()):.6f}; "
+        f"fov 90 d [128, 128] mean {float(dists[90].mean()):.6f}; launches {launches}")
+
+    # Checks past this point launch the kernels outside the counted path.
+    held = pipeline.preprocess(raw_batch(np.random.default_rng(5), cfg, 8))
+    sat_s = quantize.check_saturation(sq_s, held[0], False, "surface")
+    sat_o = quantize.check_saturation(sq_o, held[1], True, "overhead")
+    log(f"    check_saturation on a held-out batch of 8: surface {sat_s:.6f}, "
+        f"overhead {sat_o:.6f} (warns above {quantize.SATURATION_WARN_FRACTION})")
+    f32_model = dataclasses.replace(cfg.model, compute_dtype="float32")
+    for tower, circ, x, sq in (("surface", False, s_in, sq_s), ("overhead", True, p_in, sq_o)):
+        model = FovDsm(f32_model, circ_padding=circ).to(device).eval()
+        with torch.no_grad():
+            want = functional_call(model, params[tower], (x,), strict=True)
+        cos = cosine(quantize.quantized_fov_forward_static(sq, x, circ), want)
+        log(f"    int8 vs f32 {tower} tower on the 8 calibration samples: cosine {cos:.6f} (> 0.99)")
+        if not cos > 0.99:
+            raise AssertionError(f"int8 {tower} tower disagrees with the f32 tower")
+    two = {k: v[:2] for k, v in batch.items()}
+    inputs = quantize.preprocess_static_int8(cfg.data, sq_s, sq_o, two)
+    for tower, circ, xq, sq in (("surface", False, inputs[0], sq_s),
+                                ("overhead", True, inputs[1], sq_o)):
+        gpu = quantize.quantized_fov_forward_static(sq, xq, circ, x_quantized=True).cpu()
+        cpu = quantize.quantized_fov_forward_static(
+            quantize.static_qparams_to_device(sq, "cpu"), xq.cpu(), circ, x_quantized=True)
+        e = float((gpu - cpu).abs().max())
+        log(f"    {tower} tower, 2 samples at full geometry: GPU (kernels) vs CPU (plain) "
+            f"max |d emb| = {e:.3e} (atol 1e-6)")
+        if not e <= 1e-6:
+            raise AssertionError(f"int8 {tower} tower: GPU disagrees with CPU")
+
+    # 10. timing (CUDA events, warm, median of >= 5)
+    log(f"[10] static-int8 timing on {card}")
+    gen_in = torch.Generator(device=device).manual_seed(11)
+    staged = [
+        {"surface": torch.rand(128, d.surface_height, d.surface_width_max, 3,
+                               generator=gen_in, device=device) * 255.0,
+         "overhead": torch.rand(128, d.overhead_size, d.overhead_size, 3,
+                                generator=gen_in, device=device) * 255.0}
+        for _ in range(4)
+    ]
+    step_of = iter(range(10**9))
+
+    def stage(fn):
+        return lambda: fn(staged[next(step_of) % len(staged)])
+
+    def embed(b):
+        surf_q, polar_q = quantize.preprocess_static_int8(d, sq_s, sq_o, b)
+        return (quantize.quantized_fov_forward_static(sq_s, surf_q, False, x_quantized=True),
+                quantize.quantized_fov_forward_static(sq_o, polar_q, True, x_quantized=True))
+
+    steps = 8
+    t_pre = cuda_ms(stage(lambda b: quantize.preprocess_static_int8(d, sq_s, sq_o, b)), steps, 5)
+    t_embed = cuda_ms(stage(embed), steps, 5)
+    t_fwd = cuda_ms(stage(lambda b: int8_distance(d, sq_s, sq_o, b)), steps, 5)
+    log(f"    embed+match static-int8 batch 128 (fov 360, varied inputs): {t_fwd:.3f} ms/step, "
+        f"{128 * 1000.0 / t_fwd:.2f} pairs/s; preprocess {t_pre:.3f} ms, embed (incl. "
+        f"preprocess) {t_embed:.3f} ms, match {t_fwd - t_embed:.3f} ms ({card})")
+    del staged
+
+    surf_convs = [c for c in tower_calls(d.surface_height, d.surface_width_max, 3, False)
+                  if c[0] == "conv"]
+    cases = [(conv_case(gen, device, 128, c[1], c[2]),) + c[3:] for c in surf_convs]
+    t_a, t_a_plain = interleaved_ms(
+        lambda: [run_conv(t, sh, pad, ep, plain=True) for t, sh, pad, ep in cases],
+        lambda: [run_conv(t, sh, pad, ep) for t, sh, pad, ep in cases], calls=1, reps=5)
+    log(f"    conv3x3_int8, the surface tower's {len(cases)} kernel-A convs summed, batch 128: "
+        f"kernel {t_a:.4f} ms, plain {t_a_plain:.4f} ms ({card})")
+    del cases
+    x = torch.randint(-127, 128, (128, d.surface_height, d.surface_width_max, 64),
+                      generator=gen, device=device, dtype=torch.int8)
+    t_b, t_b_plain = interleaved_ms(lambda: maxpool.maxpool2x2_plain(x),
+                                    lambda: maxpool.maxpool2x2(x), calls=10, reps=5)
+    log(f"    maxpool2x2 pool 1 {tuple(x.shape)} int8: kernel {t_b:.4f} ms, "
+        f"plain {t_b_plain:.4f} ms ({card})")
+    del x
+    args = block2_args(gen, device, 128, d.surface_height // 2, d.surface_width_max // 2)
+    t_c, t_c_plain = interleaved_ms(lambda: fused_block2.fused_block2_plain(*args),
+                                    lambda: fused_block2.fused_block2(*args), calls=2, reps=5)
+    log(f"    fused_block2 block 2 {tuple(args[0].shape)}: kernel {t_c:.4f} ms, "
+        f"plain {t_c_plain:.4f} ms ({card})")
+
+    times = {"int8_conv": (t_a, t_a_plain), "maxpool": (t_b, t_b_plain),
+             "fused_block2": (t_c, t_c_plain)}
+    return [{
+        "name": kname, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches[mod], "max_abs_err": err[mod],
+        "ms": times[mod][0], "plain_ms": times[mod][1],
+    } for mod, (kname, source, replaces) in INT8_KERNELS.items()]
 
 
 def main() -> int:
@@ -279,6 +575,8 @@ def main() -> int:
         f"{pairs_per_s:.2f} pairs/s; preprocess {t_pre:.3f} ms, embed (incl. preprocess) "
         f"{t_embed:.3f} ms, match {t_fwd - t_embed:.3f} ms ({card})")
 
+    int8_records = int8_phases(card, device, cfg, pipeline, params)
+
     log(card)
     log(json.dumps({"kernels": [{
         "name": "fused_corr_distance",
@@ -289,7 +587,7 @@ def main() -> int:
         "max_abs_err": max_abs_err,
         "ms": t_main,
         "plain_ms": t_main_plain,
-    }]}))
+    }] + int8_records}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
-"""Card tests of the port's fused-match CUDA kernel; each skips without a
-CUDA device. This file imports no JAX, so it also runs where JAX is absent:
+"""Card tests of the port's CUDA kernels (the fused match and the three
+static-int8 kernels); each skips without a CUDA device. This file imports no JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -16,7 +16,9 @@ import torch
 
 from witw_tpu.configs import DataConfig, DatasetConfig, ExperimentConfig, FovDsmModelConfig
 from witw_tpu_torch.match.correlation import circular_correlation
-from witw_tpu_torch.ops import fused_match
+from witw_tpu_torch.models import quantize
+from witw_tpu_torch.models.fov_dsm import FovDsm
+from witw_tpu_torch.ops import fused_block2, fused_match, int8_conv, maxpool
 from witw_tpu_torch.train.pipeline import FovPipeline
 
 pytestmark = pytest.mark.cuda
@@ -89,3 +91,119 @@ def test_forward_distance_on_gpu_matches_cpu(cuda):
         d = FovPipeline(cfg_fov, cuda).forward_distance(
             {t: {k: v.to(cuda) for k, v in p.items()} for t, p in params.items()}, batch)
         assert d.shape == (6, 6) and bool(torch.isfinite(d).all())
+
+
+# The static-int8 kernels (ops.int8_conv, ops.maxpool, ops.fused_block2)
+# against their plain PyTorch versions: int8 outputs equal, f32 outputs
+# within rtol 1e-6 and atol 1e-6 (the same int32 accumulator, and the same
+# f32 multiply and add without FMA contraction).
+
+
+@pytest.fixture
+def int8_cuda(cuda, monkeypatch):
+    for mod in (int8_conv, maxpool, fused_block2):
+        monkeypatch.setattr(mod, "launches", 0)
+    return cuda
+
+
+def _conv_case(rng, device, b, h, w, cin, co):
+    """int8 input, packed weights, and epilogue tables whose requantized
+    outputs spread over the int8 range."""
+    x = rng.integers(-127, 128, (b, h, w, cin)).astype(np.int8)
+    k = rng.integers(-127, 128, (3, 3, cin, co)).astype(np.int8)
+    acc_std = 3.0 * np.sqrt(cin) * 73.3 * 73.3
+    t = {
+        "x": x, "w": int8_conv.pack_weights(k),
+        "bias_q": rng.integers(-int(acc_std), int(acc_std), co).astype(np.int32),
+        "m": rng.uniform(20.0, 60.0, co).astype(np.float32) / np.float32(acc_std),
+        "dequant": rng.uniform(1e-5, 1e-4, co).astype(np.float32),
+        "bias_f": rng.standard_normal(co).astype(np.float32),
+    }
+    return {k: torch.from_numpy(v).to(device) for k, v in t.items()}
+
+
+@pytest.mark.parametrize("b,h,w,cin,co,stride_h,pad_w", [
+    (1, 7, 9, 5, 64, 1, 1),      # ragged: odd dims, Cin 5
+    (2, 9, 11, 3, 64, 2, 0),     # Cin 3, stride (2, 1), width-VALID
+    (2, 16, 21, 64, 128, 1, 0),  # the circular form on a wrap-haloed input
+    (1, 5, 6, 512, 16, 1, 1),    # the last head conv's shape
+    (3, 17, 35, 128, 256, 2, 1),
+])
+def test_int8_conv_matches_plain(int8_cuda, b, h, w, cin, co, stride_h, pad_w):
+    t = _conv_case(np.random.default_rng(0), int8_cuda, b, h, w, cin, co)
+    for relu in (True, False):
+        got = int8_conv.conv3x3_int8(t["x"], t["w"], t["bias_q"], t["m"], stride_h, pad_w, relu)
+        want = int8_conv.conv3x3_int8_plain(t["x"], t["w"], t["bias_q"], t["m"], stride_h, pad_w,
+                                            relu)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int8 and got.shape == want.shape
+        assert torch.equal(got, want)
+        assert got.unique().numel() > 20  # the epilogue spreads over the int8 range
+    got = int8_conv.conv3x3_int8_dequant(t["x"], t["w"], t["dequant"], t["bias_f"], stride_h, pad_w)
+    want = int8_conv.conv3x3_int8_dequant_plain(t["x"], t["w"], t["dequant"], t["bias_f"],
+                                                stride_h, pad_w)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    assert int8_conv.launches == 3
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(2, 8, 10, 64), (1, 7, 9, 6), (3, 5, 4, 128)])
+def test_maxpool_matches_plain(int8_cuda, dtype, shape):
+    gen = torch.Generator(device=int8_cuda).manual_seed(0)
+    x = torch.randn(shape, generator=gen, device=int8_cuda) * 40
+    x = x.round().clamp(-127, 127).to(dtype)
+    got = maxpool.maxpool2x2(x)
+    want = maxpool.maxpool2x2_plain(x)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.equal(got, want)
+    assert maxpool.launches == 1
+
+
+@pytest.mark.parametrize("circular", [False, True])
+@pytest.mark.parametrize("h,w", [(8, 20), (7, 9), (17, 34), (2, 2)])
+def test_fused_block2_matches_plain(int8_cuda, circular, h, w):
+    rng = np.random.default_rng(1)
+    c1 = _conv_case(rng, int8_cuda, 2, h, w, 64, 128)
+    c2 = _conv_case(rng, int8_cuda, 2, h, w, 128, 128)
+    x = c1["x"].abs()  # the pool-1 output of a ReLU tower
+    args = (x, c1["w"], c1["bias_q"], c1["m"], c2["w"], c2["bias_q"], c2["m"])
+    got = fused_block2.fused_block2(*args, circular=circular)
+    want = fused_block2.fused_block2_plain(*args, circular=circular)
+    torch.cuda.synchronize()
+    assert got.shape == (2, h // 2, w // 2, 128) and torch.equal(got, want)
+    assert fused_block2.launches == 1
+
+
+def test_int8_kernels_reject_bad_inputs(int8_cuda):
+    t = _conv_case(np.random.default_rng(2), int8_cuda, 1, 4, 4, 8, 16)
+    with pytest.raises(ValueError):  # Cin_p must be Cin rounded up to 4
+        int8_conv.conv3x3_int8(t["x"][..., :3].contiguous(), t["w"], t["bias_q"], t["m"])
+    with pytest.raises(ValueError):  # one CUDA device for every input
+        int8_conv.conv3x3_int8(t["x"], t["w"], t["bias_q"].cpu(), t["m"])
+    with pytest.raises(ValueError):  # strided
+        maxpool.maxpool2x2(t["x"].transpose(1, 2))
+    with pytest.raises(ValueError):  # block 2 takes 64 channels
+        fused_block2.fused_block2(t["x"], t["w"], t["bias_q"], t["m"], t["w"], t["bias_q"], t["m"])
+    assert int8_conv.launches == maxpool.launches == fused_block2.launches == 0
+
+
+@pytest.mark.parametrize("circ", [False, True])
+def test_static_int8_tower_on_gpu_matches_cpu(int8_cuda, circ):
+    """The same tables and int8 input through the kernels and through the
+    CPU plain path: equal embeddings (atol 1e-6), all three kernels used."""
+    model = FovDsm(FovDsmModelConfig(compute_dtype="float32"), circ_padding=circ)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    sd = model.state_dict()
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((2, 32, 64, 3)).astype(np.float32))
+    tables = quantize.prepare_static_qparams(
+        sd, quantize.calibrate_fov_activation_scales(sd, [x], circ))
+    sq_cpu = quantize.static_qparams_to_device(tables, "cpu")
+    sq_gpu = quantize.static_qparams_to_device(tables, int8_cuda)
+    xq = quantize.quantize_input(x, sq_cpu["input_scale"])
+    want = quantize.quantized_fov_forward_static(sq_cpu, xq, circ, x_quantized=True)
+    got = quantize.quantized_fov_forward_static(sq_gpu, xq.to(int8_cuda), circ, x_quantized=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-6)
+    assert int8_conv.launches == 11 and maxpool.launches == 2 and fused_block2.launches == 1

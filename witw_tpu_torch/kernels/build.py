@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-Each library is one ``csrc/<name>.cu`` with a plain C interface, compiled by
+Each library is one ``csrc/<name>.cu`` (which may include ``csrc/*.cuh``)
+with a plain C interface, compiled by
 ``nvcc`` for sm_90a into ``witw_tpu_torch/_build/`` at first use and loaded
 with ``ctypes``. The file name carries a hash of the sources and flags, so an
 edited source builds anew and an unchanged one is reused.
@@ -16,7 +17,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Tuple
+from typing import Dict, Sequence, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -48,27 +49,44 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
+def build_libraries(names: Sequence[str]) -> Dict[str, Tuple[Path, str]]:
+    """Compile ``csrc/<name>.cu`` for each name whose hashed library does not
+    exist, one nvcc process per source, all started together. Returns
+    {name: (library path, compiler log; empty when nothing was compiled)}."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    done: Dict[str, Tuple[Path, str]] = {}
+    running = []
+    try:
+        for name in names:
+            path = library_path(name)
+            if path.exists():
+                done[name] = (path, "")
+                continue
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            running.append((name, path, tmp, proc))
+        for name, path, tmp, proc in running:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}) for {name}:\n{out}")
+            os.replace(tmp, path)  # atomic: a concurrent process never loads half a file
+            done[name] = (path, out)
+    finally:
+        for _, _, tmp, proc in running:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return done
+
+
 def build_library(name: str) -> Tuple[Path, str]:
     """Compile ``csrc/<name>.cu`` unless its hashed library exists. Returns
     (library path, compiler log; empty when nothing was compiled)."""
-    path = library_path(name)
-    if path.exists():
-        return path, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) for {name}:\n{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, path)  # atomic: a concurrent process never loads half a file
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return path, proc.stdout + proc.stderr
+    return build_libraries([name])[name]
 
 
 @functools.lru_cache(maxsize=None)

@@ -43,12 +43,17 @@ VGG16_BLOCKS: Tuple[Tuple[Tuple[int, int], ...], ...] = (
 )
 
 
-def wrap_pad_width(x: torch.Tensor, halo: int) -> torch.Tensor:
-    """Circular-pad the width axis (last axis of an NCHW tensor) by ``halo``
-    per side."""
+def wrap_pad_width(x: torch.Tensor, halo: int, dim: int = -1) -> torch.Tensor:
+    """Circular-pad the width axis by ``halo`` (at most the width) per side,
+    as ``jnp.pad`` mode "wrap" does: ``dim`` -1 on NCHW (the bf16 towers,
+    whose channels_last memory format is kept), 2 on NHWC (the int8
+    towers)."""
     if halo == 0:
         return x
-    return torch.cat([x[..., -halo:], x, x[..., :halo]], dim=-1)
+    w = x.shape[dim]
+    if halo > w:
+        raise ValueError(f"a wrap halo of {halo} needs a width of at least {halo}, got {w}")
+    return torch.cat([x.narrow(dim, w - halo, halo), x, x.narrow(dim, 0, halo)], dim=dim)
 
 
 def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:

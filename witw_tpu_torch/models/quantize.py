@@ -1,0 +1,343 @@
+"""Static-int8 serving path of the FOV-DSM towers (port of the static part
+of witw_tpu/models/quantize.py).
+
+Activation scales are calibrated offline on the f32 tower; each conv then
+runs as one int8 conv with an int32 accumulator and one fused per-channel
+epilogue that requantizes into the next layer's int8 domain (ReLU folded
+into the clip's lower bound); the last head conv dequantizes to f32. Raw
+inputs are normalized and quantized first, and the FOV crop and the polar
+transform's 4-corner gather run on int8 (``preprocess_static_int8``).
+
+On CUDA tensors the towers run on three hand-written kernels: blocks 1, 3
+and 4 and the head through ``ops.int8_conv`` (kernel A), pools 1 and 3
+through ``ops.maxpool`` (kernel B), and VGG block 2 through
+``ops.fused_block2`` (kernel C). On CPU tensors the same calls compute
+their plain PyTorch versions, which the tests hold against witw_tpu.
+
+Tables (``prepare_static_qparams``) keep witw_tpu's keys: per conv
+``kernel_q`` (HWIO int8), ``bias_q`` (int32), ``requant_m``, ``dequant``,
+``bias_f`` (f32), and ``input_scale``; plus ``kernel_packed``, the kernels'
+int8 [Co, 3, 3, Cin_p] form. Not ported here: the dynamic-scale path, the
+SAFA and baseline static paths, ``calibrate_overhead_span`` and the TPU
+lowering variants (``first_conv_bf16``, ``first_conv_w2d``,
+``first_conv_im2col``, ``split_block1``, ``block2_w2d``, ``pool_slices``,
+``corner_major="p"``).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import warnings
+from typing import Any, Dict, Iterable, List, Optional, Tuple
+
+import numpy as np
+import torch
+from torch.func import functional_call
+
+from witw_tpu.configs.base import FovDsmModelConfig
+from witw_tpu_torch.models.backbones.vgg16 import VGG16_BLOCKS, wrap_pad_width
+from witw_tpu_torch.models.convert_jax import state_dict_to_tower
+from witw_tpu_torch.models.fov_dsm import HEAD_CONVS, FovDsm
+from witw_tpu_torch.ops.fov import fov_crop, random_fov_starts
+from witw_tpu_torch.ops.fused_block2 import fused_block2
+from witw_tpu_torch.ops.image import normalize_images
+from witw_tpu_torch.ops.int8_conv import conv3x3_int8, conv3x3_int8_dequant, pack_weights
+from witw_tpu_torch.ops.maxpool import maxpool2x2
+from witw_tpu_torch.ops.polar import grid_tensors
+
+StateDict = Dict[str, torch.Tensor]
+
+TRUNK_ORDER = tuple(f"conv_{i}" for blk in VGG16_BLOCKS for i, _ in blk)
+CONV_ORDER = TRUNK_ORDER + tuple(name for name, _, _, _ in HEAD_CONVS)
+_RELU = dict({name: True for name in TRUNK_ORDER},
+             **{name: relu for name, _, _, relu in HEAD_CONVS})
+
+# Warn when more than this fraction of requantized activations clip at
+# +-127 on a held-out batch: the calibration sample did not span the input
+# distribution.
+SATURATION_WARN_FRACTION = 0.01
+
+
+@contextlib.contextmanager
+def _full_precision_convs():
+    """cuDNN convs in full f32 (no TF32) inside the block, whatever the
+    global flag says, so that calibrated scales do not depend on it."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def _module_name(name: str) -> str:
+    return f"vgg.{name}" if name in TRUNK_ORDER else name
+
+
+@torch.no_grad()
+def calibrate_fov_activation_scales(state_dict: StateDict, batches: Iterable,
+                                    circ_padding: bool = False) -> Dict[str, float]:
+    """Run the f32 tower (the port's ``FovDsm`` on ``state_dict``) over
+    calibration batches of normalized NHWC floats, recording the abs-max of
+    the input and of every conv's output after its ReLU (the head's last
+    conv has none). Returns {'input': s0, 'conv_N': s, ...} with each scale
+    max(abs-max, 1e-12) / 127: the scale under a conv's name is the next
+    conv's input scale. Runs on the state dict's device."""
+    batches = list(batches)
+    if not batches:
+        raise ValueError(
+            "calibration requires at least one batch: empty input would "
+            "leave every activation scale at its 1e-12 floor and quantize "
+            "all activations to +-127"
+        )
+    w0 = state_dict["vgg.conv_0.weight"]
+    device = w0.device
+    cfg = FovDsmModelConfig(in_channels=w0.shape[1], compute_dtype="float32")
+    model = FovDsm(cfg, circ_padding=circ_padding).eval()
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    maxes = {name: zero for name in CONV_ORDER}
+
+    def record(name):
+        def hook(_module, _inputs, out):
+            # abs-max after ReLU is max(max, 0): ReLU follows the conv.
+            m = out.amax().clamp_min(0.0) if _RELU[name] else out.abs().amax()
+            maxes[name] = torch.maximum(maxes[name], m)
+        return hook
+
+    handles = [model.get_submodule(_module_name(n)).register_forward_hook(record(n))
+               for n in CONV_ORDER]
+    in_max = zero
+    try:
+        with _full_precision_convs():
+            for x in batches:
+                x = torch.as_tensor(x, dtype=torch.float32).to(device)
+                in_max = torch.maximum(in_max, x.abs().amax())
+                functional_call(model, state_dict, (x,), strict=True)
+    finally:
+        for h in handles:
+            h.remove()
+    scales = {"input": max(float(in_max), 1e-12) / 127.0}
+    for name, v in maxes.items():
+        scales[name] = max(float(v), 1e-12) / 127.0
+    return scales
+
+
+def prepare_static_qparams(state_dict: StateDict,
+                           act_scales: Dict[str, float]) -> Dict[str, Any]:
+    """Fold weights and calibrated scales into per-conv static tables, in
+    numpy: kernel_q int8 [3,3,Ci,Co], bias_q int32 [Co] (the bias in the
+    conv's int32 accumulator domain), requant_m f32 [Co] (accumulator ->
+    next layer's int8 domain), dequant f32 [Co] (accumulator -> f32, for the
+    final conv), bias_f f32 [Co], and kernel_packed int8 [Co,3,3,Cin_p]
+    (Cin zero-padded to a multiple of 4) for the kernels. The same
+    arithmetic as witw_tpu's, so equal scales give equal tables."""
+    params = state_dict_to_tower(state_dict)
+    out: Dict[str, Any] = {"vgg": {}}
+    s_in = act_scales["input"]
+    prev = s_in
+    for name in (k for k in CONV_ORDER if k in act_scales):
+        in_vgg = name in params.get("vgg", {})
+        kv = params["vgg"][name] if in_vgg else params[name]
+        k = np.asarray(kv["kernel"], np.float32)
+        nxt = act_scales[name]
+        s_w = np.maximum(np.max(np.abs(k), axis=(0, 1, 2)) / 127.0, 1e-12)
+        kq = np.clip(np.round(k / s_w), -127, 127).astype(np.int8)
+        acc_scale = prev * s_w  # int32 accumulator unit -> f32
+        bias_q = np.round(np.asarray(kv["bias"], np.float32) / acc_scale).astype(np.int32)
+        (out["vgg"] if in_vgg else out)[name] = {
+            "kernel_q": kq,
+            "bias_q": bias_q,
+            "requant_m": (acc_scale / nxt).astype(np.float32),
+            "dequant": acc_scale.astype(np.float32),
+            "bias_f": np.asarray(kv["bias"], np.float32),
+            "kernel_packed": pack_weights(kq),
+        }
+        prev = nxt
+    out["input_scale"] = np.float32(s_in)
+    return out
+
+
+def static_qparams_to_device(tables: Dict[str, Any], device) -> Dict[str, Any]:
+    """Tables (numpy arrays or tensors) -> the same tree of tensors on
+    ``device``."""
+    if isinstance(tables, dict):
+        return {k: static_qparams_to_device(v, device) for k, v in tables.items()}
+    if isinstance(tables, torch.Tensor):
+        return tables.to(device)
+    return torch.from_numpy(np.array(tables)).to(device)
+
+
+def quantize_tower_static(state_dict: StateDict, calib_batches: Iterable,
+                          circ_padding: bool) -> Dict[str, Any]:
+    """Calibrate one tower on normalized NHWC batches and fold the static
+    tables; returns them as tensors on the state dict's device, ready for
+    ``quantized_fov_forward_static``."""
+    scales = calibrate_fov_activation_scales(state_dict, calib_batches, circ_padding)
+    device = state_dict["vgg.conv_0.weight"].device
+    return static_qparams_to_device(prepare_static_qparams(state_dict, scales), device)
+
+
+def quantize_pipeline_static(params: Dict[str, StateDict],
+                             calib_batches: Iterable) -> Tuple[Dict, Dict]:
+    """Calibrate and fold both towers of ``{"surface": sd, "overhead": sd}``
+    params; returns (sq_surface, sq_overhead). ``calib_batches``: iterable
+    of (surface_norm, polar_norm) f32 NHWC pairs (preprocessed). The surface
+    tower is zero-padded and the overhead tower circular, as in the f32
+    pipeline."""
+    calib = list(calib_batches)  # a generator must survive both uses
+    return (
+        quantize_tower_static(params["surface"], [s for s, _ in calib], False),
+        quantize_tower_static(params["overhead"], [p for _, p in calib], True),
+    )
+
+
+def quantize_input(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """f32 -> symmetric int8 in the given activation-scale domain:
+    clip(round(x / scale), -127, 127), rounding half to even. ``scale`` is a
+    0-dim f32 tensor: a true division, also on the GPU (which turns division
+    by a Python number into a multiply by its reciprocal)."""
+    scale = torch.as_tensor(scale, dtype=torch.float32, device=x.device)
+    return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+
+
+def quantized_fov_forward_static(sq: Dict[str, Any], x: torch.Tensor,
+                                 circ_padding: bool = False, x_quantized: bool = False,
+                                 saturation_out: Optional[List] = None) -> torch.Tensor:
+    """Static-scale int8 forward of one FOV-DSM tower (inference only).
+
+    x: normalized NHWC floats, or with ``x_quantized`` int8 already in the
+    tower's input-scale domain (``preprocess_static_int8``). Returns the f32
+    [B, h, w, 16] embedding map, as ``FovDsm`` in eval mode. The circular
+    tower wraps each block's input by ``len(block)`` columns and runs its
+    convs width-VALID; the head gets a 3-column halo.
+
+    ``saturation_out``: an optional list; each requant appends (clip hits at
+    +-127 as a 0-dim tensor, size). Counting needs every requantized output,
+    so block 2 then runs as two plain-epilogue convs and a pool (kernels A,
+    A, B) in place of kernel C, which never writes conv2_1's output; the
+    results are the same."""
+    pad_w = 0 if circ_padding else 1
+    if x_quantized:
+        if x.dtype != torch.int8:
+            raise ValueError(f"x_quantized needs an int8 input, got {x.dtype}")
+        h = x
+    else:
+        h = quantize_input(x.to(torch.float32), sq["input_scale"])
+
+    def requant_conv(h, entry, stride_h=1, relu=True):
+        q = conv3x3_int8(h, entry["kernel_packed"], entry["bias_q"], entry["requant_m"],
+                         stride_h, pad_w, relu)
+        if saturation_out is not None:
+            saturation_out.append(((q == 127).sum() + (q == -127).sum(), q.numel()))
+        return q
+
+    for block_i, block in enumerate(VGG16_BLOCKS):
+        entries = [sq["vgg"][f"conv_{i}"] for i, _ in block]
+        if block_i == 1 and saturation_out is None:
+            e1, e2 = entries
+            h = fused_block2(h, e1["kernel_packed"], e1["bias_q"], e1["requant_m"],
+                             e2["kernel_packed"], e2["bias_q"], e2["requant_m"],
+                             circular=circ_padding)
+            continue
+        if circ_padding:
+            h = wrap_pad_width(h, len(block), dim=2)
+        for entry in entries:
+            h = requant_conv(h, entry)
+        if block_i < 3:
+            h = maxpool2x2(h)
+    if circ_padding:
+        h = wrap_pad_width(h, len(HEAD_CONVS), dim=2)
+    for i, (name, _, strides, relu_after) in enumerate(HEAD_CONVS):
+        entry = sq[name]
+        if i + 1 < len(HEAD_CONVS):
+            h = requant_conv(h, entry, strides[0], relu_after)
+        else:
+            # Final conv: dequantize the accumulator without bias_q and add
+            # the float bias, for exactness.
+            y = conv3x3_int8_dequant(h, entry["kernel_packed"], entry["dequant"],
+                                     entry["bias_f"], strides[0], pad_w)
+            return torch.relu(y) if relu_after else y
+
+
+def polar_transform_static_int8(tile_q: torch.Tensor, surface_height: int,
+                                surface_width: int) -> torch.Tensor:
+    """Polar-map int8 normalized tiles [B, S, S, C] to int8 pseudo-panoramas
+    [B, h_s, w_s, C]: the sampling grid of ``ops.polar.polar_grid``, the 4
+    int8 corners gathered and blended in f32 (weights sum to 1 inside, 0 at
+    boundary samples), then rounded back into the same int8 domain."""
+    b, s, s2, c = tile_q.shape
+    if s != s2 or tile_q.dtype != torch.int8:
+        raise ValueError(f"expected square int8 tiles, got {tile_q.dtype} {tuple(tile_q.shape)}")
+    idx, weight, _ = grid_tensors(surface_height, surface_width, s, tile_q.device)
+    flat = tile_q.reshape(b, s * s, c)
+    out = flat[:, idx[0], :].to(torch.float32) * weight[0, :, None]
+    for k in range(1, 4):
+        out = out + flat[:, idx[k], :].to(torch.float32) * weight[k, :, None]
+    out = torch.clamp(torch.round(out), -127, 127).to(torch.int8)
+    return out.reshape(b, surface_height, surface_width, c)
+
+
+def preprocess_static_int8(data_cfg, sq_s: Dict[str, Any], sq_o: Dict[str, Any], batch,
+                           generator: Optional[torch.Generator] = None):
+    """The serving path's preprocess, as ``FovPipeline.preprocess`` in int8.
+
+    batch: {'surface': [B, H, W_max, C], 'overhead': [B, S, S, C]} raw
+    uint8-scale. Returns (surface_q, polar_q), int8 in each tower's
+    input-scale domain, on the tables' device. With ``random_orientation``
+    the crop origins come from ``generator`` (a CPU generator seeded 0 when
+    None)."""
+    d = data_cfg
+    device = sq_s["input_scale"].device
+    surface = torch.as_tensor(batch["surface"], dtype=torch.float32).to(device)
+    overhead = torch.as_tensor(batch["overhead"], dtype=torch.float32).to(device)
+    scale_ch = 3 if d.dataset.semantic else None
+
+    surf_q = quantize_input(normalize_images(surface, d.img_mean, d.img_std, scale_ch),
+                            sq_s["input_scale"])
+    if d.dataset.panorama:
+        sw = d.surface_width
+        if d.random_orientation:
+            if generator is None:
+                generator = torch.Generator().manual_seed(0)
+            starts = random_fov_starts(generator, surface.shape[0], d.surface_width_max, device)
+        else:
+            starts = torch.zeros(surface.shape[0], dtype=torch.int64, device=device)
+        if sw < d.surface_width_max:
+            surf_q = fov_crop(surf_q, starts, sw)
+        elif d.random_orientation:
+            surf_q = fov_crop(surf_q, starts, d.surface_width_max)
+
+    # Plain normalize (no masked bias): the polar gather's weights vanish at
+    # boundary samples, so the bias masking of the f32 path comes for free.
+    tile_q = quantize_input(normalize_images(overhead, d.img_mean, d.img_std, scale_ch),
+                            sq_o["input_scale"])
+    polar_q = polar_transform_static_int8(tile_q, d.surface_height, d.surface_width_max)
+    return surf_q, polar_q
+
+
+def static_int8_saturation(sq: Dict[str, Any], x: torch.Tensor,
+                           circ_padding: bool = False) -> float:
+    """Fraction of requantized activations clipping at +-127 across every
+    layer of one static-int8 forward of normalized inputs ``x``: the
+    calibration-coverage guard. Near zero on the calibration data itself;
+    rising values on held-out data mean the calibration sample did not span
+    the input distribution."""
+    sats: List = []
+    quantized_fov_forward_static(sq, x, circ_padding, saturation_out=sats)
+    hits = sum(int(h) for h, _ in sats)
+    total = sum(t for _, t in sats)
+    return hits / max(total, 1)
+
+
+def check_saturation(sq: Dict[str, Any], x: torch.Tensor, circ_padding: bool = True,
+                     context: str = "input") -> float:
+    """Measure the clip fraction on a held-out batch and warn above
+    SATURATION_WARN_FRACTION. Returns the fraction."""
+    frac = static_int8_saturation(sq, x, circ_padding)
+    if frac > SATURATION_WARN_FRACTION:
+        warnings.warn(
+            f"int8 activation saturation {frac:.2%} exceeds "
+            f"{SATURATION_WARN_FRACTION:.2%} — calibration sample may not "
+            f"span the {context} distribution; scores may clip"
+        )
+    return frac

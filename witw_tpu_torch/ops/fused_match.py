@@ -27,8 +27,10 @@ from typing import Tuple
 
 import torch
 
+from witw_tpu_torch.kernels.build import load_library
 from witw_tpu_torch.match.correlation import circular_correlation
 from witw_tpu_torch.match.distance import chord_distance, window_sq_norms
+from witw_tpu_torch.ops.launch import check_cuda_tensors, check_launch
 
 # Kernel launches since the last reset (the card path's proof of use).
 launches = 0
@@ -48,8 +50,6 @@ def smem_bytes(w: int, hc: int) -> int:
 
 @functools.lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
-    from witw_tpu_torch.kernels.build import load_library
-
     lib = load_library("fused_match")
     ptr = ctypes.c_void_p
     lib.witw_fused_corr_distance.argtypes = [
@@ -58,8 +58,6 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_size_t, ptr,
     ]
     lib.witw_fused_corr_distance.restype = ctypes.c_int
-    lib.witw_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.witw_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -79,8 +77,6 @@ def fused_corr_distance(
     for name, t in tensors.items():
         if t.dtype != torch.float32:
             raise ValueError(f"{name} must be float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
     if o_flat.ndim != 3 or s_swqh.ndim != 3 or wsq.ndim != 2:
         raise ValueError(
             f"expected o_flat [G, W, hc], s_swqh [sw, Q, hc], wsq [G, W]; got "
@@ -101,12 +97,7 @@ def fused_corr_distance(
             f"W={w}, hc={hc} needs {smem} bytes of shared memory "
             f"per block, over the {SMEM_LIMIT_BYTES}-byte limit"
         )
-    device = o_flat.device
-    if device.type != "cuda" or any(t.device != device for t in tensors.values()):
-        raise ValueError(
-            "fused_corr_distance needs all inputs on one CUDA device, got "
-            + ", ".join(f"{n} on {t.device}" for n, t in tensors.items())
-        )
+    device = check_cuda_tensors("fused_corr_distance", align=4, **tensors)
 
     d = torch.empty((g, q), dtype=torch.float32, device=device)
     orient = torch.empty((g, q), dtype=torch.int32, device=device)
@@ -120,9 +111,7 @@ def fused_corr_distance(
             g, w, hc, q, sw, smem,
             torch.cuda.current_stream(device).cuda_stream,
         )
-    if err != 0:
-        msg = lib.witw_cuda_error_string(err).decode()
-        raise RuntimeError(f"fused_corr_distance launch failed: CUDA error {err} ({msg})")
+    check_launch(lib, err, "fused_corr_distance")
     launches += 1
     return d, orient
 
