@@ -5,20 +5,22 @@
 
 Phases, each of which passes or raises:
 1. Require a CUDA device; print the card's name and power limit.
-2. Build the fused-match CUDA kernel from witw_tpu_torch/csrc with nvcc
-   (sm_90a); print the build seconds and ptxas' register/shared-memory use.
+2. Build all five CUDA kernels from witw_tpu_torch/csrc with nvcc (sm_90a),
+   one nvcc per source started together; print the build seconds and the
+   fused match's ptxas register/shared-memory use.
 3. Hold the kernel against its plain PyTorch version in f32 (TF32 off) at
    the main-path, fov-90, ragged and gallery-block shapes.
-4. Drive the slice at full CVUSA width (bf16 towers, batch 128, random
-   weights from a seed): FovPipeline.forward_distance at fov 360 and 90.
+4. Drive the slice at full CVUSA width (bf16 towers, whose stride-1 convs
+   run on the conv3x3_bf16 kernel; batch 128, random weights from a seed):
+   FovPipeline.forward_distance at fov 360 and 90.
 5. Retrieval eval: train.loop.test (as test_ranks, which also returns the
    ranks) on 1024 synthetic pairs through the fused kernel. Then two
    reference checks: a small full-geometry batch on the GPU against the same
    pipeline on the CPU, and equal ranks from the fused and FFT evaluators on
    planted embeddings.
 6. Time the kernel against the plain version, and embed+match pairs/s.
-7. Build the three static-int8 kernels (int8 conv, 2x2 max pool, fused VGG
-   block 2), one nvcc per source started together; print ptxas' lines.
+7. The three static-int8 kernels (int8 conv, 2x2 max pool, fused VGG
+   block 2), built in phase 2: print ptxas' lines.
 8. Hold each against its plain PyTorch version at every distinct layer
    shape of both int8 towers at full CVUSA geometry, at batch 2 and at the
    main path's batch 128, plus ragged, odd and other-width cases: int8
@@ -31,13 +33,34 @@ Phases, each of which passes or raises:
    samples (embeddings within 1e-6).
 10. Time int8 embed+match pairs/s and each int8 kernel against its plain
    version at the main path's shapes (batch 128).
+11. The bf16 conv + bias + ReLU kernel (conv3x3_bf16, built in phase 2):
+   print ptxas' lines.
+12. Hold it against its plain PyTorch version at every distinct conv shape
+   of both bf16 towers at full CVUSA geometry (fov 360 and 90, zero and
+   circular, as the towers run it and with ReLU flipped at batch 2) at batch
+   2, 64 and 128, plus ragged cases: every output within one bf16 ulp, plus
+   the f32 sums' order bound where a sum cancels; print the bit-equal share. Autograd gradients through the kernel against those
+   through the plain version at [2, 32, 64, 64] -> 64 (rtol 1e-2).
+13. FOV training at full width: train.loop.train on fov_experiment("cvusa",
+   360), batch 64, one epoch of 8 train + 2 val steps on synthetic batches,
+   with a checkpoint directory. Then: losses finite, the loss falling over 8
+   steps on one repeated batch, frozen params bit-unchanged and every
+   trainable one moved, `latest` restoring to the saved tensors, and the
+   trained bf16 towers on the card (kernel) against the CPU (plain) on 2
+   full-geometry samples.
+14. Timing: train-step pairs/s at batch 64, and per conv shape of the
+   towers at batch 128 the kernel's ms beside its plain version's, the
+   library call's (torch.cudnn_convolution_relu, or F.conv2d without ReLU)
+   and the bound max(FLOP / 989 TFLOP/s, bytes / 3.35 TB/s).
 
 The launch counts are reset just before the path they count and read right
-after it: the fused kernel's before phase 4 and after test() in phase 5
-(forward_distance at fov 360 and 90, and test(), must each raise it); all
-four kernels' before the int8 path of phase 9 and after it (its fov 360 and
-90 runs must each raise every count). The second-to-last line is the
-kernels' JSON record; the last line is {"ok": true, "device": {...}}.
+after it: the fused match's and the conv kernel's before phase 4 and after
+test() in phase 5 (forward_distance at fov 360 and 90, and test(), must each
+raise both); all four int8-path kernels' before the int8 path of phase 9 and
+after it (its fov 360 and 90 runs must each raise every count); the conv
+kernel's before the training of phase 13 and after it (its train and val
+phases must each raise it). The second-to-last line is the kernels' JSON
+record; the last line is {"ok": true, "device": {...}}.
 Without a GPU, or without the repo beside it, the script exits non-zero and
 prints no result.
 """
@@ -46,24 +69,27 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 from torch.func import functional_call
 
-from witw_tpu.configs import fov_experiment
+from witw_tpu_torch.configs import fov_experiment
 from witw_tpu_torch.evaluation.gallery import FovGalleryEvaluator, metrics_from_ranks
-from witw_tpu_torch.kernels.build import build_libraries, build_library
+from witw_tpu_torch.kernels.build import build_libraries
 from witw_tpu_torch.match.correlation import circular_correlation
 from witw_tpu_torch.models import quantize
 from witw_tpu_torch.models.backbones.vgg16 import VGG16_BLOCKS
 from witw_tpu_torch.models.fov_dsm import HEAD_CONVS, FovDsm
-from witw_tpu_torch.ops import fused_block2, fused_match, int8_conv, maxpool
+from witw_tpu_torch.ops import conv3x3, fused_block2, fused_match, int8_conv, maxpool
 from witw_tpu_torch.train import loop
+from witw_tpu_torch.train.checkpoint import Checkpointer
 from witw_tpu_torch.train.pipeline import FovPipeline
 from witw_tpu_torch.utils.device import require_cuda
 
@@ -71,10 +97,30 @@ RTOL, ATOL = 1e-5, 1e-6
 TIE_REL = 1e-5  # plain top-2 correlation gap under which a pair is a near tie
 KERNEL_SOURCE = "witw_tpu_torch/csrc/fused_match.cu"
 KERNEL_REPLACES = "witw_tpu/ops/pallas/fused_match.py:83"
+LIBRARIES = ["fused_match", "int8_conv", "maxpool", "fused_block2", "conv3x3_bf16"]
+# Published peaks of one H100 SXM (dense, at 700 W) for the bound_ms column.
+PEAK_BYTES_PER_MS = 3.35e9          # 3.35 TB/s
+PEAK_F32_PER_MS = 67e9              # CUDA cores
+PEAK_BF16_PER_MS = 989e9            # tensor cores
+PEAK_INT8_PER_MS = 1979e9           # tensor cores
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def bound(ops: float, nbytes: float, peak_ops_per_ms: float):
+    """(least ms, what bounds it): the larger of operations over the peak
+    rate and bytes (each input read once, each output written once) over
+    the memory rate."""
+    t_ops, t_bytes = ops / peak_ops_per_ms, nbytes / PEAK_BYTES_PER_MS
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def print_ptxas(build_log: str) -> None:
+    for line in build_log.splitlines():
+        if "ptxas info" in line or "spill" in line:
+            log("    " + line.strip())
 
 
 def card_line() -> str:
@@ -277,19 +323,14 @@ def cosine(a, b):
     return float((a * b).sum() / (a.norm() * b.norm()))
 
 
-def int8_phases(card, device, cfg, pipeline, params):
+def int8_phases(card, device, cfg, pipeline, params, built):
     """Phases 7-10; returns the three kernels' JSON records."""
-    # 7. build, one nvcc per source, all started together
-    t0 = time.perf_counter()
-    built = build_libraries(list(INT8_KERNELS))
+    # 7. the int8 kernels, built in phase 2
     for mod in INT8_MODULES.values():
         mod._lib()
-    log(f"[7] built {', '.join(p.name for p, _ in built.values())} with nvcc (sm_90a) "
-        f"in {time.perf_counter() - t0:.2f} s")
-    for _, build_log in built.values():
-        for line in build_log.splitlines():
-            if "ptxas info" in line or "spill" in line:
-                log("    " + line.strip())
+    log(f"[7] {', '.join(built[n][0].name for n in INT8_KERNELS)} (built in phase 2)")
+    for name in INT8_KERNELS:
+        print_ptxas(built[name][1])
 
     # 8. each kernel against its plain version at every layer shape of the
     # towers, at batch 2 and at the main path's batch 128
@@ -429,6 +470,7 @@ def int8_phases(card, device, cfg, pipeline, params):
                                     lambda: maxpool.maxpool2x2(x), calls=10, reps=5)
     log(f"    maxpool2x2 pool 1 {tuple(x.shape)} int8: kernel {t_b:.4f} ms, "
         f"plain {t_b_plain:.4f} ms ({card})")
+    x_pool_numel = x.numel()
     del x
     args = block2_args(gen, device, 128, d.surface_height // 2, d.surface_width_max // 2)
     t_c, t_c_plain = interleaved_ms(lambda: fused_block2.fused_block2_plain(*args),
@@ -436,13 +478,311 @@ def int8_phases(card, device, cfg, pipeline, params):
     log(f"    fused_block2 block 2 {tuple(args[0].shape)}: kernel {t_c:.4f} ms, "
         f"plain {t_c_plain:.4f} ms ({card})")
 
+    # bounds: int8 ops (2 x multiply-adds of the real channels) at the
+    # tensor-core rate against bytes (input, packed weights, tables, output)
+    a_bounds = []
+    for _, (h, w, cin), co, sh, pad, ep in surf_convs:
+        ho, wo = int8_conv.output_hw(h, w, sh, pad)
+        ops = 2.0 * 128 * ho * wo * co * 9 * cin
+        nbytes = (128 * h * w * cin + co * 9 * int8_conv.padded_channels(cin) + 8 * co
+                  + 128 * ho * wo * co * (4 if ep == "f32" else 1))
+        a_bounds.append(bound(ops, nbytes, PEAK_INT8_PER_MS))
+    a_ms = sum(t for t, _ in a_bounds)
+    a_by = max(("operations", "bytes"), key=lambda k: sum(t for t, b in a_bounds if b == k))
+    pool_bytes = x_pool_numel * 5 / 4
+    b, h, w = 128, d.surface_height // 2, d.surface_width_max // 2
+    c_ops = 2.0 * b * h * w * 128 * 9 * (64 + 128)
+    c_bytes = b * h * w * 64 + b * (h // 2) * (w // 2) * 128 + 128 * 9 * (64 + 128) + 16 * 128
+    bounds = {"int8_conv": (a_ms, a_by), "maxpool": bound(0.0, pool_bytes, PEAK_INT8_PER_MS),
+              "fused_block2": bound(c_ops, c_bytes, PEAK_INT8_PER_MS)}
+    for mod, (t, by) in bounds.items():
+        log(f"    {mod} bound {t:.4f} ms ({by}; H100 SXM peaks)")
     times = {"int8_conv": (t_a, t_a_plain), "maxpool": (t_b, t_b_plain),
              "fused_block2": (t_c, t_c_plain)}
     return [{
         "name": kname, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches[mod], "max_abs_err": err[mod],
         "ms": times[mod][0], "plain_ms": times[mod][1],
+        "bound_ms": bounds[mod][0], "bound_by": bounds[mod][1], "library_ms": None,
     } for mod, (kname, source, replaces) in INT8_KERNELS.items()]
+
+
+# --- bf16 conv kernel and FOV training (phases 11-14) -------------------------
+
+CONV_SOURCE = "witw_tpu_torch/csrc/conv3x3_bf16.cu"
+CONV_REPLACES = "exp/pallas_conv3x3.py:56, exp/pallas_conv3x3.py:151"
+GRAD_RTOL = 1e-2  # bf16 backward (cuDNN) against the plain version's f32 backward
+
+
+def bf16_conv_shapes(h, w, cin, circ):
+    """(h, w, cin, co, circular, relu) of each fused conv of a bf16 tower on
+    an [h, w, cin] input, in order: the 10 VGG convs and conv_27."""
+    shapes = []
+    for block_i, block in enumerate(VGG16_BLOCKS):
+        for _, co in block:
+            shapes.append((h, w, cin, co, circ, True))
+            cin = co
+        if block_i < 3:
+            h, w = h // 2, w // 2
+    for _, co, strides, relu in HEAD_CONVS:
+        if tuple(strides) == (1, 1):
+            shapes.append((h, w, cin, co, circ, relu))
+        h, cin = (h - 1) // strides[0] + 1, co
+    return shapes
+
+
+def conv_inputs(gen, device, b, h, w, cin, co):
+    x = torch.randn(b, h, w, cin, generator=gen, device=device).to(torch.bfloat16)
+    wt = torch.randn(co, cin, 3, 3, generator=gen, device=device) / (9 * cin) ** 0.5
+    bias = 0.1 * torch.randn(co, generator=gen, device=device)
+    return x, wt.to(torch.bfloat16), bias
+
+
+def bf16_ulps(got, want):
+    """|got - want| in units of the bf16 spacing at max(|got|, |want|)."""
+    got, want = got.float(), want.float()
+    mag = torch.maximum(got.abs(), want.abs()).clamp_min(torch.finfo(torch.float32).tiny)
+    return (got - want).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def check_conv(name, x, w, bias, circ, relu):
+    """Kernel against plain on the same inputs. Both sum the same f32
+    products in different orders, then round once to bf16: each output is
+    within one bf16 ulp of the other plus the two sums' worst-case f32 order
+    error, 2 n 2^-24 sum |products| (n = 9 Cin terms). That second term
+    matters only where the sum cancels to far below the size of its terms;
+    elsewhere the bound is one ulp. Returns (max abs error, max ulps,
+    bit-equal share, share beyond one ulp)."""
+    got = conv3x3.conv3x3_bias_relu_kernel(x, conv3x3.pack_weights(w), bias, circ, relu)
+    want = conv3x3.conv3x3_bias_relu_plain(x, w, bias, circ, relu)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} vs plain "
+                             f"{want.dtype} {tuple(want.shape)}")
+    ulps = bf16_ulps(got, want)
+    diff = (got.float() - want.float()).abs()
+    terms = torch.nn.functional.conv2d(
+        conv3x3.pad_width(x.float().abs().permute(0, 3, 1, 2), circ), w.float().abs(),
+        padding=(1, 0)).permute(0, 2, 3, 1) + bias.abs()
+    order = 2.0 * 9 * x.shape[-1] * 2.0 ** -24 * terms
+    spacing = diff / ulps.clamp_min(1e-30)
+    ok = bool((diff <= torch.where(ulps > 1.0, spacing + order, spacing)).all())
+    max_ulps = float(ulps.max())
+    beyond = float((ulps > 1.0).float().mean())
+    err = float(diff.max())
+    equal = float((got == want).float().mean())
+    log(f"  {name}: max_abs_err={err:.3e} max_ulps={max_ulps:.3f} bit_equal={equal:.6f} "
+        f"beyond_1_ulp={beyond:.2e}")
+    if not ok or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"conv3x3_bf16 disagrees with its plain version at {name}")
+    return err, max_ulps, equal, beyond
+
+
+def conv_work(b, h, w, cin, co):
+    """(FLOP, bytes) of one conv: 2 x multiply-adds of the real channels;
+    bf16 input and output, bf16 weights, f32 bias."""
+    return (2.0 * b * h * w * co * 9 * cin,
+            2.0 * (b * h * w * (cin + co) + co * 9 * cin) + 4.0 * co)
+
+
+def library_conv(x, w, bias, relu):
+    """One PyTorch call for the same conv on the NCHW channels_last view
+    (zero width padding): cuDNN's fused conv + bias + ReLU, or F.conv2d."""
+    xn = x.permute(0, 3, 1, 2)
+    wn = w.contiguous(memory_format=torch.channels_last)
+    if relu and hasattr(torch, "cudnn_convolution_relu"):
+        return lambda: torch.cudnn_convolution_relu(xn, wn, bias.to(x.dtype), (1, 1), (1, 1),
+                                                    (1, 1), 1)
+    return lambda: torch.nn.functional.conv2d(xn, wn, bias.to(x.dtype), 1, 1)
+
+
+def conv_phases(card, device, cfg, built):
+    """Phases 11-14; returns the conv kernel's JSON record."""
+    d = cfg.data
+    # 11. the conv kernel, built in phase 2
+    log(f"[11] {built['conv3x3_bf16'][0].name} (built in phase 2)")
+    print_ptxas(built["conv3x3_bf16"][1])
+
+    # 12. kernel vs plain at every conv shape of both bf16 towers
+    log("[12] conv3x3_bf16 vs plain PyTorch at every bf16 tower conv shape, batch 2, 64 and "
+        "128, full CVUSA geometry (within one bf16 ulp + the f32 order bound)")
+    towers = (bf16_conv_shapes(d.surface_height, d.surface_width_max, 3, False)
+              + bf16_conv_shapes(d.surface_height, d.surface_width_max // 4, 3, False)
+              + bf16_conv_shapes(d.surface_height, d.surface_width_max, 3, True))
+    shapes = list(dict.fromkeys(towers))
+    cases = [(b,) + sh for b in (2, 64, 128) for sh in shapes]
+    cases += [(2, h, w, cin, co, circ, not relu) for h, w, cin, co, circ, relu in shapes]
+    cases += [(1, 7, 9, 5, 24, False, True), (3, 9, 1, 16, 8, True, True),
+              (2, 17, 33, 40, 72, True, False)]  # ragged: odd dims, Co tails, W = 1
+    gen = torch.Generator(device=device).manual_seed(12)
+    max_err = max_ulps = max_beyond = 0.0
+    equal = []
+    for b, h, w, cin, co, circ, relu in cases:
+        x, wt, bias = conv_inputs(gen, device, b, h, w, cin, co)
+        e, u, eq, beyond = check_conv(
+            f"B={b} HWC=({h}, {w}, {cin}) Co={co} circular={circ} relu={relu}",
+            x, wt, bias, circ, relu)
+        max_err, max_ulps, max_beyond = max(max_err, e), max(max_ulps, u), max(max_beyond, beyond)
+        equal.append(eq)
+        del x
+    log(f"    {len(cases)} cases: max_abs_err {max_err:.3e}, max {max_ulps:.3f} bf16 ulp "
+        f"(share beyond one ulp at most {max_beyond:.2e}, each within the f32 order bound), "
+        f"bit-equal share {min(equal):.6f} (worst case) .. {statistics.mean(equal):.6f} (mean)")
+    x, wt, bias = conv_inputs(gen, device, 2, 32, 64, 64, 64)
+    grads = []
+    for fn in (conv3x3.conv3x3_bias_relu, conv3x3.conv3x3_bias_relu_plain):
+        xs, ws, bs = (t.clone().requires_grad_(True) for t in (x, wt, bias))
+        y = fn(xs, ws, bs, False, True)
+        y.float().square().sum().backward()
+        grads.append((xs.grad.float(), ws.grad.float(), bs.grad.float()))
+    for name, got, want in zip(("input", "weight", "bias"), *grads):
+        rel = float((got - want).abs().max() / want.abs().max())
+        log(f"    gradient {name} at [2, 32, 64, 64] -> 64: max |d| / max |g| = {rel:.3e} "
+            f"(rtol {GRAD_RTOL})")
+        if not torch.allclose(got, want, rtol=GRAD_RTOL, atol=GRAD_RTOL * float(want.abs().max())):
+            raise AssertionError(f"conv3x3_bf16 {name} gradient disagrees with the plain version")
+
+    # 13. FOV training at full width through the kernel
+    batch_size, n_train, n_val = cfg.train.batch_size, 8, 2
+    log(f"[13] loop.train: fov_experiment('cvusa', 360), batch {batch_size}, 1 epoch of "
+        f"{n_train} train + {n_val} val steps, synthetic batches, checkpoints")
+    train_loader = list(synthetic_loader(cfg, n_train * batch_size, batch_size, 13))
+    val_loader = list(synthetic_loader(cfg, n_val * batch_size, batch_size, 14))
+    pipeline = FovPipeline(cfg, device)
+    init = pipeline.init_state(torch.Generator().manual_seed(cfg.train.seed))
+    start = {t: {k: v.detach().clone() for k, v in p.items()} for t, p in init.params.items()}
+    trainable = {t: set(pipeline.trainable_names(p)) for t, p in start.items()}
+    del init
+    seen = {"train": [], "val": []}
+
+    def counted(fn, phase):
+        def run(*args):
+            before = conv3x3.launches
+            out = fn(*args)
+            metrics = out[1] if phase == "train" else out
+            seen[phase].append((conv3x3.launches - before, float(metrics["loss"])))
+            return out
+        return run
+
+    pipeline.train_step = counted(pipeline.train_step, "train")
+    pipeline.eval_step = counted(pipeline.eval_step, "val")
+    ckpt_dir = Path(__file__).resolve().parent / ".smoke_checkpoints"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    checkpointer = Checkpointer(str(ckpt_dir), keep=cfg.train.keep_checkpoints)
+    conv3x3.launches = 0
+    t0 = time.perf_counter()
+    state = loop.train(cfg, pipeline, train_loader, val_loader, num_epochs=1,
+                       checkpointer=checkpointer, verbose=False)
+    torch.cuda.synchronize()
+    conv_launches = conv3x3.launches
+    log(f"    trained {state.step} steps in {time.perf_counter() - t0:.2f} s; conv3x3_bf16 "
+        f"launches: train {sum(n for n, _ in seen['train'])}, val "
+        f"{sum(n for n, _ in seen['val'])}, path {conv_launches}")
+    log(f"    losses: train {[round(v, 6) for _, v in seen['train']]}, val "
+        f"{[round(v, 6) for _, v in seen['val']]}")
+    if len(seen["train"]) != n_train or len(seen["val"]) != n_val or state.step != n_train:
+        raise AssertionError(f"expected {n_train} train and {n_val} val steps, got "
+                             f"{len(seen['train'])} and {len(seen['val'])}")
+    if not all(n > 0 for n, _ in seen["train"] + seen["val"]):
+        raise AssertionError("a train or val step did not launch the conv kernel")
+    if not all(np.isfinite(v) for _, v in seen["train"] + seen["val"]):
+        raise AssertionError("non-finite loss")
+    moved = frozen_changed = 0
+    for tower, p in state.params.items():
+        for name, v in p.items():
+            same = torch.equal(v.detach(), start[tower][name])
+            if name in trainable[tower]:
+                moved += not same
+                if same:
+                    raise AssertionError(f"trainable {tower}/{name} did not move")
+            elif not same:
+                frozen_changed += 1
+    if frozen_changed:
+        raise AssertionError(f"{frozen_changed} frozen params changed")
+    log(f"    {moved} trainable params moved, every frozen one bit-unchanged")
+    fresh = pipeline.init_state(torch.Generator().manual_seed(cfg.train.seed + 1))
+    checkpointer.restore("latest", fresh)
+    restored_ok = fresh.step == state.step and all(
+        torch.equal(v, state.params[t][k]) for t, p in fresh.params.items() for k, v in p.items())
+    opt_a, opt_b = state.optimizer.state_dict()["state"], fresh.optimizer.state_dict()["state"]
+    restored_ok = restored_ok and opt_a.keys() == opt_b.keys() and all(
+        torch.equal(opt_a[i][k], opt_b[i][k]) for i in opt_a for k in opt_a[i])
+    if not restored_ok:
+        raise AssertionError("restoring `latest` did not give the saved tensors")
+    log(f"    `latest` restores step {fresh.step}, params and Adam moments equal to the saved ones; "
+        f"best val loss {checkpointer.best_val_loss():.6f}")
+    del fresh
+    shutil.rmtree(ckpt_dir)
+
+    repeat = FovPipeline(cfg, device)
+    rstate = repeat.init_state(torch.Generator().manual_seed(cfg.train.seed))
+    one = train_loader[0]
+    curve = [float(repeat.train_step(rstate, one, torch.Generator().manual_seed(5))[1]["loss"])
+             for _ in range(8)]
+    log(f"    one repeated batch, same draws each step: losses {[round(v, 6) for v in curve]}")
+    if not curve[-1] < curve[0] or not all(np.isfinite(curve)):
+        raise AssertionError("the loss did not fall over 8 steps on one repeated batch")
+    del rstate
+
+    cpu_params = {t: {k: v.detach().cpu() for k, v in p.items()} for t, p in state.params.items()}
+    small = raw_batch(np.random.default_rng(6), cfg, 2)
+    s_in, p_in = pipeline.preprocess(small)
+    for tower, circ, x in (("surface", False, s_in), ("overhead", True, p_in)):
+        model = FovDsm(cfg.model, circ_padding=circ).eval()
+        with torch.no_grad():
+            gpu = functional_call(model.to(device), state.params[tower], (x,), strict=True).cpu()
+            cpu = functional_call(model.cpu(), cpu_params[tower], (x.cpu(),), strict=True)
+        scale = float(cpu.abs().max())
+        err = float((gpu - cpu).abs().max())
+        log(f"    trained bf16 {tower} tower, 2 samples at full geometry: GPU (kernel) vs CPU "
+            f"(plain) max |d emb| = {err:.3e}, {err / scale:.3e} of max |emb| "
+            f"(rtol 2e-2, atol 2e-2 * max |emb|)")
+        if not torch.allclose(gpu, cpu, rtol=2e-2, atol=2e-2 * scale):
+            raise AssertionError(f"trained bf16 {tower} tower: GPU disagrees with CPU")
+
+    # 14. timing (CUDA events, warm, median)
+    log(f"[14] conv3x3_bf16 and training timing on {card}")
+    staged = [{k: torch.as_tensor(v, device=device) for k, v in b.items()} for b in train_loader[:4]]
+    step_of = iter(range(10**9))
+    gen = torch.Generator().manual_seed(14)
+
+    def train_once():
+        pipeline.train_step(state, staged[next(step_of) % len(staged)], gen)
+
+    t_train = cuda_ms(train_once, 4, 5)
+    log(f"    train step batch {batch_size} (fov 360, varied inputs): {t_train:.3f} ms/step, "
+        f"{batch_size * 1000.0 / t_train:.2f} pairs/s ({card})")
+    del staged, state
+
+    per_shape = []
+    gen = torch.Generator(device=device).manual_seed(15)
+    for h, w, cin, co, circ, relu in (bf16_conv_shapes(d.surface_height, d.surface_width_max, 3, False)
+                                      + bf16_conv_shapes(d.surface_height, d.surface_width_max,
+                                                         3, True)):
+        x, wt, bias = conv_inputs(gen, device, 128, h, w, cin, co)
+        packed = conv3x3.pack_weights(wt)
+        t_k, t_p = interleaved_ms(
+            lambda: conv3x3.conv3x3_bias_relu_plain(x, wt, bias, circ, relu),
+            lambda: conv3x3.conv3x3_bias_relu_kernel(x, packed, bias, circ, relu), calls=3, reps=5)
+        t_lib = cuda_ms(library_conv(x, wt, bias, relu), 3, 5)
+        flop, nbytes = conv_work(128, h, w, cin, co)
+        t_b, by = bound(flop, nbytes, PEAK_BF16_PER_MS)
+        per_shape.append((circ, t_k, t_p, t_lib, t_b, by))
+        log(f"    B=128 HWC=({h}, {w}, {cin}) Co={co} circular={circ} relu={relu}: kernel "
+            f"{t_k:.4f} ms ({flop / t_k / 1e9:.1f} TFLOP/s), plain {t_p:.4f} ms, library "
+            f"{t_lib:.4f} ms, bound {t_b:.4f} ms ({by}) ({card})")
+        del x, packed
+    surf = [r for r in per_shape if not r[0]]
+    t_k, t_p, t_lib, t_b = (sum(r[i] for r in surf) for i in range(1, 5))
+    by = max(("operations", "bytes"), key=lambda k: sum(r[4] for r in surf if r[5] == k))
+    log(f"    the surface tower's {len(surf)} fused convs summed, batch 128: kernel {t_k:.4f} ms, "
+        f"plain {t_p:.4f} ms, library {t_lib:.4f} ms, bound {t_b:.4f} ms ({card})")
+    return {
+        "name": "conv3x3_bias_relu", "route": "cuda", "source": CONV_SOURCE,
+        "replaces": CONV_REPLACES, "launches": conv_launches, "max_abs_err": max_err,
+        "max_ulp_err": max_ulps, "ms": t_k, "plain_ms": t_p, "bound_ms": t_b,
+        "bound_by": by, "library_ms": t_lib,
+    }
 
 
 def main() -> int:
@@ -455,14 +795,14 @@ def main() -> int:
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     log(card)
 
-    # 2. build
+    # 2. build every kernel, one nvcc per source, all started together
     t0 = time.perf_counter()
-    lib_path, build_log = build_library("fused_match")
+    built = build_libraries(LIBRARIES)
     fused_match._lib()
-    log(f"[2] built {lib_path.name} with nvcc (sm_90a) in {time.perf_counter() - t0:.2f} s")
-    for line in build_log.splitlines():
-        if "ptxas info" in line or "spill" in line:
-            log("    " + line.strip())
+    conv3x3._lib()
+    log(f"[2] built {', '.join(p.name for p, _ in built.values())} with nvcc (sm_90a) "
+        f"in {time.perf_counter() - t0:.2f} s")
+    print_ptxas(built["fused_match"][1])
 
     # 3. kernel vs plain, f32, TF32 off
     log("[3] fused_corr_distance vs plain PyTorch "
@@ -479,6 +819,7 @@ def main() -> int:
 
     # 4. the slice at full width
     fused_match.launches = 0
+    conv3x3.launches = 0
     cfg = fov_experiment("cvusa", 360)
     pipeline = FovPipeline(cfg, device)
     params = pipeline.init(torch.Generator().manual_seed(0))
@@ -489,15 +830,17 @@ def main() -> int:
         raise AssertionError(f"fov 360 distances: shape {tuple(d360.shape)}, finite "
                              f"{bool(torch.isfinite(d360).all())}")
     after_360 = fused_match.launches
-    if after_360 < 1:
-        raise AssertionError("forward_distance did not launch the fused kernel")
+    conv_360 = conv3x3.launches
+    if after_360 < 1 or conv_360 < 1:
+        raise AssertionError(f"forward_distance did not launch both kernels: fused match "
+                             f"{after_360}, conv {conv_360}")
     cfg90 = fov_experiment("cvusa", 90)
     d90 = FovPipeline(cfg90, device).forward_distance(params, batch)
     torch.cuda.synchronize()
     if d90.shape != (128, 128) or not bool(torch.isfinite(d90).all()):
         raise AssertionError("fov 90 distances are not finite [128, 128]")
-    if fused_match.launches <= after_360:
-        raise AssertionError("fov 90 forward_distance did not launch the fused kernel")
+    if fused_match.launches <= after_360 or conv3x3.launches <= conv_360:
+        raise AssertionError("fov 90 forward_distance did not launch both kernels")
     log(f"[4] forward_distance bf16 batch 128: fov 360 d [128, 128] mean {float(d360.mean()):.6f}; "
         f"fov 90 d [128, 128] mean {float(d90.mean()):.6f}; launches {fused_match.launches}")
 
@@ -506,18 +849,19 @@ def main() -> int:
     cfg_eval = fov_experiment("cvusa", 360)
     cfg_eval = cfg_eval.replace(eval=dataclasses.replace(cfg_eval.eval, batch_size=eval_batch))
     log(f"[5] train.loop.test on {n_eval} synthetic pairs, batches of {eval_batch}, use_fused=True")
-    before_test = fused_match.launches
+    before_test, conv_before_test = fused_match.launches, conv3x3.launches
     metrics, ranks = loop.test_ranks(
         cfg_eval, pipeline, synthetic_loader(cfg_eval, n_eval, eval_batch, 2), params)
-    launches = fused_match.launches
-    if launches <= before_test:
-        raise AssertionError("test() did not launch the fused kernel")
+    launches, conv_launches_embed = fused_match.launches, conv3x3.launches
+    if launches <= before_test or conv_launches_embed <= conv_before_test:
+        raise AssertionError("test() did not launch both kernels")
     if ranks.shape != (n_eval,) or ranks.min() < 1 or ranks.max() > n_eval:
         raise AssertionError(f"ranks out of [1, {n_eval}]: {ranks.min()}..{ranks.max()}")
     if metrics_from_ranks(ranks) != metrics:
         raise AssertionError("test() metrics do not follow from its ranks")
-    log(f"    metrics {json.dumps(metrics)}; kernel launches: test() {launches - before_test}, "
-        f"main path {launches}")
+    log(f"    metrics {json.dumps(metrics)}; fused match launches: test() "
+        f"{launches - before_test}, main path {launches}; conv3x3_bf16 launches: test() "
+        f"{conv_launches_embed - conv_before_test}, main path {conv_launches_embed}")
 
     # Checks past this point launch the kernel outside the counted main path.
     # A small full-geometry batch: GPU f32 against the same pipeline on the CPU.
@@ -544,7 +888,12 @@ def main() -> int:
     t_main, t_main_plain = interleaved_ms(
         lambda: fused_match.fused_chord_distance_plain(o, s),
         lambda: fused_match.fused_chord_distance_nhwc(o, s), calls=20, reps=7)
-    log(f"    main path G=Q=128 sw=64: kernel {t_main:.4f} ms, plain {t_main_plain:.4f} ms ({card})")
+    g, q, h, w, c, sw = shapes["main path"]
+    match_bound = bound(2.0 * g * q * w * sw * h * c,
+                        4.0 * (g * h * w * c + q * h * sw * c + g * w) + 8.0 * g * q,
+                        PEAK_F32_PER_MS)
+    log(f"    main path G=Q=128 sw=64: kernel {t_main:.4f} ms, plain {t_main_plain:.4f} ms, "
+        f"bound {match_bound[0]:.4f} ms ({match_bound[1]}, f32 CUDA cores) ({card})")
     o, s = inputs["gallery block"]
     t_gal, t_gal_plain = interleaved_ms(
         lambda: fused_match.fused_chord_distance_plain(o, s),
@@ -571,11 +920,14 @@ def main() -> int:
     t_embed = cuda_ms(stage(pipeline.embed_step), steps, 5)
     t_fwd = cuda_ms(stage(pipeline.forward_distance), steps, 5)
     pairs_per_s = 128 * 1000.0 / t_fwd
-    log(f"    embed+match bf16 batch 128 (fov 360, varied inputs): {t_fwd:.3f} ms/step, "
-        f"{pairs_per_s:.2f} pairs/s; preprocess {t_pre:.3f} ms, embed (incl. preprocess) "
-        f"{t_embed:.3f} ms, match {t_fwd - t_embed:.3f} ms ({card})")
+    log(f"    embed+match bf16 batch 128 (fov 360, varied inputs, convs on conv3x3_bf16): "
+        f"{t_fwd:.3f} ms/step, {pairs_per_s:.2f} pairs/s (2833.07 with cuDNN convs on an H100 "
+        f"80GB HBM3 at 700 W before this kernel); preprocess {t_pre:.3f} ms, embed (incl. "
+        f"preprocess) {t_embed:.3f} ms, match {t_fwd - t_embed:.3f} ms ({card})")
+    del staged
 
-    int8_records = int8_phases(card, device, cfg, pipeline, params)
+    int8_records = int8_phases(card, device, cfg, pipeline, params, built)
+    conv_record = conv_phases(card, device, cfg, built)
 
     log(card)
     log(json.dumps({"kernels": [{
@@ -587,7 +939,10 @@ def main() -> int:
         "max_abs_err": max_abs_err,
         "ms": t_main,
         "plain_ms": t_main_plain,
-    }] + int8_records}))
+        "bound_ms": match_bound[0],
+        "bound_by": match_bound[1],
+        "library_ms": None,
+    }] + int8_records + [conv_record]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -31,7 +31,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from chip_smoke import (block2_args, card_line, conv_case, cuda_ms, int8_distance, raw_batch,
                         run_conv, tower_calls)
-from witw_tpu.configs import fov_experiment
+from witw_tpu_torch.configs import fov_experiment
 from witw_tpu_torch.kernels.build import build_libraries
 from witw_tpu_torch.models import quantize
 from witw_tpu_torch.models.backbones.vgg16 import VGG16_BLOCKS

@@ -1,5 +1,6 @@
-"""Card tests of the port's CUDA kernels (the fused match and the three
-static-int8 kernels); each skips without a CUDA device. This file imports no JAX, so it also runs where JAX is absent:
+"""Card tests of the port's CUDA kernels (the fused match, the three
+static-int8 kernels and the bf16 conv + bias + ReLU); each skips without a
+CUDA device. This file imports no JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -14,11 +15,11 @@ import numpy as np
 import pytest
 import torch
 
-from witw_tpu.configs import DataConfig, DatasetConfig, ExperimentConfig, FovDsmModelConfig
+from witw_tpu_torch.configs import DataConfig, DatasetConfig, ExperimentConfig, FovDsmModelConfig
 from witw_tpu_torch.match.correlation import circular_correlation
 from witw_tpu_torch.models import quantize
 from witw_tpu_torch.models.fov_dsm import FovDsm
-from witw_tpu_torch.ops import fused_block2, fused_match, int8_conv, maxpool
+from witw_tpu_torch.ops import conv3x3, fused_block2, fused_match, int8_conv, maxpool
 from witw_tpu_torch.train.pipeline import FovPipeline
 
 pytestmark = pytest.mark.cuda
@@ -75,7 +76,7 @@ def test_forward_distance_on_gpu_matches_cpu(cuda):
     data = DataConfig(dataset=ds, surface_height=32, surface_width_max=64,
                       overhead_size=32, random_orientation=False)
     cfg = ExperimentConfig(data=data, model=FovDsmModelConfig(compute_dtype="float32"))
-    cpu = FovPipeline(cfg)
+    cpu = FovPipeline(cfg, "cpu")
     params = cpu.init(torch.Generator().manual_seed(0))
     rng = np.random.default_rng(1)
     batch = {"surface": rng.uniform(0, 255, (6, 32, 64, 3)).astype(np.float32),
@@ -207,3 +208,84 @@ def test_static_int8_tower_on_gpu_matches_cpu(int8_cuda, circ):
     torch.cuda.synchronize()
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-6)
     assert int8_conv.launches == 11 and maxpool.launches == 2 and fused_block2.launches == 1
+
+
+# The bf16 conv + bias + ReLU kernel (ops.conv3x3) against its plain version:
+# the same f32 products summed in another order, then one bf16 rounding, so
+# outputs agree to a bf16 ulp (rtol 2^-7) except where a sum cancels to far
+# below its terms (atol 1e-2 of the output scale).
+
+
+@pytest.fixture
+def conv_cuda(cuda, monkeypatch):
+    monkeypatch.setattr(conv3x3, "launches", 0)
+    return cuda
+
+
+@pytest.mark.parametrize("b,h,w,cin,co,circular,relu", [
+    (2, 16, 24, 3, 64, False, True),   # conv1_1: Cin 3 computed as 16
+    (1, 7, 9, 5, 24, True, False),     # ragged: odd dims, Cin 5, Co 24 < 64
+    (3, 9, 1, 16, 8, True, True),      # W = 1 wraps onto itself
+    (2, 17, 33, 40, 72, True, False),  # half chunk (Cin_p 48), Co tail
+    (2, 16, 64, 512, 512, False, True),
+])
+def test_conv3x3_matches_plain(conv_cuda, b, h, w, cin, co, circular, relu):
+    gen = torch.Generator(device=conv_cuda).manual_seed(0)
+    x = torch.randn(b, h, w, cin, generator=gen, device=conv_cuda).to(torch.bfloat16)
+    wt = (torch.randn(co, cin, 3, 3, generator=gen, device=conv_cuda) / (9 * cin) ** 0.5)
+    bias = 0.1 * torch.randn(co, generator=gen, device=conv_cuda)
+    got = conv3x3.conv3x3_bias_relu(x, wt, bias, circular, relu)
+    want = conv3x3.conv3x3_bias_relu_plain(x, wt, bias, circular, relu)
+    torch.cuda.synchronize()
+    assert conv3x3.launches == 1 and got.dtype == torch.bfloat16 and got.shape == want.shape
+    scale = float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7, atol=1e-2 * scale)
+    assert float((got == want).float().mean()) > 0.99
+
+
+def test_conv3x3_gradients_on_gpu_match_plain(conv_cuda):
+    gen = torch.Generator(device=conv_cuda).manual_seed(1)
+    x = torch.randn(2, 12, 20, 32, generator=gen, device=conv_cuda).to(torch.bfloat16)
+    wt = (torch.randn(64, 32, 3, 3, generator=gen, device=conv_cuda) / 17.0).to(torch.bfloat16)
+    bias = 0.1 * torch.randn(64, generator=gen, device=conv_cuda)
+    for circular in (False, True):
+        grads = []
+        for fn in (conv3x3.conv3x3_bias_relu, conv3x3.conv3x3_bias_relu_plain):
+            xs, ws, bs = (t.clone().requires_grad_(True) for t in (x, wt, bias))
+            fn(xs, ws, bs, circular, True).float().square().sum().backward()
+            grads.append([t.grad.float() for t in (xs, ws, bs)])
+        for got, want in zip(*grads):
+            torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2 * float(want.abs().max()))
+
+
+def test_conv3x3_rejects_bad_inputs(conv_cuda):
+    x = torch.zeros(1, 4, 4, 8, dtype=torch.bfloat16, device=conv_cuda)
+    w = torch.zeros(12, 8, 3, 3, device=conv_cuda)
+    b = torch.zeros(12, device=conv_cuda)
+    with pytest.raises(ValueError):  # Co must be a multiple of 8
+        conv3x3.conv3x3_bias_relu(x, w, b)
+    with pytest.raises(ValueError):  # the kernel writes bfloat16 only
+        conv3x3.conv3x3_bias_relu(x, w[:8], b[:8], out_dtype=torch.float32)
+    with pytest.raises(ValueError):  # one CUDA device for every input
+        conv3x3.conv3x3_bias_relu_kernel(x, conv3x3.pack_weights(w[:8]), b[:8].cpu())
+    assert conv3x3.launches == 0
+
+
+def test_bf16_train_step_on_gpu_matches_cpu(conv_cuda):
+    """One bf16 train step (dropout on, random crops) on the card and on the
+    CPU from the same params and generator seed: the losses agree to bf16
+    precision (rtol 2e-2) and the kernel ran in forward passes."""
+    ds = DatasetConfig(name="cvusa", train_csv="", test_csv="", panorama=True)
+    data = DataConfig(dataset=ds, surface_height=32, surface_width_max=64, overhead_size=32)
+    cfg = ExperimentConfig(data=data, model=FovDsmModelConfig())
+    rng = np.random.default_rng(2)
+    batch = {"surface": rng.integers(0, 256, (4, 32, 64, 3), np.uint8),
+             "overhead": rng.integers(0, 256, (4, 32, 32, 3), np.uint8)}
+    losses = []
+    for device in ("cpu", conv_cuda):
+        pipeline = FovPipeline(cfg, device)
+        state = pipeline.init_state(torch.Generator().manual_seed(0))
+        state, metrics = pipeline.train_step(state, batch, torch.Generator().manual_seed(3))
+        losses.append(float(metrics["loss"]))
+    assert conv3x3.launches == 22  # 11 fused convs per tower
+    np.testing.assert_allclose(losses[1], losses[0], rtol=2e-2)

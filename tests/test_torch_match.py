@@ -197,7 +197,7 @@ def test_evaluator_ranks_match_jax(rng, use_fused):
     want = jgallery.FovGalleryEvaluator(
         query_block=8, gallery_chunk=8, use_pallas=use_fused).ranks(o, s)
     got = tgallery.FovGalleryEvaluator(
-        query_block=8, gallery_chunk=10, use_fused=use_fused).ranks(o, s)
+        query_block=8, gallery_chunk=10, use_fused=use_fused, device="cpu").ranks(o, s)
     assert got.dtype == np.int32
     np.testing.assert_array_equal(got, want)
     assert got.min() >= 1 and got.max() <= n
@@ -210,10 +210,10 @@ def test_evaluator_asymmetric_gallery_matches_jax(rng):
     want = jgallery.FovGalleryEvaluator(query_block=8, gallery_chunk=8).ranks(o, s, tm)
     for use_fused in (False, True):
         got = tgallery.FovGalleryEvaluator(
-            query_block=5, gallery_chunk=7, use_fused=use_fused).ranks(o, s, tm)
+            query_block=5, gallery_chunk=7, use_fused=use_fused, device="cpu").ranks(o, s, tm)
         np.testing.assert_array_equal(got, want)
     with pytest.raises(ValueError):
-        tgallery.FovGalleryEvaluator().ranks(o, s)
+        tgallery.FovGalleryEvaluator(device="cpu").ranks(o, s)
 
 
 def test_metrics_from_ranks_matches_jax(rng):

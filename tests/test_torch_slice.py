@@ -52,7 +52,7 @@ def jax_state():
 
 def _shared(cfg, state):
     params = jax_params_to_state_dict(jax.tree.map(np.asarray, state.params))
-    return JaxPipeline(cfg), FovPipeline(cfg), params
+    return JaxPipeline(cfg), FovPipeline(cfg, "cpu"), params
 
 
 def _batch(rng, b):
@@ -91,7 +91,7 @@ def test_forward_distance_matches_jax(rng, fov, monkeypatch, jax_state):
 
 def test_random_orientation_is_seeded(rng):
     cfg = _cfg(90, random_orientation=True)
-    tp = FovPipeline(cfg)
+    tp = FovPipeline(cfg, "cpu")
     params = tp.init(torch.Generator().manual_seed(0))
     batch = _batch(rng, 3)
     a = tp.forward_distance(params, batch, torch.Generator().manual_seed(5))
@@ -142,29 +142,46 @@ def test_embed_all_and_ranks_match_jax(rng, jax_state):
 
 
 def test_port_imports_no_jax():
-    """Every module of witw_tpu_torch imports with JAX made unimportable,
-    and none pulls in flax, optax, witw_tpu.data or its pandas/PIL deps."""
+    """Every module of witw_tpu_torch, chip_smoke and the profile scripts import
+    with JAX and every witw_tpu module made unimportable, and none pulls in
+    flax, optax or the pandas/PIL deps of witw_tpu.data."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
+        sys.modules["witw_tpu"] = None
         import witw_tpu_torch
         names = [m.name for m in pkgutil.walk_packages(
             witw_tpu_torch.__path__, "witw_tpu_torch.")]
-        for name in names:
+        for name in names + ["chip_smoke", "profile_int8", "profile_bf16"]:
             importlib.import_module(name)
-        banned = ("jax", "jaxlib", "flax", "optax", "pandas", "PIL")
-        bad = sorted(
-            m for m, mod in sys.modules.items()
-            if (m.split(".")[0] in banned and mod is not None)
-            or m.startswith("witw_tpu.data")
-        )
+        banned = ("jax", "jaxlib", "flax", "optax", "pandas", "PIL", "witw_tpu")
+        bad = sorted(m for m, mod in sys.modules.items()
+                     if m.split(".")[0] in banned and mod is not None)
         assert not bad, bad
         print(len(names))
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 20
+    assert int(out.stdout.split()[-1]) >= 25
+
+
+@pytest.mark.parametrize("make", [
+    lambda c: c.fov_experiment("cvusa", 360),
+    lambda c: c.fov_experiment("cvusa", 90),
+    lambda c: c.fov_experiment("witw", 360),
+    lambda c: c.fov_experiment("witw", 90),
+    lambda c: c.semantic_experiment(),
+], ids=["cvusa-360", "cvusa-90", "witw-360", "witw-90", "semantic"])
+def test_port_configs_equal_witw_tpu(make):
+    """The port's copy of the configs gives the same presets as witw_tpu's."""
+    import witw_tpu.configs as jcfg
+    import witw_tpu_torch.configs as tcfg
+
+    got, want = make(tcfg), make(jcfg)
+    assert type(got.model).__name__ == type(want.model).__name__
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.data.surface_width == want.data.surface_width
 
 
 def test_chip_smoke_fails_without_a_gpu():

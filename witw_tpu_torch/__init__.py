@@ -1,25 +1,32 @@
-"""witw_tpu_torch — PyTorch/CUDA port of witw_tpu's FOV-DSM inference slice
-and its static-int8 serving path.
+"""witw_tpu_torch — PyTorch/CUDA port of witw_tpu's FOV-DSM inference slice,
+its training, and its static-int8 serving path.
 
 The JAX package ``witw_tpu`` is the reference; this package mirrors its module
 layout and public names, keeps NHWC at public boundaries, and runs on an
-NVIDIA H100 (sm_90a) with four kernels written by hand in CUDA (``csrc/``):
-the fused correlation + chord-distance match, and for the static-int8
-towers the int8 3x3 conv with its requant epilogue, the 2x2 max pool and
-VGG block 2 fused into one pass. Everything else is plain PyTorch (cuDNN
-convs, cuBLAS GEMMs, ``torch.fft``).
+NVIDIA H100 (sm_90a) with five kernels written by hand in CUDA (``csrc/``):
+the fused correlation + chord-distance match, the bf16 3x3 conv + bias +
+ReLU of the bf16 towers, and for the static-int8 towers the int8 3x3 conv
+with its requant epilogue, the 2x2 max pool and VGG block 2 fused into one
+pass. Everything else is plain PyTorch (cuDNN for the stride-2 head convs
+and the backward, cuBLAS GEMMs, ``torch.fft``).
 
+- ``configs``    — the port's copy of witw_tpu's config dataclasses and the
+                   FOV-DSM presets.
 - ``ops``        — FOV crop, normalization, polar transform, fused match,
-                   and the int8 conv, max pool and fused block-2 wrappers.
+                   the bf16 conv, and the int8 conv, max pool and fused
+                   block-2 wrappers.
 - ``models``     — VGG16 FOV-DSM towers, the flax -> torch weight bridge,
                    and the static-int8 path (``models.quantize``).
-- ``match``      — circular correlation, chord distance, FFT matcher.
+- ``match``      — circular correlation, chord distance, DSM triplet loss,
+                   FFT matcher.
 - ``kernels``    — nvcc build + ctypes loading of ``csrc/``.
 - ``evaluation`` — single-device gallery rank sweep and metrics.
-- ``train``      — the inference half of the FOV pipeline, embed + test.
+- ``train``      — the FOV pipeline (train, eval and embed steps), the
+                   train/val loop, checkpoints, embed + test.
+- ``utils``      — device selection, the step timer.
 
-Configs are shared with the JAX package (``witw_tpu.configs`` is plain
-dataclasses). This package imports no JAX.
+This package imports no JAX and no module of ``witw_tpu``. Its entry points
+run on the CUDA device unless the caller asks for the CPU.
 """
 
 __version__ = "0.1.0"

@@ -26,6 +26,7 @@ from witw_tpu_torch.match.fft_matcher import (
     query_fft,
 )
 from witw_tpu_torch.ops.fused_match import fused_chord_distance_nhwc
+from witw_tpu_torch.utils.device import require_cuda
 
 
 def _paired_distance_batched(overhead: torch.Tensor, surface: torch.Tensor) -> torch.Tensor:
@@ -47,7 +48,8 @@ class FovGalleryEvaluator:
     NHWC, numpy or tensors. ``use_fused`` runs the sweep through the fused
     correlation + distance kernel (witw_tpu_torch.ops.fused_match), which
     never materializes the [G, Q, W] correlation. ``device`` is where the
-    sweep runs; None keeps tensors where they are and puts numpy on the CPU.
+    sweep runs; None keeps tensors where they are and puts numpy on the
+    CUDA device (RuntimeError without one): the CPU only when asked for.
     """
 
     def __init__(
@@ -65,7 +67,8 @@ class FovGalleryEvaluator:
     def _tensor(self, x) -> torch.Tensor:
         if isinstance(x, torch.Tensor):
             return x.to(self.device or x.device, torch.float32)
-        return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=self.device)
+        device = self.device if self.device is not None else require_cuda()
+        return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=device)
 
     @torch.no_grad()
     def ranks(self, overhead_embeds, surface_embeds,

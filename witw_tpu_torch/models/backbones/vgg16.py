@@ -2,15 +2,25 @@
 
 Port of witw_tpu/models/backbones/vgg16.py. The trunk runs inside
 ``FovDsm`` on NCHW tensors with channels_last strides (the NHWC memory of
-the tower's input viewed as NCHW), the layout cuDNN prefers. Submodules are named ``conv_<torch idx>``
+the tower's input viewed as NCHW). Submodules are named ``conv_<torch idx>``
 so flax params and torchvision weights map 1:1.
 
-- Circular width padding (the overhead tower convolves a horizontally
-  wrapping polar panorama): the wrap halo is materialized once per conv
-  block (``len(block)`` columns per side) and the block's convs run
-  width-VALID, each consuming one halo column; height is zero-padded by 1.
-- Dropout2d after conv4_1/4_2/4_3, applied conv -> dropout -> relu
-  (reference cvig_fov.py:234-245); off in eval mode.
+- bf16 towers (the default compute dtype): every conv is one call of
+  ``ops.conv3x3.conv3x3_bias_relu``, the hand-written conv + bias + ReLU
+  kernel on the card. The circular tower passes ``circular=True`` (the
+  width read modulo W), which equals the block halo below value for value.
+- f32 towers: ``F.conv2d`` then ReLU. Circular width padding (the overhead
+  tower convolves a horizontally wrapping polar panorama): the wrap halo is
+  materialized once per conv block (``len(block)`` columns per side) and
+  the block's convs run width-VALID, each consuming one halo column; height
+  is zero-padded by 1.
+- Dropout2d after conv4_1/4_2/4_3, only with ``train=True``, its channel
+  mask drawn from an explicit ``torch.Generator``. The reference order is
+  conv -> dropout -> relu (cvig_fov.py:234-245); the bf16 towers apply it
+  after the fused conv + ReLU, which is exact: the mask scales each channel
+  by 0 or 1/(1-p) >= 0, and ReLU commutes with that.
+- ``frozen_prefix`` detaches block 4's input (witw_tpu's stop_gradient):
+  with blocks 1-3 frozen nothing upstream needs a gradient.
 - ``dtype`` is the compute dtype of the convs (weights, inputs and outputs),
   as flax's ``dtype=``; parameters are stored in float32.
 """
@@ -18,11 +28,13 @@ so flax params and torchvision weights map 1:1.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from witw_tpu_torch.ops.conv3x3 import conv3x3_bias_relu
 
 # (torch feature index, out_channels); pools sit at torch indices 4, 9, 16.
 VGG16_CONVS: Tuple[Tuple[int, int], ...] = (
@@ -81,24 +93,48 @@ class Conv3x3(nn.Module):
         w = self.weight.to(self.dtype).contiguous(memory_format=torch.channels_last)
         return F.conv2d(x, w, self.bias.to(self.dtype), self.stride, self.padding)
 
+    def fused(self, x: torch.Tensor, relu: bool, circular: bool) -> torch.Tensor:
+        """Stride-1 conv + bias (+ReLU) through ``ops.conv3x3`` on the
+        unpadded input (the width zero-padded, or wrapped when
+        ``circular``); NCHW channels_last in and out."""
+        if self.stride != (1, 1):
+            raise ValueError(f"the fused conv is stride 1, this one is {self.stride}")
+        y = conv3x3_bias_relu(x.permute(0, 2, 3, 1), self.weight.to(self.dtype),
+                              self.bias.to(self.dtype), circular, relu)
+        return y.permute(0, 3, 1, 2)
+
+
+def dropout2d(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """Whole-channel dropout of an NCHW tensor, as flax ``nn.Dropout`` with
+    ``broadcast_dims=(1, 2)`` on NHWC: keep each (image, channel) with
+    probability 1 - rate and scale the kept ones by 1 / (1 - rate). The mask
+    is drawn on ``generator``'s device."""
+    if generator is None:
+        raise ValueError("train-mode dropout needs a torch.Generator")
+    keep = torch.bernoulli(
+        torch.full((x.shape[0], x.shape[1], 1, 1), 1.0 - rate, device=generator.device),
+        generator=generator).to(x.device, torch.bool)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
 
 class Vgg16Features(nn.Module):
     """VGG16 conv1_1 .. conv4_3 (+ReLU), 3 maxpools; output stride 8.
     NCHW in, NCHW out (in ``dtype``)."""
 
     def __init__(self, in_channels: int = 3, circ_padding: bool = False,
-                 dropout_rate: float = 0.2, dtype: torch.dtype = torch.float32):
+                 dropout_rate: float = 0.2, dtype: torch.dtype = torch.float32,
+                 frozen_prefix: bool = False):
         super().__init__()
         self.circ_padding = circ_padding
+        self.dropout_rate = dropout_rate
         self.dtype = dtype
+        self.frozen_prefix = frozen_prefix
         in_ch = in_channels
         for torch_idx, out_ch in VGG16_CONVS:
             self.add_module(
                 f"conv_{torch_idx}",
                 Conv3x3(in_ch, out_ch, pad_width=not circ_padding, dtype=dtype),
             )
-            if torch_idx in DROPOUT_CONVS and dropout_rate > 0:
-                self.add_module(f"dropout_{torch_idx}", nn.Dropout2d(dropout_rate))
             in_ch = out_ch
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -108,16 +144,27 @@ class Vgg16Features(nn.Module):
                 lecun_normal_(conv.weight, generator)
                 conv.bias.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = x.to(self.dtype)
+        fused = self.dtype == torch.bfloat16
         for block_i, block in enumerate(VGG16_BLOCKS):
-            if self.circ_padding:
+            if block_i == 3 and self.frozen_prefix:
+                x = x.detach()
+            if self.circ_padding and not fused:
                 x = wrap_pad_width(x, len(block))
             for torch_idx, _ in block:
-                x = getattr(self, f"conv_{torch_idx}")(x)
-                if hasattr(self, f"dropout_{torch_idx}"):
-                    x = getattr(self, f"dropout_{torch_idx}")(x)
-                x = F.relu(x)
+                conv = getattr(self, f"conv_{torch_idx}")
+                drop = train and torch_idx in DROPOUT_CONVS and self.dropout_rate > 0
+                if fused:
+                    x = conv.fused(x, relu=True, circular=self.circ_padding)
+                    if drop:
+                        x = dropout2d(x, self.dropout_rate, generator)
+                else:
+                    x = conv(x)
+                    if drop:
+                        x = dropout2d(x, self.dropout_rate, generator)
+                    x = F.relu(x)
             if block_i < 3:
                 x = F.max_pool2d(x, 2, 2)  # floor, as torch MaxPool2d(2, 2)
         return x

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
-from witw_tpu.configs.base import FovDsmModelConfig
+from witw_tpu_torch.configs.base import FovDsmModelConfig
 from witw_tpu_torch.models.backbones.vgg16 import VGG16_BLOCKS, wrap_pad_width
 from witw_tpu_torch.models.convert_jax import state_dict_to_tower
 from witw_tpu_torch.models.fov_dsm import HEAD_CONVS, FovDsm

@@ -1,40 +1,65 @@
-"""The inference half of the FOV-DSM pipeline (port of
+"""The FOV-DSM pipeline: train, eval and embed steps (port of
 witw_tpu/train/pipeline.py:FovPipeline).
 
 Raw uint8-scale batches go in; FOV crop, normalization and the polar
 transform run on the pipeline's device, then the twin towers, then the
-fused correlation + chord-distance match. Params are
-``{"surface": state_dict, "overhead": state_dict}`` (float32, on the
-pipeline's device), the layout ``models.convert_jax`` produces from flax
-params; the towers run on them through ``torch.func.functional_call``.
+match: the fused correlation + chord-distance kernel for inference, and the
+matmul correlation + ``chord_distance`` + DSM triplet loss for training.
+Params are ``{"surface": state_dict, "overhead": state_dict}`` (float32, on
+the pipeline's device), the layout ``models.convert_jax`` produces from
+flax params; the towers run on them through ``torch.func.functional_call``.
+A train step is Adam over the trainable params only (VGG blocks 1-3 frozen,
+as ``fov_dsm_trainable_mask`` says); the frozen ones never get a gradient.
+
+Random draws come from an explicit CPU ``torch.Generator`` per step, in
+this order: the crop origins (with ``random_orientation``), the surface
+tower's three dropout masks, the overhead tower's.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import dataclasses
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch.func import functional_call
 
-from witw_tpu.configs.base import ExperimentConfig, FovDsmModelConfig
-from witw_tpu_torch.models.fov_dsm import FovDsm
+from witw_tpu_torch.configs.base import ExperimentConfig
+from witw_tpu_torch.match.correlation import circular_correlation
+from witw_tpu_torch.match.distance import chord_distance
+from witw_tpu_torch.match.losses import dsm_triplet_loss
+from witw_tpu_torch.models.fov_dsm import FovDsm, fov_dsm_trainable_mask
 from witw_tpu_torch.ops.fov import fov_crop, random_fov_starts
 from witw_tpu_torch.ops.fused_match import fused_chord_distance_nhwc
 from witw_tpu_torch.ops.image import normalize_images, normalize_images_masked_bias
 from witw_tpu_torch.ops.polar import grid_tensors, polar_transform
+from witw_tpu_torch.utils.device import require_cuda
 
 Params = Dict[str, Dict[str, torch.Tensor]]
+TOWERS = ("surface", "overhead")
+
+
+@dataclasses.dataclass
+class TrainState:
+    """Step count, params, and the Adam optimizer that holds the trainable
+    params and their moments (``optimizer.state_dict()`` is the optimizer
+    state)."""
+
+    step: int
+    params: Params
+    optimizer: torch.optim.Optimizer
 
 
 class FovPipeline:
-    """cvig_fov / cvig_semantic inference pipeline (reference
-    cvig_fov.py:385-575) on ``device`` (default CPU)."""
+    """cvig_fov / cvig_semantic pipeline (reference cvig_fov.py:385-575) on
+    ``device``: the CUDA device when None (RuntimeError without one); the
+    CPU only when asked for."""
 
     def __init__(self, cfg: ExperimentConfig, device=None):
-        if not isinstance(cfg.model, FovDsmModelConfig):
+        if getattr(cfg.model, "kind", None) != "fov_dsm":
             raise TypeError(f"FovPipeline needs a FovDsmModelConfig, got {type(cfg.model)}")
         self.cfg = cfg
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = torch.device(device) if device is not None else require_cuda()
         self.surface_model = FovDsm(cfg.model, circ_padding=False).to(self.device).eval()
         # The overhead tower convolves the polar pseudo-panorama, which wraps
         # horizontally -> circular padding (reference cvig_fov.py:407).
@@ -49,6 +74,28 @@ class FovPipeline:
             model.reset_parameters(generator)
             params[tower] = {k: v.to(self.device) for k, v in model.state_dict().items()}
         return params
+
+    def trainable_names(self, tower_params: Dict[str, torch.Tensor]) -> List[str]:
+        return fov_dsm_trainable_mask(tower_params, self.cfg.model)
+
+    def optimizer(self, params: Params) -> torch.optim.Adam:
+        """Adam (lr, b1, b2, eps from ``cfg.train.optim``) over the trainable
+        params, which it marks ``requires_grad``; the frozen ones are
+        marked not to need a gradient."""
+        o = self.cfg.train.optim
+        trainable = []
+        for tower in TOWERS:
+            names = set(self.trainable_names(params[tower]))
+            for name, p in params[tower].items():
+                p.requires_grad_(name in names)
+                if name in names:
+                    trainable.append(p)
+        return torch.optim.Adam(trainable, lr=o.learning_rate, betas=(o.b1, o.b2), eps=o.eps)
+
+    def init_state(self, generator: torch.Generator) -> TrainState:
+        """Fresh params (:meth:`init`) and a fresh optimizer, at step 0."""
+        params = self.init(generator)
+        return TrainState(step=0, params=params, optimizer=self.optimizer(params))
 
     def _input(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.float32).to(self.device)
@@ -92,6 +139,46 @@ class FovPipeline:
         polar = normalize_images_masked_bias(polar, d.img_mean, d.img_std, wsum, scale_ch)
         return surface, polar
 
+    def _towers(self, params: Params, surface, polar, train: bool,
+                generator: Optional[torch.Generator]):
+        s_emb = functional_call(self.surface_model, params["surface"], (surface,),
+                                {"train": train, "generator": generator}, strict=True)
+        o_emb = functional_call(self.overhead_model, params["overhead"], (polar,),
+                                {"train": train, "generator": generator}, strict=True)
+        return s_emb, o_emb
+
+    def _forward_loss(self, params: Params, batch, generator: Optional[torch.Generator],
+                      train: bool) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Preprocess, both towers, matmul correlation, chord distance, DSM
+        triplet loss (with ``batch["valid"]``, when given, masking padded
+        rows)."""
+        surface, polar = self.preprocess(batch, generator)
+        s_emb, o_emb = self._towers(params, surface, polar, train, generator)
+        corr = circular_correlation(o_emb, s_emb, method="matmul")
+        distance, orientation = chord_distance(o_emb, s_emb, corr)
+        valid = batch.get("valid")
+        if valid is not None:
+            valid = torch.as_tensor(valid, device=self.device)
+        loss = dsm_triplet_loss(distance, alpha=self.cfg.match.alpha, valid=valid)
+        return loss, {"distance": distance, "orientation": orientation}
+
+    def train_step(self, state: TrainState, batch,
+                   generator: torch.Generator) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """One Adam step on ``batch`` (train-mode dropout); updates ``state``
+        in place and returns it with {"loss": the step's loss}."""
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, _ = self._forward_loss(state.params, batch, generator, train=True)
+        loss.backward()
+        state.optimizer.step()
+        state.step += 1
+        return state, {"loss": loss.detach()}
+
+    @torch.no_grad()
+    def eval_step(self, state: TrainState, batch,
+                  generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        loss, _ = self._forward_loss(state.params, batch, generator, train=False)
+        return {"loss": loss}
+
     @torch.no_grad()
     def embed_step(
         self, params: Params, batch, generator: Optional[torch.Generator] = None
@@ -99,9 +186,7 @@ class FovPipeline:
         """Embed a batch: (surface maps [B, h, sw', 16], overhead maps
         [B, h, W', 16]), float32 NHWC."""
         surface, polar = self.preprocess(batch, generator)
-        s_emb = functional_call(self.surface_model, params["surface"], (surface,), strict=True)
-        o_emb = functional_call(self.overhead_model, params["overhead"], (polar,), strict=True)
-        return s_emb, o_emb
+        return self._towers(params, surface, polar, False, None)
 
     @torch.no_grad()
     def forward_distance(
