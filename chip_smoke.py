@@ -5,9 +5,9 @@
 
 Phases, each of which passes or raises:
 1. Require a CUDA device; print the card's name and power limit.
-2. Build all five CUDA kernels from witw_tpu_torch/csrc with nvcc (sm_90a),
-   one nvcc per source started together; print the build seconds and the
-   fused match's ptxas register/shared-memory use.
+2. Build all eight CUDA libraries from witw_tpu_torch/csrc with nvcc
+   (sm_90a), one nvcc per source started together; print the build seconds
+   and the fused match's ptxas register/shared-memory use.
 3. Hold the kernel against its plain PyTorch version in f32 (TF32 off) at
    the main-path, fov-90, ragged and gallery-block shapes.
 4. Drive the slice at full CVUSA width (bf16 towers, whose stride-1 convs
@@ -52,6 +52,22 @@ Phases, each of which passes or raises:
    towers at batch 128 the kernel's ms beside its plain version's, the
    library call's (torch.cudnn_convolution_relu, or F.conv2d without ReLU)
    and the bound max(FLOP / 989 TFLOP/s, bytes / 3.35 TB/s).
+15. The int8 profiling harness's kernels (conv_like, the mma.sync rate
+   probe, the layout probes; built in phase 2): print ptxas' lines and the
+   IDP.4A count of each conv_like mode's SASS (cuobjdump), failing where a
+   stripped mode issues fewer than full.
+16. Hold each against its plain PyTorch version: conv_like full bit-equal at
+   the probe shape [32, 64, 256] x 128 -> 128 and at a ragged one, its
+   stripped modes all zero; mm bit-equal at N 128 and 512, reps 1 and 2048
+   (the int32 sum wraps); mmf bit-equal at reps 1 and within
+   1024 * 2^-24 * max|y| at reps 1024 (the kernel sums each rep's dot in
+   another order); t1-t4 bit-equal.
+17. The three entry points, witw_tpu_torch.exp.{int8_isolate,
+   int8_mm_probe, mosaic_caps}.run(), each of which must raise the launch
+   count of every kernel it reaches; then each kernel timed beside its plain
+   version, the library call (cuBLAS: one product's device time, from a
+   CUDA graph, x reps for the rate probes; sum, roll and clone for t1, t2,
+   t4) and its bound.
 
 The launch counts are reset just before the path they count and read right
 after it: the fused match's and the conv kernel's before phase 4 and after
@@ -59,8 +75,9 @@ test() in phase 5 (forward_distance at fov 360 and 90, and test(), must each
 raise both); all four int8-path kernels' before the int8 path of phase 9 and
 after it (its fov 360 and 90 runs must each raise every count); the conv
 kernel's before the training of phase 13 and after it (its train and val
-phases must each raise it). The second-to-last line is the kernels' JSON
-record; the last line is {"ok": true, "device": {...}}.
+phases must each raise it); the probes' before phase 17 and after it. The
+second-to-last line is the kernels' JSON record; the last line is
+{"ok": true, "device": {...}}.
 Without a GPU, or without the repo beside it, the script exits non-zero and
 prints no result.
 """
@@ -82,7 +99,8 @@ from torch.func import functional_call
 
 from witw_tpu_torch.configs import fov_experiment
 from witw_tpu_torch.evaluation.gallery import FovGalleryEvaluator, metrics_from_ranks
-from witw_tpu_torch.kernels.build import build_libraries
+from witw_tpu_torch.exp import int8_isolate, int8_mm_probe, mosaic_caps
+from witw_tpu_torch.kernels.build import build_libraries, nvcc_path
 from witw_tpu_torch.match.correlation import circular_correlation
 from witw_tpu_torch.models import quantize
 from witw_tpu_torch.models.backbones.vgg16 import VGG16_BLOCKS
@@ -92,12 +110,14 @@ from witw_tpu_torch.train import loop
 from witw_tpu_torch.train.checkpoint import Checkpointer
 from witw_tpu_torch.train.pipeline import FovPipeline
 from witw_tpu_torch.utils.device import require_cuda
+from witw_tpu_torch.utils.profiling import cuda_ms
 
 RTOL, ATOL = 1e-5, 1e-6
 TIE_REL = 1e-5  # plain top-2 correlation gap under which a pair is a near tie
 KERNEL_SOURCE = "witw_tpu_torch/csrc/fused_match.cu"
 KERNEL_REPLACES = "witw_tpu/ops/pallas/fused_match.py:83"
-LIBRARIES = ["fused_match", "int8_conv", "maxpool", "fused_block2", "conv3x3_bf16"]
+PROBE_LIBRARIES = ["conv_like", "mm_probe", "caps"]
+LIBRARIES = ["fused_match", "int8_conv", "maxpool", "fused_block2", "conv3x3_bf16"] + PROBE_LIBRARIES
 # Published peaks of one H100 SXM (dense, at 700 W) for the bound_ms column.
 PEAK_BYTES_PER_MS = 3.35e9          # 3.35 TB/s
 PEAK_F32_PER_MS = 67e9              # CUDA cores
@@ -156,23 +176,6 @@ def compare_kernel(name, o, s):
     if orient_bad or not bool(close.all()) or not bool(torch.isfinite(d_k).all()):
         raise AssertionError(f"kernel disagrees with its plain version at {name}")
     return max_abs
-
-
-def cuda_ms(fn, calls: int, reps: int):
-    """Median ms per call over ``reps`` runs of ``calls`` calls (warm)."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(calls):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return statistics.median(times)
 
 
 def interleaved_ms(plain, kernel, calls: int, reps: int):
@@ -292,14 +295,14 @@ def block2_args(gen, device, b, h, w):
 
 
 def check_equal(name, got, want):
-    """int8 outputs equal; float outputs within INT8_RTOL / INT8_ATOL.
+    """Integer outputs equal; float outputs within INT8_RTOL / INT8_ATOL.
     Returns the max abs error."""
     torch.cuda.synchronize()
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} vs plain "
                              f"{want.dtype} {tuple(want.shape)}")
     err = float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
-    if got.dtype == torch.int8:
+    if not got.dtype.is_floating_point:
         ok = torch.equal(got, want)
     else:
         ok = bool(torch.isclose(got.float(), want.float(), rtol=INT8_RTOL, atol=INT8_ATOL).all())
@@ -784,6 +787,193 @@ def conv_phases(card, device, cfg, built):
         "bound_by": by, "library_ms": t_lib,
     }
 
+# --- the int8 profiling harness (phases 15-17) --------------------------------
+
+PROBE_KERNELS = {  # record name: (source, TPU kernels it replaces)
+    "conv_like": ("witw_tpu_torch/csrc/conv_like.cu", "exp/int8_isolate.py:56"),
+    "mm_s8": ("witw_tpu_torch/csrc/mm_probe.cu",
+              "exp/int8_mm_probe.py:33, exp/mosaic_caps.py:82"),
+    "mm_bf16": ("witw_tpu_torch/csrc/mm_probe.cu", "exp/int8_mm_probe.py:60"),
+    "caps": ("witw_tpu_torch/csrc/caps.cu",
+             "exp/mosaic_caps.py:45, exp/mosaic_caps.py:63, exp/mosaic_caps.py:108"),
+}
+# the rate probes' larger rep counts at N = 128
+MM_REPS = {"mm_s8": int8_mm_probe.REPS_S8[1], "mm_bf16": int8_mm_probe.REPS_BF16[1]}
+
+
+def sass_counts(library: Path, opcodes):
+    """{kernel symbol: {opcode: SASS instructions}} of a built library."""
+    sass = subprocess.run([str(Path(nvcc_path()).parent / "cuobjdump"), "-sass", str(library)],
+                          capture_output=True, text=True, check=True, timeout=120).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = dict.fromkeys(opcodes, 0)
+        elif fn is not None:
+            for op in opcodes:
+                counts[fn][op] += f" {op}" in line
+    return counts
+
+
+def conv_like_case(gen, device, b, h, w, c, n):
+    """The TPU script's inputs at one shape: xp [B, H + 2, WP8, C] in
+    [-127, 127], wmat [9C, N] in [-20, 20], m = 0.001."""
+    wp8 = -(-(w + 2) // 32) * 32
+    xp = torch.randint(-127, 128, (b, h + 2, wp8, c), generator=gen, device=device,
+                       dtype=torch.int8)
+    wmat = torch.randint(-20, 21, (9 * c, n), generator=gen, device=device, dtype=torch.int8)
+    return xp, wmat, torch.full((1, n), 0.001, device=device)
+
+
+def probe_phases(card, device, built):
+    """Phases 15-17; returns the four records of the probes' kernels."""
+    # 15. the three libraries, built in phase 2; dp4a in each conv_like mode
+    int8_isolate._lib()
+    int8_mm_probe._lib()
+    mosaic_caps._lib()
+    log(f"[15] {', '.join(built[n][0].name for n in PROBE_LIBRARIES)} (built in phase 2)")
+    for name in PROBE_LIBRARIES:
+        print_ptxas(built[name][1])
+    counts = sass_counts(built["conv_like"][0], ("IDP.4A", "LDG", "LDS"))
+    per_mode = {mode: next(c for f, c in counts.items() if f"conv_like_kernelILi{i}E" in f)
+                for i, mode in enumerate(int8_isolate.MODES)}
+    log(f"    SASS instructions per conv_like mode: {per_mode}")
+    fewer = [m for m, c in per_mode.items() if c["IDP.4A"] < per_mode["full"]["IDP.4A"]]
+    if fewer:
+        raise AssertionError(f"conv_like modes {fewer} issue fewer IDP.4A than full: the "
+                             f"compiler removed work")
+
+    # 16. each kernel against its plain version
+    log("[16] probe kernels vs plain PyTorch: conv_like and mm bit-equal, the stripped modes "
+        "zero, mmf bit-equal at reps 1 and within 1024 * 2^-24 * max|y| at reps 1024, t1-t4 "
+        "bit-equal")
+    gen = torch.Generator(device=device).manual_seed(16)
+    err = dict.fromkeys(PROBE_KERNELS, 0.0)
+    iso = int8_isolate
+    for shape in ((iso.B, iso.H, iso.W, iso.C, iso.N), (3, 16, 40, 32, 64)):
+        xp, wmat, m = conv_like_case(gen, device, *shape)
+        want = int8_isolate.conv_like_plain(xp, wmat, m, "full", shape[2])
+        if len(want.unique()) <= 20:
+            raise AssertionError("conv_like's test outputs do not spread over [0, 127]")
+        for mode in int8_isolate.MODES:
+            got = int8_isolate.conv_like(xp, wmat, m, mode, shape[2])
+            plain = want if mode == "full" else int8_isolate.conv_like_plain(xp, wmat, m, mode,
+                                                                             shape[2])
+            e = check_equal(f"conv_like {mode} B,H,W,C,N={shape}", got, plain)
+            if mode != "full" and bool(got.any()):
+                raise AssertionError(f"conv_like {mode} is not all zero")
+            err["conv_like"] = max(err["conv_like"], e)
+        del xp, want
+    mp = int8_mm_probe
+    a = torch.randint(-127, 128, (mp.M, mp.K), generator=gen, device=device, dtype=torch.int8)
+    for n in (mp.N, mp.N2):
+        b = torch.randint(-127, 128, (mp.K, n), generator=gen, device=device, dtype=torch.int8)
+        for reps in (1, MM_REPS["mm_s8"]):
+            e = check_equal(f"mm [{mp.M}x{mp.K}x{n}] reps {reps}", mp.mm(a, b, reps),
+                            mp.mm_plain(a, b, reps))
+            err["mm_s8"] = max(err["mm_s8"], e)
+    ab = a.to(torch.bfloat16)
+    bb = torch.randint(-127, 128, (mp.K, mp.N), generator=gen, device=device).to(torch.bfloat16)
+    for reps in (1, MM_REPS["mm_bf16"]):
+        got, want = mp.mmf(ab, bb, reps), mp.mmf_plain(ab, bb, reps)
+        torch.cuda.synchronize()
+        e = float((got - want).abs().max())
+        tol = 0.0 if reps == 1 else reps * 2.0 ** -24 * float(want.abs().max())
+        log(f"  mmf [{mp.M}x{mp.K}x{mp.N}] reps {reps}: max_abs_err={e:.3e} (tolerance "
+            f"{tol:.3e}), {float((got == want).float().mean()):.6f} bit-equal")
+        if got.dtype != torch.float32 or not e <= tol:
+            raise AssertionError(f"mmf disagrees with its plain version at reps {reps}")
+        err["mm_bf16"] = max(err["mm_bf16"], e)
+    x = torch.randint(-127, 128, (256, 128), generator=gen, device=device, dtype=torch.int8)
+    w = torch.randint(-20, 21, (128, 64), generator=gen, device=device, dtype=torch.int8)
+    slab = torch.randint(-127, 128, (8, 64, 128), generator=gen, device=device, dtype=torch.int8)
+    caps_cases = {"t1": (x,), "t2": (x,), "t4": (slab,)}
+    for name, args in caps_cases.items():
+        e = check_equal(f"{name} {tuple(args[0].shape)}", getattr(mosaic_caps, name)(*args),
+                        getattr(mosaic_caps, f"{name}_plain")(*args))
+        err["caps"] = max(err["caps"], e)
+    e = check_equal("t3 [256x128x64]", mosaic_caps.t3(x, w), mp.mm_plain(x, w, 1))
+    err["mm_s8"] = max(err["mm_s8"], e)
+
+    # 17. the three entry points, counted
+    log("[17] the probes' entry points: int8_isolate.run, int8_mm_probe.run, mosaic_caps.run")
+    counters = (int8_isolate.launches, int8_mm_probe.launches, mosaic_caps.launches)
+    for c in counters:
+        for k in c:
+            c[k] = 0
+    results = {}
+    for mod, counted in ((int8_isolate, [(int8_isolate.launches, k) for k in int8_isolate.MODES]),
+                         (int8_mm_probe, [(int8_mm_probe.launches, "mm"),
+                                          (int8_mm_probe.launches, "mmf")]),
+                         (mosaic_caps, [(mosaic_caps.launches, k) for k in ("t1", "t2", "t4")]
+                          + [(int8_mm_probe.launches, "mm")])):
+        name = mod.__name__.rsplit(".", 1)[1]
+        before = [c[k] for c, k in counted]
+        results[name] = mod.run(device)
+        torch.cuda.synchronize()
+        idle = [k for (c, k), b in zip(counted, before) if c[k] <= b]
+        if idle:
+            raise AssertionError(f"{name}.run() did not launch {idle}")
+        if not all(v is True or (isinstance(v, float) and v > 0) for v in results[name].values()):
+            raise AssertionError(f"{name}.run() reported {results[name]}")
+    launches = {"conv_like": sum(int8_isolate.launches.values()),
+                "mm_s8": int8_mm_probe.launches["mm"], "mm_bf16": int8_mm_probe.launches["mmf"],
+                "caps": sum(mosaic_caps.launches.values())}
+    iso_ms = results["int8_isolate"]
+    log(f"    launches {launches}; kernel A decomposed: input copies (full - nodma) "
+        f"{iso_ms['full'] - iso_ms['nodma']:.4f} ms, shifted operand reads (full - nopatch) "
+        f"{iso_ms['full'] - iso_ms['nopatch']:.4f} ms of {iso_ms['full']:.4f} ms ({card})")
+
+    # Timing for the records, outside the counted path (CUDA events, median of 5)
+    log(f"    probe kernels beside their plain versions and the library on {card}")
+    xp, wmat, m = conv_like_case(gen, device, iso.B, iso.H, iso.W, iso.C, iso.N)
+    w_packed = int8_isolate.pack_wmat(wmat)
+    times = {"conv_like": interleaved_ms(
+        lambda: int8_isolate.conv_like_plain(xp, wmat, m, "full", iso.W),
+        lambda: int8_isolate.conv_like_kernel(xp, w_packed, m, "full", iso.W), calls=2, reps=5)
+        + (None,)}
+    ops = 2.0 * 9 * iso.C * iso.N * iso.B * iso.H * iso.W
+    bounds = {"conv_like": bound(ops, xp.numel() + wmat.numel() + 4 * iso.N
+                                 + iso.B * iso.H * iso.W * iso.N, PEAK_INT8_PER_MS)}
+    del xp
+    b = torch.randint(-127, 128, (mp.K, mp.N), generator=gen, device=device, dtype=torch.int8)
+    for rec, x_, y_, plain, peak, size in (
+            ("mm_s8", a, b, mp.mm_plain, PEAK_INT8_PER_MS, 1),
+            ("mm_bf16", ab, bb, mp.mmf_plain, PEAK_BF16_PER_MS, 2)):
+        reps, bt = MM_REPS[rec], mp.pack_b(y_)
+        t_k, t_p = interleaved_ms(lambda: plain(x_, y_, reps), lambda: mp.mm_kernel(x_, bt, reps),
+                                  calls=1, reps=5)
+        t_lib = reps * mp.library_ms(x_, bt)  # one cuBLAS product's device time x reps
+        times[rec] = (t_k, t_p, t_lib)
+        bounds[rec] = bound(2.0 * mp.M * mp.K * mp.N * reps,
+                            size * (mp.M * mp.K + mp.K * mp.N) + 4 * mp.M * mp.N, peak)
+    caps_lib = {"t1": lambda x_: x_.view(x_.shape[0], 2, -1).sum(1, dtype=torch.int32),
+                "t2": lambda x_: torch.roll(x_, x_.shape[1] // 2, 1),
+                "t4": lambda x_: x_.reshape(-1, x_.shape[-1]).clone()}
+    caps_t = []
+    for name, (arg,) in caps_cases.items():
+        t_k, t_p = interleaved_ms(lambda: getattr(mosaic_caps, f"{name}_plain")(arg),
+                                  lambda: getattr(mosaic_caps, name)(arg), calls=20, reps=5)
+        caps_t.append((t_k, t_p, cuda_ms(lambda: caps_lib[name](arg), 20, 5)))
+        log(f"    {name} {tuple(arg.shape)}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, library "
+            f"{caps_t[-1][2]:.4f} ms ({card})")
+    times["caps"] = tuple(sum(t[i] for t in caps_t) for i in range(3))
+    caps_bytes = x.numel() * (1 + 2) + x.numel() * 2 + slab.numel() * 2  # t1 writes int32 halves
+    bounds["caps"] = bound(0.0, caps_bytes, PEAK_INT8_PER_MS)
+    records = []
+    for rec, (source, replaces) in PROBE_KERNELS.items():
+        t_k, t_p, t_lib = times[rec]
+        log(f"    {rec}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, library "
+            f"{'none' if t_lib is None else f'{t_lib:.4f} ms'}, bound {bounds[rec][0]:.4f} ms "
+            f"({bounds[rec][1]}; H100 SXM peaks) ({card})")
+        records.append({
+            "name": rec, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[rec], "max_abs_err": err[rec], "ms": t_k, "plain_ms": t_p,
+            "bound_ms": bounds[rec][0], "bound_by": bounds[rec][1], "library_ms": t_lib,
+        })
+    return records
+
 
 def main() -> int:
     # 1. device
@@ -928,6 +1118,7 @@ def main() -> int:
 
     int8_records = int8_phases(card, device, cfg, pipeline, params, built)
     conv_record = conv_phases(card, device, cfg, built)
+    probe_records = probe_phases(card, device, built)
 
     log(card)
     log(json.dumps({"kernels": [{
@@ -942,7 +1133,7 @@ def main() -> int:
         "bound_ms": match_bound[0],
         "bound_by": match_bound[1],
         "library_ms": None,
-    }] + int8_records + [conv_record]}))
+    }] + int8_records + [conv_record] + probe_records}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

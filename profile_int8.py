@@ -29,8 +29,8 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from chip_smoke import (block2_args, card_line, conv_case, cuda_ms, int8_distance, raw_batch,
-                        run_conv, tower_calls)
+from chip_smoke import (block2_args, card_line, conv_case, int8_distance, raw_batch, run_conv,
+                        tower_calls)
 from witw_tpu_torch.configs import fov_experiment
 from witw_tpu_torch.kernels.build import build_libraries
 from witw_tpu_torch.models import quantize
@@ -38,6 +38,7 @@ from witw_tpu_torch.models.backbones.vgg16 import VGG16_BLOCKS
 from witw_tpu_torch.ops import fused_block2, int8_conv
 from witw_tpu_torch.train.pipeline import FovPipeline
 from witw_tpu_torch.utils.device import require_cuda
+from witw_tpu_torch.utils.profiling import cuda_ms
 
 GROUPS = (  # (kernel-name substring, group), first match wins
     ("conv3x3_int8_kernel<true>", "kernel A, dequant epilogue"),

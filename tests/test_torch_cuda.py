@@ -1,6 +1,6 @@
 """Card tests of the port's CUDA kernels (the fused match, the three
-static-int8 kernels and the bf16 conv + bias + ReLU); each skips without a
-CUDA device. This file imports no JAX, so it also runs where JAX is absent:
+static-int8 kernels, the bf16 conv + bias + ReLU and the int8 profiling
+harness's three); each skips without a CUDA device. This file imports no JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from witw_tpu_torch.configs import DataConfig, DatasetConfig, ExperimentConfig, FovDsmModelConfig
+from witw_tpu_torch.exp import int8_isolate, int8_mm_probe, mosaic_caps
 from witw_tpu_torch.match.correlation import circular_correlation
 from witw_tpu_torch.models import quantize
 from witw_tpu_torch.models.fov_dsm import FovDsm
@@ -289,3 +290,101 @@ def test_bf16_train_step_on_gpu_matches_cpu(conv_cuda):
         losses.append(float(metrics["loss"]))
     assert conv3x3.launches == 22  # 11 fused convs per tower
     np.testing.assert_allclose(losses[1], losses[0], rtol=2e-2)
+
+
+# The int8 profiling harness (witw_tpu_torch.exp) against the plain
+# versions at the probes' shapes: bit for bit, except mmf at many reps,
+# whose kernel sums each rep's dot in another order (reps * 2^-24 * max|y|).
+
+
+@pytest.fixture
+def probe_cuda(cuda, monkeypatch):
+    for counts in (int8_isolate.launches, int8_mm_probe.launches, mosaic_caps.launches):
+        for name in counts:
+            monkeypatch.setitem(counts, name, 0)
+    return cuda
+
+
+def _s8(gen, device, *shape, lo=-127, hi=128):
+    return torch.randint(lo, hi, shape, generator=gen, device=device, dtype=torch.int8)
+
+
+@pytest.mark.parametrize("b,h,w,c,n", [(32, 64, 256, 128, 128), (3, 16, 40, 32, 64)])
+def test_conv_like_matches_plain(probe_cuda, b, h, w, c, n):
+    gen = torch.Generator(device=probe_cuda).manual_seed(0)
+    xp = _s8(gen, probe_cuda, b, h + 2, -(-(w + 2) // 32) * 32, c)
+    wmat = _s8(gen, probe_cuda, 9 * c, n, lo=-20, hi=21)
+    m = torch.full((1, n), 0.001, device=probe_cuda)
+    want = int8_isolate.conv_like_plain(xp, wmat, m, "full", w)
+    assert want.shape == (b, h, w, n) and want.unique().numel() > 20
+    for mode in int8_isolate.MODES:
+        got = int8_isolate.conv_like(xp, wmat, m, mode, w)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and got.dtype == torch.int8
+        if mode == "full":
+            assert torch.equal(got, want)
+        else:
+            assert not got.any()
+    assert int8_isolate.launches == {mode: 1 for mode in int8_isolate.MODES}
+
+
+@pytest.mark.parametrize("n", [128, 512])
+def test_mm_matches_plain(probe_cuda, n):
+    gen = torch.Generator(device=probe_cuda).manual_seed(1)
+    a, b = _s8(gen, probe_cuda, 2048, 1152), _s8(gen, probe_cuda, 1152, n)
+    for reps in (1, 2048):  # 2048 wraps the int32 sum
+        got = int8_mm_probe.mm(a, b, reps)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32 and torch.equal(got, int8_mm_probe.mm_plain(a, b, reps))
+    assert int8_mm_probe.launches["mm"] == 2
+
+
+def test_mmf_matches_plain(probe_cuda):
+    gen = torch.Generator(device=probe_cuda).manual_seed(2)
+    a = _s8(gen, probe_cuda, 2048, 1152).to(torch.bfloat16)
+    b = _s8(gen, probe_cuda, 1152, 128).to(torch.bfloat16)
+    for reps in (1, 1024):
+        got, want = int8_mm_probe.mmf(a, b, reps), int8_mm_probe.mmf_plain(a, b, reps)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32
+        if reps == 1:  # integer-valued partial sums below 2^24: exact in any order
+            assert torch.equal(got, want)
+        else:
+            assert float((got - want).abs().max()) <= reps * 2.0 ** -24 * float(want.abs().max())
+    assert int8_mm_probe.launches["mmf"] == 2
+
+
+def test_caps_match_plain(probe_cuda):
+    gen = torch.Generator(device=probe_cuda).manual_seed(3)
+    x, w = _s8(gen, probe_cuda, 256, 128), _s8(gen, probe_cuda, 128, 64, lo=-20, hi=21)
+    slab = _s8(gen, probe_cuda, 8, 64, 128)
+    for fn, plain, args in ((mosaic_caps.t1, mosaic_caps.t1_plain, (x,)),
+                            (mosaic_caps.t2, mosaic_caps.t2_plain, (x,)),
+                            (mosaic_caps.t3, lambda *a: int8_mm_probe.mm_plain(*a, 1), (x, w)),
+                            (mosaic_caps.t4, mosaic_caps.t4_plain, (slab,))):
+        got, want = fn(*args), plain(*args)
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    assert mosaic_caps.launches == {"t1": 1, "t2": 1, "t4": 1}
+    assert int8_mm_probe.launches["mm"] == 1
+
+
+def test_probe_kernels_reject_bad_inputs(probe_cuda):
+    gen = torch.Generator(device=probe_cuda).manual_seed(4)
+    for a_shape, b_shape in (((96, 64), (64, 64)),    # M not a multiple of 64
+                             ((64, 64), (64, 96)),    # N
+                             ((64, 48), (48, 64))):   # K not a multiple of 32
+        with pytest.raises(ValueError):
+            int8_mm_probe.mm(_s8(gen, probe_cuda, *a_shape), _s8(gen, probe_cuda, *b_shape), 1)
+    with pytest.raises(ValueError):  # K too long for shared memory
+        int8_mm_probe.mm(_s8(gen, probe_cuda, 64, 4096), _s8(gen, probe_cuda, 4096, 64), 1)
+    xp = _s8(gen, probe_cuda, 2, 10, 64, 32)
+    m = torch.full((1, 64), 0.001, device=probe_cuda)
+    with pytest.raises(ValueError):  # wmat [9C, N] for another C
+        int8_isolate.conv_like(xp, _s8(gen, probe_cuda, 9 * 16, 64), m, "full", 32)
+    with pytest.raises(ValueError):  # the width does not fit in xp's padded columns
+        int8_isolate.conv_like(xp, _s8(gen, probe_cuda, 9 * 32, 64), m, "full", 63)
+    with pytest.raises(ValueError):  # rows of t1 must be a multiple of 32 bytes
+        mosaic_caps.t1(_s8(gen, probe_cuda, 4, 48))
+    assert not any(int8_isolate.launches.values()) and not any(int8_mm_probe.launches.values())
+    assert not any(mosaic_caps.launches.values())

@@ -142,9 +142,10 @@ def test_embed_all_and_ranks_match_jax(rng, jax_state):
 
 
 def test_port_imports_no_jax():
-    """Every module of witw_tpu_torch, chip_smoke and the profile scripts import
-    with JAX and every witw_tpu module made unimportable, and none pulls in
-    flax, optax or the pandas/PIL deps of witw_tpu.data."""
+    """Every module of witw_tpu_torch (its exp probes included), chip_smoke
+    and the profile scripts import with JAX and every witw_tpu module made
+    unimportable, and none pulls in flax, optax, the pandas/PIL deps of
+    witw_tpu.data or the root exp scripts."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
@@ -154,7 +155,7 @@ def test_port_imports_no_jax():
             witw_tpu_torch.__path__, "witw_tpu_torch.")]
         for name in names + ["chip_smoke", "profile_int8", "profile_bf16"]:
             importlib.import_module(name)
-        banned = ("jax", "jaxlib", "flax", "optax", "pandas", "PIL", "witw_tpu")
+        banned = ("jax", "jaxlib", "flax", "optax", "pandas", "PIL", "witw_tpu", "exp")
         bad = sorted(m for m, mod in sys.modules.items()
                      if m.split(".")[0] in banned and mod is not None)
         assert not bad, bad
@@ -163,7 +164,7 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 25
+    assert int(out.stdout.split()[-1]) >= 39
 
 
 @pytest.mark.parametrize("make", [

@@ -3,12 +3,14 @@ its training, and its static-int8 serving path.
 
 The JAX package ``witw_tpu`` is the reference; this package mirrors its module
 layout and public names, keeps NHWC at public boundaries, and runs on an
-NVIDIA H100 (sm_90a) with five kernels written by hand in CUDA (``csrc/``):
-the fused correlation + chord-distance match, the bf16 3x3 conv + bias +
-ReLU of the bf16 towers, and for the static-int8 towers the int8 3x3 conv
-with its requant epilogue, the 2x2 max pool and VGG block 2 fused into one
-pass. Everything else is plain PyTorch (cuDNN for the stride-2 head convs
-and the backward, cuBLAS GEMMs, ``torch.fft``).
+NVIDIA H100 (sm_90a) with eight kernel libraries written by hand in CUDA
+(``csrc/``): the fused correlation + chord-distance match, the bf16 3x3
+conv + bias + ReLU of the bf16 towers, for the static-int8 towers the int8
+3x3 conv with its requant epilogue, the 2x2 max pool and VGG block 2 fused
+into one pass, and for the int8 profiling harness (``exp``) kernel A with
+stages removed, the ``mma.sync`` rate probe and the layout probes.
+Everything else is plain PyTorch (cuDNN for the stride-2 head convs and the
+backward, cuBLAS GEMMs, ``torch.fft``).
 
 - ``configs``    — the port's copy of witw_tpu's config dataclasses and the
                    FOV-DSM presets.
@@ -23,7 +25,9 @@ and the backward, cuBLAS GEMMs, ``torch.fft``).
 - ``evaluation`` — single-device gallery rank sweep and metrics.
 - ``train``      — the FOV pipeline (train, eval and embed steps), the
                    train/val loop, checkpoints, embed + test.
-- ``utils``      — device selection, the step timer.
+- ``utils``      — device selection, the step timer, CUDA-event timing.
+- ``exp``        — the int8 profiling harness, counterparts of the root
+                   ``exp/`` probes: ``python3 -m witw_tpu_torch.exp.<name>``.
 
 This package imports no JAX and no module of ``witw_tpu``. Its entry points
 run on the CUDA device unless the caller asks for the CPU.

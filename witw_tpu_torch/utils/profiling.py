@@ -1,12 +1,34 @@
 """Step-time / pairs-per-second counter (port of
-witw_tpu/utils/profiling.py:StepTimer). Host clock: on the card, a step's
-time is right only where the loop synchronizes once a step (the train loop
-fetches each loss one step late)."""
+witw_tpu/utils/profiling.py:StepTimer) and a device timer. Host clock: on
+the card, a step's time is right only where the loop synchronizes once a
+step (the train loop fetches each loss one step late). :func:`cuda_ms` times
+device work with CUDA events."""
 
 from __future__ import annotations
 
+import statistics
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
+
+import torch
+
+
+def cuda_ms(fn: Callable[[], object], calls: int, reps: int) -> float:
+    """Median device ms per call of ``fn`` over ``reps`` runs of ``calls``
+    calls each, CUDA events around each run, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
 
 
 class StepTimer:
