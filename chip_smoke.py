@@ -61,13 +61,15 @@ Phases, each of which passes or raises:
    stripped modes all zero; mm bit-equal at N 128 and 512, reps 1 and 2048
    (the int32 sum wraps); mmf bit-equal at reps 1 and within
    1024 * 2^-24 * max|y| at reps 1024 (the kernel sums each rep's dot in
-   another order); t1-t4 bit-equal.
+   another order), and bit-equal at reps 1 without its whole-dot pass;
+   t1-t4 bit-equal.
 17. The three entry points, witw_tpu_torch.exp.{int8_isolate,
    int8_mm_probe, mosaic_caps}.run(), each of which must raise the launch
    count of every kernel it reaches; then each kernel timed beside its plain
    version, the library call (cuBLAS: one product's device time, from a
    CUDA graph, x reps for the rate probes; sum, roll and clone for t1, t2,
-   t4) and its bound.
+   t4) and its bound. The layout probes are launch-bound: their kernel,
+   plain and library times are all device times from CUDA graphs.
 
 The launch counts are reset just before the path they count and read right
 after it: the fused match's and the conv kernel's before phase 4 and after
@@ -110,7 +112,7 @@ from witw_tpu_torch.train import loop
 from witw_tpu_torch.train.checkpoint import Checkpointer
 from witw_tpu_torch.train.pipeline import FovPipeline
 from witw_tpu_torch.utils.device import require_cuda
-from witw_tpu_torch.utils.profiling import cuda_ms
+from witw_tpu_torch.utils.profiling import cuda_ms, graph_ms
 
 RTOL, ATOL = 1e-5, 1e-6
 TIE_REL = 1e-5  # plain top-2 correlation gap under which a pair is a near tie
@@ -885,6 +887,10 @@ def probe_phases(card, device, built):
         if got.dtype != torch.float32 or not e <= tol:
             raise AssertionError(f"mmf disagrees with its plain version at reps {reps}")
         err["mm_bf16"] = max(err["mm_bf16"], e)
+    # without the whole-dot pass (int8_mm_probe.run times it): exact at reps 1
+    e = check_equal(f"mmf [{mp.M}x{mp.K}x{mp.N}] reps 1, tensor-core accumulation",
+                    mp.mm_kernel(ab, mp.pack_b(bb), 1, whole_dots=False), mp.mmf_plain(ab, bb, 1))
+    err["mm_bf16"] = max(err["mm_bf16"], e)
     x = torch.randint(-127, 128, (256, 128), generator=gen, device=device, dtype=torch.int8)
     w = torch.randint(-20, 21, (128, 64), generator=gen, device=device, dtype=torch.int8)
     slab = torch.randint(-127, 128, (8, 64, 128), generator=gen, device=device, dtype=torch.int8)
@@ -951,13 +957,12 @@ def probe_phases(card, device, built):
     caps_lib = {"t1": lambda x_: x_.view(x_.shape[0], 2, -1).sum(1, dtype=torch.int32),
                 "t2": lambda x_: torch.roll(x_, x_.shape[1] // 2, 1),
                 "t4": lambda x_: x_.reshape(-1, x_.shape[-1]).clone()}
-    caps_t = []
+    caps_t = []  # launch-bound: device time from CUDA graphs of 64 calls
     for name, (arg,) in caps_cases.items():
-        t_k, t_p = interleaved_ms(lambda: getattr(mosaic_caps, f"{name}_plain")(arg),
-                                  lambda: getattr(mosaic_caps, name)(arg), calls=20, reps=5)
-        caps_t.append((t_k, t_p, cuda_ms(lambda: caps_lib[name](arg), 20, 5)))
-        log(f"    {name} {tuple(arg.shape)}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, library "
-            f"{caps_t[-1][2]:.4f} ms ({card})")
+        caps_t.append(tuple(graph_ms(lambda f=f: f(arg)) for f in (
+            getattr(mosaic_caps, name), getattr(mosaic_caps, f"{name}_plain"), caps_lib[name])))
+        log(f"    {name} {tuple(arg.shape)}: kernel {caps_t[-1][0]:.4f} ms, plain "
+            f"{caps_t[-1][1]:.4f} ms, library {caps_t[-1][2]:.4f} ms (device time) ({card})")
     times["caps"] = tuple(sum(t[i] for t in caps_t) for i in range(3))
     caps_bytes = x.numel() * (1 + 2) + x.numel() * 2 + slab.numel() * 2  # t1 writes int32 halves
     bounds["caps"] = bound(0.0, caps_bytes, PEAK_INT8_PER_MS)

@@ -354,6 +354,20 @@ def test_mmf_matches_plain(probe_cuda):
     assert int8_mm_probe.launches["mmf"] == 2
 
 
+def test_mmf_without_whole_dots_exact_at_few_reps(probe_cuda):
+    """Accumulated straight in the tensor core (the rate probe's variant):
+    exact while every partial sum of the integer-valued inputs stays below
+    2^24."""
+    gen = torch.Generator(device=probe_cuda).manual_seed(2)
+    a = _s8(gen, probe_cuda, 2048, 1152).to(torch.bfloat16)
+    b = _s8(gen, probe_cuda, 1152, 128).to(torch.bfloat16)
+    for reps in (1, 8):
+        got = int8_mm_probe.mm_kernel(a, int8_mm_probe.pack_b(b), reps, whole_dots=False)
+        torch.cuda.synchronize()
+        assert torch.equal(got, int8_mm_probe.mmf_plain(a, b, reps))
+    assert int8_mm_probe.launches["mmf"] == 2
+
+
 def test_caps_match_plain(probe_cuda):
     gen = torch.Generator(device=probe_cuda).manual_seed(3)
     x, w = _s8(gen, probe_cuda, 256, 128), _s8(gen, probe_cuda, 128, 64, lo=-20, hi=21)

@@ -13,25 +13,53 @@ same numpy inputs as the JAX function under ``force_tpu_interpret_mode()``:
   every partial sum of the integer-valued bf16 inputs is exact in f32;
 - ``exp/mosaic_caps.py``'s four probes bit-equal, on the script's own inputs
   (its ``probe`` is replaced by a recorder while its ``main`` runs).
+
+The three scripts put an absolute checkout path first on ``sys.path`` and
+point JAX's compilation cache there when imported; the ``jax_exp`` fixture
+imports them and undoes both before anything compiles.
 """
 
+import importlib
+import sys
+import types
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
-import exp.int8_isolate as jax_isolate
-import exp.int8_mm_probe as jax_mm_probe
-import exp.mosaic_caps as jax_caps
 from witw_tpu_torch.exp import int8_isolate, int8_mm_probe, mosaic_caps
 
 SMALL = dict(B=2, H=16, W=32, C=32, N=64, WP8=64)
+_CACHE_DIR_AT_COLLECTION = jax.config.jax_compilation_cache_dir
 
 
 @pytest.fixture(scope="module")
-def isolate_case():
+def jax_exp():
+    """The root ``exp`` scripts ``int8_isolate``, ``int8_mm_probe`` and
+    ``mosaic_caps``, with ``sys.path`` and the compilation cache directory
+    restored to what they were before the import."""
+    path, cache_dir = list(sys.path), jax.config.jax_compilation_cache_dir
+    try:
+        mods = {name: importlib.import_module(f"exp.{name}")
+                for name in ("int8_isolate", "int8_mm_probe", "mosaic_caps")}
+    finally:
+        sys.path[:] = path
+        jax.config.update("jax_compilation_cache_dir", cache_dir)
+    return types.SimpleNamespace(**mods)
+
+
+def test_jax_exp_import_keeps_the_compilation_cache(jax_exp):
+    assert callable(jax_exp.int8_isolate.conv_like) and callable(jax_exp.mosaic_caps.main)
+    assert jax.config.jax_compilation_cache_dir == _CACHE_DIR_AT_COLLECTION
+
+
+@pytest.fixture(scope="module")
+def isolate_case(jax_exp):
     """Inputs at the shrunk shape and the JAX outputs of every mode."""
+    jax_isolate = jax_exp.int8_isolate
     rng = np.random.default_rng(0)
     b, h, w, c, n, wp8 = (SMALL[k] for k in ("B", "H", "W", "C", "N", "WP8"))
     xp = rng.integers(-127, 128, (b, h + 2, wp8, c), dtype=np.int64).astype(np.int8)
@@ -73,14 +101,14 @@ def _s8(rng, shape):
 
 
 @pytest.mark.parametrize("case", ["random-reps1", "random-reps3", "wraps"])
-def test_mm_bit_equal(case):
+def test_mm_bit_equal(jax_exp, case):
     rng = np.random.default_rng(1)
     if case == "wraps":  # 200 * 1152 * 127^2 = 3716121600 > 2^31 - 1
         a, b, reps = np.full((64, 1152), 127, np.int8), np.full((1152, 64), 127, np.int8), 200
     else:
         a, b, reps = _s8(rng, (64, 1152)), _s8(rng, (1152, 128)), int(case[-1])
     with pltpu.force_tpu_interpret_mode():
-        want = np.asarray(jax_mm_probe.mm(jnp.asarray(a), jnp.asarray(b), reps))
+        want = np.asarray(jax_exp.int8_mm_probe.mm(jnp.asarray(a), jnp.asarray(b), reps))
     got = int8_mm_probe.mm(torch.from_numpy(a), torch.from_numpy(b), reps).numpy()
     assert got.dtype == want.dtype == np.int32
     np.testing.assert_array_equal(got, want)
@@ -89,11 +117,11 @@ def test_mm_bit_equal(case):
 
 
 @pytest.mark.parametrize("reps", [1, 8])
-def test_mmf_bit_equal(reps):
+def test_mmf_bit_equal(jax_exp, reps):
     rng = np.random.default_rng(2)
     a, b = _s8(rng, (64, 1152)).astype(np.float32), _s8(rng, (1152, 64)).astype(np.float32)
     with pltpu.force_tpu_interpret_mode():
-        want = np.asarray(jax_mm_probe.mmf(jnp.asarray(a, jnp.bfloat16),
+        want = np.asarray(jax_exp.int8_mm_probe.mmf(jnp.asarray(a, jnp.bfloat16),
                                            jnp.asarray(b, jnp.bfloat16), reps))
     got = int8_mm_probe.mmf(torch.from_numpy(a).to(torch.bfloat16),
                             torch.from_numpy(b).to(torch.bfloat16), reps).numpy()
@@ -102,7 +130,7 @@ def test_mmf_bit_equal(reps):
 
 
 @pytest.fixture(scope="module")
-def caps_outputs():
+def caps_outputs(jax_exp):
     """{probe name: (numpy inputs, JAX output)} from the script's main()."""
     seen = {}
 
@@ -111,8 +139,8 @@ def caps_outputs():
         assert np.array_equal(seen[name][1], want)
 
     with pytest.MonkeyPatch.context() as mp, pltpu.force_tpu_interpret_mode():
-        mp.setattr(jax_caps, "probe", record)
-        jax_caps.main()
+        mp.setattr(jax_exp.mosaic_caps, "probe", record)
+        jax_exp.mosaic_caps.main()
     return seen
 
 

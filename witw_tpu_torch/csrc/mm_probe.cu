@@ -11,8 +11,11 @@
 // The TPU kernel keeps a and b resident in VMEM and its accumulator in
 // vregs across `reps` dots: it measures the matrix unit's rate. So does this
 // one. Bound: the tensor-core rate, 2 M K N reps operations (989 TFLOP/s
-// bf16, 1979 TOP/s int8 dense on an H100 SXM; mma.sync reaches only part of
-// it, wgmma the rest); a and b are read from device memory once.
+// bf16, 1979 TOP/s int8 dense on an H100 SXM); a and b are read from device
+// memory once. This tiling does not reach that bound: per k-step a warp
+// loads 4 ldmatrix.x4 (2 KB) for 8 mma, 16 FLOP (bf16) or 32 ops (s8) per
+// byte of shared-memory traffic, which at 128 bytes per clock per SM caps
+// it near half the peak. It measures this tiling, not mma.sync's ceiling.
 //
 // Design: one block of 8 warps per 32 x 32 output tile, so that M = 2048,
 // N = 128 gives 256 blocks for 132 SMs (a 64 x 128 tile would give 16). The
@@ -25,17 +28,20 @@
 // loads its fragments with ldmatrix.x4 one k-step ahead of the mma that use
 // them, and never re-reads device memory. s8: mma m16n8k32 with an s32
 // accumulator and no .satfinite, so the sum wraps mod 2^32 as the TPU's
-// int32 sum does. bf16: m16n8k16 with f32 accumulate; each rep's dot is
-// summed in a zeroed fragment and then added to the accumulator with one
-// IEEE rounding, as the TPU adds whole dots (the tensor core's own f32
-// accumulation does not round to nearest). At the end the 8 warps' partial
-// tiles are summed in warp order through shared memory and stored.
+// int32 sum does. bf16: m16n8k16 with f32 accumulate. With kWholeDots (the
+// default entry), each warp forms its share of each rep's dot in a zeroed
+// fragment and adds it to the accumulator with one round to nearest. The
+// order is not the TPU's (a sum over warps of sums over reps, not a sum of
+// whole dots), so the result is held to reps * 2^-24 * max|y|. The pass is
+// there because the tensor core's f32 sum truncates: accumulating straight
+// across reps (kWholeDots false) lands outside that bound at reps 128 and
+// 1024, at no measurable gain in rate (PERF.md). At the end the 8
+// warps' partial tiles are summed in warp order through shared memory.
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
 #include <cstdint>
-#include <type_traits>
 
 namespace {
 
@@ -123,7 +129,7 @@ __device__ __forceinline__ void warp_dot(Acc (&d)[2][4][4], const uint8_t* a_row
   }
 }
 
-template <typename Acc>
+template <typename Acc, bool kWholeDots>
 __global__ void __launch_bounds__(kThreads)
 mm_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ bt, Acc* __restrict__ out,
           int N, int k_bytes, int reps) {
@@ -155,7 +161,7 @@ mm_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ bt, Acc* __
 
   Acc acc[2][4][4] = {};
   for (int r = 0; r < reps; ++r) {
-    if constexpr (std::is_same_v<Acc, int>) {
+    if constexpr (!kWholeDots) {  // s8, or bf16 in the tensor core's truncating sum
       warp_dot(acc, a_row, b_row, stride, warp, n_steps);
     } else {
       Acc part[2][4][4] = {};
@@ -203,16 +209,16 @@ size_t smem_bytes(int k_bytes) {
   return operands > reduce ? operands : reduce;
 }
 
-template <typename Acc>
+template <typename Acc, bool kWholeDots>
 int launch(const void* a, const void* bt, void* out, int M, int N, int k_bytes, int reps,
            void* stream) {
   if (M <= 0 || N <= 0 || reps <= 0) return 0;
   const size_t smem = smem_bytes(k_bytes);  // more than a block may use: the attribute fails
   const cudaError_t e = cudaFuncSetAttribute(
-      mm_kernel<Acc>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      mm_kernel<Acc, kWholeDots>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(N / kTile, M / kTile);
-  mm_kernel<Acc><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  mm_kernel<Acc, kWholeDots><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(a), static_cast<const uint8_t*>(bt), static_cast<Acc*>(out), N,
       k_bytes, reps);
   return static_cast<int>(cudaGetLastError());
@@ -231,14 +237,16 @@ size_t witw_mm_probe_smem_bytes(int k_bytes) { return smem_bytes(k_bytes); }
 // and returns cudaGetLastError() (0 on success).
 int witw_mm_s8(const void* a, const void* bt, void* out, int M, int N, int K, int reps,
                void* stream) {
-  return launch<int>(a, bt, out, M, N, K, reps, stream);
+  return launch<int, false>(a, bt, out, M, N, K, reps, stream);
 }
 
 // a bf16 [M, K], bt bf16 [N, K] -> out f32 [M, N], the sum of reps copies
-// of a @ bt^T; the same conditions.
+// of a @ bt^T; the same conditions. whole_dots != 0 adds each rep's share
+// with one round to nearest; 0 accumulates in the tensor core throughout.
 int witw_mm_bf16(const void* a, const void* bt, void* out, int M, int N, int K, int reps,
-                 void* stream) {
-  return launch<float>(a, bt, out, M, N, 2 * K, reps, stream);
+                 int whole_dots, void* stream) {
+  return whole_dots ? launch<float, true>(a, bt, out, M, N, 2 * K, reps, stream)
+                    : launch<float, false>(a, bt, out, M, N, 2 * K, reps, stream);
 }
 
 const char* witw_cuda_error_string(int e) {

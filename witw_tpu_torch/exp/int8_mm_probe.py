@@ -31,7 +31,7 @@ import torch
 from witw_tpu_torch.exp import card
 from witw_tpu_torch.kernels.build import load_library
 from witw_tpu_torch.ops.launch import check_cuda_tensors, check_launch
-from witw_tpu_torch.utils.profiling import cuda_ms
+from witw_tpu_torch.utils.profiling import cuda_ms, graph_ms
 
 # Kernel launches since the last reset, per kernel (the card path's proof of use).
 launches = {"mm": 0, "mmf": 0}
@@ -79,18 +79,23 @@ def mmf_plain(a: torch.Tensor, b: torch.Tensor, reps: int) -> torch.Tensor:
 def _lib() -> ctypes.CDLL:
     lib = load_library("mm_probe")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.witw_mm_s8.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
+    lib.witw_mm_bf16.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
     for entry in (lib.witw_mm_s8, lib.witw_mm_bf16):
-        entry.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
         entry.restype = i32
     lib.witw_mm_probe_smem_bytes.argtypes = [i32]
     lib.witw_mm_probe_smem_bytes.restype = ctypes.c_size_t
     return lib
 
 
-def mm_kernel(a: torch.Tensor, bt: torch.Tensor, reps: int) -> torch.Tensor:
+def mm_kernel(a: torch.Tensor, bt: torch.Tensor, reps: int,
+              whole_dots: bool = True) -> torch.Tensor:
     """Launch the kernel: a [M, K] and bt [N, K] (:func:`pack_b`), both int8
     (-> int32 [M, N]) or both bfloat16 (-> float32). ValueError for an input
-    the kernel does not take."""
+    the kernel does not take. bf16 only: ``whole_dots`` adds each rep's dot
+    to the accumulator with one round to nearest, as the TPU adds whole
+    dots; False accumulates straight in the tensor core's f32 sum, which
+    truncates."""
     kinds = {torch.int8: ("mm", "witw_mm_s8", torch.int32),
              torch.bfloat16: ("mmf", "witw_mm_bf16", torch.float32)}
     if a.dtype != bt.dtype or a.dtype not in kinds:
@@ -113,8 +118,9 @@ def mm_kernel(a: torch.Tensor, bt: torch.Tensor, reps: int) -> torch.Tensor:
         raise ValueError(f"K={k} does not fit in shared memory ({smem} > {MAX_SMEM} bytes)")
     out = torch.empty((m, n), dtype=out_dtype, device=device)
     with torch.cuda.device(device):
+        extra = (int(whole_dots),) if name == "mmf" else ()
         err = getattr(lib, entry)(a.data_ptr(), bt.data_ptr(), out.data_ptr(), m, n, k, reps,
-                                  torch.cuda.current_stream(device).cuda_stream)
+                                  *extra, torch.cuda.current_stream(device).cuda_stream)
     check_launch(lib, err, entry)
     launches[name] += 1
     return out
@@ -134,36 +140,30 @@ def mmf(a: torch.Tensor, b: torch.Tensor, reps: int) -> torch.Tensor:
     return mm_kernel(a, pack_b(b), reps)
 
 
-def rate(a: torch.Tensor, bt: torch.Tensor, r_lo: int, r_hi: int) -> float:
+def rate(a: torch.Tensor, bt: torch.Tensor, r_lo: int, r_hi: int,
+         whole_dots: bool = True) -> float:
     """Tera-operations per second from the difference of two rep counts
     (as the TPU script, where it cancelled the dispatch and fetch)."""
-    t_lo = cuda_ms(lambda: mm_kernel(a, bt, r_lo), 1, 5)
-    t_hi = cuda_ms(lambda: mm_kernel(a, bt, r_hi), 1, 5)
+    t_lo = cuda_ms(lambda: mm_kernel(a, bt, r_lo, whole_dots), 1, 5)
+    t_hi = cuda_ms(lambda: mm_kernel(a, bt, r_hi, whole_dots), 1, 5)
     ops = 2.0 * a.shape[0] * a.shape[1] * bt.shape[0] * (r_hi - r_lo)
     return ops / max(t_hi - t_lo, 1e-9) / 1e9
 
 
-def library_ms(a: torch.Tensor, bt: torch.Tensor, products: int = 64) -> float:
+def library_ms(a: torch.Tensor, bt: torch.Tensor) -> float:
     """Device ms of one cuBLAS product a @ bt^T (``torch._int_mm`` for int8,
     bf16 ``torch.matmul`` with f32 accumulation and a bf16 result otherwise),
-    from a CUDA graph of ``products`` back-to-back products: one such product
-    takes less device time than the host takes to launch it."""
+    from a CUDA graph: one such product takes less device time than the host
+    takes to launch it."""
     lib_mm = torch._int_mm if a.dtype == torch.int8 else torch.matmul
-    side = torch.cuda.Stream(a.device)
-    side.wait_stream(torch.cuda.current_stream(a.device))
-    with torch.cuda.stream(side):  # cuBLAS picks its kernel before the capture
-        lib_mm(a, bt.t())
-    torch.cuda.current_stream(a.device).wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(products):
-            lib_mm(a, bt.t())
-    return cuda_ms(graph.replay, 1, 5) / products
+    return graph_ms(lambda: lib_mm(a, bt.t()))
 
 
 def run(device: Optional[torch.device] = None) -> Dict[str, float]:
-    """The TPU script's three rates on the card, each beside cuBLAS's:
-    {'s8 [MxKxN]': TOP/s, ..., 'library s8 [MxKxN]': TOP/s, ...}."""
+    """The TPU script's three rates on the card, each beside cuBLAS's, and
+    the bf16 rate without the whole-dot pass: {'s8 [MxKxN]': TOP/s, ...,
+    'library s8 [MxKxN]': TOP/s, ..., 'bf16 [MxKxN] tensor-core
+    accumulation': TFLOP/s}."""
     device = card(device)
     gen = torch.Generator(device=device).manual_seed(0)
 
@@ -182,6 +182,17 @@ def run(device: Optional[torch.device] = None) -> Dict[str, float]:
         out[f"library {key}"] = 2.0 * x.shape[0] * x.shape[1] * y.shape[0] / library_ms(x, y) / 1e9
         print(f"{kind} mm [{x.shape[0]}x{x.shape[1]}x{y.shape[0]}]: {out[key]:.1f} {unit}  "
               f"(library {out[f'library {key}']:.1f} {unit})", flush=True)
+    # The bf16 kernel without its whole-dot pass: the rate, and how far the
+    # tensor core's truncating f32 sum lands from whole dots added in order.
+    _, x, y, reps_bf16, unit = cases[2]
+    key = f"bf16 [{M}x{K}x{N}] tensor-core accumulation"
+    out[key] = rate(x, y, *reps_bf16, whole_dots=False)
+    reps = reps_bf16[1]
+    want = mmf_plain(x, y.t(), reps)
+    err = [float((mm_kernel(x, y, reps, wd) - want).abs().max()) for wd in (True, False)]
+    print(f"bf16 mm [{M}x{K}x{N}] accumulated in the tensor core: {out[key]:.1f} {unit}  "
+          f"(max error at reps {reps}: {err[1]:.4e}; whole dots {err[0]:.4e}; tolerance "
+          f"{reps * 2.0 ** -24 * float(want.abs().max()):.4e})", flush=True)
     return out
 
 

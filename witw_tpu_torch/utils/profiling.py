@@ -2,7 +2,7 @@
 witw_tpu/utils/profiling.py:StepTimer) and a device timer. Host clock: on
 the card, a step's time is right only where the loop synchronizes once a
 step (the train loop fetches each loss one step late). :func:`cuda_ms` times
-device work with CUDA events."""
+device work with CUDA events, :func:`graph_ms` launch-bound work."""
 
 from __future__ import annotations
 
@@ -29,6 +29,23 @@ def cuda_ms(fn: Callable[[], object], calls: int, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
+
+
+def graph_ms(fn: Callable[[], object], calls: int = 64, reps: int = 5) -> float:
+    """Device ms per call of ``fn`` from a CUDA graph of ``calls``
+    back-to-back calls (median of ``reps`` replays): for work that takes less
+    device time than the host takes to launch it. ``fn`` runs once on a side
+    stream first, so that library calls pick their kernels before capture."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return cuda_ms(graph.replay, 1, reps) / calls
 
 
 class StepTimer:
