@@ -34,11 +34,14 @@ Phases, each of which passes or raises:
 10. Time int8 embed+match pairs/s and each int8 kernel against its plain
    version at the main path's shapes (batch 128).
 11. The bf16 conv + bias + ReLU kernel (conv3x3_bf16, built in phase 2):
-   print ptxas' lines.
+   print ptxas' lines, failing on any spill, and the HGMMA (wgmma), LDSM
+   and HMMA counts of each of its kernels' SASS (cuobjdump), failing where
+   a kernel has no HGMMA.
 12. Hold it against its plain PyTorch version at every distinct conv shape
    of both bf16 towers at full CVUSA geometry (fov 360 and 90, zero and
    circular, as the towers run it and with ReLU flipped at batch 2) at batch
-   2, 64 and 128, plus ragged cases: every output within one bf16 ulp, plus
+   2, 64 and 128, plus ragged cases and the tiling's edges (W 16 and 66, Co
+   16 and 72, Cin 40, circular at W < 64): every output within one bf16 ulp, plus
    the f32 sums' order bound where a sum cancels; print the bit-equal share. Autograd gradients through the kernel against those
    through the plain version at [2, 32, 64, 64] -> 64 (rtol 1e-2).
 13. FOV training at full width: train.loop.train on fov_experiment("cvusa",
@@ -49,9 +52,9 @@ Phases, each of which passes or raises:
    trained bf16 towers on the card (kernel) against the CPU (plain) on 2
    full-geometry samples.
 14. Timing: train-step pairs/s at batch 64, and per conv shape of the
-   towers at batch 128 the kernel's ms beside its plain version's, the
-   library call's (torch.cudnn_convolution_relu, or F.conv2d without ReLU)
-   and the bound max(FLOP / 989 TFLOP/s, bytes / 3.35 TB/s).
+   towers at batch 128 the kernel's ms and TFLOP/s beside its plain
+   version's, the library call's (torch.cudnn_convolution_relu, or F.conv2d
+   without ReLU) and the bound max(FLOP / 989 TFLOP/s, bytes / 3.35 TB/s).
 15. The int8 profiling harness's kernels (conv_like, the mma.sync rate
    probe, the layout probes; built in phase 2): print ptxas' lines and the
    IDP.4A count of each conv_like mode's SASS (cuobjdump), failing where a
@@ -88,6 +91,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import shutil
 import statistics
 import subprocess
@@ -607,6 +611,19 @@ def conv_phases(card, device, cfg, built):
     # 11. the conv kernel, built in phase 2
     log(f"[11] {built['conv3x3_bf16'][0].name} (built in phase 2)")
     print_ptxas(built["conv3x3_bf16"][1])
+    conv_log = built["conv3x3_bf16"][1].splitlines()
+    for line in conv_log:
+        if "warning" in line.lower():
+            log("    " + line.strip())
+    spills = [line.strip() for line in conv_log
+              if re.search(r"[1-9]\d* bytes spill (stores|loads)", line)]
+    if spills:
+        raise AssertionError(f"conv3x3_bf16 spills registers: {spills}")
+    hgmma = sass_counts(built["conv3x3_bf16"][0], ("HGMMA", "LDSM", "HMMA"))
+    for fn, counts in hgmma.items():
+        log(f"    SASS {fn}: {counts}")
+    if not hgmma or not all(c["HGMMA"] > 0 for c in hgmma.values()):
+        raise AssertionError(f"conv3x3_bf16 has a kernel without HGMMA (wgmma): {hgmma}")
 
     # 12. kernel vs plain at every conv shape of both bf16 towers
     log("[12] conv3x3_bf16 vs plain PyTorch at every bf16 tower conv shape, batch 2, 64 and "
@@ -619,6 +636,10 @@ def conv_phases(card, device, cfg, built):
     cases += [(2, h, w, cin, co, circ, not relu) for h, w, cin, co, circ, relu in shapes]
     cases += [(1, 7, 9, 5, 24, False, True), (3, 9, 1, 16, 8, True, True),
               (2, 17, 33, 40, 72, True, False)]  # ragged: odd dims, Co tails, W = 1
+    cases += [(2, 16, 16, 256, 128, False, True), (1, 5, 66, 64, 64, False, True),
+              (2, 4, 64, 64, 16, True, False), (2, 6, 20, 40, 16, False, True),
+              (2, 11, 24, 64, 72, True, True), (1, 2, 48, 128, 256, True, True)]
+    # the tiling's edges: W = 16 and 66, Co 16 and 72, Cin 40, circular at W < 64
     gen = torch.Generator(device=device).manual_seed(12)
     max_err = max_ulps = max_beyond = 0.0
     equal = []
@@ -775,7 +796,8 @@ def conv_phases(card, device, cfg, built):
         per_shape.append((circ, t_k, t_p, t_lib, t_b, by))
         log(f"    B=128 HWC=({h}, {w}, {cin}) Co={co} circular={circ} relu={relu}: kernel "
             f"{t_k:.4f} ms ({flop / t_k / 1e9:.1f} TFLOP/s), plain {t_p:.4f} ms, library "
-            f"{t_lib:.4f} ms, bound {t_b:.4f} ms ({by}) ({card})")
+            f"{t_lib:.4f} ms ({flop / t_lib / 1e9:.1f} TFLOP/s), bound {t_b:.4f} ms ({by}) "
+            f"({card})")
         del x, packed
     surf = [r for r in per_shape if not r[0]]
     t_k, t_p, t_lib, t_b = (sum(r[i] for r in surf) for i in range(1, 5))

@@ -12,7 +12,8 @@ CUDA kernel is held against on the card) is run against
   differently before the cast.
 Then the circular form against the towers' block halo, the bf16 towers on
 the new route against the flax bf16 towers, the autograd Function's
-gradients against autograd through the plain version, and the dropout mask.
+gradients against autograd through the plain version, the dropout mask, and
+the kernel's packed weight layout and tile choice.
 """
 
 import jax
@@ -172,10 +173,49 @@ def test_dropout_masks_whole_channels_from_the_generator():
         vgg16.dropout2d(x, 0.25, None)
 
 
-def test_pack_weights_pads_cin_to_16():
-    w = torch.randn(64, 5, 3, 3)
+@pytest.mark.parametrize("co", [16, 72, 128])
+@pytest.mark.parametrize("cin", [3, 5, 40, 64, 512])
+def test_pack_weights_round_trips_and_zero_pads(rng, cin, co):
+    """unpack_weights gives back the bf16 OIHW weights bit for bit, and every
+    slot that pack_weights adds (Cin to a multiple of 16, Co to a multiple of
+    the channel tile) is zero."""
+    w = torch.from_numpy(rng.standard_normal((co, cin, 3, 3)).astype(np.float32))
     p = conv3x3.pack_weights(w)
-    assert p.shape == (64, 3, 3, 16) and p.dtype == torch.bfloat16 and p.is_contiguous()
-    assert torch.equal(p[..., :5], w.to(torch.bfloat16).permute(0, 2, 3, 1))
-    assert not p[..., 5:].any()
+    n = conv3x3.tile_n(co)
+    assert p.dtype == torch.bfloat16 and p.is_contiguous()
+    assert p.shape == (-(-co // n), 9 * conv3x3.padded_channels(cin) * n)
+    assert torch.equal(conv3x3.unpack_weights(p, co, cin), w.to(torch.bfloat16))
+    ones = conv3x3.pack_weights(torch.ones(co, cin, 3, 3))
+    assert int(ones.count_nonzero()) == co * cin * 9 == int(ones.float().sum())
+
+
+def test_pack_weights_follows_the_descriptor_order(rng):
+    """Element (o, ci, dy, dx) sits where the kernel's wgmma B descriptor
+    reads it: channel tile o // N; then 9 x 32 N per earlier 32-channel step;
+    N x 16 per earlier (tap, k16 step) of its own step; 64 per earlier core
+    matrix (two k halves per group of 8 channels); 8 per row; ci % 8."""
+    co, cin = 72, 40  # N 128, Cin_p 48: one full step and a one-k16 tail
+    w = torch.from_numpy(rng.standard_normal((co, cin, 3, 3)).astype(np.float32))
+    p = conv3x3.pack_weights(w)
+    n, cin_p = conv3x3.tile_n(co), conv3x3.padded_channels(cin)
+    assert (n, cin_p) == (128, 48)
+    for o in range(co):
+        for ci in range(cin):
+            k0 = ci // 32 * 32
+            ks = min(2, (cin_p - k0) // 16)
+            s, kg, o_n = (ci - k0) // 16, ci % 16 // 8, o % n
+            for tap in range(9):
+                at = (9 * k0 * n + (tap * ks + s) * n * 16 + (o_n // 8 * 2 + kg) * 64
+                      + o_n % 8 * 8 + ci % 8)
+                assert p[o // n, at] == w[o, ci, tap // 3, tap % 3].to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("h,w,tile", [
+    (128, 512, (8, 16)), (16, 64, (8, 16)), (16, 16, (8, 16)),  # tower shapes, fov 360 / 90
+    (4, 64, (4, 32)),  # conv_27
+    (9, 1, (16, 8)), (2, 130, (2, 64)),
+])
+def test_tile_shape_pads_least(h, w, tile):
+    assert conv3x3.tile_shape(h, w) == tile
     assert conv3x3.padded_channels(3) == 16 and conv3x3.padded_channels(512) == 512
+    assert [conv3x3.tile_n(c) for c in (8, 16, 24, 64, 72, 128, 512)] == [16, 16, 64, 64, 128, 128, 128]

@@ -1,39 +1,40 @@
-// bf16 3x3 stride-1 convolution + bias (+ReLU) on the tensor cores, for
-// Hopper (sm_90a).
+// bf16 3x3 stride-1 convolution + bias (+ReLU) on Hopper's warpgroup tensor
+// cores (wgmma), for sm_90a.
 //
 // Replaces the Pallas TPU kernels exp/pallas_conv3x3.py:conv3x3_bias_relu
 // (NHWC, zero or circular width padding) and
 // exp/pallas_conv3x3.py:conv3x3_bias_relu_cw (the same function in the
-// TPU-lane layout [B, H, C, W]). For x bf16 [B, H, W, Cin] (NHWC), packed
-// weights bf16 [Co, 3, 3, Cin_p] (Cin zero-padded to a multiple of 16) and
-// bias f32 [Co]:
+// TPU-lane layout [B, H, C, W]). For x bf16 [B, H, W, Cin] (NHWC), weights
+// packed by ops/conv3x3.py:pack_weights and bias f32 [Co]:
 //
-//   acc[b, r, c, o] = sum_{dy, dx, ci} x[b, r + dy - 1, c + dx - 1, ci] * w[o, dy, dx, ci]
+//   acc[b, r, c, o] = sum_{dy, dx, ci} x[b, r + dy - 1, c + dx - 1, ci] * w[o, ci, dy, dx]
 //   y = bf16_rn(max(acc + bias[o], 0))          (f32 accumulation, one rounding)
 //
 // with the height zero-padded by 1, and the width zero-padded by 1 or, with
 // `circular`, read modulo W (the overhead tower's wrapping panorama).
 //
-// Bound: at the towers' shapes the tensor-core rate (9 * Cin multiply-adds
-// per output element against 2 bytes of output and 2 * Cin / 9 bytes of
-// input, per pixel: far above the 295 FLOP per byte where an H100 turns
-// compute-bound in bf16). The separate bias and ReLU passes that PyTorch
-// runs after cuDNN's conv are memory passes; here they are the epilogue.
+// Design: an implicit GEMM, M = 128 output pixels of one image, N = one tile
+// of output channels (128, 64 or 16), K = 9 taps x Cin_p (Cin rounded up to
+// 16) streamed 32 input channels per step. Two warpgroups each own 64 pixels
+// x N channels in registers and issue wgmma.mma_async m64nNk16 (bf16 in, f32
+// accumulate) with A from registers and B from shared memory:
+// - A (the input): each step stages the tile's halo, (TR + 2) x (TC + 2)
+//   pixels x 32 channels, zero outside the image and past Cin, columns mod W
+//   when circular. The tile is TR x TC = 128 pixels, TC in {8, 16, 32, 64}
+//   chosen by the wrapper for the least padding at the layer's H, W. A pixel
+//   takes 80 bytes (64 of channels, 16 of padding), so the 8 row addresses of
+//   an ldmatrix.x4 (8 consecutive pixels) hit 8 distinct 16-byte bank groups.
+//   Tap (dy, dx) shifts each lane's row address by dy (TC + 2) + dx pixels:
+//   the patch matrix never exists.
+// - B (the weights): pack_weights stores each (channel tile, 32-channel step)
+//   in the order that the no-swizzle K-major wgmma descriptor reads: per (tap,
+//   k16 step), N / 8 groups of two 8 x 8 core matrices of 128 contiguous bytes
+//   (LBO 128 B between the two k halves, SBO 256 B between groups of 8
+//   channels). The step's weights are one contiguous block of 576 N bytes.
+// The epilogue adds the bias in f32, applies ReLU, rounds once to bf16,
+// stages the 128 x N tile in shared memory and writes it with 16-byte stores.
 //
-// Design: an implicit GEMM through mma.sync m16n8k16 (bf16 in, f32
-// accumulate). One block of 8 warps per (8 x 16 output pixels, 64 output
-// channels, image): M = 128 pixels, N = 64 channels, K = 9 * Cin_p streamed
-// 32 input channels at a time. Each step stages the tile's input halo
-// (10 x 18 pixels x 32 channels, zero outside the image and past Cin; its
-// columns taken mod W when circular) and the weight chunk [64][9][32] in
-// shared memory, with row strides padded so that the fragment loads of a
-// warp hit 32 distinct banks. Warp w computes tile rows 2 (w % 4) and
-// 2 (w % 4) + 1 against channels 32 (w / 4) .. +31: 2 x 4 mma tiles, 9 taps
-// x 2 k16 steps per chunk. The epilogue adds the bias in f32, applies ReLU,
-// rounds once to bf16, stages the 128 x 64 tile in shared memory and
-// writes it with 16-byte stores. Cin 3 or 5 (conv1_1) runs as 16 channels,
-// the padding's products wasted. No cp.async or TMA pipelining yet: loads
-// and mma alternate (later work: wgmma and TMA).
+// Loads: one stage, synchronous (the block stages a step, then computes it).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -43,70 +44,151 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTileRows = 8;
-constexpr int kTileCols = 16;
-constexpr int kTileCo = 64;
-constexpr int kChunk = 32;                        // input channels per step
-constexpr int kXRows = kTileRows + 2;
-constexpr int kXCols = kTileCols + 2;
-constexpr int kXPixWords = kChunk / 2 + 4;        // 16 words of data + 4 of padding
-constexpr int kXWords = kXRows * kXCols * kXPixWords;
-constexpr int kWCoWords = 9 * kChunk / 2 + 4;     // 144 words of data + 4 of padding
-constexpr int kWWords = kTileCo * kWCoWords;
-constexpr int kOutPixWords = kTileCo / 2 + 4;     // epilogue staging: 32 + 4
-constexpr int kOutWords = kTileRows * kTileCols * kOutPixWords;
-constexpr size_t kSmemBytes = sizeof(uint32_t) * (kXWords + kWWords);
-static_assert(kOutWords <= kWWords, "the epilogue reuses the weight buffer");
+constexpr int kThreads = 256;       // two warpgroups
+constexpr int kTilePix = 128;       // output pixels per block, 64 per warpgroup
+constexpr int kChunk = 32;          // input channels per step
+constexpr int kPixBytes = 80;       // a halo pixel: 32 channels + 16 bytes of padding
+constexpr int kHaloMaxPix = 4 * 66; // the largest halo, TR x TC = 2 x 64
+constexpr int kHaloBytes = kHaloMaxPix * kPixBytes;
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+template <int N>
+struct Tile {
+  static constexpr int kWBytes = 9 * kChunk * N * 2;   // one step's weights
+  static constexpr int kOutStride = N + 8;             // staged output pixel, in bf16
+  static constexpr size_t kSmemBytes = kWBytes + kHaloBytes;
+  static_assert(kTilePix * kOutStride * 2 <= kWBytes + kHaloBytes, "epilogue staging fits");
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// No-swizzle K-major matrix descriptor: start address, LBO 128 B (the next
+// core matrix along K), SBO 256 B (the next 8 rows of N).
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(128 >> 4) << 16) |
+         (static_cast<uint64_t>(256 >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int Pending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(Pending) : "memory");
+}
+// Keeps the compiler from moving register uses across a wgmma wait.
+__device__ __forceinline__ void fence_operand(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+
+// d[64 x N] += a[64 x 16] (registers, the m16n8k16 A fragment per warp) * b[16 x N]
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <int N>
+__global__ void __launch_bounds__(kThreads, 1)
 conv3x3_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
                     const float* __restrict__ bias, __nv_bfloat16* __restrict__ out, int H, int W,
-                    int Cin, int cin_p, int Co, int circular, int relu) {
-  extern __shared__ __align__(16) uint32_t smem[];
-  uint32_t* xs = smem;            // [10][18][20 words]: 32 channels + padding per pixel
-  uint32_t* ws = smem + kXWords;  // [64 co][148 words]: [9 taps][32 channels] + padding
+                    int Cin, int cin_p, int Co, int tc_log2, int tiles_x, int circular, int relu) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* ws = smem;                       // one step's weights, pack_weights' order
+  unsigned char* xs = smem + Tile<N>::kWBytes;    // the halo: [pixel][80 bytes]
 
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
-  const int group = lane / 4;  // mma row (A, C) / column (B) within a fragment
-  const int tig = lane % 4;    // thread in group
-  const int wm = warp % 4;     // tile rows 2 wm, 2 wm + 1
-  const int wn = warp / 4;     // channels 32 wn .. 32 wn + 31
-  const int co_tiles = (Co + kTileCo - 1) / kTileCo;
-  const int b = blockIdx.z / co_tiles;
-  const int co0 = (blockIdx.z % co_tiles) * kTileCo;
-  const int r0 = blockIdx.y * kTileRows;
-  const int c0 = blockIdx.x * kTileCols;
+  const int tc = 1 << tc_log2;
+  const int tr = kTilePix >> tc_log2;
+  const int hc = tc + 2;  // halo columns
+  const int halo_pix = (tr + 2) * hc;
+  const int co0 = blockIdx.x * N;
+  const int r0 = (blockIdx.y / tiles_x) * tr;
+  const int c0 = (blockIdx.y % tiles_x) * tc;
+  const int b = blockIdx.z;
   const bool vec_x = (Cin % 8) == 0;
+  const __nv_bfloat16* wt = w + static_cast<size_t>(blockIdx.x) * 9 * cin_p * N;
 
-  float acc[2][4][4];
+  // This lane's ldmatrix row: pixel m of the tile, 8 channels at 16 k_half.
+  const int m = 64 * (warp / 4) + 16 * (warp % 4) + (lane & 7) + 8 * ((lane >> 3) & 1);
+  const uint32_t a_lane = smem_addr(xs) +
+                          ((m >> tc_log2) * hc + (m & (tc - 1))) * kPixBytes + 16 * (lane >> 4);
+
+  float acc[N / 2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[i][j][k] = 0.f;
-    }
-  }
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
 
   for (int k0 = 0; k0 < cin_p; k0 += kChunk) {
-    __syncthreads();  // the previous chunk is consumed
-    // Input halo: 180 pixels x 4 groups of 8 channels.
-    for (int i = tid; i < kXRows * kXCols * 4; i += kThreads) {
-      const int q = i % 4;
-      const int pix = i / 4;
-      const int gr = r0 - 1 + pix / kXCols;
-      int gc = c0 - 1 + pix % kXCols;
+    const int ks = min(2, (cin_p - k0) / 16);  // k16 steps in this chunk
+    __syncthreads();  // the previous step is consumed
+    // Weights: 9 x ks x N x 16 bf16, contiguous in the packed tensor.
+    {
+      const uint4* src = reinterpret_cast<const uint4*>(wt + static_cast<size_t>(9) * k0 * N);
+      uint4* dst = reinterpret_cast<uint4*>(ws);
+      for (int i = tid; i < 9 * ks * N * 2; i += kThreads) dst[i] = src[i];
+    }
+    // Halo: halo_pix pixels x 2 ks groups of 8 channels.
+    for (int i = tid; i < halo_pix * 2 * ks; i += kThreads) {
+      const int q = i % (2 * ks);
+      const int pix = i / (2 * ks);
+      const int gr = r0 - 1 + pix / hc;
+      int gc = c0 - 1 + pix % hc;
       bool ok = gr >= 0 && gr < H;
       if (circular) {
         gc = ((gc % W) + W) % W;
@@ -126,114 +208,109 @@ conv3x3_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __
           v = *reinterpret_cast<const uint4*>(e);
         }
       }
-      *reinterpret_cast<uint4*>(xs + pix * kXPixWords + 4 * q) = v;
+      *reinterpret_cast<uint4*>(xs + pix * kPixBytes + 16 * q) = v;
     }
-    // Weight chunk: 64 co x 9 taps x 4 groups of 8 channels.
-    for (int i = tid; i < kTileCo * 9 * 4; i += kThreads) {
-      const int q = i % 4;
-      const int t = (i / 4) % 9;
-      const int co = i / 36;
-      const int ch = k0 + 8 * q;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (co0 + co < Co && ch < cin_p) {
-        v = *reinterpret_cast<const uint4*>(w + (static_cast<size_t>(co0 + co) * 9 + t) * cin_p + ch);
-      }
-      *reinterpret_cast<uint4*>(ws + co * kWCoWords + t * (kChunk / 2) + 4 * q) = v;
-    }
+    // The weights are read by wgmma through the async proxy.
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
 
-    const int ksteps = min(2, (cin_p - k0) / 16);
+    const uint32_t w_base = smem_addr(ws);
+    uint32_t a[2][2][4];  // [tap parity][k16 step]: a tap's registers stay live while its wgmma runs
 #pragma unroll
     for (int tap = 0; tap < 9; ++tap) {
-      const int dy = tap / 3;
-      const int dx = tap % 3;
-      for (int s = 0; s < ksteps; ++s) {
-        uint32_t a[2][4];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int row = 2 * wm + i + dy;
-          const uint32_t* p0 = xs + (row * kXCols + group + dx) * kXPixWords + 8 * s + tig;
-          const uint32_t* p1 = p0 + 8 * kXPixWords;  // pixel column group + 8
-          a[i][0] = p0[0];
-          a[i][1] = p1[0];
-          a[i][2] = p0[4];
-          a[i][3] = p1[4];
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const uint32_t* pb = ws + (32 * wn + 8 * j + group) * kWCoWords + tap * (kChunk / 2) + 8 * s + tig;
-          const uint32_t bf[2] = {pb[0], pb[4]};
-#pragma unroll
-          for (int i = 0; i < 2; ++i) mma_bf16(acc[i][j], a[i], bf);
-        }
-      }
+      const uint32_t shift = ((tap / 3) * hc + tap % 3) * kPixBytes;
+      ldmatrix_x4(a[tap & 1][0], a_lane + shift);
+      if (ks == 2) ldmatrix_x4(a[tap & 1][1], a_lane + shift + 32);
+      wgmma_fence();
+      wgmma_rs<N>(acc, a[tap & 1][0], b_desc(w_base + (tap * ks) * N * 32));
+      if (ks == 2) wgmma_rs<N>(acc, a[tap & 1][1], b_desc(w_base + (tap * ks + 1) * N * 32));
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous tap is done: its registers may be reloaded
     }
+    wgmma_wait<0>();
   }
-
-  // Epilogue: bias, ReLU, one rounding, staged for 16-byte stores.
-  __syncthreads();  // every warp is done with ws
-  uint32_t* os = ws;  // [128 pixels][36 words]
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int n = 32 * wn + 8 * j + 2 * tig;
+  for (int i = 0; i < N / 2; ++i) fence_operand(acc[i]);
+
+  // Epilogue: bias, ReLU, one rounding, staged for 16-byte stores. Thread
+  // (warp, lane) holds rows g and g + 8 of its warp's 16 and, per 8-channel
+  // group j, channels 8 j + 2 t and + 1 (g = lane / 4, t = lane % 4).
+  __syncthreads();  // every warp is done with the step's shared memory
+  __nv_bfloat16* os = reinterpret_cast<__nv_bfloat16*>(smem);  // [128 pixels][N + 8]
+  const int g = lane / 4;
+  const int t = lane % 4;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int n = 8 * j + 2 * t;
     const float b0 = (co0 + n < Co) ? bias[co0 + n] : 0.f;
     const float b1 = (co0 + n + 1 < Co) ? bias[co0 + n + 1] : 0.f;
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {  // pixel column group, group + 8
-        float y0 = __fadd_rn(acc[i][j][2 * h], b0);
-        float y1 = __fadd_rn(acc[i][j][2 * h + 1], b1);
-        if (relu) {
-          y0 = fmaxf(y0, 0.f);
-          y1 = fmaxf(y1, 0.f);
-        }
-        const __nv_bfloat162 v = __halves2bfloat162(__float2bfloat16_rn(y0), __float2bfloat16_rn(y1));
-        const int pix = (2 * wm + i) * kTileCols + group + 8 * h;
-        os[pix * kOutPixWords + n / 2] = *reinterpret_cast<const uint32_t*>(&v);
+    for (int h = 0; h < 2; ++h) {
+      float y0 = __fadd_rn(acc[4 * j + 2 * h], b0);
+      float y1 = __fadd_rn(acc[4 * j + 2 * h + 1], b1);
+      if (relu) {
+        y0 = fmaxf(y0, 0.f);
+        y1 = fmaxf(y1, 0.f);
       }
+      const int pix = 64 * (warp / 4) + 16 * (warp % 4) + g + 8 * h;
+      *reinterpret_cast<__nv_bfloat162*>(os + pix * Tile<N>::kOutStride + n) =
+          __halves2bfloat162(__float2bfloat16_rn(y0), __float2bfloat16_rn(y1));
     }
   }
   __syncthreads();
-  for (int i = tid; i < kTileRows * kTileCols * (kTileCo / 8); i += kThreads) {
-    const int q = i % (kTileCo / 8);
-    const int pix = i / (kTileCo / 8);
-    const int r = r0 + pix / kTileCols;
-    const int c = c0 + pix % kTileCols;
+  for (int i = tid; i < kTilePix * (N / 8); i += kThreads) {
+    const int q = i % (N / 8);
+    const int pix = i / (N / 8);
+    const int r = r0 + (pix >> tc_log2);
+    const int c = c0 + (pix & (tc - 1));
     const int co = co0 + 8 * q;
     if (r < H && c < W && co < Co) {  // Co % 8 == 0: a group is all in or all out
       *reinterpret_cast<uint4*>(out + ((static_cast<size_t>(b) * H + r) * W + c) * Co + co) =
-          *reinterpret_cast<const uint4*>(os + pix * kOutPixWords + 4 * q);
+          *reinterpret_cast<const uint4*>(os + pix * Tile<N>::kOutStride + 8 * q);
     }
   }
+}
+
+template <int N>
+int launch(const void* x, const void* w, const void* bias, void* out, int B, int H, int W, int Cin,
+           int cin_p, int Co, int tc_log2, int circular, int relu, cudaStream_t stream) {
+  const cudaError_t e = cudaFuncSetAttribute(conv3x3_bf16_kernel<N>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             static_cast<int>(Tile<N>::kSmemBytes));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int tc = 1 << tc_log2;
+  const int tr = kTilePix / tc;
+  const int tiles_x = (W + tc - 1) / tc;
+  const dim3 grid((Co + N - 1) / N, ((H + tr - 1) / tr) * tiles_x, B);
+  conv3x3_bf16_kernel<N><<<grid, kThreads, Tile<N>::kSmemBytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
+      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out), H, W, Cin, cin_p, Co,
+      tc_log2, tiles_x, circular, relu);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory of one block, in bytes.
-size_t witw_conv3x3_bf16_smem_bytes() { return kSmemBytes; }
-
-// x bf16 [B, H, W, Cin]; w bf16 [Co, 3, 3, cin_p] with cin_p = Cin rounded
-// up to a multiple of 16 (zeros past Cin); bias f32 [Co]; out bf16
-// [B, H, W, Co]. Co % 8 == 0; all contiguous and 16-byte aligned (checked by
-// ops/conv3x3.py). Launches on `stream` and returns cudaGetLastError() (0 on
-// success).
+// x bf16 [B, H, W, Cin]; w bf16 from pack_weights for a channel tile of
+// tile_n (128, 64 or 16) and cin_p = Cin rounded up to a multiple of 16;
+// bias f32 [Co]; out bf16 [B, H, W, Co]. Co % 8 == 0; the output tile is
+// (128 >> tc_log2) x (1 << tc_log2) pixels, tc_log2 in 3..6; all contiguous
+// and 16-byte aligned (checked by ops/conv3x3.py). Launches on `stream` and
+// returns cudaGetLastError() (0 on success).
 int witw_conv3x3_bf16(const void* x, const void* w, const void* bias, void* out, int B, int H,
-                      int W, int Cin, int cin_p, int Co, int circular, int relu, void* stream) {
+                      int W, int Cin, int cin_p, int Co, int tile_n, int tc_log2, int circular,
+                      int relu, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || Co <= 0) return 0;
-  const cudaError_t e = cudaFuncSetAttribute(
-      conv3x3_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmemBytes));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((W + kTileCols - 1) / kTileCols, (H + kTileRows - 1) / kTileRows,
-                  B * ((Co + kTileCo - 1) / kTileCo));
-  conv3x3_bf16_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out), H, W, Cin, cin_p, Co,
-      circular, relu);
-  return static_cast<int>(cudaGetLastError());
+  if (tc_log2 < 3 || tc_log2 > 6) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (tile_n) {
+    case 128: return launch<128>(x, w, bias, out, B, H, W, Cin, cin_p, Co, tc_log2, circular, relu, s);
+    case 64: return launch<64>(x, w, bias, out, B, H, W, Cin, cin_p, Co, tc_log2, circular, relu, s);
+    case 16: return launch<16>(x, w, bias, out, B, H, W, Cin, cin_p, Co, tc_log2, circular, relu, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 const char* witw_cuda_error_string(int e) {

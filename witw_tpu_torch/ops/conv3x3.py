@@ -11,11 +11,14 @@ x is NHWC [B, H, W, Cin]; the weight is torch's OIHW [Co, Cin, 3, 3] (the
 towers' parameter layout); bias [Co] is added in f32. The height is
 zero-padded by 1; the width zero-padded by 1, or wrapped (``circular``).
 
-The kernel is an implicit GEMM on the tensor cores (``mma.sync`` m16n8k16,
-bf16 in, f32 accumulate) over 8 x 16 pixel x 64 channel tiles, bound by the
-tensor-core rate at the towers' shapes; the bias and ReLU that PyTorch runs
-as two memory passes after cuDNN's conv are its epilogue. Cin is computed
-in multiples of 16 (conv1_1's 3 or 5 channels as 16).
+The kernel is an implicit GEMM on Hopper's warpgroup tensor cores
+(``wgmma`` m64nNk16, bf16 in, f32 accumulate) over 128-pixel x N-channel
+tiles (N 128, 64 or 16 by Co, :func:`tile_n`; the pixel tile's shape by the
+layer's H and W, :func:`tile_shape`); the bias and ReLU that PyTorch runs as
+two memory passes after cuDNN's conv are its epilogue. Cin is computed in
+multiples of 16 (conv1_1's 3 or 5 channels as 16). :func:`pack_weights` lays
+the weights out in the byte order that the kernel's shared memory and its
+``wgmma`` descriptor read, and :func:`unpack_weights` is its inverse.
 
 The public function :func:`conv3x3_bias_relu` is differentiable: its forward
 computes the plain PyTorch version on CPU tensors and launches the kernel,
@@ -38,22 +41,68 @@ from witw_tpu_torch.ops.launch import check_cuda_tensors, check_launch
 # Kernel launches since the last reset (the card path's proof of use).
 launches = 0
 
-# Output tile of one block, as kTileRows / kTileCols / kTileCo in the source.
-TILE_ROWS, TILE_COLS, TILE_CO = 8, 16, 64
+TILE_PIX = 128  # output pixels of one block
+CHUNK = 32  # input channels per kernel step
 GRID_LIMIT = 65535
 
 
 def padded_channels(c: int) -> int:
-    """Cin rounded up to a multiple of 16 (one mma k-step)."""
+    """Cin rounded up to a multiple of 16 (one wgmma k-step)."""
     return (c + 15) // 16 * 16
 
 
+def tile_n(co: int) -> int:
+    """Output channels per block: 128 for Co > 64, 64 for 16 < Co <= 64
+    (conv1_x), 16 otherwise (conv_27)."""
+    return 128 if co > 64 else 64 if co > 16 else 16
+
+
+def tile_shape(h: int, w: int) -> tuple:
+    """(rows, cols) of the 128-pixel output tile, cols in {8, 16, 32, 64}:
+    the fewest padded pixels at this H, W, ties to the smallest halo."""
+    def cost(cols):
+        rows = TILE_PIX // cols
+        padded = -(-h // rows) * rows * (-(-w // cols) * cols)
+        return padded, (rows + 2) * (cols + 2)
+    cols = min((16, 8, 32, 64), key=cost)
+    return TILE_PIX // cols, cols
+
+
 def pack_weights(weight: torch.Tensor) -> torch.Tensor:
-    """OIHW [Co, Cin, 3, 3] -> the kernel's bf16 [Co, 3, 3, Cin_p], Cin
-    zero-padded to a multiple of 16."""
-    cin = weight.shape[1]
-    w = weight.detach().to(torch.bfloat16).permute(0, 2, 3, 1)
-    return F.pad(w, (0, padded_channels(cin) - cin)).contiguous()
+    """OIHW [Co, Cin, 3, 3] -> the kernel's bf16 [Co tiles, 9 Cin_p N]
+    (N = :func:`tile_n`; Co zero-padded to a multiple of N, Cin to one of 16).
+    Per channel tile and per 32-channel step, in the order the kernel copies
+    into shared memory: [tap (dy, dx)][k16 step][N / 8 groups][2 k halves]
+    [8 channels][8 k], each 8 x 8 block one 128-byte core matrix of the
+    no-swizzle K-major ``wgmma`` B descriptor."""
+    co, cin = weight.shape[:2]
+    n, cin_p = tile_n(co), padded_channels(cin)
+    ct = -(-co // n)
+    w = weight.detach().to(torch.bfloat16)
+    w = F.pad(w, (0, 0, 0, 0, 0, cin_p - cin, 0, ct * n - co)).reshape(ct, n // 8, 8, cin_p, 9)
+    full = cin_p // CHUNK * CHUNK
+    parts = []
+    for k0, k1, ks in ((0, full, 2), (full, cin_p, 1)):
+        if k1 > k0:  # [ct, ng, r, chunk, s, kg, k, tap] -> [ct, chunk, tap, s, ng, kg, r, k]
+            p = w[:, :, :, k0:k1].reshape(ct, n // 8, 8, -1, ks, 2, 8, 9)
+            parts.append(p.permute(0, 3, 7, 4, 1, 5, 2, 6).reshape(ct, -1))
+    return torch.cat(parts, 1).contiguous()
+
+
+def unpack_weights(packed: torch.Tensor, co: int, cin: int) -> torch.Tensor:
+    """The inverse of :func:`pack_weights`: bf16 OIHW [Co, Cin, 3, 3]."""
+    n, cin_p = tile_n(co), padded_channels(cin)
+    ct = packed.shape[0]
+    full = cin_p // CHUNK * CHUNK
+    parts, at = [], 0
+    for k0, k1, ks in ((0, full, 2), (full, cin_p, 1)):
+        if k1 > k0:
+            size = 9 * (k1 - k0) * n
+            p = packed[:, at:at + size].reshape(ct, -1, 9, ks, n // 8, 2, 8, 8)
+            parts.append(p.permute(0, 4, 6, 1, 3, 5, 7, 2).reshape(ct, n // 8, 8, k1 - k0, 9))
+            at += size
+    w = torch.cat(parts, 3).reshape(ct * n, cin_p, 3, 3)
+    return w[:co, :cin].contiguous()
 
 
 def pad_width(x: torch.Tensor, circular: bool) -> torch.Tensor:
@@ -82,32 +131,33 @@ def conv3x3_bias_relu_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.T
 def _lib() -> ctypes.CDLL:
     lib = load_library("conv3x3_bf16")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.witw_conv3x3_bf16.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]
+    lib.witw_conv3x3_bf16.argtypes = [ptr] * 4 + [i32] * 10 + [ptr]
     lib.witw_conv3x3_bf16.restype = i32
     return lib
 
 
 def conv3x3_bias_relu_kernel(x: torch.Tensor, w_packed: torch.Tensor, bias: torch.Tensor,
                              circular: bool = False, relu: bool = True) -> torch.Tensor:
-    """Launch the kernel: x bf16 [B, H, W, Cin], w_packed bf16 [Co, 3, 3,
-    Cin_p] (:func:`pack_weights`), bias f32 [Co] -> bf16 [B, H, W, Co].
-    ValueError for an input the kernel does not take."""
+    """Launch the kernel: x bf16 [B, H, W, Cin], w_packed bf16 from
+    :func:`pack_weights`, bias f32 [Co] -> bf16 [B, H, W, Co]. ValueError for
+    an input the kernel does not take."""
     global launches
     if x.dtype != torch.bfloat16 or w_packed.dtype != torch.bfloat16 or bias.dtype != torch.float32:
         raise ValueError(f"x and w must be bfloat16 and bias float32, got {x.dtype}, "
                          f"{w_packed.dtype} and {bias.dtype}")
-    if x.ndim != 4 or w_packed.ndim != 4 or tuple(w_packed.shape[1:3]) != (3, 3):
-        raise ValueError(f"expected x [B, H, W, Cin] and w [Co, 3, 3, Cin_p], got "
-                         f"{tuple(x.shape)} and {tuple(w_packed.shape)}")
+    if x.ndim != 4 or bias.ndim != 1:
+        raise ValueError(f"expected x [B, H, W, Cin] and bias [Co], got {tuple(x.shape)} and "
+                         f"{tuple(bias.shape)}")
     b, h, wd, c = x.shape
-    co, cin_p = w_packed.shape[0], w_packed.shape[3]
-    if cin_p != padded_channels(c) or co % 8 != 0 or tuple(bias.shape) != (co,):
+    co, cin_p = bias.shape[0], padded_channels(c)
+    n = tile_n(co)
+    if co % 8 != 0 or tuple(w_packed.shape) != (-(-co // n), 9 * cin_p * n):
         raise ValueError(f"w {tuple(w_packed.shape)} and bias {tuple(bias.shape)} do not fit x "
-                         f"{tuple(x.shape)}: Cin_p must be Cin rounded up to a multiple of 16, "
+                         f"{tuple(x.shape)}: w must be pack_weights' [Co tiles, 9 Cin_p N], "
                          f"Co a multiple of 8")
-    if (h + TILE_ROWS - 1) // TILE_ROWS > GRID_LIMIT or \
-            b * ((co + TILE_CO - 1) // TILE_CO) > GRID_LIMIT:
-        raise ValueError(f"input {tuple(x.shape)} with Co={co} exceeds the launch grid")
+    rows, cols = tile_shape(h, wd)
+    if -(-h // rows) * -(-wd // cols) > GRID_LIMIT or b > GRID_LIMIT:
+        raise ValueError(f"input {tuple(x.shape)} exceeds the launch grid")
     device = check_cuda_tensors("conv3x3_bf16", x=x, w=w_packed, bias=bias)
     out = torch.empty((b, h, wd, co), dtype=torch.bfloat16, device=device)
     if out.numel() == 0:
@@ -116,7 +166,7 @@ def conv3x3_bias_relu_kernel(x: torch.Tensor, w_packed: torch.Tensor, bias: torc
     with torch.cuda.device(device):
         err = lib.witw_conv3x3_bf16(
             x.data_ptr(), w_packed.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            b, h, wd, c, cin_p, co, int(circular), int(relu),
+            b, h, wd, c, cin_p, co, n, cols.bit_length() - 1, int(circular), int(relu),
             torch.cuda.current_stream(device).cuda_stream)
     check_launch(lib, err, "conv3x3_bf16")
     launches += 1
