@@ -44,23 +44,71 @@
 
 namespace {
 
-constexpr int kThreads = 256;       // two warpgroups
-constexpr int kTilePix = 128;       // output pixels per block, 64 per warpgroup
+constexpr int kConsumers = 256;     // two warpgroups of wgmma
+constexpr int kProducers = 128;     // one warpgroup of copies
+constexpr int kThreads = kConsumers + kProducers;
+constexpr int kTilePix = 128;       // output pixels per tile, 64 per consumer warpgroup
 constexpr int kChunk = 32;          // input channels per step
+constexpr int kStages = 2;          // the ring of steps in shared memory
 constexpr int kPixBytes = 80;       // a halo pixel: 32 channels + 16 bytes of padding
 constexpr int kHaloMaxPix = 4 * 66; // the largest halo, TR x TC = 2 x 64
 constexpr int kHaloBytes = kHaloMaxPix * kPixBytes;
+constexpr int kPixPerProducer = (kHaloMaxPix + kProducers / 4 - 1) / (kProducers / 4);
 
 template <int N>
 struct Tile {
   static constexpr int kWBytes = 9 * kChunk * N * 2;   // one step's weights
   static constexpr int kOutStride = N + 8;             // staged output pixel, in bf16
-  static constexpr size_t kSmemBytes = kWBytes + kHaloBytes;
-  static_assert(kTilePix * kOutStride * 2 <= kWBytes + kHaloBytes, "epilogue staging fits");
+  static constexpr int kOutOffset = kStages * (kWBytes + kHaloBytes);
+  static constexpr int kBarOffset = kOutOffset + kTilePix * kOutStride * 2;
+  static constexpr size_t kSmemBytes = kBarOffset + 2 * kStages * sizeof(uint64_t);
+  static_assert(kSmemBytes <= 232448, "fits the 227 KB a block may use");
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// Spins until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(bar), "r"(parity)
+      : "memory");
+}
+// One bulk copy of `bytes` (a multiple of 16) into shared memory, counted on `bar`.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+// 16 bytes from global memory, or 16 zeros when `src_bytes` is 0.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+// `bar` receives one arrival once this thread's earlier cp.async copies have landed.
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+// Barrier of the two consumer warpgroups alone (the producer warp may have left).
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
@@ -142,14 +190,31 @@ __device__ __forceinline__ void wgmma_rs<16>(float (&d)[8], const uint32_t (&a)[
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// A tile: channel tile (fastest), then 128-pixel tile, then image.
+struct TileIndex {
+  int co0, r0, c0, b;
+};
+
+template <int N>
+__device__ __forceinline__ TileIndex tile_index(int t, int co_tiles, int sp_tiles, int tiles_x,
+                                                int tr, int tc) {
+  const int sp = (t / co_tiles) % sp_tiles;
+  return {(t % co_tiles) * N, (sp / tiles_x) * tr, (sp % tiles_x) * tc, t / co_tiles / sp_tiles};
+}
+
 template <int N>
 __global__ void __launch_bounds__(kThreads, 1)
 conv3x3_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
                     const float* __restrict__ bias, __nv_bfloat16* __restrict__ out, int H, int W,
-                    int Cin, int cin_p, int Co, int tc_log2, int tiles_x, int circular, int relu) {
+                    int Cin, int cin_p, int Co, int tc_log2, int tiles_x, int sp_tiles, int tiles,
+                    int circular, int relu) {
   extern __shared__ __align__(128) unsigned char smem[];
-  unsigned char* ws = smem;                       // one step's weights, pack_weights' order
-  unsigned char* xs = smem + Tile<N>::kWBytes;    // the halo: [pixel][80 bytes]
+  // [kStages][a step's weights, pack_weights' order] [kStages][halo: pixel x 80 B]
+  // [output tile: 128 pixels x (N + 8) bf16] [full barriers][empty barriers]
+  const uint32_t ws0 = smem_addr(smem);
+  const uint32_t xs0 = ws0 + kStages * Tile<N>::kWBytes;
+  const uint32_t full0 = ws0 + Tile<N>::kBarOffset;
+  const uint32_t empty0 = full0 + kStages * sizeof(uint64_t);
 
   const int tid = threadIdx.x;
   const int lane = tid % 32;
@@ -157,116 +222,168 @@ conv3x3_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __
   const int tc = 1 << tc_log2;
   const int tr = kTilePix >> tc_log2;
   const int hc = tc + 2;  // halo columns
-  const int halo_pix = (tr + 2) * hc;
-  const int co0 = blockIdx.x * N;
-  const int r0 = (blockIdx.y / tiles_x) * tr;
-  const int c0 = (blockIdx.y % tiles_x) * tc;
-  const int b = blockIdx.z;
-  const bool vec_x = (Cin % 8) == 0;
-  const __nv_bfloat16* wt = w + static_cast<size_t>(blockIdx.x) * 9 * cin_p * N;
+  const int co_tiles = (Co + N - 1) / N;
+  const int steps = (cin_p + kChunk - 1) / kChunk;  // per tile
 
-  // This lane's ldmatrix row: pixel m of the tile, 8 channels at 16 k_half.
-  const int m = 64 * (warp / 4) + 16 * (warp % 4) + (lane & 7) + 8 * ((lane >> 3) & 1);
-  const uint32_t a_lane = smem_addr(xs) +
-                          ((m >> tc_log2) * hc + (m & (tc - 1))) * kPixBytes + 16 * (lane >> 4);
-
-  float acc[N / 2];
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
-
-  for (int k0 = 0; k0 < cin_p; k0 += kChunk) {
-    const int ks = min(2, (cin_p - k0) / 16);  // k16 steps in this chunk
-    __syncthreads();  // the previous step is consumed
-    // Weights: 9 x ks x N x 16 bf16, contiguous in the packed tensor.
-    {
-      const uint4* src = reinterpret_cast<const uint4*>(wt + static_cast<size_t>(9) * k0 * N);
-      uint4* dst = reinterpret_cast<uint4*>(ws);
-      for (int i = tid; i < 9 * ks * N * 2; i += kThreads) dst[i] = src[i];
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, kProducers + 1);  // each producer's copies + the weights' expect_tx
+      mbar_init(empty0 + 8 * s, kConsumers / 32);  // one arrival per consumer warp
     }
-    // Halo: halo_pix pixels x 2 ks groups of 8 channels.
-    for (int i = tid; i < halo_pix * 2 * ks; i += kThreads) {
-      const int q = i % (2 * ks);
-      const int pix = i / (2 * ks);
-      const int gr = r0 - 1 + pix / hc;
-      int gc = c0 - 1 + pix % hc;
-      bool ok = gr >= 0 && gr < H;
-      if (circular) {
-        gc = ((gc % W) + W) % W;
-      } else {
-        ok = ok && gc >= 0 && gc < W;
-      }
-      const int ch = k0 + 8 * q;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (ok && ch < Cin) {
-        const __nv_bfloat16* src = x + ((static_cast<size_t>(b) * H + gr) * W + gc) * Cin + ch;
-        if (vec_x) {
-          v = *reinterpret_cast<const uint4*>(src);
-        } else {  // Cin 3 or 5: element by element, zero past Cin
-          __align__(16) __nv_bfloat16 e[8];
-#pragma unroll
-          for (int t = 0; t < 8; ++t) e[t] = (ch + t < Cin) ? src[t] : __float2bfloat16_rn(0.f);
-          v = *reinterpret_cast<const uint4*>(e);
-        }
-      }
-      *reinterpret_cast<uint4*>(xs + pix * kPixBytes + 16 * q) = v;
-    }
-    // The weights are read by wgmma through the async proxy.
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();
-
-    const uint32_t w_base = smem_addr(ws);
-    uint32_t a[2][2][4];  // [tap parity][k16 step]: a tap's registers stay live while its wgmma runs
-#pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const uint32_t shift = ((tap / 3) * hc + tap % 3) * kPixBytes;
-      ldmatrix_x4(a[tap & 1][0], a_lane + shift);
-      if (ks == 2) ldmatrix_x4(a[tap & 1][1], a_lane + shift + 32);
-      wgmma_fence();
-      wgmma_rs<N>(acc, a[tap & 1][0], b_desc(w_base + (tap * ks) * N * 32));
-      if (ks == 2) wgmma_rs<N>(acc, a[tap & 1][1], b_desc(w_base + (tap * ks + 1) * N * 32));
-      wgmma_commit();
-      wgmma_wait<1>();  // the previous tap is done: its registers may be reloaded
-    }
-    wgmma_wait<0>();
-  }
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i) fence_operand(acc[i]);
-
-  // Epilogue: bias, ReLU, one rounding, staged for 16-byte stores. Thread
-  // (warp, lane) holds rows g and g + 8 of its warp's 16 and, per 8-channel
-  // group j, channels 8 j + 2 t and + 1 (g = lane / 4, t = lane % 4).
-  __syncthreads();  // every warp is done with the step's shared memory
-  __nv_bfloat16* os = reinterpret_cast<__nv_bfloat16*>(smem);  // [128 pixels][N + 8]
-  const int g = lane / 4;
-  const int t = lane % 4;
-#pragma unroll
-  for (int j = 0; j < N / 8; ++j) {
-    const int n = 8 * j + 2 * t;
-    const float b0 = (co0 + n < Co) ? bias[co0 + n] : 0.f;
-    const float b1 = (co0 + n + 1 < Co) ? bias[co0 + n + 1] : 0.f;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float y0 = __fadd_rn(acc[4 * j + 2 * h], b0);
-      float y1 = __fadd_rn(acc[4 * j + 2 * h + 1], b1);
-      if (relu) {
-        y0 = fmaxf(y0, 0.f);
-        y1 = fmaxf(y1, 0.f);
-      }
-      const int pix = 64 * (warp / 4) + 16 * (warp % 4) + g + 8 * h;
-      *reinterpret_cast<__nv_bfloat162*>(os + pix * Tile<N>::kOutStride + n) =
-          __halves2bfloat162(__float2bfloat16_rn(y0), __float2bfloat16_rn(y1));
-    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  for (int i = tid; i < kTilePix * (N / 8); i += kThreads) {
-    const int q = i % (N / 8);
-    const int pix = i / (N / 8);
-    const int r = r0 + (pix >> tc_log2);
-    const int c = c0 + (pix & (tc - 1));
-    const int co = co0 + 8 * q;
-    if (r < H && c < W && co < Co) {  // Co % 8 == 0: a group is all in or all out
-      *reinterpret_cast<uint4*>(out + ((static_cast<size_t>(b) * H + r) * W + c) * Co + co) =
-          *reinterpret_cast<const uint4*>(os + pix * Tile<N>::kOutStride + 8 * q);
+
+  if (tid >= kConsumers) {
+    // Producers: ring step k (tile by tile, 32 channels at a time) into
+    // stage k % kStages, once the consumers have released step k - kStages.
+    // Thread p copies channel group p % 4 of halo pixels p / 4 + 32 i.
+    const int p = tid - kConsumers;
+    const int q = p % 4;
+    const bool vec_x = (Cin % 8) == 0;
+    const int halo_pix = (tr + 2) * hc;
+    int k = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const TileIndex ti = tile_index<N>(t, co_tiles, sp_tiles, tiles_x, tr, tc);
+      // Element offset of each of this thread's halo pixels in x, or -1 outside the image.
+      long long off[kPixPerProducer];
+#pragma unroll
+      for (int i = 0; i < kPixPerProducer; ++i) {
+        const int pix = p / 4 + (kProducers / 4) * i;
+        const int gr = ti.r0 - 1 + pix / hc;
+        int gc = ti.c0 - 1 + pix % hc;
+        bool ok = pix < halo_pix && gr >= 0 && gr < H;
+        if (circular) {
+          gc = ((gc % W) + W) % W;
+        } else {
+          ok = ok && gc >= 0 && gc < W;
+        }
+        off[i] = ok ? ((static_cast<long long>(ti.b) * H + gr) * W + gc) * Cin : -1;
+      }
+      const __nv_bfloat16* wt = w + static_cast<size_t>(ti.co0) * 9 * cin_p;
+      for (int c = 0; c < steps; ++c, ++k) {
+        const int st = k % kStages;
+        const int k0 = c * kChunk;
+        const int ch = k0 + 8 * q;
+        const uint32_t full = full0 + 8 * st;
+        if (k >= kStages) mbar_wait(empty0 + 8 * st, (k / kStages - 1) & 1);
+        if (p == 0) {  // weights: 9 x ks x N x 16 bf16, contiguous in the packed tensor
+          const uint32_t bytes = 9 * min(2, (cin_p - k0) / 16) * N * 32;
+          mbar_arrive_expect_tx(full, bytes);
+          bulk_copy(ws0 + st * Tile<N>::kWBytes, wt + static_cast<size_t>(9) * k0 * N, bytes, full);
+        }
+        const uint32_t xs = xs0 + st * kHaloBytes + (p / 4) * kPixBytes + 16 * q;
+#pragma unroll
+        for (int i = 0; i < kPixPerProducer; ++i) {
+          const int pix = p / 4 + (kProducers / 4) * i;
+          if (pix >= halo_pix) break;
+          const bool ok = off[i] >= 0 && ch < Cin;
+          const __nv_bfloat16* src = ok ? x + off[i] + ch : x;
+          const uint32_t dst = xs + (kProducers / 4) * i * kPixBytes;
+          if (vec_x) {
+            cp_async16(dst, src, ok ? 16 : 0);  // zeros outside the image and past Cin
+          } else {  // Cin % 8 != 0 (conv1_1): element by element, zero past Cin
+            uint32_t v[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const __nv_bfloat16 lo = (ok && ch + 2 * e < Cin) ? src[2 * e] : __float2bfloat16_rn(0.f);
+              const __nv_bfloat16 hi =
+                  (ok && ch + 2 * e + 1 < Cin) ? src[2 * e + 1] : __float2bfloat16_rn(0.f);
+              const __nv_bfloat162 pair = __halves2bfloat162(lo, hi);
+              v[e] = *reinterpret_cast<const uint32_t*>(&pair);
+            }
+            asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst), "r"(v[0]), "r"(v[1]),
+                         "r"(v[2]), "r"(v[3])
+                         : "memory");
+          }
+        }
+        if (vec_x) {
+          cp_async_arrive(full);
+        } else {
+          mbar_arrive(full);  // release: the stores above are seen by the waiting consumers
+        }
+      }
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
+  }
+
+  // Consumers: this lane's ldmatrix row is pixel m of the tile, 8 channels
+  // at 16 bytes x (lane / 16). Thread (warp, lane) accumulates rows g and
+  // g + 8 of its warp's 16 and, per 8-channel group j, channels 8 j + 2 t
+  // and + 1 (g = lane / 4, t = lane % 4).
+  const int m = 64 * (warp / 4) + 16 * (warp % 4) + (lane & 7) + 8 * ((lane >> 3) & 1);
+  const uint32_t a_lane = ((m >> tc_log2) * hc + (m & (tc - 1))) * kPixBytes + 16 * (lane >> 4);
+  const int g = lane / 4;
+  const int t4 = lane % 4;
+  __nv_bfloat16* os = reinterpret_cast<__nv_bfloat16*>(smem + Tile<N>::kOutOffset);
+  int k = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const TileIndex ti = tile_index<N>(t, co_tiles, sp_tiles, tiles_x, tr, tc);
+    float acc[N / 2];
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+
+    for (int c = 0; c < steps; ++c, ++k) {
+      const int st = k % kStages;
+      const int ks = min(2, (cin_p - c * kChunk) / 16);  // k16 steps in this chunk
+      mbar_wait(full0 + 8 * st, (k / kStages) & 1);
+      const uint32_t w_base = ws0 + st * Tile<N>::kWBytes;
+      const uint32_t x_base = xs0 + st * kHaloBytes + a_lane;
+      uint32_t a[2][2][4];  // [tap parity][k16 step]: a tap's registers stay live while its wgmma runs
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        const uint32_t shift = ((tap / 3) * hc + tap % 3) * kPixBytes;
+        ldmatrix_x4(a[tap & 1][0], x_base + shift);
+        if (ks == 2) ldmatrix_x4(a[tap & 1][1], x_base + shift + 32);
+        wgmma_fence();
+        wgmma_rs<N>(acc, a[tap & 1][0], b_desc(w_base + (tap * ks) * N * 32));
+        if (ks == 2) wgmma_rs<N>(acc, a[tap & 1][1], b_desc(w_base + (tap * ks + 1) * N * 32));
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous tap is done: its registers may be reloaded
+        if (tap == 0 && c > 0) {  // so is the previous step: release its stage
+          __syncwarp();
+          if (lane == 0) mbar_arrive(empty0 + 8 * ((k - 1) % kStages));
+        }
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) fence_operand(acc[i]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * ((k - 1) % kStages));  // the tile's last step
+
+    // Epilogue: bias, ReLU, one rounding, staged for 16-byte stores.
+    consumer_sync();  // the previous tile's stores have read the staging
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      const int n = 8 * j + 2 * t4;
+      const float b0 = (ti.co0 + n < Co) ? bias[ti.co0 + n] : 0.f;
+      const float b1 = (ti.co0 + n + 1 < Co) ? bias[ti.co0 + n + 1] : 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float y0 = __fadd_rn(acc[4 * j + 2 * h], b0);
+        float y1 = __fadd_rn(acc[4 * j + 2 * h + 1], b1);
+        if (relu) {
+          y0 = fmaxf(y0, 0.f);
+          y1 = fmaxf(y1, 0.f);
+        }
+        const int pix = 64 * (warp / 4) + 16 * (warp % 4) + g + 8 * h;
+        *reinterpret_cast<__nv_bfloat162*>(os + pix * Tile<N>::kOutStride + n) =
+            __halves2bfloat162(__float2bfloat16_rn(y0), __float2bfloat16_rn(y1));
+      }
+    }
+    consumer_sync();
+    for (int i = tid; i < kTilePix * (N / 8); i += kConsumers) {
+      const int qo = i % (N / 8);
+      const int pix = i / (N / 8);
+      const int r = ti.r0 + (pix >> tc_log2);
+      const int col = ti.c0 + (pix & (tc - 1));
+      const int co = ti.co0 + 8 * qo;
+      if (r < H && col < W && co < Co) {  // Co % 8 == 0: a group is all in or all out
+        *reinterpret_cast<uint4*>(out + ((static_cast<size_t>(ti.b) * H + r) * W + col) * Co + co) =
+            *reinterpret_cast<const uint4*>(os + pix * Tile<N>::kOutStride + 8 * qo);
+      }
     }
   }
 }
@@ -274,18 +391,26 @@ conv3x3_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __
 template <int N>
 int launch(const void* x, const void* w, const void* bias, void* out, int B, int H, int W, int Cin,
            int cin_p, int Co, int tc_log2, int circular, int relu, cudaStream_t stream) {
-  const cudaError_t e = cudaFuncSetAttribute(conv3x3_bf16_kernel<N>,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             static_cast<int>(Tile<N>::kSmemBytes));
+  const auto kernel = conv3x3_bf16_kernel<N>;
+  const int smem = static_cast<int>(Tile<N>::kSmemBytes);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int device = 0, sms = 0, per_sm = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&device);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int tc = 1 << tc_log2;
   const int tr = kTilePix / tc;
   const int tiles_x = (W + tc - 1) / tc;
-  const dim3 grid((Co + N - 1) / N, ((H + tr - 1) / tr) * tiles_x, B);
-  conv3x3_bf16_kernel<N><<<grid, kThreads, Tile<N>::kSmemBytes, stream>>>(
+  const int sp_tiles = ((H + tr - 1) / tr) * tiles_x;
+  const long long tiles = static_cast<long long>((Co + N - 1) / N) * sp_tiles * B;
+  if (tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  // Persistent: one block per resident slot, each walking tiles blockIdx.x + i * gridDim.x.
+  const int grid = static_cast<int>(tiles < 1LL * sms * per_sm ? tiles : 1LL * sms * per_sm);
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
       static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out), H, W, Cin, cin_p, Co,
-      tc_log2, tiles_x, circular, relu);
+      tc_log2, tiles_x, sp_tiles, static_cast<int>(tiles), circular, relu);
   return static_cast<int>(cudaGetLastError());
 }
 
