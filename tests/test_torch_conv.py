@@ -191,29 +191,27 @@ def test_pack_weights_round_trips_and_zero_pads(rng, cin, co):
 
 def test_pack_weights_follows_the_descriptor_order(rng):
     """Element (o, ci, dy, dx) sits where the kernel's wgmma B descriptor
-    reads it: channel tile o // N; then 9 x 32 N per earlier 32-channel step;
-    N x 16 per earlier (tap, k16 step) of its own step; 64 per earlier core
-    matrix (two k halves per group of 8 channels); 8 per row; ci % 8."""
-    co, cin = 72, 40  # N 128, Cin_p 48: one full step and a one-k16 tail
+    reads it: channel tile o // N; then 9 x 16 N per earlier 16-channel step
+    and 16 N per earlier tap of its own step; 64 per earlier core matrix (two
+    k halves per group of 8 channels); 8 per row; ci % 8."""
+    co, cin = 72, 40  # N 128, Cin_p 48: three steps, the last one padded
     w = torch.from_numpy(rng.standard_normal((co, cin, 3, 3)).astype(np.float32))
     p = conv3x3.pack_weights(w)
-    n, cin_p = conv3x3.tile_n(co), conv3x3.padded_channels(cin)
-    assert (n, cin_p) == (128, 48)
+    n = conv3x3.tile_n(co)
+    assert (n, conv3x3.padded_channels(cin)) == (128, 48)
     for o in range(co):
         for ci in range(cin):
-            k0 = ci // 32 * 32
-            ks = min(2, (cin_p - k0) // 16)
-            s, kg, o_n = (ci - k0) // 16, ci % 16 // 8, o % n
+            o_n, kg = o % n, ci % 16 // 8
             for tap in range(9):
-                at = (9 * k0 * n + (tap * ks + s) * n * 16 + (o_n // 8 * 2 + kg) * 64
-                      + o_n % 8 * 8 + ci % 8)
+                at = ((ci // 16 * 9 + tap) * n * 16 + (o_n // 8 * 2 + kg) * 64 + o_n % 8 * 8
+                      + ci % 8)
                 assert p[o // n, at] == w[o, ci, tap // 3, tap % 3].to(torch.bfloat16)
 
 
 @pytest.mark.parametrize("h,w,tile", [
-    (128, 512, (8, 16)), (16, 64, (8, 16)), (16, 16, (8, 16)),  # tower shapes, fov 360 / 90
-    (4, 64, (4, 32)),  # conv_27
-    (9, 1, (16, 8)), (2, 130, (2, 64)),
+    (128, 512, (16, 16)), (16, 64, (16, 16)), (16, 16, (16, 16)),  # tower shapes, fov 360 / 90
+    (4, 64, (8, 32)),  # conv_27
+    (9, 1, (16, 16)), (2, 130, (8, 32)), (64, 8, (32, 8)),
 ])
 def test_tile_shape_pads_least(h, w, tile):
     assert conv3x3.tile_shape(h, w) == tile

@@ -229,12 +229,12 @@ def conv_cuda(cuda, monkeypatch):
     (3, 9, 1, 16, 8, True, True),      # W = 1 wraps onto itself
     (2, 17, 33, 40, 72, True, False),  # half chunk (Cin_p 48), Co tail
     (2, 16, 64, 512, 512, False, True),
-    (2, 16, 16, 256, 128, False, True),   # fov 90 block 4: 8 x 16 tile, W = 16
+    (2, 16, 16, 256, 128, False, True),   # fov 90 block 4: 16 x 16 tile, W = 16
     (1, 5, 66, 64, 64, False, True),      # W = 66: a 2-column tile tail
-    (2, 4, 64, 64, 16, True, False),      # conv_27: Co 16, 4 x 32 tile
+    (2, 4, 64, 64, 16, True, False),      # conv_27: Co 16, 8 x 32 tile
     (2, 6, 20, 40, 16, False, True),      # Cin 40 (Cin_p 48) at Co 16
     (2, 11, 24, 64, 72, True, True),      # circular at W < 64, Co 72
-    (1, 2, 48, 128, 256, True, True),     # circular, a 2 x 64 tile wider than W
+    (1, 2, 24, 128, 256, True, True),     # circular, an 8 x 32 tile wider than W
 ])
 def test_conv3x3_matches_plain(conv_cuda, b, h, w, cin, co, circular, relu):
     gen = torch.Generator(device=conv_cuda).manual_seed(0)

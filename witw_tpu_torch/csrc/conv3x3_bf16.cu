@@ -13,28 +13,7 @@
 // with the height zero-padded by 1, and the width zero-padded by 1 or, with
 // `circular`, read modulo W (the overhead tower's wrapping panorama).
 //
-// Design: an implicit GEMM, M = 128 output pixels of one image, N = one tile
-// of output channels (128, 64 or 16), K = 9 taps x Cin_p (Cin rounded up to
-// 16) streamed 32 input channels per step. Two warpgroups each own 64 pixels
-// x N channels in registers and issue wgmma.mma_async m64nNk16 (bf16 in, f32
-// accumulate) with A from registers and B from shared memory:
-// - A (the input): each step stages the tile's halo, (TR + 2) x (TC + 2)
-//   pixels x 32 channels, zero outside the image and past Cin, columns mod W
-//   when circular. The tile is TR x TC = 128 pixels, TC in {8, 16, 32, 64}
-//   chosen by the wrapper for the least padding at the layer's H, W. A pixel
-//   takes 80 bytes (64 of channels, 16 of padding), so the 8 row addresses of
-//   an ldmatrix.x4 (8 consecutive pixels) hit 8 distinct 16-byte bank groups.
-//   Tap (dy, dx) shifts each lane's row address by dy (TC + 2) + dx pixels:
-//   the patch matrix never exists.
-// - B (the weights): pack_weights stores each (channel tile, 32-channel step)
-//   in the order that the no-swizzle K-major wgmma descriptor reads: per (tap,
-//   k16 step), N / 8 groups of two 8 x 8 core matrices of 128 contiguous bytes
-//   (LBO 128 B between the two k halves, SBO 256 B between groups of 8
-//   channels). The step's weights are one contiguous block of 576 N bytes.
-// The epilogue adds the bias in f32, applies ReLU, rounds once to bf16,
-// stages the 128 x N tile in shared memory and writes it with 16-byte stores.
-//
-// Loads: one stage, synchronous (the block stages a step, then computes it).
+// NOTE_PLACEHOLDER
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -44,23 +23,21 @@
 
 namespace {
 
-constexpr int kConsumers = 256;     // two warpgroups of wgmma
-constexpr int kProducers = 128;     // one warpgroup of copies
+constexpr int kConsumers = 256;      // two warpgroups of wgmma
+constexpr int kProducers = 128;      // one warpgroup of copies
 constexpr int kThreads = kConsumers + kProducers;
-constexpr int kTilePix = 128;       // output pixels per tile, 64 per consumer warpgroup
-constexpr int kChunk = 32;          // input channels per step
-constexpr int kStages = 2;          // the ring of steps in shared memory
-constexpr int kPixBytes = 80;       // a halo pixel: 32 channels + 16 bytes of padding
-constexpr int kHaloMaxPix = 4 * 66; // the largest halo, TR x TC = 2 x 64
-constexpr int kHaloBytes = kHaloMaxPix * kPixBytes;
-constexpr int kPixPerProducer = (kHaloMaxPix + kProducers / 4 - 1) / (kProducers / 4);
+constexpr int kTilePix = 256;        // output pixels per tile: four 8 x 8 blocks
+constexpr int kStep = 16;            // input channels per ring step (one k16 of wgmma)
+constexpr int kHaloMaxPix = 34 * 10; // the largest halo, of a 32 x 8 or 8 x 32 tile
+constexpr int kPlaneBytes = kHaloMaxPix * 16;  // one 8-channel group of the halo
+constexpr int kHaloBytes = 2 * kPlaneBytes;
+constexpr int kSlots = (kHaloMaxPix + kProducers / 2 - 1) / (kProducers / 2);  // pixels per producer
 
 template <int N>
-struct Tile {
-  static constexpr int kWBytes = 9 * kChunk * N * 2;   // one step's weights
-  static constexpr int kOutStride = N + 8;             // staged output pixel, in bf16
-  static constexpr int kOutOffset = kStages * (kWBytes + kHaloBytes);
-  static constexpr int kBarOffset = kOutOffset + kTilePix * kOutStride * 2;
+struct Ring {
+  static constexpr int kWBytes = 9 * kStep * N * 2;                 // one step's weights
+  static constexpr int kStages = N == 128 ? 4 : N == 64 ? 6 : 8;    // as many as fit
+  static constexpr int kBarOffset = kStages * (kWBytes + kHaloBytes);
   static constexpr size_t kSmemBytes = kBarOffset + 2 * kStages * sizeof(uint64_t);
   static_assert(kSmemBytes <= 232448, "fits the 227 KB a block may use");
 };
@@ -102,27 +79,22 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, uint32
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes)
                : "memory");
 }
-// `bar` receives one arrival once this thread's earlier cp.async copies have landed.
-__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int Pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending) : "memory");
 }
-// Barrier of the two consumer warpgroups alone (the producer warp may have left).
-__device__ __forceinline__ void consumer_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-               : "r"(addr)
-               : "memory");
+// Orders this thread's generic-proxy shared-memory writes (cp.async, st.shared)
+// before the async-proxy reads of wgmma.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// No-swizzle K-major matrix descriptor: start address, LBO 128 B (the next
-// core matrix along K), SBO 256 B (the next 8 rows of N).
-__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(128 >> 4) << 16) |
-         (static_cast<uint64_t>(256 >> 4) << 32);
+// No-swizzle K-major matrix descriptor: start address, LBO (bytes to the next
+// core matrix along K) and SBO (bytes to the next 8 rows of M or N).
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32);
 }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -136,20 +108,20 @@ __device__ __forceinline__ void wgmma_wait() {
 // Keeps the compiler from moving register uses across a wgmma wait.
 __device__ __forceinline__ void fence_operand(float& r) { asm volatile("" : "+f"(r)::"memory"); }
 
-// d[64 x N] += a[64 x 16] (registers, the m16n8k16 A fragment per warp) * b[16 x N]
+// d[64 x N] += a[64 x 16] * b[16 x N], both read from shared memory through descriptors.
 template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b);
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b);
 
 template <>
-__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a, uint64_t b) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -159,38 +131,38 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(1));
 }
 
 template <>
-__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a, uint64_t b) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(1));
 }
 
 template <>
-__device__ __forceinline__ void wgmma_rs<16>(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+__device__ __forceinline__ void wgmma_ss<16>(float (&d)[8], uint64_t a, uint64_t b) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(1));
 }
 
-// A tile: channel tile (fastest), then 128-pixel tile, then image.
+// A tile: channel tile (fastest), then 256-pixel tile, then image.
 struct TileIndex {
   int co0, r0, c0, b;
 };
@@ -208,26 +180,26 @@ conv3x3_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __
                     const float* __restrict__ bias, __nv_bfloat16* __restrict__ out, int H, int W,
                     int Cin, int cin_p, int Co, int tc_log2, int tiles_x, int sp_tiles, int tiles,
                     int circular, int relu) {
+  using R = Ring<N>;
   extern __shared__ __align__(128) unsigned char smem[];
-  // [kStages][a step's weights, pack_weights' order] [kStages][halo: pixel x 80 B]
-  // [output tile: 128 pixels x (N + 8) bf16] [full barriers][empty barriers]
+  // [kStages][a step's weights, pack_weights' order]
+  // [kStages][halo: 2 planes of 8 channels x pixel x 16 B] [full barriers][empty barriers]
   const uint32_t ws0 = smem_addr(smem);
-  const uint32_t xs0 = ws0 + kStages * Tile<N>::kWBytes;
-  const uint32_t full0 = ws0 + Tile<N>::kBarOffset;
-  const uint32_t empty0 = full0 + kStages * sizeof(uint64_t);
+  const uint32_t xs0 = ws0 + R::kStages * R::kWBytes;
+  const uint32_t full0 = ws0 + R::kBarOffset;
+  const uint32_t empty0 = full0 + R::kStages * sizeof(uint64_t);
 
   const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
   const int tc = 1 << tc_log2;
   const int tr = kTilePix >> tc_log2;
   const int hc = tc + 2;  // halo columns
+  const int halo_pix = (tr + 2) * hc;
   const int co_tiles = (Co + N - 1) / N;
-  const int steps = (cin_p + kChunk - 1) / kChunk;  // per tile
+  const int steps = cin_p / kStep;  // per tile
 
   if (tid == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(full0 + 8 * s, kProducers + 1);  // each producer's copies + the weights' expect_tx
+    for (int s = 0; s < R::kStages; ++s) {
+      mbar_init(full0 + 8 * s, kProducers + 1);    // each producer + the weights' expect_tx
       mbar_init(empty0 + 8 * s, kConsumers / 32);  // one arrival per consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -235,21 +207,25 @@ conv3x3_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __
   __syncthreads();
 
   if (tid >= kConsumers) {
-    // Producers: ring step k (tile by tile, 32 channels at a time) into
-    // stage k % kStages, once the consumers have released step k - kStages.
-    // Thread p copies channel group p % 4 of halo pixels p / 4 + 32 i.
+    // Producers: ring step k (tile by tile, 16 channels at a time) into
+    // stage k % kStages once the consumers have released step k - kStages.
+    // A thread marks its part of step k full once its copies have landed,
+    // after it has issued step k + 1.
     const int p = tid - kConsumers;
-    const int q = p % 4;
     const bool vec_x = (Cin % 8) == 0;
-    const int halo_pix = (tr + 2) * hc;
     int k = 0;
+    auto mark_full = [&](int step) {
+      fence_proxy_async();
+      mbar_arrive(full0 + 8 * (step % R::kStages));
+    };
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
       const TileIndex ti = tile_index<N>(t, co_tiles, sp_tiles, tiles_x, tr, tc);
-      // Element offset of each of this thread's halo pixels in x, or -1 outside the image.
-      long long off[kPixPerProducer];
+      // This thread's halo pixels p / 2 + 64 i (channel group p % 2) -> pixel
+      // index in x, or -1 outside the image (zeros).
+      int src_pix[kSlots];
 #pragma unroll
-      for (int i = 0; i < kPixPerProducer; ++i) {
-        const int pix = p / 4 + (kProducers / 4) * i;
+      for (int i = 0; i < kSlots; ++i) {
+        const int pix = p / 2 + (kProducers / 2) * i;
         const int gr = ti.r0 - 1 + pix / hc;
         int gc = ti.c0 - 1 + pix % hc;
         bool ok = pix < halo_pix && gr >= 0 && gr < H;
@@ -258,131 +234,131 @@ conv3x3_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __
         } else {
           ok = ok && gc >= 0 && gc < W;
         }
-        off[i] = ok ? ((static_cast<long long>(ti.b) * H + gr) * W + gc) * Cin : -1;
+        src_pix[i] = ok ? (ti.b * H + gr) * W + gc : -1;
       }
       const __nv_bfloat16* wt = w + static_cast<size_t>(ti.co0) * 9 * cin_p;
       for (int c = 0; c < steps; ++c, ++k) {
-        const int st = k % kStages;
-        const int k0 = c * kChunk;
-        const int ch = k0 + 8 * q;
+        const int st = k % R::kStages;
+        const int k0 = c * kStep;
         const uint32_t full = full0 + 8 * st;
-        if (k >= kStages) mbar_wait(empty0 + 8 * st, (k / kStages - 1) & 1);
-        if (p == 0) {  // weights: 9 x ks x N x 16 bf16, contiguous in the packed tensor
-          const uint32_t bytes = 9 * min(2, (cin_p - k0) / 16) * N * 32;
-          mbar_arrive_expect_tx(full, bytes);
-          bulk_copy(ws0 + st * Tile<N>::kWBytes, wt + static_cast<size_t>(9) * k0 * N, bytes, full);
+        if (k >= R::kStages) mbar_wait(empty0 + 8 * st, (k / R::kStages - 1) & 1);
+        if (p == 0) {  // weights: 9 x N x 16 bf16, contiguous in the packed tensor
+          mbar_arrive_expect_tx(full, R::kWBytes);
+          bulk_copy(ws0 + st * R::kWBytes, wt + static_cast<size_t>(9) * k0 * N, R::kWBytes, full);
         }
-        const uint32_t xs = xs0 + st * kHaloBytes + (p / 4) * kPixBytes + 16 * q;
+        const uint32_t xs = xs0 + st * kHaloBytes + (p % 2) * kPlaneBytes + (p / 2) * 16;
+        const int ch = k0 + 8 * (p % 2);
 #pragma unroll
-        for (int i = 0; i < kPixPerProducer; ++i) {
-          const int pix = p / 4 + (kProducers / 4) * i;
-          if (pix >= halo_pix) break;
-          const bool ok = off[i] >= 0 && ch < Cin;
-          const __nv_bfloat16* src = ok ? x + off[i] + ch : x;
-          const uint32_t dst = xs + (kProducers / 4) * i * kPixBytes;
+        for (int i = 0; i < kSlots; ++i) {
+          if (p / 2 + (kProducers / 2) * i >= halo_pix) break;
+          const uint32_t dst = xs + (kProducers / 2) * i * 16;
           if (vec_x) {
-            cp_async16(dst, src, ok ? 16 : 0);  // zeros outside the image and past Cin
+            const bool ok = src_pix[i] >= 0 && ch < Cin;  // else 16 zeros
+            cp_async16(dst, ok ? x + static_cast<size_t>(src_pix[i]) * Cin + ch : x, ok ? 16 : 0);
           } else {  // Cin % 8 != 0 (conv1_1): element by element, zero past Cin
-            uint32_t v[4];
+            const __nv_bfloat16* src = x + static_cast<size_t>(src_pix[i] < 0 ? 0 : src_pix[i]) * Cin;
+            __align__(16) __nv_bfloat16 e[8];
 #pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const __nv_bfloat16 lo = (ok && ch + 2 * e < Cin) ? src[2 * e] : __float2bfloat16_rn(0.f);
-              const __nv_bfloat16 hi =
-                  (ok && ch + 2 * e + 1 < Cin) ? src[2 * e + 1] : __float2bfloat16_rn(0.f);
-              const __nv_bfloat162 pair = __halves2bfloat162(lo, hi);
-              v[e] = *reinterpret_cast<const uint32_t*>(&pair);
+            for (int j = 0; j < 8; ++j) {
+              e[j] = (src_pix[i] >= 0 && ch + j < Cin) ? src[ch + j] : __float2bfloat16_rn(0.f);
             }
-            asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst), "r"(v[0]), "r"(v[1]),
-                         "r"(v[2]), "r"(v[3])
-                         : "memory");
+            *reinterpret_cast<uint4*>(smem + (dst - ws0)) = *reinterpret_cast<const uint4*>(e);
           }
         }
-        if (vec_x) {
-          cp_async_arrive(full);
-        } else {
-          mbar_arrive(full);  // release: the stores above are seen by the waiting consumers
+        cp_async_commit();
+        if (k > 0) {
+          cp_async_wait<1>();  // this thread's copies of step k - 1 have landed
+          mark_full(k - 1);
         }
       }
     }
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-    return;
-  }
-
-  // Consumers: this lane's ldmatrix row is pixel m of the tile, 8 channels
-  // at 16 bytes x (lane / 16). Thread (warp, lane) accumulates rows g and
-  // g + 8 of its warp's 16 and, per 8-channel group j, channels 8 j + 2 t
-  // and + 1 (g = lane / 4, t = lane % 4).
-  const int m = 64 * (warp / 4) + 16 * (warp % 4) + (lane & 7) + 8 * ((lane >> 3) & 1);
-  const uint32_t a_lane = ((m >> tc_log2) * hc + (m & (tc - 1))) * kPixBytes + 16 * (lane >> 4);
-  const int g = lane / 4;
-  const int t4 = lane % 4;
-  __nv_bfloat16* os = reinterpret_cast<__nv_bfloat16*>(smem + Tile<N>::kOutOffset);
-  int k = 0;
-  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const TileIndex ti = tile_index<N>(t, co_tiles, sp_tiles, tiles_x, tr, tc);
-    float acc[N / 2];
+    if (k > 0) {
+      cp_async_wait<0>();
+      mark_full(k - 1);
+    }
+  } else {
+    // Consumers: warpgroup wg computes 8 x 8-pixel blocks 2 wg and 2 wg + 1
+    // of the tile, 64 pixels x N channels each (M rows: 8 tile rows of 8
+    // pixels). Thread (warp, lane) accumulates, per block, rows 2 (warp % 4)
+    // and + 1 of the block at column g = lane / 4, and per 8-channel group j
+    // channels 8 j + 2 (lane % 4) and + 1.
+    const int lane = tid % 32;
+    const int warp = tid / 32;
+    const int blocks_x = tc / 8;
+    uint32_t a_off[2];  // halo offset of each block's top-left pixel, tap (0, 0)
 #pragma unroll
-    for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
-
-    for (int c = 0; c < steps; ++c, ++k) {
-      const int st = k % kStages;
-      const int ks = min(2, (cin_p - c * kChunk) / 16);  // k16 steps in this chunk
-      mbar_wait(full0 + 8 * st, (k / kStages) & 1);
-      const uint32_t w_base = ws0 + st * Tile<N>::kWBytes;
-      const uint32_t x_base = xs0 + st * kHaloBytes + a_lane;
-      uint32_t a[2][2][4];  // [tap parity][k16 step]: a tap's registers stay live while its wgmma runs
+    for (int mb = 0; mb < 2; ++mb) {
+      const int blk = 2 * (warp / 4) + mb;
+      a_off[mb] = ((blk / blocks_x) * 8 * hc + (blk % blocks_x) * 8) * 16;
+    }
+    int k = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const TileIndex ti = tile_index<N>(t, co_tiles, sp_tiles, tiles_x, tr, tc);
+      float acc[2][N / 2];
 #pragma unroll
-      for (int tap = 0; tap < 9; ++tap) {
-        const uint32_t shift = ((tap / 3) * hc + tap % 3) * kPixBytes;
-        ldmatrix_x4(a[tap & 1][0], x_base + shift);
-        if (ks == 2) ldmatrix_x4(a[tap & 1][1], x_base + shift + 32);
+      for (int i = 0; i < N / 2; ++i) acc[0][i] = acc[1][i] = 0.f;
+
+      for (int c = 0; c < steps; ++c, ++k) {
+        const int st = k % R::kStages;
+        mbar_wait(full0 + 8 * st, (k / R::kStages) & 1);
+        const uint32_t w_base = ws0 + st * R::kWBytes;
+        const uint32_t x_base = xs0 + st * kHaloBytes;
         wgmma_fence();
-        wgmma_rs<N>(acc, a[tap & 1][0], b_desc(w_base + (tap * ks) * N * 32));
-        if (ks == 2) wgmma_rs<N>(acc, a[tap & 1][1], b_desc(w_base + (tap * ks + 1) * N * 32));
+#pragma unroll
+        for (int tap = 0; tap < 9; ++tap) {
+          // B: N rows of 16 channels, core matrices 128 B apart along K, 256 B per 8 rows.
+          const uint64_t b = desc(w_base + tap * N * 32, 128, 256);
+          const uint32_t shift = ((tap / 3) * hc + tap % 3) * 16;
+#pragma unroll
+          for (int mb = 0; mb < 2; ++mb) {
+            // A: 8 x 8 pixels, one plane apart along K, one halo row per 8 rows.
+            wgmma_ss<N>(acc[mb], desc(x_base + a_off[mb] + shift, kPlaneBytes, hc * 16), b);
+          }
+        }
         wgmma_commit();
-        wgmma_wait<1>();  // the previous tap is done: its registers may be reloaded
-        if (tap == 0 && c > 0) {  // so is the previous step: release its stage
+        wgmma_wait<1>();  // the previous step is done: release its stage
+        if (c > 0) {
           __syncwarp();
-          if (lane == 0) mbar_arrive(empty0 + 8 * ((k - 1) % kStages));
+          if (lane == 0) mbar_arrive(empty0 + 8 * ((k - 1) % R::kStages));
         }
       }
-    }
-    wgmma_wait<0>();
+      wgmma_wait<0>();
 #pragma unroll
-    for (int i = 0; i < N / 2; ++i) fence_operand(acc[i]);
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty0 + 8 * ((k - 1) % kStages));  // the tile's last step
+      for (int i = 0; i < N / 2; ++i) {
+        fence_operand(acc[0][i]);
+        fence_operand(acc[1][i]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * ((k - 1) % R::kStages));  // the tile's last step
 
-    // Epilogue: bias, ReLU, one rounding, staged for 16-byte stores.
-    consumer_sync();  // the previous tile's stores have read the staging
+      // Epilogue, from registers: bias in f32, ReLU, one rounding to bf16.
+      const int g = lane / 4;
 #pragma unroll
-    for (int j = 0; j < N / 8; ++j) {
-      const int n = 8 * j + 2 * t4;
-      const float b0 = (ti.co0 + n < Co) ? bias[ti.co0 + n] : 0.f;
-      const float b1 = (ti.co0 + n + 1 < Co) ? bias[ti.co0 + n + 1] : 0.f;
+      for (int j = 0; j < N / 8; ++j) {
+        const int co = ti.co0 + 8 * j + 2 * (lane % 4);
+        if (co >= Co) continue;  // Co % 8 == 0: co + 1 < Co too
+        const float b0 = bias[co];
+        const float b1 = bias[co + 1];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float y0 = __fadd_rn(acc[4 * j + 2 * h], b0);
-        float y1 = __fadd_rn(acc[4 * j + 2 * h + 1], b1);
-        if (relu) {
-          y0 = fmaxf(y0, 0.f);
-          y1 = fmaxf(y1, 0.f);
+        for (int mb = 0; mb < 2; ++mb) {
+          const int blk = 2 * (warp / 4) + mb;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = ti.r0 + (blk / blocks_x) * 8 + 2 * (warp % 4) + h;
+            const int col = ti.c0 + (blk % blocks_x) * 8 + g;
+            float y0 = __fadd_rn(acc[mb][4 * j + 2 * h], b0);
+            float y1 = __fadd_rn(acc[mb][4 * j + 2 * h + 1], b1);
+            if (relu) {
+              y0 = fmaxf(y0, 0.f);
+              y1 = fmaxf(y1, 0.f);
+            }
+            if (r < H && col < W) {
+              *reinterpret_cast<__nv_bfloat162*>(
+                  out + ((static_cast<size_t>(ti.b) * H + r) * W + col) * Co + co) =
+                  __halves2bfloat162(__float2bfloat16_rn(y0), __float2bfloat16_rn(y1));
+            }
+          }
         }
-        const int pix = 64 * (warp / 4) + 16 * (warp % 4) + g + 8 * h;
-        *reinterpret_cast<__nv_bfloat162*>(os + pix * Tile<N>::kOutStride + n) =
-            __halves2bfloat162(__float2bfloat16_rn(y0), __float2bfloat16_rn(y1));
-      }
-    }
-    consumer_sync();
-    for (int i = tid; i < kTilePix * (N / 8); i += kConsumers) {
-      const int qo = i % (N / 8);
-      const int pix = i / (N / 8);
-      const int r = ti.r0 + (pix >> tc_log2);
-      const int col = ti.c0 + (pix & (tc - 1));
-      const int co = ti.co0 + 8 * qo;
-      if (r < H && col < W && co < Co) {  // Co % 8 == 0: a group is all in or all out
-        *reinterpret_cast<uint4*>(out + ((static_cast<size_t>(ti.b) * H + r) * W + col) * Co + co) =
-            *reinterpret_cast<const uint4*>(os + pix * Tile<N>::kOutStride + 8 * qo);
       }
     }
   }
@@ -392,7 +368,7 @@ template <int N>
 int launch(const void* x, const void* w, const void* bias, void* out, int B, int H, int W, int Cin,
            int cin_p, int Co, int tc_log2, int circular, int relu, cudaStream_t stream) {
   const auto kernel = conv3x3_bf16_kernel<N>;
-  const int smem = static_cast<int>(Tile<N>::kSmemBytes);
+  const int smem = static_cast<int>(Ring<N>::kSmemBytes);
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   int device = 0, sms = 0, per_sm = 0;
   if (e == cudaSuccess) e = cudaGetDevice(&device);
@@ -421,14 +397,14 @@ extern "C" {
 // x bf16 [B, H, W, Cin]; w bf16 from pack_weights for a channel tile of
 // tile_n (128, 64 or 16) and cin_p = Cin rounded up to a multiple of 16;
 // bias f32 [Co]; out bf16 [B, H, W, Co]. Co % 8 == 0; the output tile is
-// (128 >> tc_log2) x (1 << tc_log2) pixels, tc_log2 in 3..6; all contiguous
-// and 16-byte aligned (checked by ops/conv3x3.py). Launches on `stream` and
-// returns cudaGetLastError() (0 on success).
+// (256 >> tc_log2) x (1 << tc_log2) pixels, tc_log2 in 3..5; all contiguous
+// and 16-byte aligned, B H W < 2^31 (checked by ops/conv3x3.py). Launches on
+// `stream` and returns cudaGetLastError() (0 on success).
 int witw_conv3x3_bf16(const void* x, const void* w, const void* bias, void* out, int B, int H,
                       int W, int Cin, int cin_p, int Co, int tile_n, int tc_log2, int circular,
                       int relu, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || Co <= 0) return 0;
-  if (tc_log2 < 3 || tc_log2 > 6) return static_cast<int>(cudaErrorInvalidValue);
+  if (tc_log2 < 3 || tc_log2 > 5 || cin_p % kStep != 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (tile_n) {
     case 128: return launch<128>(x, w, bias, out, B, H, W, Cin, cin_p, Co, tc_log2, circular, relu, s);

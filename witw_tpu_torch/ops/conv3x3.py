@@ -41,9 +41,8 @@ from witw_tpu_torch.ops.launch import check_cuda_tensors, check_launch
 # Kernel launches since the last reset (the card path's proof of use).
 launches = 0
 
-TILE_PIX = 128  # output pixels of one block
-CHUNK = 32  # input channels per kernel step
-GRID_LIMIT = 65535
+TILE_PIX = 256  # output pixels of one tile
+STEP = 16  # input channels per kernel step
 
 
 def padded_channels(c: int) -> int:
@@ -58,50 +57,38 @@ def tile_n(co: int) -> int:
 
 
 def tile_shape(h: int, w: int) -> tuple:
-    """(rows, cols) of the 128-pixel output tile, cols in {8, 16, 32, 64}:
-    the fewest padded pixels at this H, W, ties to the smallest halo."""
+    """(rows, cols) of the 256-pixel output tile, cols in {8, 16, 32}: the
+    fewest padded pixels at this H, W, ties to the smallest halo."""
     def cost(cols):
         rows = TILE_PIX // cols
         padded = -(-h // rows) * rows * (-(-w // cols) * cols)
         return padded, (rows + 2) * (cols + 2)
-    cols = min((16, 8, 32, 64), key=cost)
+    cols = min((16, 8, 32), key=cost)
     return TILE_PIX // cols, cols
 
 
 def pack_weights(weight: torch.Tensor) -> torch.Tensor:
     """OIHW [Co, Cin, 3, 3] -> the kernel's bf16 [Co tiles, 9 Cin_p N]
     (N = :func:`tile_n`; Co zero-padded to a multiple of N, Cin to one of 16).
-    Per channel tile and per 32-channel step, in the order the kernel copies
-    into shared memory: [tap (dy, dx)][k16 step][N / 8 groups][2 k halves]
-    [8 channels][8 k], each 8 x 8 block one 128-byte core matrix of the
-    no-swizzle K-major ``wgmma`` B descriptor."""
+    Per channel tile and per 16-channel step, in the order the kernel copies
+    into shared memory: [tap (dy, dx)][N / 8 groups][2 k halves][8 channels]
+    [8 k], each 8 x 8 block one 128-byte core matrix of the no-swizzle
+    K-major ``wgmma`` B descriptor."""
     co, cin = weight.shape[:2]
     n, cin_p = tile_n(co), padded_channels(cin)
     ct = -(-co // n)
     w = weight.detach().to(torch.bfloat16)
-    w = F.pad(w, (0, 0, 0, 0, 0, cin_p - cin, 0, ct * n - co)).reshape(ct, n // 8, 8, cin_p, 9)
-    full = cin_p // CHUNK * CHUNK
-    parts = []
-    for k0, k1, ks in ((0, full, 2), (full, cin_p, 1)):
-        if k1 > k0:  # [ct, ng, r, chunk, s, kg, k, tap] -> [ct, chunk, tap, s, ng, kg, r, k]
-            p = w[:, :, :, k0:k1].reshape(ct, n // 8, 8, -1, ks, 2, 8, 9)
-            parts.append(p.permute(0, 3, 7, 4, 1, 5, 2, 6).reshape(ct, -1))
-    return torch.cat(parts, 1).contiguous()
+    w = F.pad(w, (0, 0, 0, 0, 0, cin_p - cin, 0, ct * n - co))
+    w = w.reshape(ct, n // 8, 8, cin_p // STEP, 2, 8, 9)  # [ct, ng, r, step, kg, k, tap]
+    return w.permute(0, 3, 6, 1, 4, 2, 5).reshape(ct, -1).contiguous()
 
 
 def unpack_weights(packed: torch.Tensor, co: int, cin: int) -> torch.Tensor:
     """The inverse of :func:`pack_weights`: bf16 OIHW [Co, Cin, 3, 3]."""
     n, cin_p = tile_n(co), padded_channels(cin)
     ct = packed.shape[0]
-    full = cin_p // CHUNK * CHUNK
-    parts, at = [], 0
-    for k0, k1, ks in ((0, full, 2), (full, cin_p, 1)):
-        if k1 > k0:
-            size = 9 * (k1 - k0) * n
-            p = packed[:, at:at + size].reshape(ct, -1, 9, ks, n // 8, 2, 8, 8)
-            parts.append(p.permute(0, 4, 6, 1, 3, 5, 7, 2).reshape(ct, n // 8, 8, k1 - k0, 9))
-            at += size
-    w = torch.cat(parts, 3).reshape(ct * n, cin_p, 3, 3)
+    w = packed.reshape(ct, cin_p // STEP, 9, n // 8, 2, 8, 8)  # [ct, step, tap, ng, kg, r, k]
+    w = w.permute(0, 3, 5, 1, 4, 6, 2).reshape(ct * n, cin_p, 3, 3)
     return w[:co, :cin].contiguous()
 
 
@@ -156,8 +143,8 @@ def conv3x3_bias_relu_kernel(x: torch.Tensor, w_packed: torch.Tensor, bias: torc
                          f"{tuple(x.shape)}: w must be pack_weights' [Co tiles, 9 Cin_p N], "
                          f"Co a multiple of 8")
     rows, cols = tile_shape(h, wd)
-    if -(-h // rows) * -(-wd // cols) > GRID_LIMIT or b > GRID_LIMIT:
-        raise ValueError(f"input {tuple(x.shape)} exceeds the launch grid")
+    if b * h * wd >= 2 ** 31 or -(-co // n) * -(-h // rows) * -(-wd // cols) * b >= 2 ** 31:
+        raise ValueError(f"input {tuple(x.shape)} has too many pixels or tiles for the kernel")
     device = check_cuda_tensors("conv3x3_bf16", x=x, w=w_packed, bias=bias)
     out = torch.empty((b, h, wd, co), dtype=torch.bfloat16, device=device)
     if out.numel() == 0:
