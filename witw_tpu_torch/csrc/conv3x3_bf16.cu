@@ -184,6 +184,7 @@ conv3x3_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __
   extern __shared__ __align__(128) unsigned char smem[];
   // [kStages][a step's weights, pack_weights' order]
   // [kStages][halo: 2 planes of 8 channels x pixel x 16 B] [full barriers][empty barriers]
+  // [bias, f32]
   const uint32_t ws0 = smem_addr(smem);
   const uint32_t xs0 = ws0 + R::kStages * R::kWBytes;
   const uint32_t full0 = ws0 + R::kBarOffset;
@@ -197,6 +198,8 @@ conv3x3_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __
   const int co_tiles = (Co + N - 1) / N;
   const int steps = cin_p / kStep;  // per tile
 
+  float* bias_s = reinterpret_cast<float*>(smem + R::kSmemBytes);  // bias[0 .. Co)
+  for (int i = tid; i < Co; i += kThreads) bias_s[i] = bias[i];
   if (tid == 0) {
     for (int s = 0; s < R::kStages; ++s) {
       mbar_init(full0 + 8 * s, kProducers + 1);    // each producer + the weights' expect_tx
@@ -331,31 +334,56 @@ conv3x3_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __
       __syncwarp();
       if (lane == 0) mbar_arrive(empty0 + 8 * ((k - 1) % R::kStages));  // the tile's last step
 
-      // Epilogue, from registers: bias in f32, ReLU, one rounding to bf16.
+      // Epilogue: bias in f32, ReLU, one rounding to bf16. Lane t of each
+      // quad holds channel pair t of 8-channel groups j; a 4 x 4 exchange
+      // in the quad gives it all 8 channels of group 4 jj + t, one 16-byte store.
       const int g = lane / 4;
+      const int t4 = lane % 4;
 #pragma unroll
-      for (int j = 0; j < N / 8; ++j) {
-        const int co = ti.co0 + 8 * j + 2 * (lane % 4);
-        if (co >= Co) continue;  // Co % 8 == 0: co + 1 < Co too
-        const float b0 = bias[co];
-        const float b1 = bias[co + 1];
+      for (int jj = 0; jj < (N + 31) / 32; ++jj) {
 #pragma unroll
         for (int mb = 0; mb < 2; ++mb) {
           const int blk = 2 * (warp / 4) + mb;
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
+            uint32_t v[4];  // pair t4 of groups 4 jj + u
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              const int j = 4 * jj + u;
+              v[u] = 0u;
+              if (j < N / 8) {
+                const int co = ti.co0 + 8 * j + 2 * t4;
+                const float2 bb = co < Co ? *reinterpret_cast<const float2*>(bias_s + co)
+                                          : make_float2(0.f, 0.f);
+                float y0 = __fadd_rn(acc[mb][4 * j + 2 * h], bb.x);
+                float y1 = __fadd_rn(acc[mb][4 * j + 2 * h + 1], bb.y);
+                if (relu) {
+                  y0 = fmaxf(y0, 0.f);
+                  y1 = fmaxf(y1, 0.f);
+                }
+                const __nv_bfloat162 pair =
+                    __halves2bfloat162(__float2bfloat16_rn(y0), __float2bfloat16_rn(y1));
+                v[u] = *reinterpret_cast<const uint32_t*>(&pair);
+              }
+            }
+            uint32_t o[4];  // pair u of group 4 jj + t4
+#pragma unroll
+            for (int u = 0; u < 4; ++u) o[u] = u == t4 ? v[u] : 0u;
+#pragma unroll
+            for (int x_or = 1; x_or < 4; ++x_or) {
+              const int peer = t4 ^ x_or;
+              const uint32_t send = peer == 0 ? v[0] : peer == 1 ? v[1] : peer == 2 ? v[2] : v[3];
+              const uint32_t recv = __shfl_xor_sync(0xffffffffu, send, x_or);
+#pragma unroll
+              for (int u = 0; u < 4; ++u) o[u] = u == peer ? recv : o[u];
+            }
+            const int j = 4 * jj + t4;
+            const int co = ti.co0 + 8 * j;
             const int r = ti.r0 + (blk / blocks_x) * 8 + 2 * (warp % 4) + h;
             const int col = ti.c0 + (blk % blocks_x) * 8 + g;
-            float y0 = __fadd_rn(acc[mb][4 * j + 2 * h], b0);
-            float y1 = __fadd_rn(acc[mb][4 * j + 2 * h + 1], b1);
-            if (relu) {
-              y0 = fmaxf(y0, 0.f);
-              y1 = fmaxf(y1, 0.f);
-            }
-            if (r < H && col < W) {
-              *reinterpret_cast<__nv_bfloat162*>(
-                  out + ((static_cast<size_t>(ti.b) * H + r) * W + col) * Co + co) =
-                  __halves2bfloat162(__float2bfloat16_rn(y0), __float2bfloat16_rn(y1));
+            if (j < N / 8 && co < Co && r < H && col < W) {
+              *reinterpret_cast<uint4*>(out + ((static_cast<size_t>(ti.b) * H + r) * W + col) * Co + co) =
+                  make_uint4(o[0], o[1], o[2], o[3]);
             }
           }
         }
@@ -368,7 +396,7 @@ template <int N>
 int launch(const void* x, const void* w, const void* bias, void* out, int B, int H, int W, int Cin,
            int cin_p, int Co, int tc_log2, int circular, int relu, cudaStream_t stream) {
   const auto kernel = conv3x3_bf16_kernel<N>;
-  const int smem = static_cast<int>(Ring<N>::kSmemBytes);
+  const int smem = static_cast<int>(Ring<N>::kSmemBytes) + Co * 4;  // the ring, the bias
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   int device = 0, sms = 0, per_sm = 0;
   if (e == cudaSuccess) e = cudaGetDevice(&device);
