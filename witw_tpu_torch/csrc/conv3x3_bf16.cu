@@ -13,7 +13,46 @@
 // with the height zero-padded by 1, and the width zero-padded by 1 or, with
 // `circular`, read modulo W (the overhead tower's wrapping panorama).
 //
-// NOTE_PLACEHOLDER
+// Bound: the tensor-core rate at every layer but conv1_x (9 Cin multiply-adds
+// per output element; bf16 needs 295 FLOP per byte of device memory, and the
+// convs from conv2_2 on carry thousands). The second limit is shared memory:
+// it moves 128 bytes per clock per SM against 4096 bf16 FLOP, so a design must
+// carry more than 32 FLOP per byte of shared-memory traffic.
+//
+// Design: an implicit GEMM (the patch matrix never exists), persistent, warp
+// specialised. A tile is 256 output pixels of one image (TR x TC in {16 x 16,
+// 32 x 8, 8 x 32}, chosen by the wrapper for the least padding) x N output
+// channels (128, 64 or 16 by Co); K = 9 taps x Cin_p (Cin rounded up to 16),
+// taken 16 channels per ring step. Each block walks tiles blockIdx.x + i x
+// gridDim.x (channel tile fastest) with 384 threads:
+// - one producer warpgroup fills a ring of 4 (N 128), 6 (N 64) or 8 (N 16)
+//   stages. A step's weights arrive by one cp.async.bulk counted on the
+//   stage's full mbarrier: pack_weights stores them in the order the B
+//   descriptor reads (no swizzle, K-major: 8 x 8 core matrices of 128
+//   contiguous bytes, LBO 128, SBO 256). The halo, (TR + 2) x (TC + 2) pixels
+//   x 16 channels, arrives by 16-byte cp.async copies, zero-filled outside the
+//   image and past Cin, columns taken mod W when circular (Cin % 8 != 0, i.e.
+//   conv1_1, is copied element by element). A producer marks its share of a
+//   step full one step later, after cp.async.wait_group and a proxy fence, so
+//   that the async proxy of wgmma sees the copies.
+// - two consumer warpgroups each own two 8 x 8 blocks of the tile (64 rows of
+//   M each) and issue wgmma.mma_async m64nNk16 (bf16 in, f32 accumulate) with
+//   A and B both read from shared memory: the halo is stored as two planes of
+//   8 channels x pixel x 16 bytes, so an 8 x 8 block at tap (dy, dx) is a
+//   no-swizzle K-major descriptor (LBO one plane, SBO one halo row) whose
+//   start moves by (dy (TC + 2) + dx) x 16 bytes. One commit group per step,
+//   waited one step behind; the stage is then released on its empty mbarrier.
+// - the epilogue adds the bias (staged in shared memory) in f32, applies ReLU,
+//   rounds once to bf16 and, after a 4 x 4 exchange in each quad of lanes,
+//   writes 16-byte stores straight from registers.
+// Budget (N 128 / 64 / 16): shared memory 190,976 / 175,872 / 123,904 bytes of
+// ring + 64 to 128 of barriers + 4 Co of bias; ptxas: 161 / 111 / 82
+// registers, no spills. Shared-memory traffic per step at N 128: wgmma reads
+// 2 x 9 x 2 x (2 KB of A + 4 KB of B) = 216 KB and the ring takes 47.7 KB,
+// against 9.4 MFLOP: 36 FLOP per byte (27 at N 64, where conv1_x is bound by
+// device memory anyway).
+// Where the time goes (profile_conv.py: clock64 per tile, and copies of this
+// kernel without its copies or without its wgmma): PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
