@@ -34,8 +34,8 @@ Phases, each of which passes or raises:
 10. Time int8 embed+match pairs/s and each int8 kernel against its plain
    version at the main path's shapes (batch 128).
 11. The bf16 conv + bias + ReLU kernel (conv3x3_bf16, built in phase 2):
-   print ptxas' lines, failing on any spill, and the HGMMA (wgmma), LDSM
-   and HMMA counts of each of its kernels' SASS (cuobjdump), failing where
+   print ptxas' lines, failing on any spill, and the HGMMA (wgmma) and HMMA
+   (mma.sync) counts of each of its kernels' SASS (cuobjdump), failing where
    a kernel has no HGMMA.
 12. Hold it against its plain PyTorch version at every distinct conv shape
    of both bf16 towers at full CVUSA geometry (fov 360 and 90, zero and
@@ -619,7 +619,7 @@ def conv_phases(card, device, cfg, built):
               if re.search(r"[1-9]\d* bytes spill (stores|loads)", line)]
     if spills:
         raise AssertionError(f"conv3x3_bf16 spills registers: {spills}")
-    hgmma = sass_counts(built["conv3x3_bf16"][0], ("HGMMA", "LDSM", "HMMA"))
+    hgmma = sass_counts(built["conv3x3_bf16"][0], ("HGMMA", "HMMA"))
     for fn, counts in hgmma.items():
         log(f"    SASS {fn}: {counts}")
     if not hgmma or not all(c["HGMMA"] > 0 for c in hgmma.values()):
@@ -636,10 +636,10 @@ def conv_phases(card, device, cfg, built):
     cases += [(2, h, w, cin, co, circ, not relu) for h, w, cin, co, circ, relu in shapes]
     cases += [(1, 7, 9, 5, 24, False, True), (3, 9, 1, 16, 8, True, True),
               (2, 17, 33, 40, 72, True, False)]  # ragged: odd dims, Co tails, W = 1
+    # the tiling's edges: W = 16 and 66, Co 16 and 72, Cin 40, circular at W < 64
     cases += [(2, 16, 16, 256, 128, False, True), (1, 5, 66, 64, 64, False, True),
               (2, 4, 64, 64, 16, True, False), (2, 6, 20, 40, 16, False, True),
               (2, 11, 24, 64, 72, True, True), (1, 2, 24, 128, 256, True, True)]
-    # the tiling's edges: W = 16 and 66, Co 16 and 72, Cin 40, circular at W < 64
     gen = torch.Generator(device=device).manual_seed(12)
     max_err = max_ulps = max_beyond = 0.0
     equal = []

@@ -43,11 +43,12 @@
 //   start moves by (dy (TC + 2) + dx) x 16 bytes. One commit group per step,
 //   waited one step behind; the stage is then released on its empty mbarrier.
 // - the epilogue adds the bias (staged in shared memory) in f32, applies ReLU,
-//   rounds once to bf16 and, after a 4 x 4 exchange in each quad of lanes,
-//   writes 16-byte stores straight from registers.
+//   rounds once to bf16, and per 32 channels passes each warp's 16 x 32 block
+//   through 1,280 bytes of staging (stmatrix in, 16-byte loads out) to
+//   16-byte stores, 4 lanes per pixel.
 // Budget (N 128 / 64 / 16): shared memory 190,976 / 175,872 / 123,904 bytes of
-// ring + 64 to 128 of barriers + 4 Co of bias; ptxas: 161 / 111 / 82
-// registers, no spills. Shared-memory traffic per step at N 128: wgmma reads
+// ring + 64 to 128 of barriers + 10,240 of epilogue staging + 4 Co of bias;
+// ptxas: 168 / 119 / 55 registers, no spills. Shared-memory traffic per step at N 128: wgmma reads
 // 2 x 9 x 2 x (2 KB of A + 4 KB of B) = 216 KB and the ring takes 47.7 KB,
 // against 9.4 MFLOP: 36 FLOP per byte (27 at N 64, where conv1_x is bound by
 // device memory anyway).
@@ -71,13 +72,18 @@ constexpr int kHaloMaxPix = 34 * 10; // the largest halo, of a 32 x 8 or 8 x 32 
 constexpr int kPlaneBytes = kHaloMaxPix * 16;  // one 8-channel group of the halo
 constexpr int kHaloBytes = 2 * kPlaneBytes;
 constexpr int kSlots = (kHaloMaxPix + kProducers / 2 - 1) / (kProducers / 2);  // pixels per producer
+// Epilogue staging of one consumer warp: 16 pixels x 32 channels, rows 80
+// bytes apart so that the 8 rows of a stmatrix land in distinct banks.
+constexpr int kOutPitch = 80;
+constexpr int kOutWarpBytes = 16 * kOutPitch;
 
 template <int N>
 struct Ring {
   static constexpr int kWBytes = 9 * kStep * N * 2;                 // one step's weights
   static constexpr int kStages = N == 128 ? 4 : N == 64 ? 6 : 8;    // as many as fit
   static constexpr int kBarOffset = kStages * (kWBytes + kHaloBytes);
-  static constexpr size_t kSmemBytes = kBarOffset + 2 * kStages * sizeof(uint64_t);
+  static constexpr int kOutOffset = kBarOffset + 2 * kStages * sizeof(uint64_t);
+  static constexpr size_t kSmemBytes = kOutOffset + (kConsumers / 32) * kOutWarpBytes;
   static_assert(kSmemBytes <= 232448, "fits the 227 KB a block may use");
 };
 
@@ -117,6 +123,20 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, uint32_t src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes)
                : "memory");
+}
+// Four 8 x 8 bf16 matrices from the mma fragment layout into shared memory.
+__device__ __forceinline__ void stmatrix_x4(uint32_t addr, uint32_t r0, uint32_t r1, uint32_t r2, uint32_t r3) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(r0),
+               "r"(r1), "r"(r2), "r"(r3)
+               : "memory");
+}
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 template <int Pending>
@@ -373,58 +393,59 @@ conv3x3_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __
       __syncwarp();
       if (lane == 0) mbar_arrive(empty0 + 8 * ((k - 1) % R::kStages));  // the tile's last step
 
-      // Epilogue: bias in f32, ReLU, one rounding to bf16. Lane t of each
-      // quad holds channel pair t of 8-channel groups j; a 4 x 4 exchange
-      // in the quad gives it all 8 channels of group 4 jj + t, one 16-byte store.
-      const int g = lane / 4;
+      // Epilogue: bias in f32, ReLU, one rounding to bf16; per 32 channels,
+      // the warp's 16 x 32 block goes through its staging by stmatrix and
+      // leaves as 16-byte stores, 4 lanes per pixel.
       const int t4 = lane % 4;
+      const uint32_t stage = ws0 + R::kOutOffset + warp * kOutWarpBytes;
+      // stmatrix row address of this lane: matrix lane / 8 is (group (lane / 16), half (lane / 8) % 2)
+      const uint32_t st_addr = stage + ((lane & 7) + 8 * ((lane >> 3) & 1)) * kOutPitch + (lane >> 4) * 16;
 #pragma unroll
       for (int jj = 0; jj < (N + 31) / 32; ++jj) {
+        float2 bb[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int co = ti.co0 + 8 * (4 * jj + u) + 2 * t4;
+          bb[u] = (4 * jj + u < N / 8 && co < Co) ? *reinterpret_cast<const float2*>(bias_s + co)
+                                                   : make_float2(0.f, 0.f);
+        }
 #pragma unroll
         for (int mb = 0; mb < 2; ++mb) {
-          const int blk = 2 * (warp / 4) + mb;
+          uint32_t v[4][2];  // [group u][row half h]: channels 8 (4 jj + u) + 2 t4, +1
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            uint32_t v[4];  // pair t4 of groups 4 jj + u
+          for (int u = 0; u < 4; ++u) {
 #pragma unroll
-            for (int u = 0; u < 4; ++u) {
-              const int j = 4 * jj + u;
-              v[u] = 0u;
-              if (j < N / 8) {
-                const int co = ti.co0 + 8 * j + 2 * t4;
-                const float2 bb = co < Co ? *reinterpret_cast<const float2*>(bias_s + co)
-                                          : make_float2(0.f, 0.f);
-                float y0 = __fadd_rn(acc[mb][4 * j + 2 * h], bb.x);
-                float y1 = __fadd_rn(acc[mb][4 * j + 2 * h + 1], bb.y);
+            for (int h = 0; h < 2; ++h) {
+              v[u][h] = 0u;
+              if (4 * jj + u < N / 8) {
+                const int j = 4 * jj + u;
+                float y0 = __fadd_rn(acc[mb][4 * j + 2 * h], bb[u].x);
+                float y1 = __fadd_rn(acc[mb][4 * j + 2 * h + 1], bb[u].y);
                 if (relu) {
                   y0 = fmaxf(y0, 0.f);
                   y1 = fmaxf(y1, 0.f);
                 }
-                const __nv_bfloat162 pair =
-                    __halves2bfloat162(__float2bfloat16_rn(y0), __float2bfloat16_rn(y1));
-                v[u] = *reinterpret_cast<const uint32_t*>(&pair);
+                const __nv_bfloat162 pair = __floats2bfloat162_rn(y0, y1);
+                v[u][h] = *reinterpret_cast<const uint32_t*>(&pair);
               }
             }
-            uint32_t o[4];  // pair u of group 4 jj + t4
+          }
+          stmatrix_x4(st_addr, v[0][0], v[0][1], v[1][0], v[1][1]);
+          if (N > 16) stmatrix_x4(st_addr + 32, v[2][0], v[2][1], v[3][0], v[3][1]);
+          __syncwarp();
+          const int blk = 2 * (warp / 4) + mb;
 #pragma unroll
-            for (int u = 0; u < 4; ++u) o[u] = u == t4 ? v[u] : 0u;
-#pragma unroll
-            for (int x_or = 1; x_or < 4; ++x_or) {
-              const int peer = t4 ^ x_or;
-              const uint32_t send = peer == 0 ? v[0] : peer == 1 ? v[1] : peer == 2 ? v[2] : v[3];
-              const uint32_t recv = __shfl_xor_sync(0xffffffffu, send, x_or);
-#pragma unroll
-              for (int u = 0; u < 4; ++u) o[u] = u == peer ? recv : o[u];
-            }
-            const int j = 4 * jj + t4;
-            const int co = ti.co0 + 8 * j;
-            const int r = ti.r0 + (blk / blocks_x) * 8 + 2 * (warp % 4) + h;
-            const int col = ti.c0 + (blk % blocks_x) * 8 + g;
-            if (j < N / 8 && co < Co && r < H && col < W) {
-              *reinterpret_cast<uint4*>(out + ((static_cast<size_t>(ti.b) * H + r) * W + col) * Co + co) =
-                  make_uint4(o[0], o[1], o[2], o[3]);
+          for (int it = 0; it < 2; ++it) {
+            const int row = lane / 4 + 8 * it;  // staging row: pixel (2 (warp % 4) + row / 8, row % 8) of the block
+            const int co = ti.co0 + 32 * jj + 8 * t4;
+            const int r = ti.r0 + (blk / blocks_x) * 8 + 2 * (warp % 4) + row / 8;
+            const int col = ti.c0 + (blk % blocks_x) * 8 + row % 8;
+            const uint4 o = lds128(stage + row * kOutPitch + 16 * t4);
+            if (32 * jj + 8 * t4 < N && co < Co && r < H && col < W) {
+              *reinterpret_cast<uint4*>(out + ((static_cast<size_t>(ti.b) * H + r) * W + col) * Co + co) = o;
             }
           }
+          __syncwarp();
         }
       }
     }

@@ -12,7 +12,7 @@ towers' parameter layout); bias [Co] is added in f32. The height is
 zero-padded by 1; the width zero-padded by 1, or wrapped (``circular``).
 
 The kernel is an implicit GEMM on Hopper's warpgroup tensor cores
-(``wgmma`` m64nNk16, bf16 in, f32 accumulate) over 128-pixel x N-channel
+(``wgmma`` m64nNk16, bf16 in, f32 accumulate) over 256-pixel x N-channel
 tiles (N 128, 64 or 16 by Co, :func:`tile_n`; the pixel tile's shape by the
 layer's H and W, :func:`tile_shape`); the bias and ReLU that PyTorch runs as
 two memory passes after cuDNN's conv are its epilogue. Cin is computed in
@@ -51,7 +51,7 @@ def padded_channels(c: int) -> int:
 
 
 def tile_n(co: int) -> int:
-    """Output channels per block: 128 for Co > 64, 64 for 16 < Co <= 64
+    """Output channels per tile: 128 for Co > 64, 64 for 16 < Co <= 64
     (conv1_x), 16 otherwise (conv_27)."""
     return 128 if co > 64 else 64 if co > 16 else 16
 
