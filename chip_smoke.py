@@ -275,10 +275,12 @@ def conv_case(gen, device, b, hwc, co):
     def uniform(lo, hi):
         return lo + (hi - lo) * torch.rand(co, generator=gen, device=device)
 
+    hwio = k.permute(1, 2, 3, 0).cpu().numpy()
     return {
         "x": torch.randint(-127, 128, (b, h, w, cin), generator=gen, device=device,
                            dtype=torch.int8),
         "w": torch.nn.functional.pad(k, (0, int8_conv.padded_channels(cin) - cin)),
+        "w_wgmma": torch.from_numpy(int8_conv.pack_weights_wgmma(hwio)).to(device),
         "bias_q": uniform(-acc_std, acc_std).to(torch.int32),
         "m": uniform(20.0, 60.0) / acc_std,
         "dequant": uniform(1e-5, 1e-4),
@@ -286,12 +288,18 @@ def conv_case(gen, device, b, hwc, co):
     }
 
 
-def run_conv(t, stride_h, pad_w, epilogue, plain=False):
+def run_conv(t, stride_h, pad_w, epilogue, plain=False, relu=True):
     if epilogue == "f32":
-        fn = int8_conv.conv3x3_int8_dequant_plain if plain else int8_conv.conv3x3_int8_dequant
-        return fn(t["x"], t["w"], t["dequant"], t["bias_f"], stride_h, pad_w)
-    fn = int8_conv.conv3x3_int8_plain if plain else int8_conv.conv3x3_int8
-    return fn(t["x"], t["w"], t["bias_q"], t["m"], stride_h, pad_w)
+        if plain:
+            return int8_conv.conv3x3_int8_dequant_plain(t["x"], t["w"], t["dequant"], t["bias_f"],
+                                                        stride_h, pad_w)
+        return int8_conv.conv3x3_int8_dequant(t["x"], t["w"], t["dequant"], t["bias_f"], stride_h,
+                                              pad_w, t["w_wgmma"])
+    if plain:
+        return int8_conv.conv3x3_int8_plain(t["x"], t["w"], t["bias_q"], t["m"], stride_h, pad_w,
+                                            relu)
+    return int8_conv.conv3x3_int8(t["x"], t["w"], t["bias_q"], t["m"], stride_h, pad_w, relu,
+                                  t["w_wgmma"])
 
 
 def block2_args(gen, device, b, h, w):

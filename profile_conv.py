@@ -101,14 +101,14 @@ def clocked(src: str) -> str:
                 "        }\n")
 
 
-def build(sources):
+def build(sources, out_dir=OUT_DIR):
     """{name: source} -> {name: ctypes library}, one nvcc per source, in parallel."""
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, src in sources.items():
-        cu = OUT_DIR / f"{name}.cu"
+        cu = out_dir / f"{name}.cu"
         cu.write_text(src)
-        lib = OUT_DIR / f"lib{name}.so"
+        lib = out_dir / f"lib{name}.so"
         cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(lib), str(cu)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), lib)
@@ -118,7 +118,6 @@ def build(sources):
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for the {name} copy:\n{out}")
         libs[name] = ctypes.CDLL(str(lib))
-        libs[name].witw_conv3x3_bf16.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     return libs
 
 
@@ -133,6 +132,8 @@ def main() -> int:
     kernel_src = (CSRC_DIR / "conv3x3_bf16.cu").read_text()
     libs = build({"kernel": kernel_src, "clock": clocked(kernel_src),
                   "noload": stripped(kernel_src, "noload"), "nomma": stripped(kernel_src, "nomma")})
+    for lib in libs.values():
+        lib.witw_conv3x3_bf16.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 
     d = fov_experiment("cvusa", 360).data
     gen = torch.Generator(device=device).manual_seed(15)

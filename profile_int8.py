@@ -12,15 +12,26 @@ preprocessed samples, as chip_smoke.py does, then:
    from the first kernel's start to the last one's end);
 2. times kernel A at each conv of the surface tower and kernel C at block 2
    with CUDA events (median of 5) and prints useful int8 TOP/s: 2 x the
-   multiply-adds of the real (unpadded) input channels over kernel time.
+   multiply-adds of the real (unpadded) input channels over kernel time;
+3. where kernel A's time goes at each of those convs: it builds three copies
+   of csrc/int8_conv.cu edited at fixed lines (the script fails if a line it
+   edits is gone) into witw_tpu_torch/_build/profile_int8/: "clock" (consumer
+   thread 0 of each block reads clock64 around each tile's main loop, its
+   waits for a full stage inside it, and its epilogue; producer thread 0
+   around its waits for a free stage), "noload" (the producers copy nothing;
+   the ring's barriers still turn) and "nomma" (the consumers issue no
+   wgmma); it prints each copy's ms beside the kernel's and the clock copy's
+   means per tile in SM cycles.
 The same numbers go to --out as JSON.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
+import re
 import time
 from collections import defaultdict
 
@@ -31,8 +42,9 @@ from torch.profiler import ProfilerActivity, profile
 
 from chip_smoke import (block2_args, card_line, conv_case, int8_distance, raw_batch, run_conv,
                         tower_calls)
+from profile_conv import COUNTERS, build, edit
 from witw_tpu_torch.configs import fov_experiment
-from witw_tpu_torch.kernels.build import build_libraries
+from witw_tpu_torch.kernels.build import BUILD_DIR, CSRC_DIR, build_libraries
 from witw_tpu_torch.models import quantize
 from witw_tpu_torch.models.backbones.vgg16 import VGG16_BLOCKS
 from witw_tpu_torch.ops import fused_block2, int8_conv
@@ -40,18 +52,130 @@ from witw_tpu_torch.train.pipeline import FovPipeline
 from witw_tpu_torch.utils.device import require_cuda
 from witw_tpu_torch.utils.profiling import cuda_ms
 
-GROUPS = (  # (kernel-name substring, group), first match wins
-    ("conv3x3_int8_kernel<true>", "kernel A, dequant epilogue"),
-    ("conv3x3_int8_kernel", "kernel A, int8 conv + requant"),
+GROUPS = (  # (kernel-name pattern, group), first match wins
+    (r"conv3x3_int8_kernel<\d+, true>", "kernel A, dequant epilogue"),
+    (r"conv3x3_int8_kernel<\d+, false>", "kernel A, int8 conv + requant"),
     ("fused_block2_kernel", "kernel C, fused block 2"),
     ("maxpool2x2_kernel", "kernel B, max pool"),
     ("fused_corr_distance_kernel", "fused match"),
 )
 OTHER = "other: int8 preprocess (gather, index, normalize, quantize) and copies"
+COPIES_DIR = BUILD_DIR / "profile_int8"
 
 
 def group_of(name: str) -> str:
-    return next((g for key, g in GROUPS if key in name), OTHER)
+    return next((g for key, g in GROUPS if re.search(key, name)), OTHER)
+
+
+def stripped(src: str, mode: str) -> str:
+    """Kernel A's source without its copies (noload: the barriers still
+    arrive) or without its wgmma (nomma)."""
+    if mode == "noload":
+        src, n = re.subn(r"\n(\s*)mbar_arrive_expect_tx\(full, kWBytes\);\n\s*bulk_copy\([^;]*\);",
+                         r"\n\1mbar_arrive(full);", src)
+        src, m = re.subn(r"\n(\s*)cp_async16\([^;]*\);", "", src)
+        if n != 1 or m != 1:
+            raise RuntimeError("profile_int8: kernel A's copies are not where expected")
+        return src
+    start = "        wgmma_fence();\n#pragma unroll\n        for (int tap"
+    end = "        wgmma_wait<1>();  // the previous step is done: release its stage\n"
+    a, b = src.index(start), src.index(end) + len(end)
+    return src[:a] + src[b:]
+
+
+def clocked(src: str) -> str:
+    """Kernel A's source with clock64 counters (profile_conv.COUNTERS) read by
+    witw_prof_read and cleared by witw_prof_reset."""
+    src = edit(src, "namespace {\n", "__device__ unsigned long long g_prof[5];\nnamespace {\n")
+    src = edit(src, 'extern "C" {\n',
+               'extern "C" {\n'
+               "void witw_prof_read(unsigned long long* h) { cudaMemcpyFromSymbol(h, g_prof, sizeof(g_prof)); }\n"
+               "void witw_prof_reset() {\n"
+               "  const unsigned long long z[5] = {};\n"
+               "  cudaMemcpyToSymbol(g_prof, z, sizeof(z));\n"
+               "}\n")
+    src = edit(src, "      int acc[2][N / 2];\n",
+               "      const long long t_tile = clock64();\n      long long t_full = 0;\n"
+               "      int acc[2][N / 2];\n")
+    src = edit(src, "        mbar_wait(full0 + 8 * st, (k / stages) & 1);\n",
+               "        const long long t_w = clock64();\n"
+               "        mbar_wait(full0 + 8 * st, (k / stages) & 1);\n"
+               "        t_full += clock64() - t_w;\n")
+    last = "      if (lane == 0) mbar_arrive(empty0 + 8 * ((k - 1) % stages));  // the tile's last step\n"
+    src = edit(src, last, last + "      const long long t_main = clock64();\n")
+    i = src.index("      // Epilogue: per pass")
+    j = src.index("\ntemplate <int N, bool kDequant>\nint launch(")
+    end = src.rindex("    }\n  }\n}", i, j)
+    src = (src[:end] + "      if (tid == 0) {\n"
+           "        atomicAdd(&g_prof[0], static_cast<unsigned long long>(t_main - t_tile));\n"
+           "        atomicAdd(&g_prof[1], static_cast<unsigned long long>(clock64() - t_main));\n"
+           "        atomicAdd(&g_prof[2], 1ull);\n"
+           "        atomicAdd(&g_prof[3], static_cast<unsigned long long>(t_full));\n"
+           "      }\n" + src[end:])
+    return edit(src, "        if (k >= stages) mbar_wait(empty0 + 8 * st, (k / stages - 1) & 1);\n",
+                "        if (k >= stages) {\n"
+                "          const long long t_w = clock64();\n"
+                "          mbar_wait(empty0 + 8 * st, (k / stages - 1) & 1);\n"
+                "          if (p == 0) atomicAdd(&g_prof[4], static_cast<unsigned long long>(clock64() - t_w));\n"
+                "        }\n")
+
+
+def cycles_per_layer(device, card, convs, names):
+    """Phase 3: kernel A and its three copies at each conv; the clock copy's
+    means per tile."""
+    src = (CSRC_DIR / "int8_conv.cu").read_text()
+    libs = build({"kernel": src, "clock": clocked(src), "noload": stripped(src, "noload"),
+                  "nomma": stripped(src, "nomma")}, COPIES_DIR)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for lib in libs.values():
+        lib.witw_conv3x3_int8.argtypes = [ptr] * 5 + [i32] * 11 + [ptr]
+        lib.witw_conv3x3_int8_dequant.argtypes = [ptr] * 5 + [i32] * 10 + [ptr]
+    print(f"[3] kernel A per layer: ms of the kernel and of its copies without copies (noload) "
+          f"or without wgmma (nomma); cycles per 256-pixel tile ({card})")
+    gen = torch.Generator(device=device).manual_seed(7)
+    rows, total = [], defaultdict(float)
+    for name, (_, (h, w, cin), co, sh, pad, ep) in zip(names, convs):
+        t = conv_case(gen, device, 128, (h, w, cin), co)
+        ho, wo = int8_conv.output_hw(h, w, sh, pad)
+        out = torch.empty(128, ho, wo, co, device=device,
+                          dtype=torch.float32 if ep == "f32" else torch.int8)
+        cols = int8_conv.tile_shape(ho, wo, sh)[1]
+        shape = (128, h, w, cin, int8_conv.wgmma_channels(cin), co, sh, pad,
+                 int8_conv.tile_n(co), cols.bit_length() - 1)
+
+        def launch(lib):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            if ep == "f32":
+                err = lib.witw_conv3x3_int8_dequant(
+                    t["x"].data_ptr(), t["w_wgmma"].data_ptr(), t["dequant"].data_ptr(),
+                    t["bias_f"].data_ptr(), out.data_ptr(), *shape, stream)
+            else:
+                err = lib.witw_conv3x3_int8(
+                    t["x"].data_ptr(), t["w_wgmma"].data_ptr(), t["bias_q"].data_ptr(),
+                    t["m"].data_ptr(), out.data_ptr(), *shape, 1, stream)
+            if err:
+                raise RuntimeError(f"launch failed ({err}) at {name}")
+
+        clock = libs["clock"]
+        clock.witw_prof_reset()
+        launch(clock)
+        torch.cuda.synchronize()
+        counts = (ctypes.c_ulonglong * len(COUNTERS))()
+        clock.witw_prof_read(counts)
+        per_tile = {k: counts[i] / max(counts[2], 1) for i, k in enumerate(COUNTERS) if k != "tiles"}
+        ms = {lib_name: cuda_ms(lambda lib=lib: launch(lib), 3, 5) for lib_name, lib in libs.items()}
+        for lib_name, v in ms.items():
+            total[lib_name] += v
+        rows.append({"layer": name, "shape": [128, h, w, cin, co], "tiles": counts[2], "ms": ms,
+                     "cycles_per_tile": per_tile})
+        print(f"    {name} [{h}, {w}, {cin}] -> Co {co}, stride_h {sh}: kernel {ms['kernel']:.4f} ms, "
+              f"noload {ms['noload']:.4f}, nomma {ms['nomma']:.4f}, clock copy {ms['clock']:.4f}; "
+              f"per tile ({counts[2]} tiles): main loop {per_tile['main']:.0f} cycles (waits for "
+              f"data {per_tile['wait_full']:.0f}), epilogue {per_tile['epilogue']:.0f}, producer "
+              f"waits for a free stage {per_tile['wait_empty']:.0f}", flush=True)
+        del t, out
+    print("    summed: " + ", ".join(f"{k} {v:.4f} ms" for k, v in total.items()) + f" ({card})")
+    return rows, dict(total)
 
 
 def merged_us(intervals):
@@ -149,6 +273,8 @@ def main() -> int:
     print(f"    kernel C block 2 [{h}, {w}, 64] -> [{h // 2}, {w // 2}, 128]: "
           f"{ms:.4f} ms, {tops:.1f} TOP/s")
     report["layers"].append({"kernel": "fused_block2", "layer": "block 2", "ms": ms, "tops": tops})
+
+    report["cycles"], report["cycles_summed_ms"] = cycles_per_layer(device, card, convs, names)
 
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:

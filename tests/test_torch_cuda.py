@@ -115,7 +115,7 @@ def _conv_case(rng, device, b, h, w, cin, co):
     k = rng.integers(-127, 128, (3, 3, cin, co)).astype(np.int8)
     acc_std = 3.0 * np.sqrt(cin) * 73.3 * 73.3
     t = {
-        "x": x, "w": int8_conv.pack_weights(k),
+        "x": x, "w": int8_conv.pack_weights(k), "w_wgmma": int8_conv.pack_weights_wgmma(k),
         "bias_q": rng.integers(-int(acc_std), int(acc_std), co).astype(np.int32),
         "m": rng.uniform(20.0, 60.0, co).astype(np.float32) / np.float32(acc_std),
         "dequant": rng.uniform(1e-5, 1e-4, co).astype(np.float32),
@@ -130,18 +130,27 @@ def _conv_case(rng, device, b, h, w, cin, co):
     (2, 16, 21, 64, 128, 1, 0),  # the circular form on a wrap-haloed input
     (1, 5, 6, 512, 16, 1, 1),    # the last head conv's shape
     (3, 17, 35, 128, 256, 2, 1),
+    (2, 16, 516, 3, 64, 1, 0),   # overhead conv1_1: W 516 -> 514, a 32 x 8 tile, Cin 3
+    (2, 16, 70, 256, 512, 1, 0),  # overhead conv4_1: W 70 -> 68
+    (2, 16, 70, 512, 256, 2, 0),  # overhead conv_23: stride 2 at Ho 8
+    (2, 8, 64, 256, 64, 2, 1),   # surface conv_25: stride 2 at Ho 4
+    (1, 16, 512, 3, 64, 1, 1),   # surface conv1_1: Cin 3 at full width
+    (2, 4, 66, 64, 16, 1, 0),    # overhead conv_27: Co 16 (the dequant epilogue below)
+    (2, 9, 11, 40, 20, 1, 1),    # Co 20, not a multiple of 16: 4-byte stores; Cin 40
 ])
 def test_int8_conv_matches_plain(int8_cuda, b, h, w, cin, co, stride_h, pad_w):
     t = _conv_case(np.random.default_rng(0), int8_cuda, b, h, w, cin, co)
     for relu in (True, False):
-        got = int8_conv.conv3x3_int8(t["x"], t["w"], t["bias_q"], t["m"], stride_h, pad_w, relu)
+        got = int8_conv.conv3x3_int8(t["x"], t["w"], t["bias_q"], t["m"], stride_h, pad_w, relu,
+                                     t["w_wgmma"])
         want = int8_conv.conv3x3_int8_plain(t["x"], t["w"], t["bias_q"], t["m"], stride_h, pad_w,
                                             relu)
         torch.cuda.synchronize()
         assert got.dtype == torch.int8 and got.shape == want.shape
         assert torch.equal(got, want)
         assert got.unique().numel() > 20  # the epilogue spreads over the int8 range
-    got = int8_conv.conv3x3_int8_dequant(t["x"], t["w"], t["dequant"], t["bias_f"], stride_h, pad_w)
+    got = int8_conv.conv3x3_int8_dequant(t["x"], t["w"], t["dequant"], t["bias_f"], stride_h, pad_w,
+                                         t["w_wgmma"])
     want = int8_conv.conv3x3_int8_dequant_plain(t["x"], t["w"], t["dequant"], t["bias_f"],
                                                 stride_h, pad_w)
     torch.cuda.synchronize()
@@ -179,10 +188,19 @@ def test_fused_block2_matches_plain(int8_cuda, circular, h, w):
 
 def test_int8_kernels_reject_bad_inputs(int8_cuda):
     t = _conv_case(np.random.default_rng(2), int8_cuda, 1, 4, 4, 8, 16)
+    args = (t["bias_q"], t["m"], 1, 1, True)
     with pytest.raises(ValueError):  # Cin_p must be Cin rounded up to 4
-        int8_conv.conv3x3_int8(t["x"][..., :3].contiguous(), t["w"], t["bias_q"], t["m"])
+        int8_conv.conv3x3_int8(t["x"][..., :3].contiguous(), t["w"], *args, t["w_wgmma"])
     with pytest.raises(ValueError):  # one CUDA device for every input
-        int8_conv.conv3x3_int8(t["x"], t["w"], t["bias_q"].cpu(), t["m"])
+        int8_conv.conv3x3_int8(t["x"], t["w"], t["bias_q"].cpu(), t["m"], 1, 1, True, t["w_wgmma"])
+    with pytest.raises(ValueError):  # the kernel reads pack_weights_wgmma's table
+        int8_conv.conv3x3_int8(t["x"], t["w"], *args)
+    with pytest.raises(ValueError):  # a table for another Cin
+        wrong = int8_conv.pack_weights_wgmma(np.ones((3, 3, 40, 16), np.int8))
+        int8_conv.conv3x3_int8(t["x"], t["w"], *args, torch.from_numpy(wrong).to(int8_cuda))
+    with pytest.raises(ValueError):  # Co must be a multiple of 4
+        c = _conv_case(np.random.default_rng(2), int8_cuda, 1, 4, 4, 8, 18)
+        int8_conv.conv3x3_int8(c["x"], c["w"], c["bias_q"], c["m"], 1, 1, True, c["w_wgmma"])
     with pytest.raises(ValueError):  # strided
         maxpool.maxpool2x2(t["x"].transpose(1, 2))
     with pytest.raises(ValueError):  # block 2 takes 64 channels

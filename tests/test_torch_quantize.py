@@ -78,7 +78,9 @@ def _jax_forward(sq, x, circ, x_quantized):
 @pytest.mark.parametrize("circ", [False, True])
 def test_prepare_static_qparams_matches_jax(towers, calib, circ):
     """Given witw_tpu's scales, every table is array_equal to witw_tpu's,
-    and kernel_packed is kernel_q as [Co, 3, 3, Cin_p] with zero channels."""
+    kernel_packed is kernel_q as [Co, 3, 3, Cin_p] with zero channels, and
+    kernel_wgmma is kernel A's table of kernel_q (unpack_weights_wgmma gives
+    it back)."""
     params, sd = towers[circ]
     scales = calib[1][circ]
     want = jq.prepare_static_qparams(params, scales)
@@ -88,7 +90,7 @@ def test_prepare_static_qparams_matches_jax(towers, calib, circ):
     for name in tq.CONV_ORDER:
         g = got["vgg"][name] if name in tq.TRUNK_ORDER else got[name]
         w = want["vgg"][name] if name in tq.TRUNK_ORDER else want[name]
-        assert set(g) == set(w) | {"kernel_packed"}
+        assert set(g) == set(w) | {"kernel_packed", "kernel_wgmma"}
         for key in w:
             assert g[key].dtype == w[key].dtype, (name, key)
             np.testing.assert_array_equal(g[key], w[key], err_msg=f"{name}.{key}")
@@ -98,6 +100,11 @@ def test_prepare_static_qparams_matches_jax(towers, calib, circ):
         assert packed.shape == (co, 3, 3, (cin + 3) // 4 * 4) and packed.dtype == np.int8
         np.testing.assert_array_equal(packed[..., :cin], np.transpose(kq, (3, 0, 1, 2)))
         assert not packed[..., cin:].any()
+        table = g["kernel_wgmma"]
+        n = int8_conv.tile_n(co)
+        assert table.dtype == np.int8
+        assert table.shape == (-(-co // n), 9 * int8_conv.wgmma_channels(cin) * n)
+        np.testing.assert_array_equal(int8_conv.unpack_weights_wgmma(table, cin, co), kq)
 
 
 @pytest.mark.parametrize("circ", [False, True])

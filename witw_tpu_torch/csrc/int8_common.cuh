@@ -1,10 +1,11 @@
-// Shared pieces of the int8 3x3 conv kernels (int8_conv.cu, fused_block2.cu),
-// for Hopper (sm_90a).
+// Shared pieces of the __dp4a int8 3x3 conv kernels (fused_block2.cu, and
+// conv_like.cu, the probe of kernel A's first, __dp4a design), for Hopper
+// (sm_90a). Kernel A itself (int8_conv.cu) runs on s8 wgmma and does not
+// include this header.
 //
 // Both kernels are direct convolutions on int8 NHWC activations with an
 // int32 accumulator, computed with __dp4a (4 int8 products summed into an
-// int32 per instruction) on the CUDA cores. Tensor cores (mma.sync s8,
-// wgmma) and TMA are later work.
+// int32 per instruction) on the CUDA cores.
 //
 // Thread layout (256 threads): tn = tid % 16 picks 4 consecutive output
 // channels (4*tn .. 4*tn+3 of a 64-channel pass), tm = tid / 16 picks an

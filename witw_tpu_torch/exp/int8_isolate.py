@@ -5,8 +5,10 @@ of ``exp/int8_isolate.py``.
 
 The TPU script ran its int8 conv kernel with stages removed, to see where
 its time went. Those stages (DMA, patch build, one big dot) do not exist on
-Hopper, so the port decomposes its own kernel A (``csrc/int8_conv.cu``) the
-same way, in ``csrc/conv_like.cu`` (replacing the Pallas TPU kernel
+Hopper, so the port decomposes the design of its first kernel A, a ``__dp4a``
+loop on the CUDA cores over 8 x 16-pixel x 64-channel tiles (since replaced
+in ``csrc/int8_conv.cu`` by s8 ``wgmma``), the same way, in
+``csrc/conv_like.cu`` (replacing the Pallas TPU kernel
 ``exp/int8_isolate.py:conv_like``). For xp int8 [B, H + 2, WP8, C] (the
 input pre-padded; columns >= W + 2 unused), wmat int8 [9C, N] (row
 (3 dy + dx) C + c) and m f32 [1, N]:
@@ -52,6 +54,11 @@ MODES = ("full", "nopatch", "nodma")  # the kernel's mode argument is the index
 
 # Kernel launches since the last reset, per mode (the card path's proof of use).
 launches = {mode: 0 for mode in MODES}
+
+# Output tile of one block, as kTileRows and kTileCo (int8_common.cuh) in
+# conv_like.cu, and the limit of the launch grid's y and z.
+TILE_ROWS, TILE_CO = 8, 64
+GRID_LIMIT = 65535
 
 
 def pack_wmat(wmat: torch.Tensor) -> torch.Tensor:
@@ -110,8 +117,7 @@ def conv_like_kernel(xp: torch.Tensor, w_packed: torch.Tensor, m: torch.Tensor, 
                          f"{tuple(xp.shape)}: C and N must agree and be multiples of 4")
     if hp < 3 or not 1 <= width <= wp - 2:
         raise ValueError(f"xp {tuple(xp.shape)} does not hold a padded [H, {width}] input")
-    rows, co, limit = int8_conv.TILE_ROWS, int8_conv.TILE_CO, int8_conv.GRID_LIMIT  # kernel A's
-    if (hp - 2 + rows - 1) // rows > limit or b * ((n + co - 1) // co) > limit:
+    if -(-(hp - 2) // TILE_ROWS) > GRID_LIMIT or b * -(-n // TILE_CO) > GRID_LIMIT:
         raise ValueError(f"xp {tuple(xp.shape)} with N={n} exceeds the launch grid")
     device = check_cuda_tensors("conv_like", xp=xp, w=w_packed, m=m)
     out = torch.empty((b, hp - 2, width, n), dtype=torch.int8, device=device)

@@ -16,8 +16,10 @@ their plain PyTorch versions, which the tests hold against witw_tpu.
 
 Tables (``prepare_static_qparams``) keep witw_tpu's keys: per conv
 ``kernel_q`` (HWIO int8), ``bias_q`` (int32), ``requant_m``, ``dequant``,
-``bias_f`` (f32), and ``input_scale``; plus ``kernel_packed``, the kernels'
-int8 [Co, 3, 3, Cin_p] form. Not ported here: the dynamic-scale path, the
+``bias_f`` (f32), and ``input_scale``; plus ``kernel_packed``, the int8
+[Co, 3, 3, Cin_p] form that kernel C and the plain versions read, and
+``kernel_wgmma``, kernel A's table (``ops.int8_conv.pack_weights_wgmma``).
+Not ported here: the dynamic-scale path, the
 SAFA and baseline static paths, ``calibrate_overhead_span`` and the TPU
 lowering variants (``first_conv_bf16``, ``first_conv_w2d``,
 ``first_conv_im2col``, ``split_block1``, ``block2_w2d``, ``pool_slices``,
@@ -41,7 +43,8 @@ from witw_tpu_torch.models.fov_dsm import HEAD_CONVS, FovDsm
 from witw_tpu_torch.ops.fov import fov_crop, random_fov_starts
 from witw_tpu_torch.ops.fused_block2 import fused_block2
 from witw_tpu_torch.ops.image import normalize_images
-from witw_tpu_torch.ops.int8_conv import conv3x3_int8, conv3x3_int8_dequant, pack_weights
+from witw_tpu_torch.ops.int8_conv import (conv3x3_int8, conv3x3_int8_dequant, pack_weights,
+                                          pack_weights_wgmma)
 from witw_tpu_torch.ops.maxpool import maxpool2x2
 from witw_tpu_torch.ops.polar import grid_tensors
 
@@ -128,9 +131,10 @@ def prepare_static_qparams(state_dict: StateDict,
     numpy: kernel_q int8 [3,3,Ci,Co], bias_q int32 [Co] (the bias in the
     conv's int32 accumulator domain), requant_m f32 [Co] (accumulator ->
     next layer's int8 domain), dequant f32 [Co] (accumulator -> f32, for the
-    final conv), bias_f f32 [Co], and kernel_packed int8 [Co,3,3,Cin_p]
-    (Cin zero-padded to a multiple of 4) for the kernels. The same
-    arithmetic as witw_tpu's, so equal scales give equal tables."""
+    final conv), bias_f f32 [Co], kernel_packed int8 [Co,3,3,Cin_p] (Cin
+    zero-padded to a multiple of 4) for kernel C and the plain versions, and
+    kernel_wgmma (pack_weights_wgmma) for kernel A. The same arithmetic as
+    witw_tpu's, so equal scales give equal tables."""
     params = state_dict_to_tower(state_dict)
     out: Dict[str, Any] = {"vgg": {}}
     s_in = act_scales["input"]
@@ -151,6 +155,7 @@ def prepare_static_qparams(state_dict: StateDict,
             "dequant": acc_scale.astype(np.float32),
             "bias_f": np.asarray(kv["bias"], np.float32),
             "kernel_packed": pack_weights(kq),
+            "kernel_wgmma": pack_weights_wgmma(kq),
         }
         prev = nxt
     out["input_scale"] = np.float32(s_in)
@@ -226,7 +231,7 @@ def quantized_fov_forward_static(sq: Dict[str, Any], x: torch.Tensor,
 
     def requant_conv(h, entry, stride_h=1, relu=True):
         q = conv3x3_int8(h, entry["kernel_packed"], entry["bias_q"], entry["requant_m"],
-                         stride_h, pad_w, relu)
+                         stride_h, pad_w, relu, entry["kernel_wgmma"])
         if saturation_out is not None:
             saturation_out.append(((q == 127).sum() + (q == -127).sum(), q.numel()))
         return q
@@ -255,7 +260,7 @@ def quantized_fov_forward_static(sq: Dict[str, Any], x: torch.Tensor,
             # Final conv: dequantize the accumulator without bias_q and add
             # the float bias, for exactness.
             y = conv3x3_int8_dequant(h, entry["kernel_packed"], entry["dequant"],
-                                     entry["bias_f"], strides[0], pad_w)
+                                     entry["bias_f"], strides[0], pad_w, entry["kernel_wgmma"])
             return torch.relu(y) if relu_after else y
 
 
