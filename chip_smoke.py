@@ -20,11 +20,16 @@ Phases, each of which passes or raises:
    planted embeddings.
 6. Time the kernel against the plain version, and embed+match pairs/s.
 7. The three static-int8 kernels (int8 conv, 2x2 max pool, fused VGG
-   block 2), built in phase 2: print ptxas' lines.
+   block 2), built in phase 2: print ptxas' lines, failing on any spill of
+   the int8 conv (kernel A), and the IGMMA (s8 wgmma) and IDP.4A counts of
+   each of kernel A's functions' SASS (cuobjdump), failing where one has no
+   IGMMA or any IDP.4A.
 8. Hold each against its plain PyTorch version at every distinct layer
-   shape of both int8 towers at full CVUSA geometry, at batch 2 and at the
-   main path's batch 128, plus ragged, odd and other-width cases: int8
-   outputs equal, f32 within 1e-6.
+   shape of both int8 towers at full CVUSA geometry, at batch 2 (kernel A
+   also with ReLU off) and at the main path's batch 128, plus ragged, odd
+   and other-width cases (kernel A: Co 16, 20 and 72, Cin 5 and 40, stride
+   2 on a 16 x 16 tile, the dequant epilogue at N 64): int8 outputs equal,
+   f32 within 1e-6.
 9. The static-int8 serving path at full width: calibrate both towers on 8
    preprocessed samples (as bench.py), then batch 128 raw ->
    preprocess_static_int8 -> both int8 towers -> the fused match, at fov 360
@@ -32,7 +37,8 @@ Phases, each of which passes or raises:
    towers (cosine > 0.99), and the card against the CPU plain path on 2
    samples (embeddings within 1e-6).
 10. Time int8 embed+match pairs/s and each int8 kernel against its plain
-   version at the main path's shapes (batch 128).
+   version at the main path's shapes (batch 128); kernel A per conv of the
+   surface tower (ms, TOP/s, bound) and summed.
 11. The bf16 conv + bias + ReLU kernel (conv3x3_bf16, built in phase 2):
    print ptxas' lines, failing on any spill, and the HGMMA (wgmma) and HMMA
    (mma.sync) counts of each of its kernels' SASS (cuobjdump), failing where
@@ -348,6 +354,7 @@ def int8_phases(card, device, cfg, pipeline, params, built):
     log(f"[7] {', '.join(built[n][0].name for n in INT8_KERNELS)} (built in phase 2)")
     for name in INT8_KERNELS:
         print_ptxas(built[name][1])
+    check_wgmma_build("int8_conv", built, "IGMMA", ("IGMMA", "IDP.4A"), forbidden="IDP.4A")
 
     # 8. each kernel against its plain version at every layer shape of the
     # towers, at batch 2 and at the main path's batch 128
@@ -364,12 +371,20 @@ def int8_phases(card, device, cfg, pipeline, params, built):
 
     err = {name: 0.0 for name in INT8_KERNELS}
     convs = at_batches("conv", lambda c: c[1:])
-    convs.append((1, (7, 9, 5), 64, 1, 1, "int8"))  # ragged: B 1, odd H and W, Cin 5
+    convs += [(1, (7, 9, 5), 64, 1, 1, "int8"),  # ragged: B 1, odd H and W, Cin 5
+              (2, (9, 11, 40), 20, 1, 1, "int8"),  # Co 20 (4-byte stores), Cin 40
+              (2, (16, 21, 64), 72, 1, 0, "int8"),  # Co 72: a channel tile's tail
+              (3, (17, 35, 128), 256, 2, 1, "int8"),  # stride 2 on a 16 x 16 tile
+              (1, (5, 6, 512), 16, 1, 1, "int8"),  # Co 16 with the int8 epilogue
+              (2, (8, 20, 64), 64, 1, 1, "f32")]  # the dequant epilogue at N 64
     for b, hwc, co, sh, pad, ep in convs:
         t = conv_case(gen, device, b, hwc, co)
-        e = check_equal(f"conv3x3_int8 B={b} HWC={hwc} Co={co} stride_h={sh} pad_w={pad} {ep}",
-                        run_conv(t, sh, pad, ep), run_conv(t, sh, pad, ep, plain=True))
-        err["int8_conv"] = max(err["int8_conv"], e)
+        for relu in ((True, False) if b <= 3 and ep == "int8" else (True,)):
+            e = check_equal(f"conv3x3_int8 B={b} HWC={hwc} Co={co} stride_h={sh} pad_w={pad} {ep}"
+                            f"{'' if relu else ' relu=False'}", run_conv(t, sh, pad, ep, relu=relu),
+                            run_conv(t, sh, pad, ep, plain=True, relu=relu))
+            err["int8_conv"] = max(err["int8_conv"], e)
+        del t
     for shape in at_batches("pool", lambda c: c[1]) + [(1, 7, 9, 6), (2, 33, 65, 64)]:
         for dtype in (torch.int8, torch.bfloat16, torch.float32):
             x = (torch.randn(shape, generator=gen, device=device) * 40).round().clamp(-127, 127)
@@ -474,13 +489,27 @@ def int8_phases(card, device, cfg, pipeline, params, built):
 
     surf_convs = [c for c in tower_calls(d.surface_height, d.surface_width_max, 3, False)
                   if c[0] == "conv"]
-    cases = [(conv_case(gen, device, 128, c[1], c[2]),) + c[3:] for c in surf_convs]
-    t_a, t_a_plain = interleaved_ms(
-        lambda: [run_conv(t, sh, pad, ep, plain=True) for t, sh, pad, ep in cases],
-        lambda: [run_conv(t, sh, pad, ep) for t, sh, pad, ep in cases], calls=1, reps=5)
-    log(f"    conv3x3_int8, the surface tower's {len(cases)} kernel-A convs summed, batch 128: "
-        f"kernel {t_a:.4f} ms, plain {t_a_plain:.4f} ms ({card})")
-    del cases
+    # bounds: int8 ops (2 x multiply-adds of the real channels) at the
+    # tensor-core rate against bytes (input, packed weights, tables, output)
+    a_layers = []
+    for _, (h, w, cin), co, sh, pad, ep in surf_convs:
+        t = conv_case(gen, device, 128, (h, w, cin), co)
+        t_k, t_p = interleaved_ms(lambda: run_conv(t, sh, pad, ep, plain=True),
+                                  lambda: run_conv(t, sh, pad, ep), calls=2, reps=5)
+        ho, wo = int8_conv.output_hw(h, w, sh, pad)
+        ops = 2.0 * 128 * ho * wo * co * 9 * cin
+        nbytes = (128 * h * w * cin + co * 9 * int8_conv.padded_channels(cin) + 8 * co
+                  + 128 * ho * wo * co * (4 if ep == "f32" else 1))
+        t_bound, by = bound(ops, nbytes, PEAK_INT8_PER_MS)
+        a_layers.append((t_k, t_p, t_bound, by))
+        log(f"    conv3x3_int8 B=128 HWC=({h}, {w}, {cin}) Co={co} stride_h={sh} {ep}: kernel "
+            f"{t_k:.4f} ms ({ops / t_k / 1e9:.1f} TOP/s), plain {t_p:.4f} ms, bound "
+            f"{t_bound:.4f} ms ({by}) ({card})")
+        del t
+    t_a, t_a_plain, a_ms = (sum(r[i] for r in a_layers) for i in range(3))
+    a_by = max(("operations", "bytes"), key=lambda k: sum(r[2] for r in a_layers if r[3] == k))
+    log(f"    conv3x3_int8, the surface tower's {len(a_layers)} kernel-A convs summed, batch 128: "
+        f"kernel {t_a:.4f} ms, plain {t_a_plain:.4f} ms, bound {a_ms:.4f} ms ({a_by}) ({card})")
     x = torch.randint(-127, 128, (128, d.surface_height, d.surface_width_max, 64),
                       generator=gen, device=device, dtype=torch.int8)
     t_b, t_b_plain = interleaved_ms(lambda: maxpool.maxpool2x2_plain(x),
@@ -495,17 +524,6 @@ def int8_phases(card, device, cfg, pipeline, params, built):
     log(f"    fused_block2 block 2 {tuple(args[0].shape)}: kernel {t_c:.4f} ms, "
         f"plain {t_c_plain:.4f} ms ({card})")
 
-    # bounds: int8 ops (2 x multiply-adds of the real channels) at the
-    # tensor-core rate against bytes (input, packed weights, tables, output)
-    a_bounds = []
-    for _, (h, w, cin), co, sh, pad, ep in surf_convs:
-        ho, wo = int8_conv.output_hw(h, w, sh, pad)
-        ops = 2.0 * 128 * ho * wo * co * 9 * cin
-        nbytes = (128 * h * w * cin + co * 9 * int8_conv.padded_channels(cin) + 8 * co
-                  + 128 * ho * wo * co * (4 if ep == "f32" else 1))
-        a_bounds.append(bound(ops, nbytes, PEAK_INT8_PER_MS))
-    a_ms = sum(t for t, _ in a_bounds)
-    a_by = max(("operations", "bytes"), key=lambda k: sum(t for t, b in a_bounds if b == k))
     pool_bytes = x_pool_numel * 5 / 4
     b, h, w = 128, d.surface_height // 2, d.surface_width_max // 2
     c_ops = 2.0 * b * h * w * 128 * 9 * (64 + 128)
@@ -613,25 +631,35 @@ def library_conv(x, w, bias, relu):
     return lambda: torch.nn.functional.conv2d(xn, wn, bias.to(x.dtype), 1, 1)
 
 
+def check_wgmma_build(name, built, mma, opcodes, forbidden=None):
+    """Fail on any register spill in ``name``'s ptxas lines, and where a
+    kernel function of its SASS holds no ``mma`` instruction (the warpgroup
+    MMA: HGMMA for bf16, IGMMA for int8) or any ``forbidden`` one."""
+    lines = built[name][1].splitlines()
+    if not any("ptxas info" in line for line in lines):
+        raise AssertionError(f"{name} has no ptxas report to check (its build log is gone)")
+    for line in lines:
+        if "warning" in line.lower():
+            log("    " + line.strip())
+    spills = [line.strip() for line in lines if re.search(r"[1-9]\d* bytes spill (stores|loads)", line)]
+    if spills:
+        raise AssertionError(f"{name} spills registers: {spills}")
+    counts = sass_counts(built[name][0], opcodes)
+    for fn, c in counts.items():
+        log(f"    SASS {fn}: {c}")
+    if not counts or not all(c[mma] > 0 for c in counts.values()):
+        raise AssertionError(f"{name} has a kernel without {mma} (wgmma): {counts}")
+    if forbidden and any(c[forbidden] for c in counts.values()):
+        raise AssertionError(f"{name} still issues {forbidden}: {counts}")
+
+
 def conv_phases(card, device, cfg, built):
     """Phases 11-14; returns the conv kernel's JSON record."""
     d = cfg.data
     # 11. the conv kernel, built in phase 2
     log(f"[11] {built['conv3x3_bf16'][0].name} (built in phase 2)")
     print_ptxas(built["conv3x3_bf16"][1])
-    conv_log = built["conv3x3_bf16"][1].splitlines()
-    for line in conv_log:
-        if "warning" in line.lower():
-            log("    " + line.strip())
-    spills = [line.strip() for line in conv_log
-              if re.search(r"[1-9]\d* bytes spill (stores|loads)", line)]
-    if spills:
-        raise AssertionError(f"conv3x3_bf16 spills registers: {spills}")
-    hgmma = sass_counts(built["conv3x3_bf16"][0], ("HGMMA", "HMMA"))
-    for fn, counts in hgmma.items():
-        log(f"    SASS {fn}: {counts}")
-    if not hgmma or not all(c["HGMMA"] > 0 for c in hgmma.values()):
-        raise AssertionError(f"conv3x3_bf16 has a kernel without HGMMA (wgmma): {hgmma}")
+    check_wgmma_build("conv3x3_bf16", built, "HGMMA", ("HGMMA", "HMMA"))
 
     # 12. kernel vs plain at every conv shape of both bf16 towers
     log("[12] conv3x3_bf16 vs plain PyTorch at every bf16 tower conv shape, batch 2, 64 and "

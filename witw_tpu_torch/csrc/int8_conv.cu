@@ -57,19 +57,20 @@
 //   start moves by (dy (TC + 2) + dx) x 16 bytes. One commit group per step,
 //   waited one step behind; the stage is then released on its empty mbarrier.
 // - the epilogue reads bias_q and m (or dequant and bias_f) from shared
-//   memory, requantizes with __int2float_rn, __fmul_rn and rintf (no FMA
-//   contraction, ties to even), and passes each warp's 16 pixels x 64 bytes
-//   (64 int8 or 16 f32 channels) through 1 KB of staging, 16-byte chunks
-//   swizzled by row so that neither the 2- or 8-byte writes nor the 16-byte
-//   reads conflict, to 16-byte stores (4-byte stores when Co % 16 != 0).
+//   memory, requantizes with __int2float_rn, __fmul_rn and a rounding add
+//   (no FMA contraction, ties to even: see requant), and passes each warp's
+//   16 pixels x 64 bytes (64 int8 or 16 f32 channels) through 1 KB of
+//   staging, 16-byte chunks swizzled by row so that neither the 2- or 8-byte
+//   writes nor the 16-byte reads conflict, to 16-byte stores (4-byte stores
+//   when Co % 16 != 0).
 // Budget at N 128, stride 1: shared memory 4 x (36,864 B of weights + 10,880
 // of halo) + 64 of barriers + 8,192 of epilogue staging + 8 Co of tables;
 // registers as conv3x3_bf16.cu (two 64 x N s32 accumulators per consumer
 // thread). Shared-memory traffic per step at N 128: wgmma reads 2 x 9 x 2 x
 // (2 KB of A + 4 KB of B) = 216 KB and the ring takes 47.7 KB, against 18.9
 // M operations: 72 operations per byte.
-// Where the time goes (profile_int8.py, and clock64 per tile with
-// profile_int8.py --cycles): PERF.md.
+// Where the time goes (profile_int8.py [3]: clock64 per tile, and copies of
+// this kernel without its copies or without its wgmma): PERF.md.
 
 #include <cuda_runtime.h>
 
@@ -230,12 +231,17 @@ __device__ __forceinline__ void wgmma_s8<16>(int (&d)[8], uint64_t a, uint64_t b
       : "l"(a), "l"(b), "r"(1));
 }
 
-// The int8 epilogue of models/quantize._requant for one channel:
+// The int8 epilogue of models/quantize._requant for one channel, as a byte:
 // clip(rint(float(acc + bias_q) * m), lo, 127). The _rn intrinsics keep nvcc
-// from contracting into an FMA; rintf rounds half to even, as torch.round does.
+// from contracting into an FMA. The bounds are integers, so clipping before
+// rounding gives the same value; the rounding is then one add of 1.5 x 2^23,
+// whose sum lies in [2^23, 2^24) where the floats are the integers: it
+// rounds half to even, as rintf and torch.round do, and the sum's low byte
+// is the result in two's complement. One conversion per value (I2F) is left
+// of rintf's, I2F's and F2I's three, which run at 16 per clock per SM.
 __device__ __forceinline__ uint32_t requant(int acc, int bias_q, float m, float lo) {
-  const float f = rintf(__fmul_rn(__int2float_rn(acc + bias_q), m));
-  return static_cast<uint32_t>(static_cast<int>(fminf(fmaxf(f, lo), 127.f))) & 0xffu;
+  const float f = fminf(fmaxf(__fmul_rn(__int2float_rn(acc + bias_q), m), lo), 127.f);
+  return __float_as_uint(__fadd_rn(f, 12582912.f)) & 0xffu;
 }
 
 // A tile: channel tile (fastest), then 256-pixel tile, then image.

@@ -52,7 +52,9 @@ def library_path(name: str) -> Path:
 def build_libraries(names: Sequence[str]) -> Dict[str, Tuple[Path, str]]:
     """Compile ``csrc/<name>.cu`` for each name whose hashed library does not
     exist, one nvcc process per source, all started together. Returns
-    {name: (library path, compiler log; empty when nothing was compiled)}."""
+    {name: (library path, compiler log)}; the log (ptxas' registers and
+    spills) is kept beside the library, so a library built earlier returns
+    its log too."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     done: Dict[str, Tuple[Path, str]] = {}
     running = []
@@ -60,7 +62,8 @@ def build_libraries(names: Sequence[str]) -> Dict[str, Tuple[Path, str]]:
         for name in names:
             path = library_path(name)
             if path.exists():
-                done[name] = (path, "")
+                log = path.with_suffix(".log")
+                done[name] = (path, log.read_text() if log.exists() else "")
                 continue
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
@@ -71,6 +74,7 @@ def build_libraries(names: Sequence[str]) -> Dict[str, Tuple[Path, str]]:
             out, _ = proc.communicate()
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed ({proc.returncode}) for {name}:\n{out}")
+            path.with_suffix(".log").write_text(out)
             os.replace(tmp, path)  # atomic: a concurrent process never loads half a file
             done[name] = (path, out)
     finally:
@@ -85,7 +89,7 @@ def build_libraries(names: Sequence[str]) -> Dict[str, Tuple[Path, str]]:
 
 def build_library(name: str) -> Tuple[Path, str]:
     """Compile ``csrc/<name>.cu`` unless its hashed library exists. Returns
-    (library path, compiler log; empty when nothing was compiled)."""
+    (library path, compiler log)."""
     return build_libraries([name])[name]
 
 
