@@ -63,12 +63,13 @@
 //   staging, 16-byte chunks swizzled by row so that neither the 2- or 8-byte
 //   writes nor the 16-byte reads conflict, to 16-byte stores (4-byte stores
 //   when Co % 16 != 0).
-// Budget at N 128, stride 1: shared memory 4 x (36,864 B of weights + 10,880
-// of halo) + 64 of barriers + 8,192 of epilogue staging + 8 Co of tables;
-// registers as conv3x3_bf16.cu (two 64 x N s32 accumulators per consumer
-// thread). Shared-memory traffic per step at N 128: wgmma reads 2 x 9 x 2 x
-// (2 KB of A + 4 KB of B) = 216 KB and the ring takes 47.7 KB, against 18.9
-// M operations: 72 operations per byte.
+// Budget at N 128, stride 1: shared memory 4 x (36,864 B of weights + up to
+// 10,880 of halo) + 64 of barriers + 8,192 of epilogue staging + 8 Co of
+// tables; ptxas: 163 / 117 / 72 registers for N 128 / 64 / 16 (two 64 x N s32
+// accumulators per consumer thread), no spills. Shared-memory traffic per
+// step at N 128: wgmma reads 2 x 9 x 2 x (2 KB of A + 4 KB of B) = 216 KB
+// and the ring takes 47.7 KB, against 18.9 M operations: 72 operations per
+// byte.
 // Where the time goes (profile_int8.py [3]: clock64 per tile, and copies of
 // this kernel without its copies or without its wgmma): PERF.md.
 
