@@ -110,7 +110,8 @@ def unpack_weights_wgmma(packed: np.ndarray, cin: int, co: int) -> np.ndarray:
     """The inverse of :func:`pack_weights_wgmma`: HWIO int8 [3, 3, Cin, Co]."""
     n, cin_p = tile_n(co), wgmma_channels(cin)
     ct = packed.shape[0]
-    k = np.asarray(packed).reshape(ct, cin_p // STEP, 9, n // 8, 2, 8, 16)  # [ct, step, tap, ng, kg, r, k]
+    # [ct, step, tap, ng, kg, r, k]
+    k = np.asarray(packed).reshape(ct, cin_p // STEP, 9, n // 8, 2, 8, 16)
     k = np.transpose(k, (2, 1, 4, 6, 0, 3, 5)).reshape(9, cin_p, ct * n)
     return np.ascontiguousarray(k[:, :cin, :co].reshape(3, 3, cin, co))
 
