@@ -21,15 +21,18 @@ Phases, each of which passes or raises:
 6. Time the kernel against the plain version, and embed+match pairs/s.
 7. The three static-int8 kernels (int8 conv, 2x2 max pool, fused VGG
    block 2), built in phase 2: print ptxas' lines, failing on any spill of
-   the int8 conv (kernel A), and the IGMMA (s8 wgmma) and IDP.4A counts of
-   each of kernel A's functions' SASS (cuobjdump), failing where one has no
-   IGMMA or any IDP.4A.
+   the int8 conv (kernel A) or the fused block 2 (kernel C), and the IGMMA
+   (s8 wgmma) and IDP.4A counts of each of kernel A's and kernel C's
+   functions' SASS (cuobjdump), failing where one has no IGMMA or any
+   IDP.4A.
 8. Hold each against its plain PyTorch version at every distinct layer
    shape of both int8 towers at full CVUSA geometry, at batch 2 (kernel A
    also with ReLU off) and at the main path's batch 128, plus ragged, odd
    and other-width cases (kernel A: Co 16, 20 and 72, Cin 5 and 40, stride
-   2 on a 16 x 16 tile, the dequant epilogue at N 64): int8 outputs equal,
-   f32 within 1e-6.
+   2 on a 16 x 16 tile, the dequant epilogue at N 64; kernel C: tile tails
+   and tiny widths, [1, 17, 33], [2, 16, 16], [1, 2, 2], [3, 9, 3], zero and
+   circular, and tables that take its int-to-float requant): int8 outputs
+   equal, f32 within 1e-6.
 9. The static-int8 serving path at full width: calibrate both towers on 8
    preprocessed samples (as bench.py), then batch 128 raw ->
    preprocess_static_int8 -> both int8 towers -> the fused match, at fov 360
@@ -38,7 +41,9 @@ Phases, each of which passes or raises:
    samples (embeddings within 1e-6).
 10. Time int8 embed+match pairs/s and each int8 kernel against its plain
    version at the main path's shapes (batch 128); kernel A per conv of the
-   surface tower (ms, TOP/s, bound) and summed.
+   surface tower (ms, TOP/s, bound) and summed; kernel C also beside the
+   unfused composition of the same block (kernel A for conv2_1, kernel A for
+   conv2_2, kernel B), whose output must equal kernel C's.
 11. The bf16 conv + bias + ReLU kernel (conv3x3_bf16, built in phase 2):
    print ptxas' lines, failing on any spill, and the HGMMA (wgmma) and HMMA
    (mma.sync) counts of each of its kernels' SASS (cuobjdump), failing where
@@ -309,9 +314,19 @@ def run_conv(t, stride_h, pad_w, epilogue, plain=False, relu=True):
 
 
 def block2_args(gen, device, b, h, w):
+    """Kernel C's positional arguments (x, w1, b1, m1, w2, b2, m2) and its
+    weight tables {w1_wgmma, w2_wgmma}."""
     c1 = conv_case(gen, device, b, (h, w, 64), 128)
     c2 = conv_case(gen, device, b, (h, w, 128), 128)
-    return (c1["x"].abs(), c1["w"], c1["bias_q"], c1["m"], c2["w"], c2["bias_q"], c2["m"])
+    return ((c1["x"].abs(), c1["w"], c1["bias_q"], c1["m"], c2["w"], c2["bias_q"], c2["m"]),
+            {"w1_wgmma": c1["w_wgmma"], "w2_wgmma": c2["w_wgmma"]})
+
+
+def block2_unfused(x, w1, b1, m1, w2, b2, m2, w1_wgmma, w2_wgmma):
+    """Block 2 as three kernels (zero width padding): kernel A for conv2_1,
+    kernel A for conv2_2, kernel B for the pool."""
+    y1 = int8_conv.conv3x3_int8(x, w1, b1, m1, 1, 1, True, w1_wgmma)
+    return maxpool.maxpool2x2(int8_conv.conv3x3_int8(y1, w2, b2, m2, 1, 1, True, w2_wgmma))
 
 
 def check_equal(name, got, want):
@@ -355,6 +370,7 @@ def int8_phases(card, device, cfg, pipeline, params, built):
     for name in INT8_KERNELS:
         print_ptxas(built[name][1])
     check_wgmma_build("int8_conv", built, "IGMMA", ("IGMMA", "IDP.4A"), forbidden="IDP.4A")
+    check_wgmma_build("fused_block2", built, "IGMMA", ("IGMMA", "IDP.4A"), forbidden="IDP.4A")
 
     # 8. each kernel against its plain version at every layer shape of the
     # towers, at batch 2 and at the main path's batch 128
@@ -392,13 +408,26 @@ def int8_phases(card, device, cfg, pipeline, params, built):
             e = check_equal(f"maxpool2x2 {shape}", maxpool.maxpool2x2(x),
                             maxpool.maxpool2x2_plain(x))
             err["maxpool"] = max(err["maxpool"], e)
-    for b, h, w in at_batches("block2", lambda c: c[1][:2]) + [(2, 64, 100), (1, 31, 45)]:
-        args = block2_args(gen, device, b, h, w)
+    block2_shapes = at_batches("block2", lambda c: c[1][:2]) + [
+        (2, 64, 100), (1, 31, 45),  # ragged
+        (1, 17, 33), (2, 16, 16), (1, 2, 2), (3, 9, 3)]  # tile tails and tiny widths
+    for b, h, w in block2_shapes:
+        args, tables = block2_args(gen, device, b, h, w)
         for circ in (False, True):
             e = check_equal(f"fused_block2 B={b} H={h} W={w} circular={circ}",
-                            fused_block2.fused_block2(*args, circular=circ),
+                            fused_block2.fused_block2(*args, circular=circ, **tables),
                             fused_block2.fused_block2_plain(*args, circular=circ))
             err["fused_block2"] = max(err["fused_block2"], e)
+    # tables outside the range of kernel C's conversion-free requant take its
+    # int-to-float requant
+    (x, w1, b1, m1, w2, b2, m2), tables = block2_args(gen, device, 2, 64, 256)
+    m1 = m1.clone()
+    m1[0] = 1e-6
+    for circ in (False, True):
+        e = check_equal(f"fused_block2 B=2 H=64 W=256 circular={circ}, m1[0] 1e-6 (exact requant)",
+                        fused_block2.fused_block2(x, w1, b1, m1, w2, b2, m2, circ, **tables),
+                        fused_block2.fused_block2_plain(x, w1, b1, m1, w2, b2, m2, circ))
+        err["fused_block2"] = max(err["fused_block2"], e)
 
     # 9. the int8 serving path at full width (random weights from phase 4)
     log("[9] static-int8 serving path: calibrate on 8 preprocessed samples, then batch 128 "
@@ -518,28 +547,43 @@ def int8_phases(card, device, cfg, pipeline, params, built):
         f"plain {t_b_plain:.4f} ms ({card})")
     x_pool_numel = x.numel()
     del x
-    args = block2_args(gen, device, 128, d.surface_height // 2, d.surface_width_max // 2)
-    t_c, t_c_plain = interleaved_ms(lambda: fused_block2.fused_block2_plain(*args),
-                                    lambda: fused_block2.fused_block2(*args), calls=2, reps=5)
-    log(f"    fused_block2 block 2 {tuple(args[0].shape)}: kernel {t_c:.4f} ms, "
-        f"plain {t_c_plain:.4f} ms ({card})")
-
-    pool_bytes = x_pool_numel * 5 / 4
     b, h, w = 128, d.surface_height // 2, d.surface_width_max // 2
+    args, tables = block2_args(gen, device, b, h, w)
+
+    def kernel_c():
+        return fused_block2.fused_block2(*args, **tables)
+
+    def unfused():
+        return block2_unfused(*args, **tables)
+
+    check_equal(f"unfused block 2 (kernel A, kernel A, kernel B) vs kernel C {tuple(args[0].shape)}",
+                unfused(), kernel_c())
+    t_c, t_c_plain = interleaved_ms(lambda: fused_block2.fused_block2_plain(*args), kernel_c,
+                                    calls=2, reps=5)
+    t_c2, t_unfused = interleaved_ms(unfused, kernel_c, calls=2, reps=5)
     c_ops = 2.0 * b * h * w * 128 * 9 * (64 + 128)
     c_bytes = b * h * w * 64 + b * (h // 2) * (w // 2) * 128 + 128 * 9 * (64 + 128) + 16 * 128
+    c_bound = bound(c_ops, c_bytes, PEAK_INT8_PER_MS)
+    log(f"    fused_block2 block 2 {tuple(args[0].shape)}: kernel {t_c:.4f} ms "
+        f"({c_ops / t_c / 1e9:.1f} useful TOP/s; {t_c2:.4f} ms beside the unfused run), plain "
+        f"{t_c_plain:.4f} ms, unfused (kernel A, kernel A, kernel B) {t_unfused:.4f} ms, bound "
+        f"{c_bound[0]:.4f} ms ({c_bound[1]}) ({card})")
+
+    pool_bytes = x_pool_numel * 5 / 4
     bounds = {"int8_conv": (a_ms, a_by), "maxpool": bound(0.0, pool_bytes, PEAK_INT8_PER_MS),
-              "fused_block2": bound(c_ops, c_bytes, PEAK_INT8_PER_MS)}
+              "fused_block2": c_bound}
     for mod, (t, by) in bounds.items():
         log(f"    {mod} bound {t:.4f} ms ({by}; H100 SXM peaks)")
     times = {"int8_conv": (t_a, t_a_plain), "maxpool": (t_b, t_b_plain),
              "fused_block2": (t_c, t_c_plain)}
-    return [{
+    records = [{
         "name": kname, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches[mod], "max_abs_err": err[mod],
         "ms": times[mod][0], "plain_ms": times[mod][1],
         "bound_ms": bounds[mod][0], "bound_by": bounds[mod][1], "library_ms": None,
     } for mod, (kname, source, replaces) in INT8_KERNELS.items()]
+    records[list(INT8_KERNELS).index("fused_block2")]["unfused_ms"] = t_unfused
+    return records
 
 
 # --- bf16 conv kernel and FOV training (phases 11-14) -------------------------

@@ -21,7 +21,18 @@ preprocessed samples, as chip_smoke.py does, then:
    around its waits for a free stage), "noload" (the producers copy nothing;
    the ring's barriers still turn) and "nomma" (the consumers issue no
    wgmma); it prints each copy's ms beside the kernel's and the clock copy's
-   means per tile in SM cycles.
+   means per tile in SM cycles;
+4. where kernel C's time goes at block 2 of the surface tower: three copies
+   of csrc/fused_block2.cu, edited in the same way into the same directory:
+   "clock" (consumer thread 0 reads clock64 around all of stage 1, until
+   its first block's wgmma is done, around its waits for the halo and the
+   weights and around its three y1 epilogues (the later blocks' wgmma runs
+   beside them); around stage 2's main loop and its waits for data; around
+   the pooling epilogue; the weights' producer thread around its waits for
+   a free stage, the first halo thread around its waits for a free halo),
+   "noload" (no halo and no weight copies; the barriers still turn) and
+   "nomma" (no wgmma); each copy's ms beside the kernel's, and the clock
+   copy's means per tile.
 The same numbers go to --out as JSON.
 """
 
@@ -61,6 +72,13 @@ GROUPS = (  # (kernel-name pattern, group), first match wins
 )
 OTHER = "other: int8 preprocess (gather, index, normalize, quantize) and copies"
 COPIES_DIR = BUILD_DIR / "profile_int8"
+# kernel C's clock copy: cycles per tile of consumer thread 0 (stage 1 until
+# its first block's wgmma is done, its waits for the halo and the weights,
+# its three y1 epilogues, all of stage 1; stage 2's main loop, its waits for
+# data, its pooling epilogue), tiles, and the producers' waits for a free
+# weight stage and for a free halo
+C_COUNTERS = ("s1_first", "s1_wait", "s1_epilogue", "s1_total", "s2_main", "s2_wait", "s2_epilogue",
+              "tiles", "weights_wait_empty", "halo_wait_empty")
 
 
 def group_of(name: str) -> str:
@@ -118,6 +136,127 @@ def clocked(src: str) -> str:
                 "          mbar_wait(empty0 + 8 * st, (k / stages - 1) & 1);\n"
                 "          if (p == 0) atomicAdd(&g_prof[4], static_cast<unsigned long long>(clock64() - t_w));\n"
                 "        }\n")
+
+
+def c_stripped(src: str, mode: str) -> str:
+    """Kernel C's source without its halo and weight copies (noload: the
+    barriers still arrive) or without its wgmma (nomma)."""
+    if mode == "noload":
+        src = edit(src, "          mbar_arrive_expect_tx(full, kWBytes);\n"
+                   "          bulk_copy(ws0 + st * kWBytes, src, kWBytes, full);\n",
+                   "          mbar_arrive(full);\n")
+        return edit(src, "          cp_async16(xs0 + hp * kXPlane + pix * 16, src, ok ? 16 : 0);\n", "")
+    src, n = re.subn(r"\n\s*wgmma_s8<kC>\([^;]*\);", "", src)
+    if n != 2:
+        raise RuntimeError("profile_int8: kernel C's wgmma calls are not where expected")
+    return src
+
+
+def c_clocked(src: str) -> str:
+    """Kernel C's source with the clock64 counters of C_COUNTERS, read by
+    witw_prof_read and cleared by witw_prof_reset."""
+    n = len(C_COUNTERS)
+    src = edit(src, "namespace {\n", f"__device__ unsigned long long g_prof[{n}];\nnamespace {{\n")
+    src = edit(src, 'extern "C" {\n',
+               'extern "C" {\n'
+               "void witw_prof_read(unsigned long long* h) { cudaMemcpyFromSymbol(h, g_prof, sizeof(g_prof)); }\n"
+               "void witw_prof_reset() {\n"
+               f"  const unsigned long long z[{n}] = {{}};\n"
+               "  cudaMemcpyToSymbol(g_prof, z, sizeof(z));\n"
+               "}\n")
+
+    def timed(line, var):  # accumulate the cycles of one statement into var
+        pad = line[:len(line) - len(line.lstrip())]
+        return edit_src(line, pad + "{ const long long t_w = clock64();\n" + line
+                        + pad + f"{var} += clock64() - t_w; }}\n")
+
+    def edit_src(old, new):
+        nonlocal src
+        src = edit(src, old, new)
+
+    edit_src("        int acc[2][kC / 2];\n",
+             "        const long long t_a = clock64();\n        long long c_w1 = 0, c_w2 = 0, c_e1 = 0;\n"
+             "        int acc[2][kC / 2];\n")
+    timed("        mbar_wait(halo_full, n & 1);\n", "c_w1")
+    waits = ("#pragma unroll\n        for (int s = 0; s < kSteps1; ++s) mbar_wait(full0 + 8 * ((k + s) "
+             "% kStages), ((k + s) / kStages) & 1);\n")
+    edit_src(waits, "        { const long long t_w = clock64();\n" + waits
+             + "        c_w1 += clock64() - t_w; }\n")
+    timed("          store_y1<kFast>(a, 64 * blk, y1s0, b1_s, m1_s, r0, c0, H, W, circular);\n", "c_e1")
+    first = "        consumers_sync();  // both warpgroups have done reading the previous tile's y1\n"
+    edit_src(first, "        const long long t_f = clock64();\n" + first)
+    edit_src("        // Stage 2: tile rows 8 wg .. 8 wg + 7, 8 x 8 block mb at column 8 mb.\n",
+             "        const long long t_s2 = clock64();\n")
+    timed("          mbar_wait(full0 + 8 * st, (k / kStages) & 1);\n", "c_w2")
+    last = "        if (lane == 0) mbar_arrive(empty0 + 8 * ((k - 1) % kStages));  // the tile's last step\n"
+    edit_src(last, last + "        const long long t_e2 = clock64();\n")
+    i = src.index("        // Epilogue: the warp's pooled row")
+    end = src.index("      }\n    };\n", i)
+    src = (src[:end] + "        if (tid == 0) {\n"
+           "          atomicAdd(&g_prof[0], static_cast<unsigned long long>(t_f - t_a));\n"
+           "          atomicAdd(&g_prof[1], static_cast<unsigned long long>(c_w1));\n"
+           "          atomicAdd(&g_prof[2], static_cast<unsigned long long>(c_e1));\n"
+           "          atomicAdd(&g_prof[3], static_cast<unsigned long long>(t_s2 - t_a));\n"
+           "          atomicAdd(&g_prof[4], static_cast<unsigned long long>(t_e2 - t_s2));\n"
+           "          atomicAdd(&g_prof[5], static_cast<unsigned long long>(c_w2));\n"
+           "          atomicAdd(&g_prof[6], static_cast<unsigned long long>(clock64() - t_e2));\n"
+           "          atomicAdd(&g_prof[7], 1ull);\n"
+           "        }\n" + src[end:])
+    edit_src("          if (k >= kStages) mbar_wait(empty0 + 8 * st, (k / kStages - 1) & 1);\n",
+             "          if (k >= kStages) {\n"
+             "            const long long t_w = clock64();\n"
+             "            mbar_wait(empty0 + 8 * st, (k / kStages - 1) & 1);\n"
+             "            atomicAdd(&g_prof[8], static_cast<unsigned long long>(clock64() - t_w));\n"
+             "          }\n")
+    edit_src("        if (n > 0) mbar_wait(halo_empty, (n - 1) & 1);\n",
+             "        if (n > 0) {\n"
+             "          const long long t_w = clock64();\n"
+             "          mbar_wait(halo_empty, (n - 1) & 1);\n"
+             "          if (p == 32) atomicAdd(&g_prof[9], static_cast<unsigned long long>(clock64() - t_w));\n"
+             "        }\n")
+    return src
+
+
+def block2_cycles(device, card, h, w):
+    """Phase 4: kernel C and its three copies at block 2 of the surface
+    tower, batch 128; the clock copy's means per tile."""
+    src = (CSRC_DIR / "fused_block2.cu").read_text()
+    libs = build({"c_kernel": src, "c_clock": c_clocked(src), "c_noload": c_stripped(src, "noload"),
+                  "c_nomma": c_stripped(src, "nomma")}, COPIES_DIR)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for lib in libs.values():
+        lib.witw_fused_block2.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
+    gen = torch.Generator(device=device).manual_seed(9)
+    (x, _, b1, m1, _, b2, m2), tables = block2_args(gen, device, 128, h, w)
+    out = torch.empty(128, h // 2, w // 2, 128, dtype=torch.int8, device=device)
+
+    def launch(lib):
+        err = lib.witw_fused_block2(x.data_ptr(), tables["w1_wgmma"].data_ptr(), b1.data_ptr(),
+                                    m1.data_ptr(), tables["w2_wgmma"].data_ptr(), b2.data_ptr(),
+                                    m2.data_ptr(), out.data_ptr(), 128, h, w, 0,
+                                    torch.cuda.current_stream(device).cuda_stream)
+        if err:
+            raise RuntimeError(f"kernel C launch failed ({err})")
+
+    clock = libs["c_clock"]
+    clock.witw_prof_reset()
+    launch(clock)
+    torch.cuda.synchronize()
+    counts = (ctypes.c_ulonglong * len(C_COUNTERS))()
+    clock.witw_prof_read(counts)
+    tiles = counts[C_COUNTERS.index("tiles")]
+    per_tile = {k: counts[i] / max(tiles, 1) for i, k in enumerate(C_COUNTERS) if k != "tiles"}
+    ms = {name[2:]: cuda_ms(lambda lib=lib: launch(lib), 3, 5) for name, lib in libs.items()}
+    print(f"[4] kernel C, block 2 [128, {h}, {w}, 64]: kernel {ms['kernel']:.4f} ms, noload "
+          f"{ms['noload']:.4f}, nomma {ms['nomma']:.4f}, clock copy {ms['clock']:.4f}; per tile "
+          f"({tiles} tiles, SM cycles of consumer thread 0): stage 1 {per_tile['s1_total']:.0f} (to its "
+          f"first block's wgmma {per_tile['s1_first']:.0f}, of it waits for data "
+          f"{per_tile['s1_wait']:.0f}; y1 epilogues {per_tile['s1_epilogue']:.0f}), stage 2 main loop "
+          f"{per_tile['s2_main']:.0f} (waits for "
+          f"data {per_tile['s2_wait']:.0f}), stage 2 epilogue {per_tile['s2_epilogue']:.0f}; "
+          f"producers wait for a free weight stage {per_tile['weights_wait_empty']:.0f}, for a "
+          f"free halo {per_tile['halo_wait_empty']:.0f} ({card})", flush=True)
+    return {"shape": [128, h, w, 64], "tiles": tiles, "ms": ms, "cycles_per_tile": per_tile}
 
 
 def cycles_per_layer(device, card, convs, names):
@@ -267,14 +406,15 @@ def main() -> int:
               f"{ms:.4f} ms, {tops:.1f} TOP/s")
         report["layers"].append({"kernel": "conv3x3_int8", "layer": name, "ms": ms, "tops": tops})
     h, w = d.surface_height // 2, d.surface_width_max // 2
-    b2 = block2_args(gen, device, 128, h, w)
-    ms = cuda_ms(lambda: fused_block2.fused_block2(*b2), 2, 5)
+    b2, tables = block2_args(gen, device, 128, h, w)
+    ms = cuda_ms(lambda: fused_block2.fused_block2(*b2, **tables), 2, 5)
     tops = 2 * 128 * h * w * 128 * 9 * (64 + 128) / (ms * 1e-3) / 1e12
     print(f"    kernel C block 2 [{h}, {w}, 64] -> [{h // 2}, {w // 2}, 128]: "
           f"{ms:.4f} ms, {tops:.1f} TOP/s")
     report["layers"].append({"kernel": "fused_block2", "layer": "block 2", "ms": ms, "tops": tops})
 
     report["cycles"], report["cycles_summed_ms"] = cycles_per_layer(device, card, convs, names)
+    report["block2_cycles"] = block2_cycles(device, card, h, w)
 
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:

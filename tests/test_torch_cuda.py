@@ -172,18 +172,47 @@ def test_maxpool_matches_plain(int8_cuda, dtype, shape):
 
 
 @pytest.mark.parametrize("circular", [False, True])
-@pytest.mark.parametrize("h,w", [(8, 20), (7, 9), (17, 34), (2, 2)])
-def test_fused_block2_matches_plain(int8_cuda, circular, h, w):
+@pytest.mark.parametrize("b,h,w", [
+    (2, 8, 20), (2, 7, 9), (2, 17, 34), (2, 2, 2),
+    (1, 17, 33), (2, 16, 16), (1, 2, 2), (3, 9, 3),  # tile tails and tiny widths
+])
+def test_fused_block2_matches_plain(int8_cuda, circular, b, h, w):
     rng = np.random.default_rng(1)
-    c1 = _conv_case(rng, int8_cuda, 2, h, w, 64, 128)
-    c2 = _conv_case(rng, int8_cuda, 2, h, w, 128, 128)
+    c1 = _conv_case(rng, int8_cuda, b, h, w, 64, 128)
+    c2 = _conv_case(rng, int8_cuda, b, h, w, 128, 128)
     x = c1["x"].abs()  # the pool-1 output of a ReLU tower
     args = (x, c1["w"], c1["bias_q"], c1["m"], c2["w"], c2["bias_q"], c2["m"])
-    got = fused_block2.fused_block2(*args, circular=circular)
+    got = fused_block2.fused_block2(*args, circular=circular, w1_wgmma=c1["w_wgmma"],
+                                    w2_wgmma=c2["w_wgmma"])
     want = fused_block2.fused_block2_plain(*args, circular=circular)
     torch.cuda.synchronize()
-    assert got.shape == (2, h // 2, w // 2, 128) and torch.equal(got, want)
+    assert got.shape == (b, h // 2, w // 2, 128) and torch.equal(got, want)
     assert fused_block2.launches == 1
+
+
+@pytest.mark.parametrize("table,channel,value", [
+    ("m1", 0, 1e-6),       # (2^22 - 1) m < 127.5: conv2_1 past 2^22 need not clip to 127
+    ("m2", 77, 2e-5),
+    ("b2", 5, 1 << 24),    # |bias_q| >= 2^24
+    ("b1", 127, -(1 << 24)),
+])
+def test_fused_block2_exact_requant_tables(int8_cuda, table, channel, value):
+    """Tables outside the range of the kernel's conversion-free requant take
+    its int-to-float requant: equal to the plain version all the same."""
+    rng = np.random.default_rng(4)
+    c1 = _conv_case(rng, int8_cuda, 2, 17, 34, 64, 128)
+    c2 = _conv_case(rng, int8_cuda, 2, 17, 34, 128, 128)
+    t = {"b1": c1["bias_q"], "m1": c1["m"], "b2": c2["bias_q"], "m2": c2["m"]}
+    t[table] = t[table].clone()
+    t[table][channel] = value
+    args = (c1["x"].abs(), c1["w"], t["b1"], t["m1"], c2["w"], t["b2"], t["m2"])
+    for circular in (False, True):
+        got = fused_block2.fused_block2(*args, circular=circular, w1_wgmma=c1["w_wgmma"],
+                                        w2_wgmma=c2["w_wgmma"])
+        want = fused_block2.fused_block2_plain(*args, circular=circular)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert fused_block2.launches == 2
 
 
 def test_int8_kernels_reject_bad_inputs(int8_cuda):
@@ -204,7 +233,15 @@ def test_int8_kernels_reject_bad_inputs(int8_cuda):
     with pytest.raises(ValueError):  # strided
         maxpool.maxpool2x2(t["x"].transpose(1, 2))
     with pytest.raises(ValueError):  # block 2 takes 64 channels
-        fused_block2.fused_block2(t["x"], t["w"], t["bias_q"], t["m"], t["w"], t["bias_q"], t["m"])
+        fused_block2.fused_block2(t["x"], t["w"], t["bias_q"], t["m"], t["w"], t["bias_q"], t["m"],
+                                  w1_wgmma=t["w_wgmma"], w2_wgmma=t["w_wgmma"])
+    c1 = _conv_case(np.random.default_rng(2), int8_cuda, 1, 4, 4, 64, 128)
+    c2 = _conv_case(np.random.default_rng(3), int8_cuda, 1, 4, 4, 128, 128)
+    block2 = (c1["x"], c1["w"], c1["bias_q"], c1["m"], c2["w"], c2["bias_q"], c2["m"])
+    with pytest.raises(ValueError):  # the kernel reads pack_weights_wgmma's tables
+        fused_block2.fused_block2(*block2)
+    with pytest.raises(ValueError):  # conv2_2's table in conv2_1's place
+        fused_block2.fused_block2(*block2, w1_wgmma=c2["w_wgmma"], w2_wgmma=c2["w_wgmma"])
     assert int8_conv.launches == maxpool.launches == fused_block2.launches == 0
 
 

@@ -1,11 +1,11 @@
-// Shared pieces of the __dp4a int8 3x3 conv kernels (fused_block2.cu, and
-// conv_like.cu, the probe of kernel A's first, __dp4a design), for Hopper
-// (sm_90a). Kernel A itself (int8_conv.cu) runs on s8 wgmma and does not
-// include this header.
+// The pieces of the __dp4a int8 3x3 conv kernel of conv_like.cu, the probe
+// of kernel A's first, __dp4a design, for Hopper (sm_90a). Kernels A
+// (int8_conv.cu) and C (fused_block2.cu) run on s8 wgmma and include
+// int8_wgmma.cuh instead.
 //
-// Both kernels are direct convolutions on int8 NHWC activations with an
-// int32 accumulator, computed with __dp4a (4 int8 products summed into an
-// int32 per instruction) on the CUDA cores.
+// The kernel is a direct convolution on int8 NHWC activations with an int32
+// accumulator, computed with __dp4a (4 int8 products summed into an int32
+// per instruction) on the CUDA cores.
 //
 // Thread layout (256 threads): tn = tid % 16 picks 4 consecutive output
 // channels (4*tn .. 4*tn+3 of a 64-channel pass), tm = tid / 16 picks an

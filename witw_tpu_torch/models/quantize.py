@@ -17,8 +17,8 @@ their plain PyTorch versions, which the tests hold against witw_tpu.
 Tables (``prepare_static_qparams``) keep witw_tpu's keys: per conv
 ``kernel_q`` (HWIO int8), ``bias_q`` (int32), ``requant_m``, ``dequant``,
 ``bias_f`` (f32), and ``input_scale``; plus ``kernel_packed``, the int8
-[Co, 3, 3, Cin_p] form that kernel C and the plain versions read, and
-``kernel_wgmma``, kernel A's table (``ops.int8_conv.pack_weights_wgmma``).
+[Co, 3, 3, Cin_p] form that the plain versions read, and ``kernel_wgmma``,
+the table of kernels A and C (``ops.int8_conv.pack_weights_wgmma``).
 Not ported here: the dynamic-scale path, the
 SAFA and baseline static paths, ``calibrate_overhead_span`` and the TPU
 lowering variants (``first_conv_bf16``, ``first_conv_w2d``,
@@ -132,8 +132,8 @@ def prepare_static_qparams(state_dict: StateDict,
     conv's int32 accumulator domain), requant_m f32 [Co] (accumulator ->
     next layer's int8 domain), dequant f32 [Co] (accumulator -> f32, for the
     final conv), bias_f f32 [Co], kernel_packed int8 [Co,3,3,Cin_p] (Cin
-    zero-padded to a multiple of 4) for kernel C and the plain versions, and
-    kernel_wgmma (pack_weights_wgmma) for kernel A. The same arithmetic as
+    zero-padded to a multiple of 4) for the plain versions, and
+    kernel_wgmma (pack_weights_wgmma) for kernels A and C. The same arithmetic as
     witw_tpu's, so equal scales give equal tables."""
     params = state_dict_to_tower(state_dict)
     out: Dict[str, Any] = {"vgg": {}}
@@ -242,7 +242,8 @@ def quantized_fov_forward_static(sq: Dict[str, Any], x: torch.Tensor,
             e1, e2 = entries
             h = fused_block2(h, e1["kernel_packed"], e1["bias_q"], e1["requant_m"],
                              e2["kernel_packed"], e2["bias_q"], e2["requant_m"],
-                             circular=circ_padding)
+                             circular=circ_padding, w1_wgmma=e1["kernel_wgmma"],
+                             w2_wgmma=e2["kernel_wgmma"])
             continue
         if circ_padding:
             h = wrap_pad_width(h, len(block), dim=2)

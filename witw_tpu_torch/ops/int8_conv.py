@@ -14,8 +14,8 @@ x is int8 NHWC [B, H, W, Cin]; zero height padding 1, height stride 1 or 2,
 width stride 1, width padding 1 (zeros) or 0 (width-VALID, on an input the
 circular tower has wrap-haloed). Two weight tables describe the same conv:
 ``w``, the packed int8 [Co, 3, 3, Cin_p] of :func:`pack_weights` (Cin padded
-to 4), which the plain versions and kernel C read; and ``w_wgmma``, the
-kernel's table (:func:`pack_weights_wgmma`: Cin padded to 32, Co to a
+to 4), which the plain versions read; and ``w_wgmma``, the kernel's (and
+kernel C's) table (:func:`pack_weights_wgmma`: Cin padded to 32, Co to a
 multiple of the channel tile, in the byte order that its ``wgmma`` B
 descriptor reads), made once with the tower's tables.
 
@@ -82,7 +82,7 @@ def tile_shape(ho: int, wo: int, stride_h: int = 1) -> tuple:
 
 def pack_weights(kernel_q: np.ndarray) -> np.ndarray:
     """HWIO int8 [3, 3, Cin, Co] -> int8 [Co, 3, 3, Cin_p], Cin zero-padded
-    to a multiple of 4: the plain versions' and kernel C's form."""
+    to a multiple of 4: the plain versions' form."""
     k = _check_hwio(kernel_q)
     cin = k.shape[2]
     k = np.pad(k, ((0, 0), (0, 0), (0, padded_channels(cin) - cin), (0, 0)))
