@@ -7,9 +7,14 @@ Phases, each of which passes or raises:
 1. Require a CUDA device; print the card's name and power limit.
 2. Build all eight CUDA libraries from witw_tpu_torch/csrc with nvcc
    (sm_90a), one nvcc per source started together; print the build seconds
-   and the fused match's ptxas register/shared-memory use.
+   and the fused match's ptxas register/shared-memory use, failing on any
+   spill, and its SASS HGMMA (tf32 wgmma) count, failing where it is 0.
 3. Hold the kernel against its plain PyTorch version in f32 (TF32 off) at
-   the main-path, fov-90, ragged and gallery-block shapes.
+   the main-path, fov-90, ragged and gallery-block shapes, and at the card
+   tests' edges at full size: hc 6 and 20, sw = W = 100, sw 1, G odd,
+   values scaled by 1e3, exact ties between shifts i and i + W / 2 (the
+   lower index must win) and a NaN in one gallery map (orient and d as the
+   plain version's).
 4. Drive the slice at full CVUSA width (bf16 towers, whose stride-1 convs
    run on the conv3x3_bf16 kernel; batch 128, random weights from a seed):
    FovPipeline.forward_distance at fov 360 and 90.
@@ -18,7 +23,13 @@ Phases, each of which passes or raises:
    reference checks: a small full-geometry batch on the GPU against the same
    pipeline on the CPU, and equal ranks from the fused and FFT evaluators on
    planted embeddings.
-6. Time the kernel against the plain version, and embed+match pairs/s.
+6. Time the kernel against the plain version (at the main path's G = Q =
+   128 as device time from CUDA graphs, the wrapper being launch-bound
+   there, and host-launched) beside two bounds (f32
+   FLOP / 67 TFLOP/s on the CUDA cores; 3 x the FLOP / 494.7 TFLOP/s, the
+   kernel's 3xTF32 on the tensor cores), the 8832-pair planted gallery
+   sweep through FovGalleryEvaluator on the fused and the FFT path (equal
+   ranks required), and embed+match pairs/s.
 7. The three static-int8 kernels (int8 conv, 2x2 max pool, fused VGG
    block 2), built in phase 2: print ptxas' lines, failing on any spill of
    the int8 conv (kernel A) or the fused block 2 (kernel C), and the IGMMA
@@ -138,6 +149,7 @@ LIBRARIES = ["fused_match", "int8_conv", "maxpool", "fused_block2", "conv3x3_bf1
 # Published peaks of one H100 SXM (dense, at 700 W) for the bound_ms column.
 PEAK_BYTES_PER_MS = 3.35e9          # 3.35 TB/s
 PEAK_F32_PER_MS = 67e9              # CUDA cores
+PEAK_TF32_PER_MS = 494.7e9          # tensor cores
 PEAK_BF16_PER_MS = 989e9            # tensor cores
 PEAK_INT8_PER_MS = 1979e9           # tensor cores
 
@@ -174,23 +186,38 @@ def maps(gen, g, q, h, w, c, sw, device):
     return o, s
 
 
-def compare_kernel(name, o, s):
+def compare_kernel(name, o, s, data="random"):
     """Kernel vs plain on the same inputs; near-tie pairs (plain top-2 gap
-    <= TIE_REL * |max|) are excluded, every other pair must agree."""
+    <= TIE_REL * |max|) are excluded, every other pair must agree. ``data``
+    "tie": gallery maps of period W / 2, whose shifts i and i + W / 2 tie
+    exactly (the top-3 gap decides, and the lower index must win); "nan":
+    gallery map 2 holds a NaN (its row must match the plain version's: the
+    first NaN shift and d NaN)."""
     d_k, or_k = fused_match.fused_chord_distance_nhwc(o, s)
     d_p, or_p = fused_match.fused_chord_distance_plain(o, s)
-    top2 = torch.topk(circular_correlation(o, s), 2, dim=-1).values
-    tie = (top2[..., 0] - top2[..., 1]) <= TIE_REL * top2[..., 0].abs()
+    top = torch.topk(circular_correlation(o, s), 3 if data == "tie" else 2, dim=-1).values
+    tie = ~((top[..., 0] - top[..., -1]) > TIE_REL * top[..., 0].abs())
     torch.cuda.synchronize()
     keep = ~tie
     orient_bad = int(((or_k != or_p) & keep).sum())
     err = (d_k - d_p).abs()[keep]
     max_abs = float(err.max()) if err.numel() else 0.0
     close = torch.isclose(d_k, d_p, rtol=RTOL, atol=ATOL) | tie
+    others = torch.arange(o.shape[0], device=o.device) != 2 if data == "nan" else slice(None)
+    ok = bool(d_k[others].isfinite().all())
+    extra = ""
+    if data == "tie":
+        lowest = bool((or_k < o.shape[2] // 2).all())
+        ok = ok and lowest
+        extra = f"  lowest_index_won={lowest}"
+    elif data == "nan":
+        nan_row = bool(torch.equal(or_k[2], or_p[2]) and d_k[2].isnan().all() and d_p[2].isnan().all())
+        ok = ok and nan_row
+        extra = f"  nan_map_orient_and_d_as_plain={nan_row}"
     log(f"  {name}: G={o.shape[0]} Q={s.shape[0]} h={o.shape[1]} W={o.shape[2]} "
         f"c={o.shape[3]} sw={s.shape[2]}  max_abs_err={max_abs:.3e}  "
-        f"near_ties_excluded={int(tie.sum())}/{tie.numel()}  orient_mismatch={orient_bad}")
-    if orient_bad or not bool(close.all()) or not bool(torch.isfinite(d_k).all()):
+        f"near_ties_excluded={int(tie.sum())}/{tie.numel()}  orient_mismatch={orient_bad}{extra}")
+    if orient_bad or not bool(close.all()) or not ok:
         raise AssertionError(f"kernel disagrees with its plain version at {name}")
     return max_abs
 
@@ -1100,6 +1127,10 @@ def main() -> int:
     log(f"[2] built {', '.join(p.name for p, _ in built.values())} with nvcc (sm_90a) "
         f"in {time.perf_counter() - t0:.2f} s")
     print_ptxas(built["fused_match"][1])
+    for line in built["fused_match"][1].splitlines():
+        if "wgmma" in line:  # ptxas reports wgmma it had to serialize
+            log("    " + line.strip())
+    check_wgmma_build("fused_match", built, "HGMMA", ("HGMMA",))
 
     # 3. kernel vs plain, f32, TF32 off
     log("[3] fused_corr_distance vs plain PyTorch "
@@ -1113,6 +1144,26 @@ def main() -> int:
     }
     inputs = {k: maps(gen, *v, device) for k, v in shapes.items()}
     max_abs_err = max(compare_kernel(k, *inputs[k]) for k in shapes)
+    edges = {  # the card tests' edges, at full size
+        "hc 6": (128, 128, 2, 64, 3, 64, "random"),
+        "hc 20": (128, 128, 4, 64, 5, 64, "random"),
+        "sw = W = 100": (64, 128, 2, 100, 8, 100, "random"),
+        "sw 1": (128, 128, 4, 64, 16, 1, "random"),
+        "G odd": (127, 128, 4, 64, 16, 64, "random"),
+        "scaled 1e3": (128, 128, 4, 64, 16, 64, "scaled"),
+        "exact ties": (128, 128, 4, 64, 16, 64, "tie"),
+        "NaN in map 2": (128, 128, 4, 64, 16, 64, "nan"),
+    }
+    for name, (*shape, data) in edges.items():
+        o, s = maps(gen, *shape, device)
+        if data == "scaled":
+            o, s = o * 1e3, s * 1e3
+        elif data == "tie":
+            o[:, :, shape[3] // 2:] = o[:, :, :shape[3] // 2]
+        elif data == "nan":
+            o[2, 1, 5, 3] = float("nan")
+        max_abs_err = max(max_abs_err, compare_kernel(name, o, s, data))
+    del o, s
 
     # 4. the slice at full width
     fused_match.launches = 0
@@ -1182,21 +1233,55 @@ def main() -> int:
     # 6. timing (CUDA events, warm, median of >= 5)
     log(f"[6] timing on {card}")
     o, s = inputs["main path"]
-    t_main, t_main_plain = interleaved_ms(
-        lambda: fused_match.fused_chord_distance_plain(o, s),
-        lambda: fused_match.fused_chord_distance_nhwc(o, s), calls=20, reps=7)
-    g, q, h, w, c, sw = shapes["main path"]
-    match_bound = bound(2.0 * g * q * w * sw * h * c,
-                        4.0 * (g * h * w * c + q * h * sw * c + g * w) + 8.0 * g * q,
-                        PEAK_F32_PER_MS)
-    log(f"    main path G=Q=128 sw=64: kernel {t_main:.4f} ms, plain {t_main_plain:.4f} ms, "
-        f"bound {match_bound[0]:.4f} ms ({match_bound[1]}, f32 CUDA cores) ({card})")
+    main_fns = {"plain": lambda: fused_match.fused_chord_distance_plain(o, s),
+                "kernel": lambda: fused_match.fused_chord_distance_nhwc(o, s)}
+    t_host, t_host_plain = interleaved_ms(main_fns["plain"], main_fns["kernel"], calls=20, reps=7)
+    # At this size the wrapper's dozen launches take longer on the host than
+    # its work on the card: its device time comes from CUDA graphs of 64
+    # calls, kernel and plain in turns.
+    graphs = {"plain": [], "kernel": []}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        graphs[name].append(graph_ms(main_fns[name]))
+    t_main, t_main_plain = (statistics.median(graphs[k]) for k in ("kernel", "plain"))
+
+    def match_bounds(g, q, h, w, c, sw):
+        """(f32 CUDA-core bound, 3xTF32 tensor-core bound), each (ms, by)."""
+        flop = 2.0 * g * q * w * sw * h * c
+        nbytes = 4.0 * (g * h * w * c + q * h * sw * c + g * w) + 8.0 * g * q
+        return bound(flop, nbytes, PEAK_F32_PER_MS), bound(3 * flop, nbytes, PEAK_TF32_PER_MS)
+
+    f32_bound, match_bound = match_bounds(*shapes["main path"])
+    log(f"    main path G=Q=128 sw=64: kernel {t_main:.4f} ms, plain {t_main_plain:.4f} ms (device "
+        f"time, CUDA graphs); host-launched kernel {t_host:.4f} ms, plain {t_host_plain:.4f} ms; "
+        f"bound {match_bound[0]:.4f} ms ({match_bound[1]}, 3xTF32 on the tensor cores at "
+        f"494.7 TFLOP/s), f32 CUDA-core bound {f32_bound[0]:.4f} ms ({f32_bound[1]}) ({card})")
     o, s = inputs["gallery block"]
     t_gal, t_gal_plain = interleaved_ms(
         lambda: fused_match.fused_chord_distance_plain(o, s),
         lambda: fused_match.fused_chord_distance_nhwc(o, s), calls=3, reps=7)
-    log(f"    gallery block G=8832 Q=128 sw=64: kernel {t_gal:.4f} ms, plain {t_gal_plain:.4f} ms ({card})")
+    f32_gal, tf32_gal = match_bounds(*shapes["gallery block"])
+    log(f"    gallery block G=8832 Q=128 sw=64: kernel {t_gal:.4f} ms, plain {t_gal_plain:.4f} ms, "
+        f"bound {tf32_gal[0]:.4f} ms (3xTF32), f32 CUDA-core bound {f32_gal[0]:.4f} ms ({card})")
     del inputs, o, s
+
+    # The gallery rank sweep, 8832 planted pairs (host clock around ranks(),
+    # which ends on the host; the second of two runs of each path).
+    o_pl, s_pl = planted_embeddings(np.random.default_rng(4), 8832, 4, 64, 16, 64)
+    o_pl = torch.from_numpy(o_pl).to(device)
+    s_pl = torch.from_numpy(s_pl).to(device)
+    sweep = {}
+    for name, fused in (("fused", True), ("FFT", False)):
+        evaluator = FovGalleryEvaluator(use_fused=fused, device=device)
+        evaluator.ranks(o_pl, s_pl)
+        t0 = time.perf_counter()
+        sweep[name] = (evaluator.ranks(o_pl, s_pl), time.perf_counter() - t0)
+    if not np.array_equal(sweep["fused"][0], sweep["FFT"][0]):
+        raise AssertionError(f"8832-pair sweep: fused and FFT ranks differ on "
+                             f"{int((sweep['fused'][0] != sweep['FFT'][0]).sum())} queries")
+    log(f"    gallery sweep, 8832 planted pairs [8832, 4, 64, 16] (query block 128, gallery chunk "
+        f"1024): fused {sweep['fused'][1]:.4f} s, FFT {sweep['FFT'][1]:.4f} s, ranks equal "
+        f"(mean rank {sweep['fused'][0].mean():.4f}) ({card})")
+    del o_pl, s_pl, sweep
 
     gen_in = torch.Generator(device=device).manual_seed(1)
     d = cfg.data

@@ -36,29 +36,51 @@ def cuda(monkeypatch):
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("g,q,h,w,c,sw", [
-    (8, 4, 2, 8, 3, 8),
-    (6, 3, 1, 8, 4, 5),
-    (37, 70, 4, 64, 16, 64),  # ragged query tile
-    (5, 9, 2, 100, 8, 33),  # widths above one 64-shift pass
-    (3, 2, 1, 1, 2, 1),
+@pytest.mark.parametrize("g,q,h,w,c,sw,data", [
+    (8, 4, 2, 8, 3, 8, "random"),
+    (6, 3, 1, 8, 4, 5, "random"),
+    (37, 70, 4, 64, 16, 64, "random"),  # ragged query tile
+    (5, 9, 2, 100, 8, 33, "random"),  # widths above one 64-shift pass
+    (3, 2, 1, 1, 2, 1, "random"),
+    (4, 5, 2, 12, 3, 7, "random"),  # hc 6, not a multiple of 8
+    (4, 5, 4, 16, 5, 9, "random"),  # hc 20
+    (3, 4, 2, 100, 8, 100, "random"),  # sw = W: every window wraps
+    (6, 7, 4, 64, 16, 1, "random"),  # sw 1
+    (7, 5, 4, 64, 16, 64, "random"),  # G odd: a block's second map is missing
+    (6, 9, 4, 64, 16, 64, "scaled"),  # values scaled by 1e3
+    (4, 5, 2, 16, 8, 10, "tie"),  # gallery maps of period W / 2: exact ties
+    (5, 6, 4, 64, 16, 64, "nan"),  # a NaN in gallery map 2
 ])
-def test_kernel_matches_plain(cuda, g, q, h, w, c, sw):
+def test_kernel_matches_plain(cuda, g, q, h, w, c, sw, data):
     rng = np.random.default_rng(0)
     o = torch.tensor(rng.standard_normal((g, h, w, c)), dtype=torch.float32, device=cuda)
     s = torch.tensor(rng.standard_normal((q, h, sw, c)), dtype=torch.float32, device=cuda)
+    if data == "scaled":
+        o, s = o * 1e3, s * 1e3
+    elif data == "tie":
+        o[:, :, w // 2:] = o[:, :, :w // 2]
+    elif data == "nan":
+        o[2, 1, 5, 3] = float("nan")
     d_k, or_k = fused_match.fused_chord_distance_nhwc(o, s)
     d_p, or_p = fused_match.fused_chord_distance_plain(o, s)
     torch.cuda.synchronize()
     assert fused_match.launches == 1
     assert d_k.shape == (g, q) and or_k.dtype == torch.int32
     if w > 1:
-        top2 = torch.topk(circular_correlation(o, s), 2, dim=-1).values
-        keep = (top2[..., 0] - top2[..., 1]) > 1e-5 * top2[..., 0].abs()
+        # Near ties (top-2 gap <= 1e-5 |max|) are excluded; with exact ties
+        # of pairs of shifts, the gap to the next pair (top-3) decides.
+        top = torch.topk(circular_correlation(o, s), 3 if data == "tie" else 2, dim=-1).values
+        keep = (top[..., 0] - top[..., -1]) > 1e-5 * top[..., 0].abs()
     else:
         keep = torch.ones_like(d_p, dtype=torch.bool)
     assert torch.equal(or_k[keep], or_p[keep])
     torch.testing.assert_close(d_k[keep], d_p[keep], rtol=1e-5, atol=1e-6)
+    if data == "tie":  # shifts i and i + W / 2 tie exactly: the lower index wins
+        assert bool((or_k < w // 2).all())
+    if data == "nan":  # the first NaN shift wins, as in torch.argmax, and d is NaN
+        assert torch.equal(or_k[2], or_p[2])
+        assert bool(d_k[2].isnan().all()) and bool(d_p[2].isnan().all())
+        assert bool(keep[torch.arange(g, device=cuda) != 2].any())
 
 
 def test_kernel_rejects_mixed_or_strided_cuda_inputs(cuda):

@@ -153,7 +153,8 @@ def test_port_imports_no_jax():
         import witw_tpu_torch
         names = [m.name for m in pkgutil.walk_packages(
             witw_tpu_torch.__path__, "witw_tpu_torch.")]
-        for name in names + ["chip_smoke", "profile_int8", "profile_bf16", "profile_conv"]:
+        for name in names + ["chip_smoke", "profile_int8", "profile_bf16", "profile_conv",
+                             "profile_match"]:
             importlib.import_module(name)
         banned = ("jax", "jaxlib", "flax", "optax", "pandas", "PIL", "witw_tpu", "exp")
         bad = sorted(m for m, mod in sys.modules.items()

@@ -10,9 +10,16 @@ query q it computes
     d[g, q]    = 2 (1 - max corr * rsqrt(max(wsq[orient], 1e-20)) / max(||s_q||, 1e-10))
 
 and writes only d and orient; the [G, Q, W] correlation never reaches device
-memory. It is bound by f32 FMA throughput: W * sw * hc = 262k multiply-adds
-per (g, q) pair at CVUSA shapes (W = sw = 64, hc = h*c = 4*16), on the CUDA
-cores, without TF32 or tensor cores.
+memory. The multiply-adds bound it: W * sw * hc = 262k per (g, q) pair at
+CVUSA shapes (W = sw = 64, hc = h*c = 4*16). They run on the tensor cores as
+3xTF32 ``wgmma`` (each f32 split into two tf32 parts, three products), which
+keeps f32 accuracy. Each block holds two gallery maps in shared memory, split
+and with their first 63 rows repeated after the last, so that a circular
+shift is an offset of the ``wgmma`` descriptor, and streams 64 queries'
+width columns past them, one bulk copy a column (:func:`geometry`). The
+kernel takes hc <= 64 (``MAX_HC``) and W up to what two ring stages leave of
+227 KB of shared memory (W <= 127 at hc = 64); the wrapper raises
+ValueError for anything else.
 
 ``fused_chord_distance_nhwc`` is the public entry point. On CPU tensors it
 computes the plain PyTorch version (``fused_chord_distance_plain``); on CUDA
@@ -26,6 +33,7 @@ import functools
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from witw_tpu_torch.kernels.build import load_library
 from witw_tpu_torch.match.correlation import circular_correlation
@@ -35,29 +43,65 @@ from witw_tpu_torch.ops.launch import check_cuda_tensors, check_launch
 # Kernel launches since the last reset (the card path's proof of use).
 launches = 0
 
-# Queries per block, as kQTile in csrc/fused_match.cu.
+# As kQTile, kMaps and kShifts in csrc/fused_match.cu: queries per block
+# (the M of wgmma), gallery maps per block (one per consumer warpgroup) and
+# shifts per pass (the N of wgmma).
 Q_TILE = 64
+MAPS = 2
+SHIFTS = 64
+# Channels (h * c) the kernel takes: its fragments of a query column stay
+# in registers, 8 channels a step, at most 8 steps.
+MAX_HC = 64
+# Ring stages of query columns: as many as fit, up to MAX_STAGES; fewer
+# than MIN_STAGES is not taken.
+MAX_STAGES = 4
+MIN_STAGES = 2
 # Shared memory a block may use on Hopper (227 KB).
 SMEM_LIMIT_BYTES = 232448
 
 
+def _layout(w: int, hc: int) -> Tuple[int, int, int, int, int]:
+    """(rows, hc_pad, pitch, bytes of the maps, bytes of one ring stage with
+    its two barriers)."""
+    hc_pad = -(-hc // 8) * 8
+    rows = w + SHIFTS - 1
+    # Query rows `pitch` floats apart put a warp's 8-byte fragment loads
+    # (rows g, channels 2t) on 32 distinct banks: pitch % 32 in (8, 24).
+    pitch = hc_pad if hc_pad % 32 in (8, 24) else hc_pad + 8
+    maps = MAPS * 2 * hc_pad * 4 * rows  # big and small copies
+    stage = Q_TILE * pitch * 4 + 16
+    return rows, hc_pad, pitch, maps, stage
+
+
+def geometry(g: int, q: int, w: int, hc: int) -> dict:
+    """The kernel's layout for o [g, w, hc] and s [sw, q, hc]: the rows of a
+    gallery map in shared memory (w + 63), hc padded to a multiple of 8, the
+    query rows' pitch in floats, the maps per block, the ring stages
+    (0 when fewer than MIN_STAGES fit, or hc > MAX_HC: the kernel does not
+    take the shape), the shared memory of a block and the grid."""
+    rows, hc_pad, pitch, maps, stage = _layout(w, hc)
+    stages = min(MAX_STAGES, (SMEM_LIMIT_BYTES - maps) // stage)
+    stages = stages if stages >= MIN_STAGES and hc <= MAX_HC else 0
+    return {"rows": rows, "hc_pad": hc_pad, "pitch": pitch, "maps": MAPS,
+            "stages": stages, "smem_bytes": smem_bytes(w, hc),
+            "grid": (-(-g // MAPS), -(-q // Q_TILE))}
+
+
 def smem_bytes(w: int, hc: int) -> int:
-    """Shared memory of one block: the gallery map and one query column
-    tile, rows padded to hc+1 floats, plus the query norms. The kernel takes
-    this size as an argument and lays its buffers out the same way."""
-    return 4 * ((w + Q_TILE) * (hc + 1) + Q_TILE)
+    """Shared memory of one block: two split gallery maps of w + 63 rows
+    and the ring of query columns (at least MIN_STAGES stages). The kernel
+    takes this size as an argument and checks it against the same layout."""
+    _, _, _, maps, stage = _layout(w, hc)
+    stages = max(MIN_STAGES, min(MAX_STAGES, (SMEM_LIMIT_BYTES - maps) // stage))
+    return maps + stages * stage
 
 
 @functools.lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
     lib = load_library("fused_match")
-    ptr = ctypes.c_void_p
-    lib.witw_fused_corr_distance.argtypes = [
-        ptr, ptr, ptr, ptr, ptr,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_size_t, ptr,
-    ]
-    lib.witw_fused_corr_distance.restype = ctypes.c_int
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.witw_fused_corr_distance.argtypes = [ptr] * 5 + [i32] * 8 + [ctypes.c_size_t, ptr]
+    lib.witw_fused_corr_distance.restype = i32
     return lib
 
 
@@ -68,9 +112,9 @@ def fused_corr_distance(
 
     o_flat: [G, W, hc] f32; s_swqh: [sw, Q, hc] f32 (queries laid out by
     width column); wsq: [G, W] window squared norms
-    (:func:`witw_tpu_torch.match.distance.window_sq_norms`). All contiguous
-    and on one CUDA device. Returns (d [G, Q] f32, orient [G, Q] int32).
-    Raises ValueError for any input the kernel does not take.
+    (:func:`witw_tpu_torch.match.distance.window_sq_norms`). All contiguous,
+    16-byte aligned and on one CUDA device. Returns (d [G, Q] f32, orient
+    [G, Q] int32). Raises ValueError for any input the kernel does not take.
     """
     global launches
     tensors = {"o_flat": o_flat, "s_swqh": s_swqh, "wsq": wsq}
@@ -91,24 +135,31 @@ def fused_corr_distance(
         )
     if not 1 <= sw <= w:
         raise ValueError(f"query width {sw} must be in [1, gallery width {w}]")
-    smem = smem_bytes(w, hc)
-    if smem > SMEM_LIMIT_BYTES:
+    if hc < 1 or -(-q // Q_TILE) > 65535:
+        raise ValueError(f"hc {hc} must be positive and Q {q} at most {65535 * Q_TILE}")
+    geo = geometry(g, q, w, hc)
+    if geo["stages"] == 0:
         raise ValueError(
-            f"W={w}, hc={hc} needs {smem} bytes of shared memory "
-            f"per block, over the {SMEM_LIMIT_BYTES}-byte limit"
+            f"W={w}, hc={hc}: the kernel takes hc <= {MAX_HC} and {MIN_STAGES} ring "
+            f"stages within {SMEM_LIMIT_BYTES} bytes of shared memory per block; "
+            f"this shape needs {geo['smem_bytes']}"
         )
-    device = check_cuda_tensors("fused_corr_distance", align=4, **tensors)
+    device = check_cuda_tensors("fused_corr_distance", **tensors)
 
     d = torch.empty((g, q), dtype=torch.float32, device=device)
     orient = torch.empty((g, q), dtype=torch.int32, device=device)
     if g == 0 or q == 0:
         return d, orient
+    hc_pad, pitch = geo["hc_pad"], geo["pitch"]
+    # Query rows `pitch` floats apart, zero past hc: one bulk copy brings a
+    # column of 64 queries into shared memory in the layout the kernel reads.
+    s_pad = F.pad(s_swqh, (0, pitch - hc)) if pitch != hc else s_swqh
     lib = _lib()
     with torch.cuda.device(device):
         err = lib.witw_fused_corr_distance(
-            o_flat.data_ptr(), s_swqh.data_ptr(), wsq.data_ptr(),
+            o_flat.data_ptr(), s_pad.data_ptr(), wsq.data_ptr(),
             d.data_ptr(), orient.data_ptr(),
-            g, w, hc, q, sw, smem,
+            g, w, hc, hc_pad, pitch, q, sw, geo["stages"], geo["smem_bytes"],
             torch.cuda.current_stream(device).cuda_stream,
         )
     check_launch(lib, err, "fused_corr_distance")
