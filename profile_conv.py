@@ -46,7 +46,7 @@ COUNTERS = ("main", "epilogue", "tiles", "wait_full", "wait_empty")
 
 def edit(src: str, old: str, new: str) -> str:
     if src.count(old) != 1:
-        raise RuntimeError(f"profile_conv: the kernel source no longer has one {old.strip()!r}")
+        raise RuntimeError(f"the kernel source no longer has one {old.strip()[:60]!r}")
     return src.replace(old, new)
 
 

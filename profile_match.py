@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the fused match kernel's time goes, on one NVIDIA GPU.
 
-    python3 profile_match.py [--out profile_match.json]
+    python3 profile_match.py [--out profile_match.json] [--against DIR]
 
 Builds the kernel (witw_tpu_torch/csrc/fused_match.cu) and copies of its
 source edited at fixed places (the script fails if a place it edits is
@@ -27,26 +27,38 @@ times each with CUDA events (direct launches with the wrapper's arguments,
 median of 5) and prints ms, TF32 TFLOP/s (3 products a multiply-add), the
 share of the 3xTF32 bound and max |d - plain| (f32, TF32 off). It also reads
 the SM clock and the power draw with nvidia-smi while the kernel runs.
+
+With --against DIR (another checkout of the repo, such as a `git archive` of
+an earlier commit), phase [2] imports that checkout's
+witw_tpu_torch.ops.fused_match beside this one's (it builds its own library)
+and times both wrappers on the same inputs at both shapes, in turns (this,
+DIR, DIR, this, ...): host-launched (CUDA events around back-to-back calls,
+median of 7) and as device time from CUDA graphs (utils/profiling.graph_ms,
+median of two graphs each). Both must agree with the plain version.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib
 import json
+import statistics
 import subprocess
+import sys
 import threading
 import time
+from pathlib import Path
 
 import torch
-import torch.nn.functional as F
 
 from chip_smoke import PEAK_TF32_PER_MS, card_line
-from witw_tpu_torch.kernels.build import BUILD_DIR, CSRC_DIR, NVCC_FLAGS, nvcc_path
+from profile_conv import build, edit
+from witw_tpu_torch.kernels.build import BUILD_DIR, CSRC_DIR
 from witw_tpu_torch.match.distance import window_sq_norms
 from witw_tpu_torch.ops import fused_match
 from witw_tpu_torch.utils.device import require_cuda
-from witw_tpu_torch.utils.profiling import cuda_ms
+from witw_tpu_torch.utils.profiling import cuda_ms, graph_ms
 
 OUT_DIR = BUILD_DIR / "profile_match"
 SHAPES = {"main path": (128, 128), "gallery block": (8832, 128)}  # (G, Q); W = sw = hc = 64
@@ -59,7 +71,8 @@ PRODUCTS = """#pragma unroll
 """
 SPLIT = "          for (int e = 0; e < 4; ++e) split_tf32(raw[e], ab[c][e], as[c][e]);\n"
 COPY = """        mbar_arrive_expect_tx(full0 + 8 * st, bytes);
-        bulk_copy(ring0 + st * stage_bytes, s + (static_cast<size_t>(it % sw) * Q + q0) * pitch, bytes,
+        const int col = it % sw * chunks + it / sw % chunks;  // (k, ch) in s
+        bulk_copy(ring0 + st * stage_bytes, s + (static_cast<size_t>(col) * Q + q0) * pitch, bytes,
                   full0 + 8 * st);
 """
 PRODUCER = "      for (int it = 0; it < items; ++it) {\n        const int st = it % stages;\n"
@@ -87,14 +100,8 @@ FOLD = """        wgmma_wait<0>();
           fence_operand(acc[i]);
           tot[i] = __fadd_rn(tot[i], acc[i]);
         }
-        if (it % sw != sw - 1) return;
+        if ((it + 1) % sw != 0) return;
 """
-
-
-def edit(src: str, old: str, new: str) -> str:
-    if src.count(old) != 1:
-        raise RuntimeError(f"profile_match: the kernel source no longer has one {old.strip()[:60]!r}")
-    return src.replace(old, new)
 
 
 def variant(src: str, mode: str) -> str:
@@ -126,7 +133,7 @@ def variant(src: str, mode: str) -> str:
         return src
     src = edit(src, "wgmma_tf32(acc, as[c], b_big + c * step_desc, c > 0);",
                "wgmma_tf32(acc, as[c], b_big + c * step_desc, c > 0 || it % sw != 0);")
-    return edit(src, FOLD, """        if (it % sw != sw - 1) return;
+    return edit(src, FOLD, """        if ((it + 1) % sw != 0) return;
         wgmma_wait<0>();
         fence_frags(ab, as);
 #pragma unroll
@@ -137,27 +144,61 @@ def variant(src: str, mode: str) -> str:
 """)
 
 
-def build(modes):
-    """{mode: ctypes library}: the kernel's library and each stripped copy."""
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
-    src = (CSRC_DIR / "fused_match.cu").read_text()
-    procs = {}
-    for mode in modes:
-        path = OUT_DIR / f"{mode}.cu"
-        path.write_text(src if mode == "kernel" else variant(src, mode))
-        procs[mode] = subprocess.Popen(
-            [nvcc_path(), *NVCC_FLAGS, "-o", str(OUT_DIR / f"lib{mode}.so"), str(path)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for mode, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {mode}:\n{log}")
-        lib = ctypes.CDLL(str(OUT_DIR / f"lib{mode}.so"))
-        lib.witw_fused_corr_distance.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
-            ctypes.c_size_t, ctypes.c_void_p]
-        libs[mode] = lib
-    return libs
+def other_fused_match(tree: Path):
+    """The witw_tpu_torch.ops.fused_match module of another checkout,
+    imported beside this one's: this checkout's modules are set aside while
+    it imports and put back after, so that each wrapper keeps its own
+    package (and library)."""
+    def ours():
+        return {k: m for k, m in sys.modules.items() if k.split(".")[0] == "witw_tpu_torch"}
+
+    saved = ours()
+    for k in saved:
+        del sys.modules[k]
+    sys.path.insert(0, str(tree))
+    try:
+        module = importlib.import_module("witw_tpu_torch.ops.fused_match")
+    finally:
+        sys.path.remove(str(tree))
+        for k in ours():
+            del sys.modules[k]
+        sys.modules.update(saved)
+    if not Path(module.__file__).resolve().is_relative_to(tree.resolve()):
+        raise RuntimeError(f"{tree} has no witw_tpu_torch/ops/fused_match.py")
+    return module
+
+
+def compare_wrappers(other, tree: Path, card: str, device) -> dict:
+    """Phase [2]: this checkout's wrapper and ``other``'s in turns."""
+    print(f"[2] fused_chord_distance_nhwc: this checkout against {tree}, in turns, on {card}", flush=True)
+    gen = torch.Generator(device=device).manual_seed(1)
+    report = {}
+    for name, (g, q) in SHAPES.items():
+        o = torch.randn(g, 4, 64, 16, generator=gen, device=device)
+        s = torch.randn(q, 4, 64, 16, generator=gen, device=device)
+        want = fused_match.fused_chord_distance_plain(o, s)[0]
+        fns = {"this": lambda: fused_match.fused_chord_distance_nhwc(o, s),
+               "against": lambda: other.fused_chord_distance_nhwc(o, s)}
+        errs = {k: float((fn()[0] - want).abs().max()) for k, fn in fns.items()}
+        if not max(errs.values()) < 1e-4:
+            raise AssertionError(f"{name}: a wrapper disagrees with the plain version: {errs}")
+        calls = 20 if g <= 1024 else 3
+        host = {"this": [], "against": []}
+        for rep in range(7):
+            for k in (("this", "against") if rep % 2 == 0 else ("against", "this")):
+                host[k].append(cuda_ms(fns[k], calls, 1))
+        graphs = {"this": [], "against": []}
+        for k in ("this", "against", "against", "this"):
+            graphs[k].append(graph_ms(fns[k], calls=64 if g <= 1024 else 4, reps=3))
+        row = {k: {"host_ms": statistics.median(host[k]), "device_ms": statistics.median(graphs[k]),
+                   "max_abs_err": errs[k]} for k in fns}
+        report[name] = row
+        print(f"    {name} G={g} Q={q}: this {row['this']['host_ms']:.4f} ms host-launched, "
+              f"{row['this']['device_ms']:.4f} ms device time (graphs); against "
+              f"{row['against']['host_ms']:.4f}, {row['against']['device_ms']:.4f}; "
+              f"max |d - plain| {errs['this']:.3e}, {errs['against']:.3e} ({card})", flush=True)
+        del o, s, want
+    return report
 
 
 def sample_clock(run, seconds: float) -> str:
@@ -182,12 +223,18 @@ def sample_clock(run, seconds: float) -> str:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=None, help="write the numbers here as JSON")
+    parser.add_argument("--against", default=None, type=Path,
+                        help="another checkout of the repo whose wrapper [2] times beside this one's")
     args = parser.parse_args()
     device = require_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
     modes = ("kernel", "nomma", "nosplit", "nocopy", "onefold", "rsloop", "ssloop")
-    libs = build(modes)
+    src = (CSRC_DIR / "fused_match.cu").read_text()
+    libs = build({mode: src if mode == "kernel" else variant(src, mode) for mode in modes}, OUT_DIR)
+    for lib in libs.values():
+        lib.witw_fused_corr_distance.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [
+            ctypes.c_size_t, ctypes.c_void_p]
     print(f"[1] fused_corr_distance and its copies ({', '.join(modes[1:])}) on {card}", flush=True)
     gen = torch.Generator(device=device).manual_seed(0)
     report = {"card": card, "shapes": {}}
@@ -196,7 +243,7 @@ def main() -> int:
         s = torch.randn(q, 4, 64, 16, generator=gen, device=device)
         geo = fused_match.geometry(g, q, 64, 64)
         o_flat = o.permute(0, 2, 1, 3).reshape(g, 64, 64).contiguous()
-        s_pad = F.pad(s.permute(2, 0, 1, 3).reshape(64, q, 64), (0, geo["pitch"] - 64)).contiguous()
+        s_pad = fused_match.query_columns(s.permute(2, 0, 1, 3).reshape(64, q, 64).contiguous(), geo)
         wsq = window_sq_norms(o, 64).contiguous()
         d = torch.empty(g, q, device=device)
         orient = torch.empty(g, q, dtype=torch.int32, device=device)
@@ -207,7 +254,7 @@ def main() -> int:
             def call(lib=lib):
                 err = lib.witw_fused_corr_distance(
                     o_flat.data_ptr(), s_pad.data_ptr(), wsq.data_ptr(), d.data_ptr(), orient.data_ptr(),
-                    g, 64, 64, 64, geo["pitch"], q, 64, geo["stages"], geo["smem_bytes"],
+                    g, 64, 64, 64, 1, geo["pitch"], q, 64, geo["stages"], geo["smem_bytes"],
                     torch.cuda.current_stream().cuda_stream)
                 if err:
                     raise RuntimeError(f"{mode} launch failed: CUDA error {err}")
@@ -225,6 +272,10 @@ def main() -> int:
                 rows[mode]["clock_power"] = clock
                 print(f"    {name}: SM clock, power while it runs: {clock}", flush=True)
         report["shapes"][name] = rows
+    if args.against:
+        report["against"] = {"tree": str(args.against),
+                             "shapes": compare_wrappers(other_fused_match(args.against), args.against,
+                                                        card, device)}
     print(card, flush=True)
     if args.out:
         with open(args.out, "w") as f:

@@ -50,6 +50,11 @@ def cuda(monkeypatch):
     (6, 9, 4, 64, 16, 64, "scaled"),  # values scaled by 1e3
     (4, 5, 2, 16, 8, 10, "tie"),  # gallery maps of period W / 2: exact ties
     (5, 6, 4, 64, 16, 64, "nan"),  # a NaN in gallery map 2
+    (5, 6, 4, 64, 32, 64, "random"),  # hc 128: two channel chunks of 64
+    (5, 6, 4, 128, 16, 64, "random"),  # W 128 at hc 64: two chunks of 32
+    (4, 5, 4, 20, 18, 9, "random"),  # hc 72: two chunks of 40
+    (3, 4, 2, 256, 32, 200, "random"),  # 4 passes of 2 chunks: a refill per chunk
+    (6, 5, 1, 16, 8, 1, "offset"),  # o and s 4 bytes off 16-byte alignment
 ])
 def test_kernel_matches_plain(cuda, g, q, h, w, c, sw, data):
     rng = np.random.default_rng(0)
@@ -61,6 +66,10 @@ def test_kernel_matches_plain(cuda, g, q, h, w, c, sw, data):
         o[:, :, w // 2:] = o[:, :, :w // 2]
     elif data == "nan":
         o[2, 1, 5, 3] = float("nan")
+    elif data == "offset":  # views the wrapper passes on uncopied (h = 1, sw = 1)
+        o = torch.empty(o.numel() + 1, device=cuda)[1:].view(o.shape).copy_(o)
+        s = torch.empty(s.numel() + 1, device=cuda)[1:].view(s.shape).copy_(s)
+        assert o.data_ptr() % 16 == 4 and s.data_ptr() % 16 == 4
     d_k, or_k = fused_match.fused_chord_distance_nhwc(o, s)
     d_p, or_p = fused_match.fused_chord_distance_plain(o, s)
     torch.cuda.synchronize()

@@ -8,9 +8,12 @@ card; here a torch emulation of that arithmetic (defined in this file, not
 in the package) is held against the Pallas kernel in interpret mode at the
 card tests' tolerances (rtol 1e-5, atol 1e-6, orientations equal outside
 near ties whose top-2 gap is at most 1e-5 of the max), which shows that
-3xTF32 meets them before the card is used. ``geometry`` (rows, channel
-padding, query pitch, ring stages, shared memory, grid) is checked against
-Hopper's 232,448 bytes of shared memory a block.
+3xTF32 meets them before the card is used; past 64 channels, or where the
+maps would not fit shared memory, the emulation runs the kernel's channel
+chunks. ``geometry`` (rows, channel chunks and padding, query pitch, ring
+stages, shared memory, grid) is checked against Hopper's 232,448 bytes of
+shared memory a block, and ``query_columns`` (the query layout the kernel's
+bulk copies read) against the queries it lays out.
 """
 
 import jax.numpy as jnp
@@ -42,9 +45,10 @@ def split_tf32(x: torch.Tensor):
 
 def emulated_kernel(o: np.ndarray, s: np.ndarray):
     """The kernel's arithmetic on [G, h, W, c] x [Q, h, sw, c]: per width
-    column k, acc = s_small o_big + s_big o_small + s_big o_big (f32 sums of
-    exact tf32 products), added into the total; then max, first argmax and
-    the chord distance with the kernel's expression."""
+    column k and channel chunk (``geometry``), acc = s_small o_big + s_big
+    o_small + s_big o_big (f32 sums of exact tf32 products), added into the
+    total; then max, first argmax and the chord distance with the kernel's
+    expression."""
     o_t, s_t = torch.tensor(o), torch.tensor(s)
     g, h, w, c = o_t.shape
     q, _, sw, _ = s_t.shape
@@ -52,13 +56,16 @@ def emulated_kernel(o: np.ndarray, s: np.ndarray):
     s_swqh = s_t.permute(2, 0, 1, 3).reshape(sw, q, h * c)
     o_big, o_small = split_tf32(o_flat)
     s_big, s_small = split_tf32(s_swqh)
+    geo = fused_match.geometry(g, q, w, h * c)
     tot = torch.zeros(g, q, w)
     for k in range(sw):
         ob, osm = torch.roll(o_big, -k, 1), torch.roll(o_small, -k, 1)
-        acc = torch.einsum("qj,gwj->gqw", s_small[k], ob)
-        acc = acc + torch.einsum("qj,gwj->gqw", s_big[k], osm)
-        acc = acc + torch.einsum("qj,gwj->gqw", s_big[k], ob)
-        tot = tot + acc
+        for ch in range(geo["chunks"]):
+            j = slice(ch * geo["hc_pad"], (ch + 1) * geo["hc_pad"])
+            acc = torch.einsum("qj,gwj->gqw", s_small[k][:, j], ob[..., j])
+            acc = acc + torch.einsum("qj,gwj->gqw", s_big[k][:, j], osm[..., j])
+            acc = acc + torch.einsum("qj,gwj->gqw", s_big[k][:, j], ob[..., j])
+            tot = tot + acc
     best, orient = tot.max(dim=-1)
     wsq = torch.gather(window_sq_norms(o_t, sw), 1, orient)
     s_norm = torch.sqrt((s_swqh * s_swqh).sum(dim=(0, 2)))
@@ -97,6 +104,9 @@ def _assert_matches_pallas(o, s):
     (3, 5, 2, 16, 8, 12, 1e3),  # values scaled by 1e3
     (4, 6, 4, 64, 16, 64, 1.0),  # CVUSA widths: W = sw = hc = 64
     (3, 4, 4, 64, 16, 16, 1.0),  # CVUSA widths at fov 90
+    (3, 4, 4, 64, 32, 64, 1.0),  # hc 128: two chunks of 64 channels
+    (3, 4, 4, 128, 16, 64, 1.0),  # W 128 at hc 64: two chunks of 32
+    (4, 3, 4, 20, 18, 9, 1.0),  # hc 72: two chunks of 40, the last part zeros
 ])
 def test_3xtf32_emulation_meets_the_card_tolerances(rng, g, q, h, w, c, sw, scale):
     _assert_matches_pallas(*_maps(rng, g, q, h, w, c, sw, scale))
@@ -141,7 +151,7 @@ def test_3xtf32_split_is_exact_to_2_to_the_minus_22(rng):
 def test_geometry_of_the_main_path():
     # CVUSA: o [G, 64, 64], s [64, Q, 64], batch 128 and the gallery block.
     geo = fused_match.geometry(128, 128, 64, 64)
-    assert geo == {"rows": 127, "hc_pad": 64, "pitch": 72, "maps": 2, "stages": 4,
+    assert geo == {"rows": 127, "chunks": 1, "hc_pad": 64, "pitch": 72, "maps": 2, "stages": 4,
                    "smem_bytes": 2 * 2 * 64 * 4 * 127 + 4 * (64 * 72 * 4 + 16),
                    "grid": (64, 2)}
     assert geo["smem_bytes"] == 203840 <= fused_match.SMEM_LIMIT_BYTES
@@ -152,31 +162,85 @@ def test_geometry_of_the_main_path():
 @pytest.mark.parametrize("g,q,w,hc", [
     (8, 4, 8, 6), (6, 3, 8, 4), (37, 70, 64, 64), (5, 9, 100, 16), (3, 2, 1, 2),
     (7, 5, 12, 6), (4, 3, 16, 20), (3, 4, 100, 16), (1, 1, 127, 64),
+    (5, 6, 64, 128), (5, 6, 128, 64), (4, 5, 20, 72), (3, 4, 256, 64), (2, 3, 1720, 512),
 ])
 def test_geometry_fits_every_card_test_shape(g, q, w, hc):
     geo = fused_match.geometry(g, q, w, hc)
     assert geo["stages"] >= fused_match.MIN_STAGES
     assert geo["smem_bytes"] <= fused_match.SMEM_LIMIT_BYTES
-    assert geo["hc_pad"] % 8 == 0 and hc <= geo["hc_pad"] < hc + 8
+    assert geo["hc_pad"] % 8 == 0 and geo["hc_pad"] <= 8 * fused_match.MAX_STEPS
+    # The chunks cover hc, and none is all padding.
+    assert geo["hc_pad"] * (geo["chunks"] - 1) < hc <= geo["hc_pad"] * geo["chunks"]
     assert geo["rows"] == w + fused_match.SHIFTS - 1
     assert geo["grid"] == (-(-g // 2), -(-q // 64))
 
 
-@pytest.mark.parametrize("w,hc", [(128, 64), (8, 72), (64, 256), (512, 512)])
+@pytest.mark.parametrize("w,hc,chunks,hc_pad", [
+    (64, 64, 1, 64),  # CVUSA: one chunk
+    (127, 64, 1, 64),  # the widest map that fits whole at hc 64
+    (128, 64, 2, 32),  # overhead tiles of 512: W 128
+    (256, 64, 2, 32),
+    (64, 128, 2, 64),  # a head of 32 channels: hc 128
+    (8, 72, 2, 40),  # 9 steps: two chunks of 5
+    (512, 512, 32, 16),
+    (1720, 512, 64, 8),  # the widest map the kernel takes
+])
+def test_geometry_takes_the_fewest_channel_chunks_that_fit(w, hc, chunks, hc_pad):
+    geo = fused_match.geometry(4, 4, w, hc)
+    assert (geo["chunks"], geo["hc_pad"], geo["stages"] >= 2) == (chunks, hc_pad, True)
+    # One chunk fewer leaves no room for two ring stages, or has more than
+    # 8 steps a chunk.
+    steps = -(-hc // 8)
+    if chunks > 1:
+        fewer = 8 * -(-steps // (chunks - 1))
+        pitch = fewer + (0 if fewer % 32 in (8, 24) else 8)
+        need = 2 * 2 * fewer * 4 * (w + 63) + 2 * (64 * pitch * 4 + 16)
+        assert fewer > 64 or need > fused_match.SMEM_LIMIT_BYTES
+
+
+@pytest.mark.parametrize("w,hc", [(1721, 1), (1721, 64), (2000, 512)])
 def test_geometry_rejects_what_does_not_fit(w, hc):
     geo = fused_match.geometry(4, 4, w, hc)
     assert geo["stages"] == 0
-    if hc <= fused_match.MAX_HC:
-        assert fused_match.smem_bytes(w, hc) > fused_match.SMEM_LIMIT_BYTES
+    assert fused_match.smem_bytes(w, hc) > fused_match.SMEM_LIMIT_BYTES
     o, s, wsq = torch.zeros(4, w, hc), torch.zeros(1, 3, hc), torch.zeros(4, w)
     with pytest.raises(ValueError, match="shared memory"):
         fused_match.fused_corr_distance(o, s, wsq)
 
 
+@pytest.mark.parametrize("sw,q,w,hc", [(3, 5, 8, 6), (2, 70, 64, 64), (3, 4, 64, 128), (2, 3, 20, 72),
+                                       (2, 3, 8, 8)])
+def test_query_columns_lays_out_each_chunk_of_each_row(rng, sw, q, w, hc):
+    s = torch.tensor(rng.standard_normal((sw, q, hc)), dtype=torch.float32)
+    geo = fused_match.geometry(4, q, w, hc)
+    got = fused_match.query_columns(s, geo)
+    n, pitch = geo["hc_pad"], geo["pitch"]
+    assert got.shape == (sw, geo["chunks"], q, pitch) and got.is_contiguous()
+    assert got.data_ptr() % 16 == 0
+    for ch in range(geo["chunks"]):
+        part = s[..., ch * n:(ch + 1) * n]
+        assert torch.equal(got[:, ch, :, :part.shape[-1]], part)
+        assert not bool(got[:, ch, :, part.shape[-1]:].any())
+
+
+def test_query_columns_copies_a_view_the_bulk_copies_cannot_read():
+    # hc 8 = pitch: an aligned, contiguous s is taken as it is; one 4 bytes
+    # off 16-byte alignment (a sliced buffer) is copied.
+    buf = torch.arange(1 + 2 * 3 * 8, dtype=torch.float32)
+    geo = fused_match.geometry(4, 3, 8, 8)
+    aligned = buf[:48].view(2, 3, 8)
+    assert geo["pitch"] == 8 and aligned.data_ptr() % 16 == 0
+    assert fused_match.query_columns(aligned, geo).data_ptr() == aligned.data_ptr()
+    shifted = buf[1:].view(2, 3, 8)
+    got = fused_match.query_columns(shifted, geo)
+    assert got.data_ptr() % 16 == 0 and torch.equal(got[:, 0], shifted)
+
+
 def test_query_pitch_spreads_fragment_loads_over_all_banks():
     # A half warp's 8-byte loads: rows g < 4, channels 2t and 2t + 1 (t < 4).
     for hc in range(1, 129):
-        pitch = fused_match.geometry(1, 1, 8, hc)["pitch"]
-        assert pitch % 4 == 0 and pitch >= -(-hc // 8) * 8
+        geo = fused_match.geometry(1, 1, 8, hc)
+        pitch = geo["pitch"]
+        assert pitch % 4 == 0 and pitch >= geo["hc_pad"]
         banks = {(g * pitch + 2 * t + e) % 32 for g in range(4) for t in range(4) for e in range(2)}
         assert len(banks) == 32, hc

@@ -183,8 +183,8 @@ def test_fused_kernel_rejects_what_it_does_not_take(case):
     elif case == "shape":
         wsq = torch.zeros(4, 7)
     elif case == "smem":
-        o, s, wsq = _flat_inputs(w=512, hc=512)
-        assert fused_match.smem_bytes(512, 512) > fused_match.SMEM_LIMIT_BYTES
+        o, s, wsq = _flat_inputs(w=1721, hc=64)
+        assert fused_match.smem_bytes(1721, 64) > fused_match.SMEM_LIMIT_BYTES
     with pytest.raises(ValueError):
         fused_match.fused_corr_distance(o, s, wsq)
     assert fused_match.launches == 0

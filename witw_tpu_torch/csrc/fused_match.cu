@@ -12,11 +12,14 @@
 // Only d and orient reach device memory; the [G, Q, W] correlation stays in
 // registers.
 //
-// Layout: o [G, W, hc], s [sw, Q, pitch] (hc channels, then zeros: the
-// wrapper pads each query row to `pitch` floats), wsq [G, W] (f32,
+// Layout: o [G, W, hc], s [sw, chunks, Q, pitch], wsq [G, W] (f32,
 // contiguous), with the feature-map height folded into the channels
-// (hc = h * c). The kernel takes hc <= 64 and W, hc whose layout below fits
-// 227 KB of shared memory with 2 ring stages (W <= 127 at hc = 64).
+// (hc = h * c). The channels run in `chunks` chunks of hc_pad = 8 kSteps
+// (kSteps <= 8; hc <= chunks * hc_pad): s holds chunk ch of column k's
+// queries as rows of `pitch` floats, hc_pad channels and then zeros (the
+// wrapper lays it out). One chunk when hc <= 64 and the maps fit; more where
+// hc is larger or the maps would not fit 227 KB of shared memory with two
+// ring stages (W >= 128 at hc = 64). Any hc is taken, and W up to 1720.
 //
 // Bound: multiply-adds. At CVUSA shapes (W = sw = hc = 64) a (g, q) pair
 // costs W * sw * hc = 262k of them against 16 KB of gallery map and 16 KB of
@@ -40,8 +43,9 @@
 //   (ceil(G / 2), ceil(Q / 64)). 384 threads: two consumer warpgroups, one
 //   map each, and a producer warpgroup, one thread of which issues the
 //   copies; setmaxnreg moves registers from it to the consumers.
-// - Each map sits in shared memory once, split: a big and a small copy, each
-//   as planes of 4 channels (16 bytes) x rows, W + 63 rows with row r
+// - Each map (its channel chunk) sits in shared memory once, split: a big
+//   and a small copy, each as planes of 4 channels (16 bytes) x rows,
+//   W + 63 rows with row r
 //   holding o[r mod W]. The B operand of shift pass i0 at column k is then a
 //   no-swizzle K-major descriptor (LBO one plane, SBO 8 rows) whose start is
 //   row (i0 + k) mod W: a circular shift is a 16-byte offset of the start,
@@ -49,10 +53,10 @@
 //   8-channel step, plane 2c holds the even channels and plane 2c + 1 the
 //   odd ones, matching the A fragments below.
 // - The producer streams the query columns through a ring of 2-4 stages:
-//   column k of the block's 64 queries is one cp.async.bulk of 64 rows of
-//   `pitch` floats (pitch = hc_pad or hc_pad + 8, so that the consumers'
-//   8-byte fragment loads hit 32 distinct banks), counted on the stage's
-//   full mbarrier. Both warpgroups read the same column.
+//   (the chunk of) column k of the block's 64 queries is one cp.async.bulk
+//   of 64 rows of `pitch` floats (pitch = hc_pad or hc_pad + 8, so that the
+//   consumers' 8-byte fragment loads hit 32 distinct banks), counted on the
+//   stage's full mbarrier. Both warpgroups read the same column.
 // - Each consumer warpgroup loads its A fragments (queries x 8 channels,
 //   wgmma's tf32 register layout: rows g and g + 8 of its warp's 16, the
 //   pair of channels 2t and 2t + 1 for K indices t and t + 4), frees the
@@ -63,6 +67,10 @@
 //   loaded and split while column k's products run. The tensor cores' f32
 //   sum truncates, so each column starts its accumulator afresh (scale-d 0)
 //   and is added into a second f32 register set with round-to-nearest adds.
+// - More than one channel chunk: a pass runs chunk by chunk, each over all
+//   sw columns (an item of the ring is a chunk of a column, its products
+//   added into the total as a column's are); each warpgroup refills its map
+//   with the next chunk's channels once its products on the last are done.
 // - Widths above 64 run in passes of 64 shifts over all sw columns. The max
 //   and argmax are taken on the accumulator fragments (a thread's own 16
 //   columns, then __shfl_xor 1 and 2 within the quad that shares a row) and
@@ -71,7 +79,7 @@
 // - A ragged last query tile is not copied (its rows are never stored); a
 //   block's missing second map (odd G) is zeros and not stored.
 // Shared memory: 2 maps x 8 hc_pad (W + 63) bytes + stages x (256 pitch +
-// 16) bytes; at CVUSA 130,048 + 4 x 18,448 = 203,840 bytes
+// 16) bytes; at CVUSA (one chunk) 130,048 + 4 x 18,448 = 203,840 bytes
 // (ops/fused_match.py:geometry computes it). ptxas: 168 registers at launch,
 // no spills.
 
@@ -90,7 +98,7 @@ constexpr int kThreads = kConsumers + 128;  // and one producer warpgroup
 constexpr int kMaps = 2;         // gallery maps per block; ops/fused_match.py mirrors it
 constexpr int kQTile = 64;       // queries per block (M of wgmma)
 constexpr int kShifts = 64;      // shifts per pass (N of wgmma)
-constexpr int kMaxSteps = 8;     // 8-channel steps of a column: hc <= 64
+constexpr int kMaxSteps = 8;     // 8-channel steps of a chunk: hc_pad <= 64
 // Registers per thread after setmaxnreg: the producers, one thread of which
 // issues the copies, give theirs to the consumers, whose two sets of split A
 // fragments (2 x 2 x 32) and two f32 accumulators (2 x 32) take 192. The
@@ -149,8 +157,10 @@ __device__ __forceinline__ float2 lds64(uint32_t addr) {
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
-__device__ __forceinline__ void consumer_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+// The 128 threads of consumer warpgroup wg (named barrier 1 + wg).
+template <int wg>
+__device__ __forceinline__ void warpgroup_sync() {
+  asm volatile("bar.sync %0, 128;\n" ::"n"(1 + wg) : "memory");
 }
 
 // x rounded to tf32 (10 mantissa bits), to nearest with ties away from zero,
@@ -217,13 +227,13 @@ __device__ __forceinline__ void take_better(float v, int i, float& bv, int& bi) 
   }
 }
 
-// kSteps: 8-channel steps of a query column (hc_pad = 8 kSteps).
+// kSteps: 8-channel steps of a chunk of a query column (hc_pad = 8 kSteps).
 template <int kSteps>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_corr_distance_kernel(const float* __restrict__ o, const float* __restrict__ s,
                            const float* __restrict__ wsq, float* __restrict__ d,
-                           int* __restrict__ orient, int G, int W, int hc, int pitch, int Q, int sw,
-                           int stages) {
+                           int* __restrict__ orient, int G, int W, int hc, int chunks, int pitch,
+                           int Q, int sw, int stages) {
   constexpr int hc_pad = 8 * kSteps;
   extern __shared__ __align__(128) unsigned char smem[];
   // [kMaps][big, small][hc_pad / 4 planes][rows][16 B] [stages][kQTile][pitch f32]
@@ -239,7 +249,8 @@ fused_corr_distance_kernel(const float* __restrict__ o, const float* __restrict_
 
   const int tid = threadIdx.x;
   const int q0 = blockIdx.y * kQTile;
-  const int items = (W + kShifts - 1) / kShifts * sw;  // (pass, column), pass-major
+  const int span = chunks * sw;                            // items of a pass
+  const int items = (W + kShifts - 1) / kShifts * span;  // (pass, chunk, column), pass-major
 
   if (tid == 0) {
     for (int st = 0; st < stages; ++st) {
@@ -251,9 +262,9 @@ fused_corr_distance_kernel(const float* __restrict__ o, const float* __restrict_
   __syncthreads();
 
   if (tid >= kConsumers) {
-    // Producer: column k of pass p into stage (p sw + k) % stages, one bulk
-    // copy of the block's queries (rows `pitch` floats apart in s too), once
-    // the consumers have freed the stage.
+    // Producer: item it (chunk ch of column k) into stage it % stages, one
+    // bulk copy of the block's queries (rows `pitch` floats apart in s too),
+    // once the consumers have freed the stage.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (tid == kConsumers) {
       const uint32_t bytes = min(kQTile, Q - q0) * pitch * 4;
@@ -261,54 +272,13 @@ fused_corr_distance_kernel(const float* __restrict__ o, const float* __restrict_
         const int st = it % stages;
         if (it >= stages) mbar_wait(empty0 + 8 * st, (it / stages - 1) & 1);
         mbar_arrive_expect_tx(full0 + 8 * st, bytes);
-        bulk_copy(ring0 + st * stage_bytes, s + (static_cast<size_t>(it % sw) * Q + q0) * pitch, bytes,
+        const int col = it % sw * chunks + it / sw % chunks;  // (k, ch) in s
+        bulk_copy(ring0 + st * stage_bytes, s + (static_cast<size_t>(col) * Q + q0) * pitch, bytes,
                   full0 + 8 * st);
       }
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
-    // Both gallery maps, split, into shared memory: thread unit (map, step c,
-    // row r < W) writes row r and its copies r + W, r + 2W, ... < rows.
-    {
-      const bool vec = hc % 8 == 0;
-      const int units = kMaps * kSteps * W;
-      for (int u = tid; u < units; u += kConsumers) {
-        const int r = u % W;
-        const int c = (u / W) % kSteps;
-        const int m = u / (W * kSteps);
-        const int gm = kMaps * blockIdx.x + m;
-        float v[8];
-        if (gm < G) {
-          const float* src = o + (static_cast<size_t>(gm) * W + r) * hc + 8 * c;
-          if (vec) {
-            const float4 x0 = __ldg(reinterpret_cast<const float4*>(src));
-            const float4 x1 = __ldg(reinterpret_cast<const float4*>(src) + 1);
-            v[0] = x0.x, v[1] = x0.y, v[2] = x0.z, v[3] = x0.w;
-            v[4] = x1.x, v[5] = x1.y, v[6] = x1.z, v[7] = x1.w;
-          } else {
-#pragma unroll
-            for (int j = 0; j < 8; ++j) v[j] = 8 * c + j < hc ? __ldg(src + j) : 0.f;
-          }
-        } else {
-#pragma unroll
-          for (int j = 0; j < 8; ++j) v[j] = 0.f;
-        }
-        uint32_t big[8], small[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) split_tf32(v[j], big[j], small[j]);
-        const uint32_t even = maps0 + m * 2 * part_bytes + 2 * c * plane_bytes;
-        for (int rr = r; rr < rows; rr += W) {
-          const uint32_t at = even + rr * 16;
-          sts128(at, big[0], big[2], big[4], big[6]);
-          sts128(at + plane_bytes, big[1], big[3], big[5], big[7]);
-          sts128(at + part_bytes, small[0], small[2], small[4], small[6]);
-          sts128(at + part_bytes + plane_bytes, small[1], small[3], small[5], small[7]);
-        }
-      }
-      fence_proxy_async();
-      consumer_sync();
-    }
-
     // Consumers. Warpgroup wg computes map kMaps * blockIdx.x + wg; thread
     // (warp, lane) holds rows 16 (warp % 4) + g and + 8 (g = lane / 4) and,
     // per group n8 of 8 shifts, shifts 8 n8 + 2t and + 1 (t = lane % 4).
@@ -322,6 +292,49 @@ fused_corr_distance_kernel(const float* __restrict__ o, const float* __restrict_
     const uint32_t frag_off = ((16 * warp + g) * pitch + 2 * t) * 4;
     const auto consume = [&](auto wg_constant) {
       constexpr int wg = decltype(wg_constant)::value;
+      const int gm = kMaps * blockIdx.x + wg;  // a missing map (odd G) is zeros, not stored
+      const bool vec = hc % 8 == 0 && reinterpret_cast<uintptr_t>(o) % 16 == 0;
+      // Channel chunk ch of the warpgroup's gallery map, split, into shared
+      // memory: thread unit (step c, row r < W) writes row r and its copies
+      // r + W, r + 2W, ... < rows. The first barrier waits for the four
+      // warps' products on the previous chunk (each waited for its own).
+      const auto fill = [&](int ch) {
+        warpgroup_sync<wg>();
+        for (int u = tid % 128; u < kSteps * W; u += 128) {
+          const int r = u % W;
+          const int c = u / W;
+          const int c0 = 8 * (ch * kSteps + c);  // the step's first channel
+          float v[8];
+          if (gm >= G) {
+#pragma unroll
+            for (int j = 0; j < 8; ++j) v[j] = 0.f;
+          } else if (vec && c0 + 8 <= hc) {
+            const auto* src =
+                reinterpret_cast<const float4*>(o + (static_cast<size_t>(gm) * W + r) * hc + c0);
+            const float4 x0 = __ldg(src);
+            const float4 x1 = __ldg(src + 1);
+            v[0] = x0.x, v[1] = x0.y, v[2] = x0.z, v[3] = x0.w;
+            v[4] = x1.x, v[5] = x1.y, v[6] = x1.z, v[7] = x1.w;
+          } else {
+            const float* src = o + (static_cast<size_t>(gm) * W + r) * hc + c0;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) v[j] = c0 + j < hc ? __ldg(src + j) : 0.f;
+          }
+          uint32_t big[8], small[8];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) split_tf32(v[j], big[j], small[j]);
+          const uint32_t even = maps0 + wg * 2 * part_bytes + 2 * c * plane_bytes;
+          for (int rr = r; rr < rows; rr += W) {
+            const uint32_t at = even + rr * 16;
+            sts128(at, big[0], big[2], big[4], big[6]);
+            sts128(at + plane_bytes, big[1], big[3], big[5], big[7]);
+            sts128(at + part_bytes, small[0], small[2], small[4], small[6]);
+            sts128(at + part_bytes + plane_bytes, small[1], small[3], small[5], small[7]);
+          }
+        }
+        fence_proxy_async();
+        warpgroup_sync<wg>();
+      };
       const uint64_t step_desc = (2 * plane_bytes) >> 4;  // one 8-channel step, in descriptor units
       const uint64_t small_desc = part_bytes >> 4;        // the small copy
       using Frags = uint32_t[kSteps][4];
@@ -343,7 +356,7 @@ fused_corr_distance_kernel(const float* __restrict__ o, const float* __restrict_
           const float2 lo = lds64(col + c * 32);
           const float2 hi = lds64(col + c * 32 + 8 * pitch * 4);
           const float raw[4] = {lo.x, hi.x, lo.y, hi.y};  // a0..a3: (g, t) (g+8, t) (g, t+4) (g+8, t+4)
-          if (it < sw) {  // the first pass: ||s_q||^2 of rows g and g + 8
+          if (it < span) {  // the first pass: ||s_q||^2 of rows g and g + 8
             sn[0] = fmaf(raw[0], raw[0], sn[0]);
             sn[0] = fmaf(raw[2], raw[2], sn[0]);
             sn[1] = fmaf(raw[1], raw[1], sn[1]);
@@ -359,7 +372,7 @@ fused_corr_distance_kernel(const float* __restrict__ o, const float* __restrict_
       // big x big; the first starts acc afresh.
       const auto issue = [&](int it, Frags& ab, Frags& as) {
         const int k = it % sw;
-        const int i0 = it / sw * kShifts;
+        const int i0 = it / span * kShifts;
         const uint64_t b_big = desc(maps0 + wg * 2 * part_bytes + ((i0 + k) % W) * 16, plane_bytes, 128);
         wgmma_fence();
 #pragma unroll
@@ -380,10 +393,11 @@ fused_corr_distance_kernel(const float* __restrict__ o, const float* __restrict_
           }
         }
       };
-      // Column it: its products are issued; once column it - 1's are done,
-      // column it + 1 is loaded into their fragments while column it's run.
-      // Then acc is added into tot (rounded to nearest), and at the end of a
-      // pass its max / argmax are taken.
+      // Item it: its products are issued; once item it - 1's are done, item
+      // it + 1 is loaded into their fragments while item it's run. Then acc
+      // is added into tot (rounded to nearest); at the end of a pass its max
+      // / argmax are taken, and at the end of a chunk (of several) the map
+      // is refilled with the next one.
       const auto step = [&](int it, Frags& ab, Frags& as, Frags& nb, Frags& ns) {
         issue(it, ab, as);
         wgmma_wait<1>();
@@ -396,32 +410,36 @@ fused_corr_distance_kernel(const float* __restrict__ o, const float* __restrict_
           fence_operand(acc[i]);
           tot[i] = __fadd_rn(tot[i], acc[i]);
         }
-        if (it % sw != sw - 1) return;
-        const int i0 = it / sw * kShifts;
+        if ((it + 1) % sw != 0) return;
+        if ((it + 1) % span == 0) {
+          const int i0 = it / span * kShifts;
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float v = -INFINITY;
-          int vi = INT_MAX;
+          for (int h = 0; h < 2; ++h) {
+            float v = -INFINITY;
+            int vi = INT_MAX;
 #pragma unroll
-          for (int n8 = 0; n8 < kShifts / 8; ++n8) {
+            for (int n8 = 0; n8 < kShifts / 8; ++n8) {
 #pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int i = i0 + 8 * n8 + 2 * t + e;
-              if (i < W) take_better(tot[4 * n8 + 2 * h + e], i, v, vi);
+              for (int e = 0; e < 2; ++e) {
+                const int i = i0 + 8 * n8 + 2 * t + e;
+                if (i < W) take_better(tot[4 * n8 + 2 * h + e], i, v, vi);
+              }
             }
+#pragma unroll
+            for (int off = 1; off < 4; off <<= 1) {  // the quad that shares the row
+              const float ov = __shfl_xor_sync(0xffffffffu, v, off);
+              const int oi = __shfl_xor_sync(0xffffffffu, vi, off);
+              take_better(ov, oi, v, vi);
+            }
+            take_better(v, vi, best_v[h], best_i[h]);
           }
 #pragma unroll
-          for (int off = 1; off < 4; off <<= 1) {  // the quad that shares the row
-            const float ov = __shfl_xor_sync(0xffffffffu, v, off);
-            const int oi = __shfl_xor_sync(0xffffffffu, vi, off);
-            take_better(ov, oi, v, vi);
-          }
-          take_better(v, vi, best_v[h], best_i[h]);
+          for (int i = 0; i < 32; ++i) tot[i] = 0.f;
         }
-#pragma unroll
-        for (int i = 0; i < 32; ++i) tot[i] = 0.f;
+        if (chunks > 1 && it + 1 < items) fill((it + 1) / sw % chunks);
       };
 
+      fill(0);
       load(0, big0, small0);
       for (int it = 0; it < items; it += 2) {
         step(it, big0, small0, big1, small1);
@@ -431,7 +449,6 @@ fused_corr_distance_kernel(const float* __restrict__ o, const float* __restrict_
       // path out of the loop, ptxas adds one and serializes the products.
       wgmma_wait<0>();
 
-      const int gm = kMaps * blockIdx.x + wg;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         sn[h] += __shfl_xor_sync(0xffffffffu, sn[h], 1);
@@ -463,13 +480,13 @@ fused_corr_distance_kernel(const float* __restrict__ o, const float* __restrict_
 
 template <int kSteps>
 int launch(dim3 grid, size_t smem, cudaStream_t stream, const float* o, const float* s,
-           const float* wsq, float* d, int* orient, int G, int W, int hc, int pitch, int Q, int sw,
-           int stages) {
+           const float* wsq, float* d, int* orient, int G, int W, int hc, int chunks, int pitch, int Q,
+           int sw, int stages) {
   const auto kernel = fused_corr_distance_kernel<kSteps>;
   const cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<grid, kThreads, smem, stream>>>(o, s, wsq, d, orient, G, W, hc, pitch, Q, sw, stages);
+  kernel<<<grid, kThreads, smem, stream>>>(o, s, wsq, d, orient, G, W, hc, chunks, pitch, Q, sw, stages);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -477,21 +494,23 @@ int launch(dim3 grid, size_t smem, cudaStream_t stream, const float* o, const fl
 
 extern "C" {
 
-// o f32 [G, W, hc]; s f32 [sw, Q, pitch] (hc channels, then zeros);
-// wsq f32 [G, W]; d f32 [G, Q]; orient int32 [G, Q]; all contiguous, o and s
-// 16-byte aligned. hc_pad is hc rounded up to a multiple of 8, at most 64;
-// `pitch` (at least hc_pad, a multiple of 8), `stages` and `smem` (the
-// dynamic shared memory of a block, in bytes) come from
-// ops/fused_match.py:geometry. Launches on `stream` and returns
-// cudaGetLastError() (0 on success).
+// o f32 [G, W, hc]; s f32 [sw, chunks, Q, pitch] (chunk ch of a query row:
+// its hc_pad channels, then zeros); wsq f32 [G, W]; d f32 [G, Q]; orient
+// int32 [G, Q]; all contiguous and 4-byte aligned, s 16-byte aligned.
+// hc_pad (a multiple of 8, at most 64: the channels of a chunk), `chunks`
+// (hc_pad * chunks >= hc, no chunk past hc), `pitch` (at least hc_pad, a
+// multiple of 8), `stages` and `smem` (the dynamic shared memory of a
+// block, in bytes) come from ops/fused_match.py:geometry. Launches on
+// `stream` and returns cudaGetLastError() (0 on success).
 int witw_fused_corr_distance(const void* o, const void* s, const void* wsq, void* d,
-                             void* orient, int G, int W, int hc, int hc_pad, int pitch, int Q,
-                             int sw, int stages, size_t smem, void* stream) {
+                             void* orient, int G, int W, int hc, int hc_pad, int chunks, int pitch,
+                             int Q, int sw, int stages, size_t smem, void* stream) {
   if (G <= 0 || Q <= 0) return 0;
   const size_t need = static_cast<size_t>(kMaps) * 8 * hc_pad * (W + kShifts - 1) +
                       static_cast<size_t>(stages) * (kQTile * pitch * 4 + 16);
-  if (W <= 0 || sw <= 0 || sw > W || hc <= 0 || hc_pad < hc || hc_pad % 8 != 0 ||
-      hc_pad > 8 * kMaxSteps || pitch < hc_pad || pitch % 8 != 0 || stages < 1 || smem != need) {
+  if (W <= 0 || sw <= 0 || sw > W || hc <= 0 || hc_pad <= 0 || hc_pad % 8 != 0 ||
+      hc_pad > 8 * kMaxSteps || chunks < 1 || static_cast<long long>(hc_pad) * chunks < hc ||
+      hc_pad * (chunks - 1) >= hc || pitch < hc_pad || pitch % 8 != 0 || stages < 1 || smem != need) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid((G + kMaps - 1) / kMaps, (Q + kQTile - 1) / kQTile);
@@ -501,17 +520,11 @@ int witw_fused_corr_distance(const void* o, const void* s, const void* wsq, void
   const auto* wsq_ = static_cast<const float*>(wsq);
   auto* d_ = static_cast<float*>(d);
   auto* orient_ = static_cast<int*>(orient);
-  switch (hc_pad / 8) {
-    case 1: return launch<1>(grid, smem, st, o_, s_, wsq_, d_, orient_, G, W, hc, pitch, Q, sw, stages);
-    case 2: return launch<2>(grid, smem, st, o_, s_, wsq_, d_, orient_, G, W, hc, pitch, Q, sw, stages);
-    case 3: return launch<3>(grid, smem, st, o_, s_, wsq_, d_, orient_, G, W, hc, pitch, Q, sw, stages);
-    case 4: return launch<4>(grid, smem, st, o_, s_, wsq_, d_, orient_, G, W, hc, pitch, Q, sw, stages);
-    case 5: return launch<5>(grid, smem, st, o_, s_, wsq_, d_, orient_, G, W, hc, pitch, Q, sw, stages);
-    case 6: return launch<6>(grid, smem, st, o_, s_, wsq_, d_, orient_, G, W, hc, pitch, Q, sw, stages);
-    case 7: return launch<7>(grid, smem, st, o_, s_, wsq_, d_, orient_, G, W, hc, pitch, Q, sw, stages);
-    case 8: return launch<8>(grid, smem, st, o_, s_, wsq_, d_, orient_, G, W, hc, pitch, Q, sw, stages);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  // One instantiation per 8-channel steps of a chunk (hc_pad checked above).
+  constexpr decltype(&launch<1>) kLaunch[kMaxSteps] = {launch<1>, launch<2>, launch<3>, launch<4>,
+                                                       launch<5>, launch<6>, launch<7>, launch<8>};
+  return kLaunch[hc_pad / 8 - 1](grid, smem, st, o_, s_, wsq_, d_, orient_, G, W, hc, chunks, pitch, Q, sw,
+                                 stages);
 }
 
 const char* witw_cuda_error_string(int e) {

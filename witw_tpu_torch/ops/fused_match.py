@@ -17,8 +17,10 @@ keeps f32 accuracy. Each block holds two gallery maps in shared memory, split
 and with their first 63 rows repeated after the last, so that a circular
 shift is an offset of the ``wgmma`` descriptor, and streams 64 queries'
 width columns past them, one bulk copy a column (:func:`geometry`). The
-kernel takes hc <= 64 (``MAX_HC``) and W up to what two ring stages leave of
-227 KB of shared memory (W <= 127 at hc = 64); the wrapper raises
+channels run in chunks of at most 64: one where hc <= 64 and the maps fit in
+227 KB of shared memory beside two ring stages (W <= 127 at hc = 64), more
+for a larger hc or W, each map refilled per chunk. The kernel takes any hc
+and W up to 1720 (one 8-channel step per chunk); the wrapper raises
 ValueError for anything else.
 
 ``fused_chord_distance_nhwc`` is the public entry point. On CPU tensors it
@@ -49,9 +51,9 @@ launches = 0
 Q_TILE = 64
 MAPS = 2
 SHIFTS = 64
-# Channels (h * c) the kernel takes: its fragments of a query column stay
-# in registers, 8 channels a step, at most 8 steps.
-MAX_HC = 64
+# 8-channel steps of a chunk of the channels (h * c): the kernel's
+# fragments of a query column's chunk stay in registers, at most 8 steps.
+MAX_STEPS = 8
 # Ring stages of query columns: as many as fit, up to MAX_STAGES; fewer
 # than MIN_STAGES is not taken.
 MAX_STAGES = 4
@@ -60,47 +62,60 @@ MIN_STAGES = 2
 SMEM_LIMIT_BYTES = 232448
 
 
-def _layout(w: int, hc: int) -> Tuple[int, int, int, int, int]:
-    """(rows, hc_pad, pitch, bytes of the maps, bytes of one ring stage with
-    its two barriers)."""
-    hc_pad = -(-hc // 8) * 8
-    rows = w + SHIFTS - 1
-    # Query rows `pitch` floats apart put a warp's 8-byte fragment loads
-    # (rows g, channels 2t) on 32 distinct banks: pitch % 32 in (8, 24).
-    pitch = hc_pad if hc_pad % 32 in (8, 24) else hc_pad + 8
-    maps = MAPS * 2 * hc_pad * 4 * rows  # big and small copies
-    stage = Q_TILE * pitch * 4 + 16
-    return rows, hc_pad, pitch, maps, stage
-
-
 def geometry(g: int, q: int, w: int, hc: int) -> dict:
     """The kernel's layout for o [g, w, hc] and s [sw, q, hc]: the rows of a
-    gallery map in shared memory (w + 63), hc padded to a multiple of 8, the
-    query rows' pitch in floats, the maps per block, the ring stages
-    (0 when fewer than MIN_STAGES fit, or hc > MAX_HC: the kernel does not
-    take the shape), the shared memory of a block and the grid."""
-    rows, hc_pad, pitch, maps, stage = _layout(w, hc)
-    stages = min(MAX_STAGES, (SMEM_LIMIT_BYTES - maps) // stage)
-    stages = stages if stages >= MIN_STAGES and hc <= MAX_HC else 0
-    return {"rows": rows, "hc_pad": hc_pad, "pitch": pitch, "maps": MAPS,
-            "stages": stages, "smem_bytes": smem_bytes(w, hc),
+    gallery map in shared memory (w + 63), the channel chunks and the
+    channels of one (hc_pad, a multiple of 8), the query rows' pitch in
+    floats, the maps per block, the ring stages, the shared memory of a
+    block and the grid. The fewest chunks whose maps leave room for
+    MIN_STAGES ring stages; where even 8-channel chunks leave none, stages
+    is 0 (the kernel does not take the shape) and smem_bytes what they
+    would need."""
+    steps = max(1, -(-hc // 8))
+    rows = w + SHIFTS - 1
+    for most in range(min(MAX_STEPS, steps), 0, -1):
+        chunks = -(-steps // most)
+        hc_pad = 8 * -(-steps // chunks)  # the fewest steps for that many chunks
+        # Query rows `pitch` floats apart put a warp's 8-byte fragment loads
+        # (rows g, channels 2t) on 32 distinct banks: pitch % 32 in (8, 24).
+        pitch = hc_pad if hc_pad % 32 in (8, 24) else hc_pad + 8
+        maps = MAPS * 2 * hc_pad * 4 * rows  # big and small copies
+        stage = Q_TILE * pitch * 4 + 16  # with its two barriers
+        stages = min(MAX_STAGES, (SMEM_LIMIT_BYTES - maps) // stage)
+        if stages >= MIN_STAGES:
+            break
+    else:
+        stages = 0
+    return {"rows": rows, "chunks": chunks, "hc_pad": hc_pad, "pitch": pitch, "maps": MAPS,
+            "stages": stages, "smem_bytes": maps + max(stages, MIN_STAGES) * stage,
             "grid": (-(-g // MAPS), -(-q // Q_TILE))}
 
 
 def smem_bytes(w: int, hc: int) -> int:
-    """Shared memory of one block: two split gallery maps of w + 63 rows
-    and the ring of query columns (at least MIN_STAGES stages). The kernel
-    takes this size as an argument and checks it against the same layout."""
-    _, _, _, maps, stage = _layout(w, hc)
-    stages = max(MIN_STAGES, min(MAX_STAGES, (SMEM_LIMIT_BYTES - maps) // stage))
-    return maps + stages * stage
+    """Shared memory of one block (:func:`geometry`); the kernel takes it
+    as an argument and checks it against the same layout."""
+    return geometry(1, 1, w, hc)["smem_bytes"]
+
+
+def query_columns(s_swqh: torch.Tensor, geo: dict) -> torch.Tensor:
+    """s [sw, Q, hc] as the kernel reads it, [sw, chunks, Q, pitch]: each
+    chunk of a query row `pitch` floats apart and zero past hc, so that one
+    bulk copy brings a chunk of a column of 64 queries into shared memory.
+    The copies need it 16-byte aligned: s itself where it already is all
+    that, else a new tensor."""
+    sw, q, hc = s_swqh.shape
+    chunks, hc_pad, pitch = geo["chunks"], geo["hc_pad"], geo["pitch"]
+    if chunks == 1 and pitch == hc and s_swqh.is_contiguous() and s_swqh.data_ptr() % 16 == 0:
+        return s_swqh.view(sw, 1, q, hc)
+    s = F.pad(s_swqh, (0, chunks * hc_pad - hc)).reshape(sw, q, chunks, hc_pad)
+    return F.pad(s, (0, pitch - hc_pad)).transpose(1, 2).contiguous()
 
 
 @functools.lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
     lib = load_library("fused_match")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.witw_fused_corr_distance.argtypes = [ptr] * 5 + [i32] * 8 + [ctypes.c_size_t, ptr]
+    lib.witw_fused_corr_distance.argtypes = [ptr] * 5 + [i32] * 9 + [ctypes.c_size_t, ptr]
     lib.witw_fused_corr_distance.restype = i32
     return lib
 
@@ -113,7 +128,7 @@ def fused_corr_distance(
     o_flat: [G, W, hc] f32; s_swqh: [sw, Q, hc] f32 (queries laid out by
     width column); wsq: [G, W] window squared norms
     (:func:`witw_tpu_torch.match.distance.window_sq_norms`). All contiguous,
-    16-byte aligned and on one CUDA device. Returns (d [G, Q] f32, orient
+    4-byte aligned and on one CUDA device. Returns (d [G, Q] f32, orient
     [G, Q] int32). Raises ValueError for any input the kernel does not take.
     """
     global launches
@@ -140,26 +155,25 @@ def fused_corr_distance(
     geo = geometry(g, q, w, hc)
     if geo["stages"] == 0:
         raise ValueError(
-            f"W={w}, hc={hc}: the kernel takes hc <= {MAX_HC} and {MIN_STAGES} ring "
-            f"stages within {SMEM_LIMIT_BYTES} bytes of shared memory per block; "
-            f"this shape needs {geo['smem_bytes']}"
+            f"W={w}, hc={hc}: the kernel needs {MIN_STAGES} ring stages within "
+            f"{SMEM_LIMIT_BYTES} bytes of shared memory per block; this shape needs "
+            f"{geo['smem_bytes']}"
         )
-    device = check_cuda_tensors("fused_corr_distance", **tensors)
+    # o and wsq are read by the kernel's scalar loads (o by 16-byte loads
+    # only where it is so aligned); s goes to the bulk copies as s_pad below.
+    device = check_cuda_tensors("fused_corr_distance", align=4, **tensors)
 
     d = torch.empty((g, q), dtype=torch.float32, device=device)
     orient = torch.empty((g, q), dtype=torch.int32, device=device)
     if g == 0 or q == 0:
         return d, orient
-    hc_pad, pitch = geo["hc_pad"], geo["pitch"]
-    # Query rows `pitch` floats apart, zero past hc: one bulk copy brings a
-    # column of 64 queries into shared memory in the layout the kernel reads.
-    s_pad = F.pad(s_swqh, (0, pitch - hc)) if pitch != hc else s_swqh
+    s_pad = query_columns(s_swqh, geo)
     lib = _lib()
     with torch.cuda.device(device):
         err = lib.witw_fused_corr_distance(
             o_flat.data_ptr(), s_pad.data_ptr(), wsq.data_ptr(),
             d.data_ptr(), orient.data_ptr(),
-            g, w, hc, hc_pad, pitch, q, sw, geo["stages"], geo["smem_bytes"],
+            g, w, hc, geo["hc_pad"], geo["chunks"], geo["pitch"], q, sw, geo["stages"], geo["smem_bytes"],
             torch.cuda.current_stream(device).cuda_stream,
         )
     check_launch(lib, err, "fused_corr_distance")
