@@ -14,8 +14,10 @@ Phases, each of which passes or raises:
    tests' edges at full size: hc 6 and 20, sw = W = 100, sw 1, G odd,
    values scaled by 1e3, exact ties between shifts i and i + W / 2 (the
    lower index must win), a NaN in one gallery map (orient and d as the
-   plain version's), hc 128 and W 128 and 256 (the kernel's channel chunks)
-   and inputs 4 bytes off 16-byte alignment.
+   plain version's), hc 128 and W 128 and 256 (the kernel's channel chunks),
+   W 2048 at hc 16 with sw 64 (a window of 127 rows, refilled for each of
+   32 passes) and sw = W (past sw = 1720 the columns do not fit one window:
+   3 windows a pass) and inputs 4 bytes off 16-byte alignment.
 4. Drive the slice at full CVUSA width (bf16 towers, whose stride-1 convs
    run on the conv3x3_bf16 kernel; batch 128, random weights from a seed):
    FovPipeline.forward_distance at fov 360 and 90.
@@ -31,7 +33,8 @@ Phases, each of which passes or raises:
    FLOP / 67 TFLOP/s on the CUDA cores; 3 x the FLOP / 494.7 TFLOP/s, the
    kernel's 3xTF32 on the tensor cores), the 8832-pair planted gallery
    sweep through FovGalleryEvaluator on the fused and the FFT path (equal
-   ranks required), and embed+match pairs/s.
+   ranks required), the kernel at W = 2048 (32 passes, a window each), and embed+match
+   pairs/s.
 7. The three static-int8 kernels (int8 conv, 2x2 max pool, fused VGG
    block 2), built in phase 2: print ptxas' lines, failing on any spill of
    the int8 conv (kernel A) or the fused block 2 (kernel C), and the IGMMA
@@ -97,6 +100,31 @@ Phases, each of which passes or raises:
    CUDA graph, x reps for the rate probes; sum, roll and clone for t1, t2,
    t4) and its bound. The layout probes are launch-bound: their kernel,
    plain and library times are all device times from CUDA graphs.
+18. FOV serving, building an index: tools.build_index.main on a WITW-schema
+   dataset of 512 synthetic 256 x 256 tiles (fov_experiment("witw", 70),
+   random weights from a seed saved by the Checkpointer as `best`), in bf16
+   and with --int8, --meta-cols col0:x,col1:y. Each build must launch its
+   kernels (conv3x3_bf16; kernels A, B and C), stamp precision, the weights
+   fingerprint and the coordinates, and its first 8 embeddings must agree
+   with the same tiles through the kernels' plain versions on the card
+   (bf16 cosine >= 0.999 each; int8 within 1e-6). Prints tiles/s.
+19. GalleryIndex at 100,000 tiles [N, 4, 64, 16] (1.64 GB f32, resident
+   rFFT table 1.69 GB) with 8 planted queries at sw 64 and 12: search(k=10)
+   and resident score_all against streamed score_all's numpy top-10
+   (indices and orientations equal, distances within 1e-5),
+   search_approx(candidates=256) and fast=True top-1 on the planted rows;
+   ms per call at Q 1 and 8 (CUDA events) and the peak device memory.
+20. The daemon: GeolocateService(max_batch 8) behind serve() on
+   127.0.0.1:0, on [18]'s bf16 index and then with --int8 on its int8
+   index: warmup, then 32 POST /geolocate?k=5 of PNG photos, 8 at a time,
+   one candidates=64 request, /healthz and /stats. Every answer must equal
+   an index.search of the embeddings the daemon computed for that photo's
+   group (tiles, orientations, distances, coordinates), those embeddings
+   must agree with the same photos through the surface tower with the
+   kernels' plain versions on the card (bf16 cosine >= 0.999 each; int8,
+   with the daemon's tables, within 1e-6: the bf16 conv and kernels A, B
+   and C at the 128 x 99 photo's widths, non-circular), and the right
+   kernels must launch. Prints requests/s and p50 / p99 latency.
 
 The launch counts are reset just before the path they count and read right
 after it: the fused match's and the conv kernel's before phase 4 and after
@@ -104,23 +132,31 @@ test() in phase 5 (forward_distance at fov 360 and 90, and test(), must each
 raise both); all four int8-path kernels' before the int8 path of phase 9 and
 after it (its fov 360 and 90 runs must each raise every count); the conv
 kernel's before the training of phase 13 and after it (its train and val
-phases must each raise it); the probes' before phase 17 and after it. The
-second-to-last line is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}.
+phases must each raise it); the probes' before phase 17 and after it; the
+conv kernel's (bf16) and kernels A, B and C's (int8) before each index build
+of phase 18 and each daemon's 32 requests of phase 20, read after each (the
+records' `serving_launches` sum them). The second-to-last line is the
+kernels' JSON record; the last line is {"ok": true, "device": {...}}.
 Without a GPU, or without the repo beside it, the script exits non-zero and
 prints no result.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import dataclasses
+import io
 import json
 import re
 import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import urllib.error
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -128,18 +164,26 @@ import torch
 from torch.func import functional_call
 
 from witw_tpu_torch.configs import fov_experiment
+from witw_tpu_torch.data import loader, synthetic
 from witw_tpu_torch.evaluation.gallery import FovGalleryEvaluator, metrics_from_ranks
+from witw_tpu_torch.evaluation.index import GalleryIndex
 from witw_tpu_torch.exp import int8_isolate, int8_mm_probe, mosaic_caps
 from witw_tpu_torch.kernels.build import build_libraries, nvcc_path
 from witw_tpu_torch.match.correlation import circular_correlation
 from witw_tpu_torch.models import quantize
+from witw_tpu_torch.models.backbones import vgg16
 from witw_tpu_torch.models.backbones.vgg16 import VGG16_BLOCKS
 from witw_tpu_torch.models.fov_dsm import HEAD_CONVS, FovDsm
 from witw_tpu_torch.ops import conv3x3, fused_block2, fused_match, int8_conv, maxpool
+from witw_tpu_torch.ops.image import normalize_images
+from witw_tpu_torch.ops.polar import polar_transform
+from witw_tpu_torch.tools import build_index
+from witw_tpu_torch.tools import serve as serve_tool
 from witw_tpu_torch.train import loop
 from witw_tpu_torch.train.checkpoint import Checkpointer
 from witw_tpu_torch.train.pipeline import FovPipeline
 from witw_tpu_torch.utils.device import require_cuda
+from witw_tpu_torch.utils.hashing import params_fingerprint
 from witw_tpu_torch.utils.profiling import cuda_ms, graph_ms
 
 RTOL, ATOL = 1e-5, 1e-6
@@ -1111,6 +1155,358 @@ def probe_phases(card, device, built):
     return records
 
 
+# --- FOV serving: build_index, GalleryIndex and the daemon (18-20) -----------
+
+SERVE_DIR = Path(__file__).resolve().parent / ".smoke_serving"
+SERVE_TILES = 512
+INDEX_TILES = 100_000
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The towers' kernel wrappers swapped for their plain PyTorch versions
+    where the towers call them, so that the same calls run without the
+    kernels on the card."""
+    swaps = [
+        (vgg16, "conv3x3_bias_relu", conv3x3.conv3x3_bias_relu_plain),
+        (quantize, "conv3x3_int8",
+         lambda x, w, b, m, sh=1, pw=1, relu=True, w_wgmma=None:
+         int8_conv.conv3x3_int8_plain(x, w, b, m, sh, pw, relu)),
+        (quantize, "conv3x3_int8_dequant",
+         lambda x, w, dq, bf, sh=1, pw=1, w_wgmma=None:
+         int8_conv.conv3x3_int8_dequant_plain(x, w, dq, bf, sh, pw)),
+        (quantize, "maxpool2x2", maxpool.maxpool2x2_plain),
+        (quantize, "fused_block2",
+         lambda *args, circular=False, w1_wgmma=None, w2_wgmma=None:
+         fused_block2.fused_block2_plain(*args, circular=circular)),
+    ]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    try:
+        for mod, name, fn in swaps:
+            setattr(mod, name, fn)
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def png_bytes(arr: np.ndarray) -> bytes:
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def write_serving_dataset(directory: Path, n: int, shards: int = 8) -> str:
+    """A WITW-schema dataset of n synthetic tiles, written by
+    write_synthetic_dataset in ``shards`` parts at once (seeds 0, 1, ...),
+    whose CSV lists them all with tile-centre coordinates in columns 0 and 1
+    (x = 1000 + 10 i, y = -5 i), for --meta-cols."""
+    def part(k):
+        return synthetic.write_synthetic_dataset(
+            str(directory / f"part{k}"), n=n // shards, schema="witw", surface_hw=(16, 64),
+            overhead_hw=(256, 256), seed=k)
+
+    with concurrent.futures.ThreadPoolExecutor(shards) as pool:
+        parts = list(pool.map(part, range(shards)))
+    header, rows = None, []
+    for k, csv_part in enumerate(parts):
+        with open(csv_part) as f:
+            header, *lines = f.read().splitlines()
+        rows += [line.replace("surface/", f"part{k}/surface/").replace("overhead/", f"part{k}/overhead/")
+                 for line in lines]
+    rows = [f"{1000 + 10 * i},{-5 * i}" + line[1:] for i, line in enumerate(rows)]
+    csv_path = directory / "pairs.csv"
+    csv_path.write_text("\n".join([header] + rows) + "\n")
+    return str(csv_path)
+
+
+def check_index_build(index, cfg, params, sq, int8):
+    """The first 8 embeddings of a built index against the same tiles run
+    through the plain versions of the kernels on the card: bf16 cosine >=
+    0.999 per embedding, int8 within phase 9's atol 1e-6."""
+    d = cfg.data
+    tiles = np.stack([loader.resize_host(loader.decode_image(p)[..., :3], d.overhead_size,
+                                         d.overhead_size) for p in index.meta["path"][:8]])
+    x = torch.from_numpy(tiles).to(index.device)
+    polar = polar_transform(normalize_images(x, d.img_mean, d.img_std), d.surface_height,
+                            d.surface_width_max)
+    model = FovDsm(cfg.model, circ_padding=True).to(index.device).eval()
+    got = torch.from_numpy(index.embeds[:8]).to(index.device)
+    with torch.no_grad(), plain_kernels():
+        if int8:
+            want = quantize.quantized_fov_forward_static(sq, polar, True)
+        else:
+            want = functional_call(model, params["overhead"], (polar,), strict=True)
+    if int8:
+        err = float((got - want).abs().max())
+        log(f"    int8 index, first 8 embeddings vs plain kernels on the card: max |d emb| "
+            f"{err:.3e} (atol {INT8_ATOL})")
+        if not err <= INT8_ATOL:
+            raise AssertionError("int8 index embeddings disagree with the plain kernels")
+        return
+    cos = torch.nn.functional.cosine_similarity(got.reshape(8, -1), want.reshape(8, -1), dim=1)
+    log(f"    bf16 index, first 8 embeddings vs plain kernels on the card: cosine min "
+        f"{float(cos.min()):.6f} (>= 0.999)")
+    if not bool((cos >= 0.999).all()):
+        raise AssertionError("bf16 index embeddings disagree with the plain kernels")
+
+
+def check_daemon_embeds(service, seen, int8):
+    """Every group of photos the daemon embedded against the same photos
+    through its surface tower with the kernels' plain versions on the card
+    (int8: with the daemon's calibrated tables): bf16 cosine >= 0.999 per
+    embedding, int8 within phase 9's atol 1e-6. Returns (the groups' batch
+    sizes, the least cosine or the largest |d emb|)."""
+    worst = 0.0 if int8 else 1.0
+    with torch.no_grad(), plain_kernels():
+        for imgs, got in seen:
+            x = service._normalize(torch.from_numpy(imgs).to(service.device))
+            if int8:
+                want = quantize.quantized_fov_forward_static(service._sq, x, False)
+            else:
+                want = service._tower(x)
+            got = torch.from_numpy(got).to(service.device)
+            want = want.float().reshape(got.shape)
+            if int8:
+                worst = max(worst, float((got - want).abs().max()))
+            else:
+                cos = torch.nn.functional.cosine_similarity(got.reshape(len(got), -1),
+                                                            want.reshape(len(got), -1), dim=1)
+                worst = min(worst, float(cos.min()))
+    if not (worst <= INT8_ATOL if int8 else worst >= 0.999):
+        raise AssertionError(f"the {'int8' if int8 else 'bf16'} daemon's embeddings disagree with "
+                             f"the plain kernels: {'max |d emb|' if int8 else 'cosine min'} {worst}")
+    return sorted({len(imgs) for imgs, _ in seen}), worst
+
+
+def phase_build_index(card, device, cfg):
+    """[18] tools/build_index.main on a 512-tile WITW dataset, bf16 then
+    --int8; returns (the two indexes, the params, launches per kernel)."""
+    log(f"[18] tools.build_index.main: {SERVE_TILES} synthetic WITW tiles (256 x 256), "
+        f"fov_experiment('witw', 70), random weights from a seed, bf16 and --int8")
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    SERVE_DIR.mkdir(parents=True)
+    t0 = time.perf_counter()
+    csv_path = write_serving_dataset(SERVE_DIR / "data", SERVE_TILES)
+    log(f"    wrote the dataset in {time.perf_counter() - t0:.2f} s")
+    state = FovPipeline(cfg, device).init_state(torch.Generator().manual_seed(0))
+    Checkpointer(str(SERVE_DIR / "weights" / "fov_70_witw")).save("best", state)
+    params = state.params
+    counted = dict(INT8_MODULES, conv3x3=conv3x3)
+    indexes, launches, seen = {}, {}, {}
+    real_span = quantize.calibrate_overhead_span
+
+    def record_span(*args, **kwargs):  # the int8 tables the build uses
+        seen["sq"], items = real_span(*args, **kwargs)
+        return seen["sq"], items
+
+    quantize.calibrate_overhead_span = record_span
+    try:
+        for precision, flags, mods in (("bf16", [], ["conv3x3"]),
+                                       ("int8", ["--int8"], list(INT8_MODULES))):
+            out = SERVE_DIR / f"index_{precision}.npz"
+            argv = ["--csv", csv_path, "--out", str(out), "--weights", str(SERVE_DIR / "weights"),
+                    "--dataset", "witw", "--fov", "70", "--meta-cols", "col0:x,col1:y"] + flags
+            for mod in counted.values():
+                mod.launches = 0
+            t0 = time.perf_counter()
+            build_index.main(argv)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches[precision] = {n: counted[n].launches for n in mods}
+            idle = [n for n, c in launches[precision].items() if c < 1]
+            if idle:
+                raise AssertionError(f"build_index {precision} did not launch {idle}")
+            index = GalleryIndex.load(str(out))
+            meta = index.meta
+            d = cfg.data
+            if (index.embeds.shape != (SERVE_TILES, d.surface_height // 32, d.surface_width_max // 8, 16)
+                    or not np.isfinite(index.embeds).all()
+                    or str(meta["precision"]) != ("int8" if flags else "f32")
+                    or str(meta["params_sha"]) != params_fingerprint(params["overhead"])
+                    or not np.array_equal(meta["x"], 1000.0 + 10 * np.arange(SERVE_TILES))):
+                raise AssertionError(f"{precision} index: embeds {index.embeds.shape}, meta "
+                                     f"{ {k: str(v)[:40] for k, v in meta.items()} }")
+            log(f"    {precision}: {SERVE_TILES} tiles in {dt:.3f} s = {SERVE_TILES / dt:.2f} "
+                f"tiles/s (decode, resize, upload, embed; host clock) ({card}); launches "
+                f"{launches[precision]}; precision {str(meta['precision'])!r}, params_sha "
+                f"{str(meta['params_sha'])[:12]}...")
+            check_index_build(index, cfg, params, seen.get("sq"), bool(flags))
+            indexes[precision] = index
+    finally:
+        quantize.calibrate_overhead_span = real_span
+    return indexes, params, launches
+
+
+def phase_gallery_index(card, device):
+    """[19] GalleryIndex at 100,000 tiles [N, 4, 64, 16], resident."""
+    log(f"[19] GalleryIndex, {INDEX_TILES} planted tiles [N, 4, 64, 16] f32, resident: "
+        f"search, score_all resident and streamed, search_approx, fast")
+    rng = np.random.default_rng(7)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(7)
+    embeds = torch.randn(INDEX_TILES, 4, 64, 16, generator=gen, device=device).cpu().numpy()
+    planted = rng.choice(INDEX_TILES, 8, replace=False)
+    starts = rng.integers(0, 64, 8)
+    queries = {}
+    for sw in (64, 12):
+        cols = (starts[:, None] + np.arange(sw)[None]) % 64
+        q = np.stack([embeds[g][:, c] for g, c in zip(planted, cols)])
+        queries[sw] = (q + 0.1 * rng.standard_normal(q.shape, dtype=np.float32)).astype(np.float32)
+    log(f"    made the gallery in {time.perf_counter() - t0:.2f} s "
+        f"({embeds.nbytes / 1e9:.2f} GB f32)")
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    index = GalleryIndex(embeds, device=device)
+    timings = {}
+    for sw, q in queries.items():
+        i_s, d_s, o_s = index.search(q, k=10)
+        d_res, o_res = index.score_all(q, resident=True)
+        d_str, o_str = index.score_all(q, resident=False)
+        order = np.argsort(d_str, axis=0, kind="stable")[:10].T  # [Q, 10]
+        rows = np.arange(len(q))[:, None]
+        if not np.array_equal(i_s, order):
+            raise AssertionError(f"sw {sw}: search's top-10 differs from streamed score_all's")
+        if not (np.array_equal(o_s, o_str[order, rows]) and np.array_equal(o_s, o_res[order, rows])):
+            raise AssertionError(f"sw {sw}: top-10 orientations differ between the three paths")
+        err = max(float(np.abs(d_s - d_str[order, rows]).max()), float(np.abs(d_res - d_str).max()))
+        flips = int((o_res != o_str).sum())
+        if not err <= 1e-5 or not np.array_equal(i_s[:, 0], planted):
+            raise AssertionError(f"sw {sw}: distances {err:.3e} apart, top-1 {i_s[:, 0]} "
+                                 f"(planted {planted})")
+        i_a, _, o_a = index.search_approx(q, k=10, candidates=256)
+        i_f, _, o_f = index.search(q, k=10, fast=True)
+        if not (np.array_equal(i_a[:, 0], i_s[:, 0]) and np.array_equal(i_f[:, 0], planted)
+                and np.array_equal(o_f[:, 0], o_s[:, 0])):
+            raise AssertionError(f"sw {sw}: approx top-1 {i_a[:, 0]}, fast top-1 {i_f[:, 0]}, "
+                                 f"exact {i_s[:, 0]}")
+        log(f"    sw {sw}, Q 8: search(k=10) == streamed score_all's numpy top-10 (indices, "
+            f"orientations; max |dd| {err:.3e} <= 1e-5 with resident score_all too; "
+            f"{flips} of {o_res.size} orientations differ between resident and streamed "
+            f"score_all, all off the top-10); search_approx(candidates=256) and fast "
+            f"top-1 == planted")
+        for qn in (1, 8):
+            qq = q[:qn]
+            calls = {"search": lambda: index.search(qq, k=10),
+                     "search_approx": lambda: index.search_approx(qq, k=10, candidates=256),
+                     "search fast": lambda: index.search(qq, k=10, fast=True),
+                     "score_all": lambda: index.score_all(qq, resident=True)}
+            if qn == 8:
+                calls["score_all streamed"] = lambda: index.score_all(qq, resident=False)
+            for name, fn in calls.items():
+                reps = 2 if name == "score_all streamed" else 5
+                timings[f"{name} sw {sw} Q {qn}"] = cuda_ms(fn, 1, reps)
+    peak = torch.cuda.max_memory_allocated(device) - base
+    for name, ms in timings.items():
+        log(f"    {name}: {ms:.3f} ms per call (CUDA events, median of 5; streamed: of 2)")
+    log(f"    peak device memory {peak / 1e9:.3f} GB above the baseline (max_memory_allocated; "
+        f"resident tables {index._resident_bytes() / 1e9:.3f} GB by _resident_bytes) ({card})")
+    del index
+    torch.cuda.empty_cache()
+
+
+def http_json(url: str, body: bytes = None):
+    req = urllib.request.Request(url, data=body, method="POST" if body is not None else "GET")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            out = json.loads(r.read())
+    except urllib.error.HTTPError as err:
+        raise AssertionError(f"{url}: HTTP {err.code}: {err.read().decode()}") from None
+    return out, time.perf_counter() - t0
+
+
+def phase_daemon(card, device, cfg, indexes, params):
+    """[20] GeolocateService behind serve() on 127.0.0.1, bf16 and --int8."""
+    log("[20] tools.serve: GeolocateService(max_batch 8) behind serve() on 127.0.0.1:0, "
+        f"the {SERVE_TILES}-tile indexes of [18]; 32 POST /geolocate?k=5 (PNG photos) 8 at a "
+        "time, one candidates=64, /healthz, /stats")
+    rng = np.random.default_rng(8)
+    photos = [png_bytes(rng.integers(0, 256, (300, 400, 3), dtype=np.uint8)) for _ in range(32)]
+    counted = dict(INT8_MODULES, conv3x3=conv3x3)
+    launches = {}
+    for precision, int8, mods in (("bf16", False, ["conv3x3"]), ("int8", True, list(INT8_MODULES))):
+        index = indexes[precision]
+        service = serve_tool.GeolocateService(index, cfg, params, int8=int8, max_batch=8)
+        seen = []
+        real_embed = service._embed
+
+        def recording_embed(imgs, real_embed=real_embed, seen=seen):
+            out = real_embed(imgs)
+            seen.append((imgs, out))
+            return out
+
+        service._embed = recording_embed
+        server = serve_tool.serve(service, port=0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        try:
+            service.warmup()
+            seen.clear()
+            for mod in counted.values():
+                mod.launches = 0
+            t0 = time.perf_counter()
+            with concurrent.futures.ThreadPoolExecutor(8) as pool:
+                answers = list(pool.map(lambda p: http_json(f"{url}/geolocate?k=5", p), photos))
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            launches[precision] = {n: counted[n].launches for n in mods}
+            idle = [n for n, c in launches[precision].items() if c < 1]
+            if idle:
+                raise AssertionError(f"the {precision} daemon did not launch {idle}")
+            approx, _ = http_json(f"{url}/geolocate?k=5&candidates=64", photos[0])
+            health, _ = http_json(f"{url}/healthz")
+            stats, _ = http_json(f"{url}/stats")
+            # Each answer against a direct index.search of the embeddings the
+            # daemon computed for that photo's group (its rows past the group's
+            # requests copy the first row, as the daemon pads them).
+            direct = []
+            for imgs, embs in seen[:-1]:  # the last one embedded the candidates=64 photo
+                i_d, d_d, o_d = index.search(embs, k=service._k_bucket(5))
+                direct += [(imgs[r], i_d[r, :5], d_d[r, :5], o_d[r, :5]) for r in range(len(imgs))]
+            for photo, (out, _) in zip(photos, answers):
+                img = service._decode(photo)
+                _, i_d, d_d, o_d = next(t for t in direct if np.array_equal(t[0], img))
+                res = out["results"]
+                if ([r["tile"] for r in res] != i_d.tolist()
+                        or [r["orientation_deg"] for r in res]
+                        != [float(o * 360.0 / index.embeds.shape[2] - 180.0) for o in o_d]
+                        or [r["distance"] for r in res] != [float(v) for v in d_d]
+                        or [r["x"] for r in res] != [1000.0 + 10 * t for t in i_d]):
+                    raise AssertionError(f"{precision} daemon answer differs from the direct search")
+            batches, worst = check_daemon_embeds(service, seen, int8)
+            alone = real_embed(service._decode(photos[0])[None])[0].ravel()
+            batched = next(e[r] for imgs, e in seen for r in range(len(imgs))
+                           if np.array_equal(imgs[r], service._decode(photos[0]))).ravel()
+            norms = float(np.linalg.norm(alone) * np.linalg.norm(batched))
+            cos = float(np.dot(alone, batched)) / norms if norms else float(np.array_equal(alone, batched))
+            if not cos >= 0.999:
+                raise AssertionError(f"{precision}: a photo embedded alone and in its group: cosine {cos}")
+            ap = approx["results"]
+            if len(ap) != 5 or stats["requests"] != 33 or stats["errors"] != 0 \
+                    or health["gallery_size"] != SERVE_TILES or health["int8"] != int8:
+                raise AssertionError(f"{precision} daemon: approx {ap}, stats {stats}, health {health}")
+            p50, p99 = (1e3 * float(np.percentile([t for _, t in answers], q)) for q in (50, 99))
+            log(f"    {precision}: 32 requests in {wall:.3f} s = {32 / wall:.2f} requests/s, latency "
+                f"p50 {p50:.2f} ms, p99 {p99:.2f} ms "
+                f"(host clock, 8 clients) ({card}); mean batch {stats['mean_batch']}, "
+                f"{stats['dispatches']} dispatches; launches {launches[precision]}; every answer "
+                f"== index.search on the daemon's embeddings; those embeddings (batches {batches}, "
+                f"128 x 99 photos) vs the plain kernels on the card: "
+                f"{'max |d emb|' if int8 else 'cosine min'} {worst:.6g} "
+                f"({'atol 1e-6' if int8 else '>= 0.999'}); one photo embedded alone vs in its "
+                f"group: cosine {cos:.6f}; candidates=64 top-1 tile "
+                f"{ap[0]['tile']} (exact {answers[0][0]['results'][0]['tile']})")
+        finally:
+            server.shutdown()
+            server.server_close()
+            service.close()
+    return launches
+
+
 def main() -> int:
     # 1. device
     device = require_cuda()
@@ -1158,6 +1554,8 @@ def main() -> int:
         "hc 128 (two channel chunks)": (128, 128, 4, 64, 32, 64, "random"),
         "W 128 (two channel chunks)": (128, 128, 4, 128, 16, 64, "random"),
         "W = sw = 256 (4 passes of 2 chunks)": (64, 128, 2, 256, 32, 256, "random"),
+        "W 2048, sw 64, hc 16 (a window a pass)": (128, 128, 4, 2048, 4, 64, "random"),
+        "W = sw = 2048, hc 16 (3 windows a pass)": (16, 128, 4, 2048, 4, 2048, "random"),
         "o, s 4 bytes off alignment": (128, 128, 1, 64, 56, 1, "offset"),
     }
     for name, (*shape, data) in edges.items():
@@ -1271,6 +1669,15 @@ def main() -> int:
     f32_gal, tf32_gal = match_bounds(*shapes["gallery block"])
     log(f"    gallery block G=8832 Q=128 sw=64: kernel {t_gal:.4f} ms, plain {t_gal_plain:.4f} ms, "
         f"bound {tf32_gal[0]:.4f} ms (3xTF32), f32 CUDA-core bound {f32_gal[0]:.4f} ms ({card})")
+    wide = (128, 128, 4, 2048, 4, 64)  # 32 passes, a window of the maps refilled for each
+    o, s = maps(gen, *wide, device)
+    t_wide, t_wide_plain = interleaved_ms(
+        lambda: fused_match.fused_chord_distance_plain(o, s),
+        lambda: fused_match.fused_chord_distance_nhwc(o, s), calls=5, reps=5)
+    _, tf32_wide = match_bounds(*wide)
+    log(f"    W=2048 sw=64 hc=16 G=Q=128 (windows of {fused_match.geometry(128, 128, 2048, 16, 64)['kcols']} "
+        f"columns): kernel {t_wide:.4f} ms, plain {t_wide_plain:.4f} ms, bound {tf32_wide[0]:.4f} ms "
+        f"(3xTF32) ({card})")
     del inputs, o, s
 
     # The gallery rank sweep, 8832 planted pairs (host clock around ranks(),
@@ -1320,6 +1727,18 @@ def main() -> int:
     int8_records = int8_phases(card, device, cfg, pipeline, params, built)
     conv_record = conv_phases(card, device, cfg, built)
     probe_records = probe_phases(card, device, built)
+
+    cfg_witw = fov_experiment("witw", 70)
+    indexes, serve_params, build_launches = phase_build_index(card, device, cfg_witw)
+    phase_gallery_index(card, device)
+    daemon_launches = phase_daemon(card, device, cfg_witw, indexes, serve_params)
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    serving = {n: build_launches[p].get(n, 0) + daemon_launches[p].get(n, 0)
+               for p in ("bf16", "int8") for n in build_launches[p]}
+    log(f"    serving-path launches (index builds and daemons): {serving}")
+    conv_record["serving_launches"] = serving["conv3x3"]
+    for record, mod in zip(int8_records, INT8_KERNELS):
+        record["serving_launches"] = serving[mod]
 
     log(card)
     log(json.dumps({"kernels": [{

@@ -31,10 +31,13 @@ the SM clock and the power draw with nvidia-smi while the kernel runs.
 With --against DIR (another checkout of the repo, such as a `git archive` of
 an earlier commit), phase [2] imports that checkout's
 witw_tpu_torch.ops.fused_match beside this one's (it builds its own library)
-and times both wrappers on the same inputs at both shapes, in turns (this,
-DIR, DIR, this, ...): host-launched (CUDA events around back-to-back calls,
-median of 7) and as device time from CUDA graphs (utils/profiling.graph_ms,
-median of two graphs each). Both must agree with the plain version.
+and times both wrappers on the same inputs, in turns (this, DIR, DIR, this,
+...): host-launched (CUDA events around back-to-back calls, median of 7) and
+as device time from CUDA graphs (utils/profiling.graph_ms, median of two
+graphs each). Both must agree with the plain version. Its shapes are the two
+above and three at W = 256 (4 passes of 64 shifts): sw = W at hc 64 (2
+channel chunks), and sw = 64 at hc 64 and at hc 16, where the kernel holds
+windows of 127 rows, refilled per pass, in place of a whole map.
 """
 
 from __future__ import annotations
@@ -62,6 +65,11 @@ from witw_tpu_torch.utils.profiling import cuda_ms, graph_ms
 
 OUT_DIR = BUILD_DIR / "profile_match"
 SHAPES = {"main path": (128, 128), "gallery block": (8832, 128)}  # (G, Q); W = sw = hc = 64
+# Phase [2]'s shapes: (G, Q, h, W, c, sw).
+COMPARED = {**{name: (g, q, 4, 64, 16, 64) for name, (g, q) in SHAPES.items()},
+            "W 256, hc 64": (128, 128, 4, 256, 16, 256),
+            "W 256, sw 64, hc 64": (128, 128, 4, 256, 16, 64),
+            "W 256, sw 64, hc 16": (128, 128, 4, 256, 4, 64)}
 PRODUCTS = """#pragma unroll
         for (int c = 0; c < kSteps; ++c) wgmma_tf32(acc, as[c], b_big + c * step_desc, c > 0);
 #pragma unroll
@@ -71,11 +79,11 @@ PRODUCTS = """#pragma unroll
 """
 SPLIT = "          for (int e = 0; e < 4; ++e) split_tf32(raw[e], ab[c][e], as[c][e]);\n"
 COPY = """        mbar_arrive_expect_tx(full0 + 8 * st, bytes);
-        const int col = it % sw * chunks + it / sw % chunks;  // (k, ch) in s
+        const int col = m.k * chunks + m.ch;  // (k, ch) in s
         bulk_copy(ring0 + st * stage_bytes, s + (static_cast<size_t>(col) * Q + q0) * pitch, bytes,
                   full0 + 8 * st);
 """
-PRODUCER = "      for (int it = 0; it < items; ++it) {\n        const int st = it % stages;\n"
+PRODUCER = "      for (int it = 0; it < items; ++it, advance(m, sw, chunks, kcols)) {\n"
 LOAD = ("      const auto load = [&](int it, Frags& ab, Frags& as) {\n",
         "        if (lane == 0) mbar_arrive(empty0 + 8 * st);\n      };\n")
 SS = """__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
@@ -100,7 +108,7 @@ FOLD = """        wgmma_wait<0>();
           fence_operand(acc[i]);
           tot[i] = __fadd_rn(tot[i], acc[i]);
         }
-        if ((it + 1) % sw != 0) return;
+        if (!fill_ends(m)) return;
 """
 
 
@@ -132,8 +140,8 @@ def variant(src: str, mode: str) -> str:
             src = edit(src, f"wgmma_tf32(acc, {a}, {b}, {scale});", f"wgmma_ss(acc, {other}, {b}, {scale});")
         return src
     src = edit(src, "wgmma_tf32(acc, as[c], b_big + c * step_desc, c > 0);",
-               "wgmma_tf32(acc, as[c], b_big + c * step_desc, c > 0 || it % sw != 0);")
-    return edit(src, FOLD, """        if ((it + 1) % sw != 0) return;
+               "wgmma_tf32(acc, as[c], b_big + c * step_desc, c > 0 || cur.k != 0);")
+    return edit(src, FOLD, """        if (!fill_ends(m)) return;
         wgmma_wait<0>();
         fence_frags(ab, as);
 #pragma unroll
@@ -173,9 +181,9 @@ def compare_wrappers(other, tree: Path, card: str, device) -> dict:
     print(f"[2] fused_chord_distance_nhwc: this checkout against {tree}, in turns, on {card}", flush=True)
     gen = torch.Generator(device=device).manual_seed(1)
     report = {}
-    for name, (g, q) in SHAPES.items():
-        o = torch.randn(g, 4, 64, 16, generator=gen, device=device)
-        s = torch.randn(q, 4, 64, 16, generator=gen, device=device)
+    for name, (g, q, h, w, c, sw) in COMPARED.items():
+        o = torch.randn(g, h, w, c, generator=gen, device=device)
+        s = torch.randn(q, h, sw, c, generator=gen, device=device)
         want = fused_match.fused_chord_distance_plain(o, s)[0]
         fns = {"this": lambda: fused_match.fused_chord_distance_nhwc(o, s),
                "against": lambda: other.fused_chord_distance_nhwc(o, s)}
@@ -233,7 +241,7 @@ def main() -> int:
     src = (CSRC_DIR / "fused_match.cu").read_text()
     libs = build({mode: src if mode == "kernel" else variant(src, mode) for mode in modes}, OUT_DIR)
     for lib in libs.values():
-        lib.witw_fused_corr_distance.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [
+        lib.witw_fused_corr_distance.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [
             ctypes.c_size_t, ctypes.c_void_p]
     print(f"[1] fused_corr_distance and its copies ({', '.join(modes[1:])}) on {card}", flush=True)
     gen = torch.Generator(device=device).manual_seed(0)
@@ -254,7 +262,7 @@ def main() -> int:
             def call(lib=lib):
                 err = lib.witw_fused_corr_distance(
                     o_flat.data_ptr(), s_pad.data_ptr(), wsq.data_ptr(), d.data_ptr(), orient.data_ptr(),
-                    g, 64, 64, 64, 1, geo["pitch"], q, 64, geo["stages"], geo["smem_bytes"],
+                    g, 64, 64, 64, 1, geo["pitch"], q, 64, geo["stages"], geo["kcols"], geo["smem_bytes"],
                     torch.cuda.current_stream().cuda_stream)
                 if err:
                     raise RuntimeError(f"{mode} launch failed: CUDA error {err}")

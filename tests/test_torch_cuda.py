@@ -92,6 +92,30 @@ def test_kernel_matches_plain(cuda, g, q, h, w, c, sw, data):
         assert bool(keep[torch.arange(g, device=cuda) != 2].any())
 
 
+@pytest.mark.parametrize("w", [1721, 2048, 4096])
+@pytest.mark.parametrize("sw", [1, 64, "W"])
+@pytest.mark.parametrize("h,c", [(2, 4), (4, 4)])  # hc 8 and 16
+def test_kernel_matches_plain_past_whole_maps(cuda, w, sw, h, c):
+    """Past W = 1720 the maps do not fit shared memory whole: the kernel
+    holds windows of them (geometry()["kcols"] columns; several windows a
+    pass at sw = W), with the tolerances of the cases above."""
+    sw = w if sw == "W" else sw
+    g, q = 5, 7
+    assert fused_match.geometry(g, q, w, h * c)["kcols"] < w
+    rng = np.random.default_rng(1)
+    o = torch.tensor(rng.standard_normal((g, h, w, c)), dtype=torch.float32, device=cuda)
+    s = torch.tensor(rng.standard_normal((q, h, sw, c)), dtype=torch.float32, device=cuda)
+    d_k, or_k = fused_match.fused_chord_distance_nhwc(o, s)
+    d_p, or_p = fused_match.fused_chord_distance_plain(o, s)
+    torch.cuda.synchronize()
+    assert fused_match.launches == 1
+    top = torch.topk(circular_correlation(o, s), 2, dim=-1).values
+    keep = (top[..., 0] - top[..., -1]) > 1e-5 * top[..., 0].abs()
+    assert bool(keep.any())
+    assert torch.equal(or_k[keep], or_p[keep])
+    torch.testing.assert_close(d_k[keep], d_p[keep], rtol=1e-5, atol=1e-6)
+
+
 def test_kernel_rejects_mixed_or_strided_cuda_inputs(cuda):
     o = torch.zeros(4, 8, 6, device=cuda)
     s = torch.zeros(5, 3, 6, device=cuda)

@@ -10,7 +10,8 @@ card tests' tolerances (rtol 1e-5, atol 1e-6, orientations equal outside
 near ties whose top-2 gap is at most 1e-5 of the max), which shows that
 3xTF32 meets them before the card is used; past 64 channels, or where the
 maps would not fit shared memory, the emulation runs the kernel's channel
-chunks. ``geometry`` (rows, channel chunks and padding, query pitch, ring
+chunks, and past sw = 1720 its several windows of the maps a pass, in the
+kernel's order of items. ``geometry`` (rows, channel chunks and padding, query pitch, ring
 stages, shared memory, grid) is checked against Hopper's 232,448 bytes of
 shared memory a block, and ``query_columns`` (the query layout the kernel's
 bulk copies read) against the queries it lays out.
@@ -44,11 +45,12 @@ def split_tf32(x: torch.Tensor):
 
 
 def emulated_kernel(o: np.ndarray, s: np.ndarray):
-    """The kernel's arithmetic on [G, h, W, c] x [Q, h, sw, c]: per width
-    column k and channel chunk (``geometry``), acc = s_small o_big + s_big
-    o_small + s_big o_big (f32 sums of exact tf32 products), added into the
-    total; then max, first argmax and the chord distance with the kernel's
-    expression."""
+    """The kernel's arithmetic on [G, h, W, c] x [Q, h, sw, c]: per window
+    of ``kcols`` query columns, channel chunk and width column k, in that
+    order (``geometry``), acc = s_small o_big +
+    s_big o_small + s_big o_big (f32 sums of exact tf32 products), added
+    into the total; then max, first argmax and the chord distance with the
+    kernel's expression."""
     o_t, s_t = torch.tensor(o), torch.tensor(s)
     g, h, w, c = o_t.shape
     q, _, sw, _ = s_t.shape
@@ -56,16 +58,18 @@ def emulated_kernel(o: np.ndarray, s: np.ndarray):
     s_swqh = s_t.permute(2, 0, 1, 3).reshape(sw, q, h * c)
     o_big, o_small = split_tf32(o_flat)
     s_big, s_small = split_tf32(s_swqh)
-    geo = fused_match.geometry(g, q, w, h * c)
+    geo = fused_match.geometry(g, q, w, h * c, sw)
+    kcols = geo["kcols"]
     tot = torch.zeros(g, q, w)
-    for k in range(sw):
-        ob, osm = torch.roll(o_big, -k, 1), torch.roll(o_small, -k, 1)
+    for k0 in range(0, sw, kcols):
         for ch in range(geo["chunks"]):
             j = slice(ch * geo["hc_pad"], (ch + 1) * geo["hc_pad"])
-            acc = torch.einsum("qj,gwj->gqw", s_small[k][:, j], ob[..., j])
-            acc = acc + torch.einsum("qj,gwj->gqw", s_big[k][:, j], osm[..., j])
-            acc = acc + torch.einsum("qj,gwj->gqw", s_big[k][:, j], ob[..., j])
-            tot = tot + acc
+            for k in range(k0, min(k0 + kcols, sw)):
+                ob, osm = torch.roll(o_big, -k, 1), torch.roll(o_small, -k, 1)
+                acc = torch.einsum("qj,gwj->gqw", s_small[k][:, j], ob[..., j])
+                acc = acc + torch.einsum("qj,gwj->gqw", s_big[k][:, j], osm[..., j])
+                acc = acc + torch.einsum("qj,gwj->gqw", s_big[k][:, j], ob[..., j])
+                tot = tot + acc
     best, orient = tot.max(dim=-1)
     wsq = torch.gather(window_sq_norms(o_t, sw), 1, orient)
     s_norm = torch.sqrt((s_swqh * s_swqh).sum(dim=(0, 2)))
@@ -107,6 +111,7 @@ def _assert_matches_pallas(o, s):
     (3, 4, 4, 64, 32, 64, 1.0),  # hc 128: two chunks of 64 channels
     (3, 4, 4, 128, 16, 64, 1.0),  # W 128 at hc 64: two chunks of 32
     (4, 3, 4, 20, 18, 9, 1.0),  # hc 72: two chunks of 40, the last part zeros
+    (2, 3, 4, 1721, 16, 140, 1.0),  # past W = 1720: windows of 127 columns at hc 64
 ])
 def test_3xtf32_emulation_meets_the_card_tolerances(rng, g, q, h, w, c, sw, scale):
     _assert_matches_pallas(*_maps(rng, g, q, h, w, c, sw, scale))
@@ -153,7 +158,7 @@ def test_geometry_of_the_main_path():
     geo = fused_match.geometry(128, 128, 64, 64)
     assert geo == {"rows": 127, "chunks": 1, "hc_pad": 64, "pitch": 72, "maps": 2, "stages": 4,
                    "smem_bytes": 2 * 2 * 64 * 4 * 127 + 4 * (64 * 72 * 4 + 16),
-                   "grid": (64, 2)}
+                   "grid": (64, 2), "kcols": 64}
     assert geo["smem_bytes"] == 203840 <= fused_match.SMEM_LIMIT_BYTES
     assert fused_match.geometry(8832, 128, 64, 64)["grid"] == (4416, 2)
     assert fused_match.geometry(1024, 256, 64, 64)["grid"] == (512, 4)  # test_ranks' chunks
@@ -183,7 +188,7 @@ def test_geometry_fits_every_card_test_shape(g, q, w, hc):
     (64, 128, 2, 64),  # a head of 32 channels: hc 128
     (8, 72, 2, 40),  # 9 steps: two chunks of 5
     (512, 512, 32, 16),
-    (1720, 512, 64, 8),  # the widest map the kernel takes
+    (1720, 512, 64, 8),  # the widest map whose columns fit one window
 ])
 def test_geometry_takes_the_fewest_channel_chunks_that_fit(w, hc, chunks, hc_pad):
     geo = fused_match.geometry(4, 4, w, hc)
@@ -200,12 +205,51 @@ def test_geometry_takes_the_fewest_channel_chunks_that_fit(w, hc, chunks, hc_pad
 
 @pytest.mark.parametrize("w,hc", [(1721, 1), (1721, 64), (2000, 512)])
 def test_geometry_rejects_what_does_not_fit(w, hc):
-    geo = fused_match.geometry(4, 4, w, hc)
-    assert geo["stages"] == 0
-    assert fused_match.smem_bytes(w, hc) > fused_match.SMEM_LIMIT_BYTES
+    # Maps whose sw = W columns do not fit one window, once refused, are held
+    # as several windows a pass now; the wrapper goes on to its device
+    # checks, which refuse these CPU tensors.
+    assert fused_match.geometry(4, 4, w, hc)["kcols"] < w
+    for sw in (1, 64, w):
+        geo = fused_match.geometry(4, 4, w, hc, sw)
+        assert 1 <= geo["kcols"] <= sw and geo["rows"] == geo["kcols"] + 63
+        assert geo["stages"] >= fused_match.MIN_STAGES
+        assert geo["smem_bytes"] <= fused_match.SMEM_LIMIT_BYTES
     o, s, wsq = torch.zeros(4, w, hc), torch.zeros(1, 3, hc), torch.zeros(4, w)
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="CUDA"):
         fused_match.fused_corr_distance(o, s, wsq)
+
+
+@pytest.mark.parametrize("w", [1, 8, 63, 64, 65, 100, 127, 128, 255, 256, 512, 829, 1024, 1720,
+                               1721, 2048, 4096, 9000])
+def test_geometry_takes_one_window_wherever_it_fits(w):
+    """Every sw gets a valid layout. A window holds all sw columns in the
+    fewest chunks that leave two ring stages, so every shape the kernel
+    held whole before (sw <= W <= 1720) runs the same items in the same
+    order as then; only past sw = 1720 are there several windows a pass,
+    in 8-step chunks, each of the most columns that fit."""
+    for hc in (1, 6, 8, 16, 20, 64, 72, 128, 512):
+        steps = -(-hc // 8)
+        for sw in sorted({1, min(w, 64), w}):
+            geo = fused_match.geometry(3, 5, w, hc, sw)
+            assert geo["stages"] >= fused_match.MIN_STAGES
+            assert geo["smem_bytes"] <= fused_match.SMEM_LIMIT_BYTES
+            assert geo["hc_pad"] * (geo["chunks"] - 1) < hc <= geo["hc_pad"] * geo["chunks"]
+            assert 1 <= geo["kcols"] <= sw and geo["rows"] == geo["kcols"] + 63
+            row_bytes = 2 * 2 * geo["hc_pad"] * 4
+            stage = 64 * geo["pitch"] * 4 + 16
+            assert (geo["kcols"] == sw) == (sw <= 1720)
+            if geo["kcols"] == sw:
+                # One chunk fewer leaves no room for two ring stages, or has
+                # more than 8 steps a chunk.
+                if geo["chunks"] > 1:
+                    fewer = 8 * -(-steps // (geo["chunks"] - 1))
+                    pitch = fewer + (0 if fewer % 32 in (8, 24) else 8)
+                    need = 2 * 2 * fewer * 4 * (sw + 63) + 2 * (64 * pitch * 4 + 16)
+                    assert fewer > 64 or need > fused_match.SMEM_LIMIT_BYTES
+                continue
+            assert geo["chunks"] == -(-steps // 8)
+            assert geo["hc_pad"] == 8 * -(-steps // geo["chunks"])
+            assert row_bytes * (geo["rows"] + 1) + 2 * stage > fused_match.SMEM_LIMIT_BYTES
 
 
 @pytest.mark.parametrize("sw,q,w,hc", [(3, 5, 8, 6), (2, 70, 64, 64), (3, 4, 64, 128), (2, 3, 20, 72),

@@ -1,0 +1,337 @@
+"""The port's build_index and serving daemon (witw_tpu_torch.tools) against
+witw_tpu's on the CPU, mirroring tests/test_tools.py:551,691 and
+tests/test_pipeline_e2e.py's daemon tests at a narrow geometry.
+
+Towers are a flax init moved into the port with ``convert_jax``; photos,
+tiles and planted galleries come from numpy ``default_rng`` and the
+synthetic dataset writer. Tolerances: bf16 embeddings as
+tests/test_torch_models.py:test_bf16_fov_dsm_matches_jax_bf16 (rtol 2e-2,
+atol 2e-2 max|y|); int8 embeddings within atol 1e-6 given witw_tpu's
+tables and the same input (as tests/test_torch_quantize.py); served tiles
+and orientations equal on planted galleries.
+"""
+
+import dataclasses
+import io
+import json
+import threading
+import urllib.error
+import urllib.request
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+from PIL import Image
+
+from witw_tpu.configs import fov_experiment as jax_fov_experiment
+from witw_tpu.data import write_synthetic_dataset
+from witw_tpu.evaluation.index import GalleryIndex as JaxIndex
+from witw_tpu.models import quantize as jq
+from witw_tpu.tools.build_index import build_index as jax_build_index
+from witw_tpu.tools.serve import GeolocateService as JaxService
+from witw_tpu.train.pipeline import make_pipeline
+from witw_tpu.utils.hashing import params_fingerprint as jax_fingerprint
+from witw_tpu_torch.configs import fov_experiment
+from witw_tpu_torch.evaluation.index import GalleryIndex
+from witw_tpu_torch.models import quantize as tq
+from witw_tpu_torch.models.convert_jax import jax_params_to_state_dict
+from witw_tpu_torch.tools import build_index as tbuild
+from witw_tpu_torch.tools.serve import GeolocateService, serve
+
+GEOMETRY = dict(surface_height=64, surface_width_max=128, overhead_size=32)
+
+
+def _cfgs():
+    cfgs = []
+    for make in (jax_fov_experiment, fov_experiment):
+        cfg = make("witw", 70)
+        cfgs.append(cfg.replace(data=dataclasses.replace(cfg.data, **GEOMETRY)))
+    return cfgs
+
+
+@pytest.fixture(scope="module")
+def towers():
+    """(witw_tpu config and state, port config and params) on the same
+    weights; bf16 compute, the configs' default."""
+    jcfg, tcfg = _cfgs()
+    state = make_pipeline(jcfg).init(jax.random.PRNGKey(0))
+    params = jax_params_to_state_dict(jax.tree.map(np.asarray, state.params))
+    return jcfg, state, tcfg, params
+
+
+@pytest.fixture(scope="module")
+def dataset(tmp_path_factory):
+    return write_synthetic_dataset(str(tmp_path_factory.mktemp("data")), n=5, schema="witw",
+                                   surface_hw=(32, 64), overhead_hw=(40, 40))
+
+
+def _bf16_close(got, want):
+    np.testing.assert_allclose(got, want, rtol=2e-2, atol=2e-2 * float(np.abs(want).max()))
+
+
+def test_build_index_matches_jax(towers, dataset, tmp_path):
+    """tools/build_index in bf16: the meta (precision, family, weights
+    fingerprint, paths, renamed CSV columns) equal, the embeddings at the
+    bf16 towers' tolerance, and the saved index loads in witw_tpu."""
+    jcfg, state, tcfg, params = towers
+    cols = ["overhead_path", "col0:x"]
+    want = jax_build_index(dataset, str(tmp_path / "j.npz"), batch_size=2, meta_cols=cols,
+                           state=state, cfg=jcfg, verbose=False)
+    got = tbuild.build_index(dataset, str(tmp_path / "t.npz"), batch_size=2, meta_cols=cols,
+                             state=params, cfg=tcfg, verbose=False, device="cpu")
+    assert got.embeds.shape == want.embeds.shape == (5, 2, 16, 16)
+    _bf16_close(got.embeds, want.embeds)
+    assert sorted(got.meta) == sorted(want.meta)
+    for key in ("precision", "family", "params_sha", "path", "overhead_path"):
+        np.testing.assert_array_equal(got.meta[key], want.meta[key], err_msg=key)
+    np.testing.assert_array_equal(got.meta["x"], want.meta["x"])  # empty column: NaN floats
+    assert got.meta["x"].dtype == np.float64 and np.isnan(got.meta["x"]).all()
+    assert str(got.meta["params_sha"]) == jax_fingerprint(state.params["overhead"])
+    loaded = JaxIndex.load(str(tmp_path / "t.npz"))
+    np.testing.assert_array_equal(loaded.embeds, got.embeds)
+    with pytest.raises(ValueError, match="not in CSV"):
+        tbuild.build_index(dataset, None, batch_size=2, meta_cols=["nope"], state=params, cfg=tcfg,
+                           verbose=False, device="cpu")
+
+
+def test_build_index_headerless_integer_meta_cols(towers, tmp_path):
+    """test_tools.py:691: headerless (CVUSA) CSVs address extra columns by
+    position; a name fails with the positional hint."""
+    _, _, tcfg, params = towers
+    csv_path = write_synthetic_dataset(str(tmp_path), n=4, schema="cvusa", surface_hw=(32, 64),
+                                       overhead_hw=(32, 32))
+    with open(csv_path) as f:
+        lines = f.read().splitlines()
+    with open(csv_path, "w") as f:
+        f.writelines(f"{line},{100.0 + i},tile{i}\n" for i, line in enumerate(lines))
+    cfg = tcfg.replace(data=dataclasses.replace(
+        tcfg.data, dataset=fov_experiment("cvusa", 70).data.dataset))
+    index = tbuild.build_index(csv_path, None, batch_size=3, meta_cols=["2:x", "3"], state=params,
+                               cfg=cfg, verbose=False, device="cpu")
+    np.testing.assert_allclose(index.meta["x"], 100.0 + np.arange(4))
+    np.testing.assert_array_equal(index.meta["3"], [f"tile{i}" for i in range(4)])
+    with pytest.raises(ValueError, match="integer positions"):
+        tbuild.build_index(csv_path, None, batch_size=3, meta_cols=["lon:x"], state=params,
+                           cfg=cfg, verbose=False, device="cpu")
+
+
+def test_build_index_int8_matches_jax_given_its_tables(towers, dataset, tmp_path, monkeypatch):
+    """--int8: with witw_tpu's calibrated scales the port folds equal
+    tables, and on the inputs it builds its tower gives witw_tpu's static
+    forward (within atol 1e-6); the gallery-spanning calibration samples
+    the same tiles."""
+    jcfg, state, tcfg, params = towers
+    seen = {}
+    real_span = jq.calibrate_overhead_span
+    real_scales = jq.calibrate_fov_activation_scales
+
+    def record_scales(*args, **kwargs):
+        seen["scales"] = real_scales(*args, **kwargs)
+        return seen["scales"]
+
+    def record_span(*args, **kwargs):
+        seen["sq"], items = real_span(*args, **kwargs)
+        seen["items"] = sorted(items)
+        return seen["sq"], items
+
+    monkeypatch.setattr(jq, "calibrate_fov_activation_scales", record_scales)
+    monkeypatch.setattr(jq, "calibrate_overhead_span", record_span)
+    want = jax_build_index(dataset, None, batch_size=2, int8=True, state=state, cfg=jcfg,
+                           verbose=False)
+
+    inputs = []
+    real_forward = tq.quantized_fov_forward_static
+    real_tspan = tq.calibrate_overhead_span
+
+    def record_forward(sq, x, *args, **kwargs):
+        out = real_forward(sq, x, *args, **kwargs)
+        if kwargs.get("saturation_out") is None:
+            inputs.append((x.numpy().copy(), out.numpy()))
+        return out
+
+    def record_tspan(*args, **kwargs):
+        sq, items = real_tspan(*args, **kwargs)
+        seen["port_items"] = sorted(items)
+        seen["port_sq"] = sq
+        return sq, items
+
+    monkeypatch.setattr(tq, "calibrate_fov_activation_scales", lambda *a, **k: seen["scales"])
+    monkeypatch.setattr(tq, "quantized_fov_forward_static", record_forward)
+    monkeypatch.setattr(tq, "calibrate_overhead_span", record_tspan)
+    got = tbuild.build_index(dataset, None, batch_size=2, int8=True, state=params, cfg=tcfg,
+                             verbose=False, device="cpu")
+
+    assert seen["port_items"] == seen["items"] == [0, 4]  # linspace(0, 4, 2)
+    for name in ("conv_0", "conv_10", "conv_21"):
+        for key in ("kernel_q", "bias_q", "requant_m", "dequant"):
+            np.testing.assert_array_equal(seen["port_sq"]["vgg"][name][key].numpy(),
+                                          np.asarray(seen["sq"]["vgg"][name][key]))
+    forward = jax.jit(lambda sq, x: jq.quantized_fov_forward_static(sq, x, True))
+    for x, out in inputs:
+        np.testing.assert_allclose(out, np.asarray(forward(seen["sq"], jnp.asarray(x))),
+                                   rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(got.embeds, np.concatenate([o for _, o in inputs])[:5])
+    assert str(got.meta["precision"]) == "int8"
+    assert 0.0 <= float(got.meta["int8_saturation"]) < 0.05
+    # the inputs differ from witw_tpu's by f32 roundoff of the polar
+    # transform, so the whole build is compared at the int8 step's size
+    np.testing.assert_allclose(got.embeds, want.embeds, rtol=0,
+                               atol=0.05 * float(np.abs(want.embeds).max()))
+
+
+def _photo(rng, hw=(70, 90)):
+    buf = io.BytesIO()
+    Image.fromarray(rng.integers(0, 255, hw + (3,), dtype=np.uint8)).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def _planted_index(service, photo, rng, n=12, w=16, noise=(0.02, 0.1, 0.2, 0.3, 0.4)):
+    """A gallery where tiles 2, 4, 6, 8, 10 hold the photo's embedding (as
+    ``service`` embeds it) at column offsets 1, 4, 7, 10, 13 with rising
+    noise, and the others noise: the exact top-5 is those tiles in that
+    order, each with a clear orientation."""
+    emb = service._embed(service._decode(photo)[None])[0]  # [h, sw, c]
+    h, sw, c = emb.shape
+    gal = rng.standard_normal((n, h, w, c)).astype(np.float32) * float(np.abs(emb).mean())
+    for j, eps in enumerate(noise):
+        tile, start = 2 + 2 * j, 1 + 3 * j
+        cols = [(start + k) % w for k in range(sw)]
+        gal[tile][:, cols] = emb + eps * float(np.abs(emb).mean()) * rng.standard_normal(emb.shape)
+    return gal
+
+
+def test_geolocate_matches_jax_on_planted_data(towers, rng):
+    jcfg, state, tcfg, params = towers
+    photo = _photo(rng)
+    probe = GeolocateService(GalleryIndex(np.zeros((1, 2, 16, 16), np.float32), device="cpu"),
+                             tcfg, params)
+    gal = _planted_index(probe, photo, rng)
+    meta = {"x": np.arange(12.0) * 10, "y": np.arange(12.0) * -5}
+    port = GeolocateService(GalleryIndex(gal, meta=meta, device="cpu"), tcfg, params)
+    ref = JaxService(JaxIndex(gal, meta=meta), jcfg, state)
+    want = ref.geolocate(photo, k=5)
+    got = port.geolocate(photo, k=5)
+    assert [r["tile"] for r in got] == [r["tile"] for r in want] == [2, 4, 6, 8, 10]
+    assert [r["orientation_deg"] for r in got] == [r["orientation_deg"] for r in want]
+    assert [r["x"] for r in got] == [20.0, 40.0, 60.0, 80.0, 100.0]
+    np.testing.assert_allclose([r["distance"] for r in got], [r["distance"] for r in want],
+                               rtol=5e-2, atol=5e-3)  # bf16 towers: embeddings within 2%
+    for r in got:
+        assert r["score"] == pytest.approx(np.exp(10.0 * (1.0 - r["distance"])), rel=1e-6)
+    approx = port.geolocate(photo, k=3, candidates=6)
+    assert [r["tile"] for r in approx] == [2, 4, 6]
+    assert port.stats == {"requests": 2, "dispatches": 2, "errors": 0, "exact_searches": 1,
+                          "approx_searches": 1}
+
+
+def test_serving_refuses_mismatched_index(towers, rng):
+    """test_pipeline_e2e.py:666, with witw_tpu's fingerprint: an index
+    stamped by witw_tpu passes the port's check of the same weights."""
+    _, state, tcfg, params = towers
+    embeds = rng.standard_normal((4, 2, 16, 16)).astype(np.float32)
+    sha = jax_fingerprint(state.params["overhead"])
+
+    def index(**meta):
+        return GalleryIndex(embeds, meta=meta, device="cpu")
+
+    with pytest.raises(ValueError, match="precision"):
+        GeolocateService(index(precision="int8", params_sha=sha), tcfg, params, int8=False)
+    with pytest.raises(ValueError, match="precision"):
+        GeolocateService(index(precision="f32", params_sha=sha), tcfg, params, int8=True)
+    with pytest.raises(ValueError, match="checkpoint"):
+        GeolocateService(index(precision="f32", params_sha="0" * 64), tcfg, params)
+    GeolocateService(index(precision="f32", params_sha=sha), tcfg, params).close()
+    GeolocateService(index(), tcfg, params).close()
+    GeolocateService(index(precision="f32", params_sha="0" * 64), tcfg, params,
+                     allow_mismatch=True).close()
+
+
+def test_warmup_restores_stats_and_int8_calibrates_on_the_first_photo(towers, rng):
+    """test_pipeline_e2e.py:738 (max_batch 3 pads to 4), and --int8's lazy
+    calibration: not on the warm-up, on the first real photo."""
+    _, _, tcfg, params = towers
+    embeds = rng.standard_normal((8, 2, 16, 16)).astype(np.float32)
+    for int8 in (False, True):
+        service = GeolocateService(GalleryIndex(embeds, device="cpu"), tcfg, params, int8=int8,
+                                   max_batch=3)
+        try:
+            service.warmup(ks=(2,))
+            assert service.stats["requests"] == service.stats["dispatches"] == 0
+            assert service._sq is None
+            photo = _photo(rng)
+            first = service.geolocate(photo, k=2)
+            assert len(first) == 2 and service.stats["requests"] == 1
+            assert (service._sq is not None) == int8
+            assert service.geolocate(photo, k=2) == first
+        finally:
+            service.close()
+            assert service._workers == []
+            service.close()
+
+
+def test_http_round_trip_with_batching(towers, rng):
+    """One server on port 0 with max_batch 4: a burst of concurrent requests
+    is answered as the unbatched service answers each, /healthz and /stats
+    report, and bad requests get 400 / 404. f32 towers, so that the batch of
+    4 and the batches of 1 differ only by f32 reduction order (rtol 1e-4,
+    atol 1e-5, as test_pipeline_e2e.py's micro-batching test); in bf16 the
+    CPU convs round differently per batch layout."""
+    _, _, tcfg, params = towers
+    tcfg = tcfg.replace(model=dataclasses.replace(tcfg.model, compute_dtype="float32"))
+    embeds = rng.standard_normal((12, 2, 16, 16)).astype(np.float32)
+    plain = GeolocateService(GalleryIndex(embeds, device="cpu"), tcfg, params)
+    batched = GeolocateService(GalleryIndex(embeds, device="cpu"), tcfg, params, max_batch=4,
+                               batch_window_ms=2000.0)
+    server = serve(batched, port=0)
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{port}"
+    try:
+        photos = [_photo(rng) for _ in range(4)]
+        queries = ["k=3", "k=1", "k=5", "k=2&candidates=8"]
+        want = [plain.geolocate(p, k=int(q.split("&")[0][2:]),
+                                candidates=8 if "candidates" in q else 0)
+                for p, q in zip(photos, queries)]
+        got = [None] * 4
+
+        def post(i):
+            req = urllib.request.Request(f"{url}/geolocate?{queries[i]}", data=photos[i],
+                                         method="POST")
+            with urllib.request.urlopen(req) as r:
+                got[i] = json.loads(r.read())["results"]
+
+        threads = [threading.Thread(target=post, args=(i,)) for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        for g, w in zip(got, want):
+            assert [r["tile"] for r in g] == [r["tile"] for r in w]
+            assert [r["orientation_deg"] for r in g] == [r["orientation_deg"] for r in w]
+            np.testing.assert_allclose([r["distance"] for r in g], [r["distance"] for r in w],
+                                       rtol=1e-4, atol=1e-5)
+        with urllib.request.urlopen(f"{url}/healthz") as r:
+            health = json.loads(r.read())
+        assert health["status"] == "ok" and health["gallery_size"] == 12 and health["max_batch"] == 4
+        with urllib.request.urlopen(f"{url}/stats") as r:
+            stats = json.loads(r.read())
+        assert stats["requests"] == 4 and stats["dispatches"] <= 2
+        assert stats["exact_searches"] == 3 and stats["approx_searches"] == 1
+        assert stats["mean_batch"] >= 2.0
+        for path, body, code in (("/geolocate", b"not an image", 400),
+                                 ("/geolocate?k=0", photos[0], 400),
+                                 ("/geolocate?candidates=-1", photos[0], 400),
+                                 ("/nowhere", photos[0], 404)):
+            with pytest.raises(urllib.error.HTTPError) as err:
+                urllib.request.urlopen(urllib.request.Request(url + path, data=body, method="POST"))
+            assert err.value.code == code
+        with pytest.raises(urllib.error.HTTPError) as err:
+            urllib.request.urlopen(f"{url}/nowhere")
+        assert err.value.code == 404
+    finally:
+        server.shutdown()
+        server.server_close()
+        batched.close()
+        plain.close()

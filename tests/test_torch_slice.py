@@ -142,10 +142,11 @@ def test_embed_all_and_ranks_match_jax(rng, jax_state):
 
 
 def test_port_imports_no_jax():
-    """Every module of witw_tpu_torch (its exp probes included), chip_smoke
-    and the profile scripts import with JAX and every witw_tpu module made
-    unimportable, and none pulls in flax, optax, the pandas/PIL deps of
-    witw_tpu.data or the root exp scripts."""
+    """Every module of witw_tpu_torch (its exp probes and the serving
+    modules included: the data layer, the index, build_index and the
+    daemon), chip_smoke and the profile scripts import with JAX and every
+    witw_tpu module made unimportable, and none pulls in flax, optax, the
+    pandas/PIL deps of witw_tpu.data or the root exp scripts."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
@@ -153,6 +154,10 @@ def test_port_imports_no_jax():
         import witw_tpu_torch
         names = [m.name for m in pkgutil.walk_packages(
             witw_tpu_torch.__path__, "witw_tpu_torch.")]
+        serving = ["witw_tpu_torch." + m for m in (
+            "data.csv_registry", "data.loader", "data.synthetic", "utils.hashing",
+            "utils.msgpack", "evaluation.index", "tools.build_index", "tools.serve")]
+        assert set(serving) <= set(names), sorted(set(serving) - set(names))
         for name in names + ["chip_smoke", "profile_int8", "profile_bf16", "profile_conv",
                              "profile_match"]:
             importlib.import_module(name)
@@ -165,7 +170,7 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 39
+    assert int(out.stdout.split()[-1]) >= 49
 
 
 @pytest.mark.parametrize("make", [

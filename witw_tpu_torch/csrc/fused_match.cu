@@ -19,7 +19,8 @@
 // queries as rows of `pitch` floats, hc_pad channels and then zeros (the
 // wrapper lays it out). One chunk when hc <= 64 and the maps fit; more where
 // hc is larger or the maps would not fit 227 KB of shared memory with two
-// ring stages (W >= 128 at hc = 64). Any hc is taken, and W up to 1720.
+// ring stages (W >= 128 at hc = 64). Any hc and W are taken: the kernel holds
+// windows of the maps (below), of all sw columns wherever they fit.
 //
 // Bound: multiply-adds. At CVUSA shapes (W = sw = hc = 64) a (g, q) pair
 // costs W * sw * hc = 262k of them against 16 KB of gallery map and 16 KB of
@@ -43,15 +44,18 @@
 //   (ceil(G / 2), ceil(Q / 64)). 384 threads: two consumer warpgroups, one
 //   map each, and a producer warpgroup, one thread of which issues the
 //   copies; setmaxnreg moves registers from it to the consumers.
-// - Each map (its channel chunk) sits in shared memory once, split: a big
-//   and a small copy, each as planes of 4 channels (16 bytes) x rows,
-//   W + 63 rows with row r
-//   holding o[r mod W]. The B operand of shift pass i0 at column k is then a
-//   no-swizzle K-major descriptor (LBO one plane, SBO 8 rows) whose start is
-//   row (i0 + k) mod W: a circular shift is a 16-byte offset of the start,
+// - A pass of shifts [i0, i0 + 64) over columns [k0, k0 + K) reads only map
+//   rows (i0 + k0 + r) mod W, r < K + 63. So each map (its channel chunk)
+//   sits in shared memory as a window of K + 63 rows, split: a big and a
+//   small copy, each as planes of 4 channels (16 bytes) x rows, row r holding
+//   o[(i0 + k0 + r) mod W]. The B operand of shift pass i0 at column k is
+//   then a no-swizzle K-major descriptor (LBO one plane, SBO 8 rows) whose
+//   start is row k - k0: a circular shift is a 16-byte offset of the start,
 //   and 64 shifts never run off the end whatever W and sw are. Within an
 //   8-channel step, plane 2c holds the even channels and plane 2c + 1 the
-//   odd ones, matching the A fragments below.
+//   odd ones, matching the A fragments below. K = `kcols` is sw wherever
+//   that fits beside two ring stages (at CVUSA shapes, one window of 127
+//   rows holds the whole map), else the most columns that fit (sw > 1720).
 // - The producer streams the query columns through a ring of 2-4 stages:
 //   (the chunk of) column k of the block's 64 queries is one cp.async.bulk
 //   of 64 rows of `pitch` floats (pitch = hc_pad or hc_pad + 8, so that the
@@ -67,10 +71,12 @@
 //   loaded and split while column k's products run. The tensor cores' f32
 //   sum truncates, so each column starts its accumulator afresh (scale-d 0)
 //   and is added into a second f32 register set with round-to-nearest adds.
-// - More than one channel chunk: a pass runs chunk by chunk, each over all
-//   sw columns (an item of the ring is a chunk of a column, its products
-//   added into the total as a column's are); each warpgroup refills its map
-//   with the next chunk's channels once its products on the last are done.
+// - Items are ordered (pass, window, channel chunk, column): an item of the
+//   ring is a chunk of a column, its products added into the total as a
+//   column's are, and the total carries across chunks and windows. Each
+//   warpgroup refills its map window once its products on the last item of
+//   a (pass, window, chunk) are done; with one pass, window and chunk (the
+//   CVUSA shapes) it is filled once.
 // - Widths above 64 run in passes of 64 shifts over all sw columns. The max
 //   and argmax are taken on the accumulator fragments (a thread's own 16
 //   columns, then __shfl_xor 1 and 2 within the quad that shares a row) and
@@ -78,10 +84,10 @@
 //   from the unsplit f32 values with fmaf in the first pass.
 // - A ragged last query tile is not copied (its rows are never stored); a
 //   block's missing second map (odd G) is zeros and not stored.
-// Shared memory: 2 maps x 8 hc_pad (W + 63) bytes + stages x (256 pitch +
-// 16) bytes; at CVUSA (one chunk) 130,048 + 4 x 18,448 = 203,840 bytes
-// (ops/fused_match.py:geometry computes it). ptxas: 168 registers at launch,
-// no spills.
+// Shared memory: 2 maps x 8 hc_pad (kcols + 63) bytes + stages x
+// (256 pitch + 16) bytes; at CVUSA (one chunk, kcols 64) 130,048 + 4
+// x 18,448 = 203,840 bytes (ops/fused_match.py:geometry computes it).
+// ptxas: 168 registers at launch, no spills.
 
 #include <cuda_runtime.h>
 
@@ -227,18 +233,41 @@ __device__ __forceinline__ void take_better(float v, int i, float& bv, int& bi) 
   }
 }
 
+// An item of a block's sequence, ordered (pass, window, chunk, column): its
+// pass, channel chunk and column k, and the first column k0 and the length
+// of its window. Each thread steps through the items in order, so the item
+// is advanced in place, without divisions (they would stand between the
+// products of two items).
+struct Item {
+  int pass, ch, k, k0, len;
+};
+__device__ __forceinline__ Item first_item(int sw, int kcols) { return {0, 0, 0, 0, min(kcols, sw)}; }
+__device__ __forceinline__ void advance(Item& m, int sw, int chunks, int kcols) {
+  if (++m.k < m.k0 + m.len) return;
+  m.k = m.k0;
+  if (++m.ch < chunks) return;
+  m.ch = 0;
+  m.k0 += kcols;
+  if (m.k0 >= sw) {
+    m.k0 = 0;
+    ++m.pass;
+  }
+  m.len = min(kcols, sw - m.k0);
+  m.k = m.k0;
+}
+
 // kSteps: 8-channel steps of a chunk of a query column (hc_pad = 8 kSteps).
 template <int kSteps>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_corr_distance_kernel(const float* __restrict__ o, const float* __restrict__ s,
                            const float* __restrict__ wsq, float* __restrict__ d,
                            int* __restrict__ orient, int G, int W, int hc, int chunks, int pitch,
-                           int Q, int sw, int stages) {
+                           int Q, int sw, int stages, int kcols) {
   constexpr int hc_pad = 8 * kSteps;
   extern __shared__ __align__(128) unsigned char smem[];
   // [kMaps][big, small][hc_pad / 4 planes][rows][16 B] [stages][kQTile][pitch f32]
   // [full barriers][empty barriers]
-  const int rows = W + kShifts - 1;
+  const int rows = kcols + kShifts - 1;
   const uint32_t plane_bytes = rows * 16;
   const uint32_t part_bytes = (hc_pad / 4) * plane_bytes;
   const uint32_t stage_bytes = kQTile * pitch * 4;
@@ -250,7 +279,7 @@ fused_corr_distance_kernel(const float* __restrict__ o, const float* __restrict_
   const int tid = threadIdx.x;
   const int q0 = blockIdx.y * kQTile;
   const int span = chunks * sw;                            // items of a pass
-  const int items = (W + kShifts - 1) / kShifts * span;  // (pass, chunk, column), pass-major
+  const int items = (W + kShifts - 1) / kShifts * span;  // (pass, window, chunk, column)
 
   if (tid == 0) {
     for (int st = 0; st < stages; ++st) {
@@ -268,11 +297,12 @@ fused_corr_distance_kernel(const float* __restrict__ o, const float* __restrict_
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (tid == kConsumers) {
       const uint32_t bytes = min(kQTile, Q - q0) * pitch * 4;
-      for (int it = 0; it < items; ++it) {
+      Item m = first_item(sw, kcols);
+      for (int it = 0; it < items; ++it, advance(m, sw, chunks, kcols)) {
         const int st = it % stages;
         if (it >= stages) mbar_wait(empty0 + 8 * st, (it / stages - 1) & 1);
         mbar_arrive_expect_tx(full0 + 8 * st, bytes);
-        const int col = it % sw * chunks + it / sw % chunks;  // (k, ch) in s
+        const int col = m.k * chunks + m.ch;  // (k, ch) in s
         bulk_copy(ring0 + st * stage_bytes, s + (static_cast<size_t>(col) * Q + q0) * pitch, bytes,
                   full0 + 8 * st);
       }
@@ -294,15 +324,19 @@ fused_corr_distance_kernel(const float* __restrict__ o, const float* __restrict_
       constexpr int wg = decltype(wg_constant)::value;
       const int gm = kMaps * blockIdx.x + wg;  // a missing map (odd G) is zeros, not stored
       const bool vec = hc % 8 == 0 && reinterpret_cast<uintptr_t>(o) % 16 == 0;
-      // Channel chunk ch of the warpgroup's gallery map, split, into shared
-      // memory: thread unit (step c, row r < W) writes row r and its copies
-      // r + W, r + 2W, ... < rows. The first barrier waits for the four
-      // warps' products on the previous chunk (each waited for its own).
-      const auto fill = [&](int ch) {
+      // Channel chunk ch of the warpgroup's gallery map, as a window of n
+      // rows from map row `base` on, split, into shared memory: thread unit
+      // (step c, row r < min(n, W)) writes row r, which holds map row
+      // (base + r) mod W, and its copies r + W, r + 2W, ... < n. The first
+      // barrier waits for the four warps' products on the previous fill
+      // (each waited for its own).
+      const auto fill = [&](int ch, int base, int n) {
         warpgroup_sync<wg>();
-        for (int u = tid % 128; u < kSteps * W; u += 128) {
-          const int r = u % W;
-          const int c = u / W;
+        const int m = min(n, W);
+        for (int u = tid % 128; u < kSteps * m; u += 128) {
+          const int r = u % m;
+          const int c = u / m;
+          const int src_row = (base + r) % W;
           const int c0 = 8 * (ch * kSteps + c);  // the step's first channel
           float v[8];
           if (gm >= G) {
@@ -310,13 +344,13 @@ fused_corr_distance_kernel(const float* __restrict__ o, const float* __restrict_
             for (int j = 0; j < 8; ++j) v[j] = 0.f;
           } else if (vec && c0 + 8 <= hc) {
             const auto* src =
-                reinterpret_cast<const float4*>(o + (static_cast<size_t>(gm) * W + r) * hc + c0);
+                reinterpret_cast<const float4*>(o + (static_cast<size_t>(gm) * W + src_row) * hc + c0);
             const float4 x0 = __ldg(src);
             const float4 x1 = __ldg(src + 1);
             v[0] = x0.x, v[1] = x0.y, v[2] = x0.z, v[3] = x0.w;
             v[4] = x1.x, v[5] = x1.y, v[6] = x1.z, v[7] = x1.w;
           } else {
-            const float* src = o + (static_cast<size_t>(gm) * W + r) * hc + c0;
+            const float* src = o + (static_cast<size_t>(gm) * W + src_row) * hc + c0;
 #pragma unroll
             for (int j = 0; j < 8; ++j) v[j] = c0 + j < hc ? __ldg(src + j) : 0.f;
           }
@@ -324,7 +358,7 @@ fused_corr_distance_kernel(const float* __restrict__ o, const float* __restrict_
 #pragma unroll
           for (int j = 0; j < 8; ++j) split_tf32(v[j], big[j], small[j]);
           const uint32_t even = maps0 + wg * 2 * part_bytes + 2 * c * plane_bytes;
-          for (int rr = r; rr < rows; rr += W) {
+          for (int rr = r; rr < n; rr += W) {
             const uint32_t at = even + rr * 16;
             sts128(at, big[0], big[2], big[4], big[6]);
             sts128(at + plane_bytes, big[1], big[3], big[5], big[7]);
@@ -345,6 +379,7 @@ fused_corr_distance_kernel(const float* __restrict__ o, const float* __restrict_
       float best_v[2] = {-INFINITY, -INFINITY};
       int best_i[2] = {INT_MAX, INT_MAX};
       float sn[2] = {0.f, 0.f};
+      Item cur = first_item(sw, kcols);  // the next item to issue
 
       // Column it's fragments from its ring stage, split; the stage is freed.
       const auto load = [&](int it, Frags& ab, Frags& as) {
@@ -368,12 +403,11 @@ fused_corr_distance_kernel(const float* __restrict__ o, const float* __restrict_
         __syncwarp();
         if (lane == 0) mbar_arrive(empty0 + 8 * st);
       };
-      // Column it's 3 kSteps products into acc: small x big, big x small, then
+      // Item cur's 3 kSteps products into acc: small x big, big x small, then
       // big x big; the first starts acc afresh.
-      const auto issue = [&](int it, Frags& ab, Frags& as) {
-        const int k = it % sw;
-        const int i0 = it / span * kShifts;
-        const uint64_t b_big = desc(maps0 + wg * 2 * part_bytes + ((i0 + k) % W) * 16, plane_bytes, 128);
+      const auto issue = [&](Frags& ab, Frags& as) {
+        // Shift i0 of column k starts at row k - k0 of the map's window.
+        const uint64_t b_big = desc(maps0 + wg * 2 * part_bytes + (cur.k - cur.k0) * 16, plane_bytes, 128);
         wgmma_fence();
 #pragma unroll
         for (int c = 0; c < kSteps; ++c) wgmma_tf32(acc, as[c], b_big + c * step_desc, c > 0);
@@ -393,13 +427,20 @@ fused_corr_distance_kernel(const float* __restrict__ o, const float* __restrict_
           }
         }
       };
+      // Does item m end the items of one map fill (the columns of a window
+      // and chunk)?
+      const auto fill_ends = [&](const Item& m) { return m.k + 1 == m.k0 + m.len; };
+      // The map's window as item m reads it.
+      const auto refill = [&](const Item& m) { fill(m.ch, m.pass * kShifts + m.k0, m.len + kShifts - 1); };
       // Item it: its products are issued; once item it - 1's are done, item
       // it + 1 is loaded into their fragments while item it's run. Then acc
       // is added into tot (rounded to nearest); at the end of a pass its max
-      // / argmax are taken, and at the end of a chunk (of several) the map
-      // is refilled with the next one.
+      // / argmax are taken, and at the end of a map fill the map is refilled
+      // for the next item.
       const auto step = [&](int it, Frags& ab, Frags& as, Frags& nb, Frags& ns) {
-        issue(it, ab, as);
+        issue(ab, as);
+        const Item m = cur;  // item it
+        advance(cur, sw, chunks, kcols);
         wgmma_wait<1>();
         fence_frags(nb, ns);
         if (it + 1 < items) load(it + 1, nb, ns);
@@ -410,7 +451,7 @@ fused_corr_distance_kernel(const float* __restrict__ o, const float* __restrict_
           fence_operand(acc[i]);
           tot[i] = __fadd_rn(tot[i], acc[i]);
         }
-        if ((it + 1) % sw != 0) return;
+        if (!fill_ends(m)) return;
         if ((it + 1) % span == 0) {
           const int i0 = it / span * kShifts;
 #pragma unroll
@@ -436,10 +477,10 @@ fused_corr_distance_kernel(const float* __restrict__ o, const float* __restrict_
 #pragma unroll
           for (int i = 0; i < 32; ++i) tot[i] = 0.f;
         }
-        if (chunks > 1 && it + 1 < items) fill((it + 1) / sw % chunks);
+        if (it + 1 < items) refill(cur);
       };
 
-      fill(0);
+      refill(cur);
       load(0, big0, small0);
       for (int it = 0; it < items; it += 2) {
         step(it, big0, small0, big1, small1);
@@ -481,12 +522,13 @@ fused_corr_distance_kernel(const float* __restrict__ o, const float* __restrict_
 template <int kSteps>
 int launch(dim3 grid, size_t smem, cudaStream_t stream, const float* o, const float* s,
            const float* wsq, float* d, int* orient, int G, int W, int hc, int chunks, int pitch, int Q,
-           int sw, int stages) {
+           int sw, int stages, int kcols) {
   const auto kernel = fused_corr_distance_kernel<kSteps>;
   const cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<grid, kThreads, smem, stream>>>(o, s, wsq, d, orient, G, W, hc, chunks, pitch, Q, sw, stages);
+  kernel<<<grid, kThreads, smem, stream>>>(o, s, wsq, d, orient, G, W, hc, chunks, pitch, Q, sw, stages,
+                                           kcols);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -500,17 +542,20 @@ extern "C" {
 // hc_pad (a multiple of 8, at most 64: the channels of a chunk), `chunks`
 // (hc_pad * chunks >= hc, no chunk past hc), `pitch` (at least hc_pad, a
 // multiple of 8), `stages` and `smem` (the dynamic shared memory of a
-// block, in bytes) come from ops/fused_match.py:geometry. Launches on
-// `stream` and returns cudaGetLastError() (0 on success).
+// block, in bytes) and `kcols` (the query columns of a window of the maps,
+// 1 <= kcols <= sw) come from ops/fused_match.py:geometry.
+// Launches on `stream` and returns cudaGetLastError() (0 on success).
 int witw_fused_corr_distance(const void* o, const void* s, const void* wsq, void* d,
                              void* orient, int G, int W, int hc, int hc_pad, int chunks, int pitch,
-                             int Q, int sw, int stages, size_t smem, void* stream) {
+                             int Q, int sw, int stages, int kcols, size_t smem, void* stream) {
   if (G <= 0 || Q <= 0) return 0;
-  const size_t need = static_cast<size_t>(kMaps) * 8 * hc_pad * (W + kShifts - 1) +
-                      static_cast<size_t>(stages) * (kQTile * pitch * 4 + 16);
+  const size_t need =
+      static_cast<size_t>(kMaps) * 8 * hc_pad * (kcols + kShifts - 1) +
+      static_cast<size_t>(stages) * (kQTile * pitch * 4 + 16);
   if (W <= 0 || sw <= 0 || sw > W || hc <= 0 || hc_pad <= 0 || hc_pad % 8 != 0 ||
       hc_pad > 8 * kMaxSteps || chunks < 1 || static_cast<long long>(hc_pad) * chunks < hc ||
-      hc_pad * (chunks - 1) >= hc || pitch < hc_pad || pitch % 8 != 0 || stages < 1 || smem != need) {
+      hc_pad * (chunks - 1) >= hc || pitch < hc_pad || pitch % 8 != 0 || stages < 1 || kcols < 1 ||
+      kcols > sw || smem != need) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid((G + kMaps - 1) / kMaps, (Q + kQTile - 1) / kQTile);
@@ -524,7 +569,7 @@ int witw_fused_corr_distance(const void* o, const void* s, const void* wsq, void
   constexpr decltype(&launch<1>) kLaunch[kMaxSteps] = {launch<1>, launch<2>, launch<3>, launch<4>,
                                                        launch<5>, launch<6>, launch<7>, launch<8>};
   return kLaunch[hc_pad / 8 - 1](grid, smem, st, o_, s_, wsq_, d_, orient_, G, W, hc, chunks, pitch, Q, sw,
-                                 stages);
+                                 stages, kcols);
 }
 
 const char* witw_cuda_error_string(int e) {

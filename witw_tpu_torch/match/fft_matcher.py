@@ -1,5 +1,5 @@
 """FFT correlation + chord distance for gallery-scale matching (port of
-witw_tpu/match/fft_matcher.py, exact mode).
+witw_tpu/match/fft_matcher.py).
 
 Circular width-correlation of overhead maps against query maps through the
 rFFT, a stacked-real frequency product, and the inverse DFT as one matmul;
@@ -46,13 +46,25 @@ def chord_scores(
     return 2.0 * (1.0 - cos), orient.to(torch.int32)
 
 
-def _freq_product(fo: torch.Tensor, fs: torch.Tensor, sub: str):
+def _bf16_rounded(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _freq_product(fo: torch.Tensor, fs: torch.Tensor, sub: str, fast: bool = False):
     """``einsum(sub, fo, conj(fs))`` contracted over (h, c), as a (re, im)
     tuple of stacked-real products: Re = [Re fo; Im fo].[Re fs; Im fs],
-    Im = [Im fo; -Re fo].[Re fs; Im fs]."""
+    Im = [Im fo; -Re fo].[Re fs; Im fs].
+
+    ``fast`` (an opt-in approximation): the operands rounded to bf16 and
+    contracted in f32, as witw_tpu's bf16 einsum with an f32 result
+    (``preferred_element_type``); a bf16 einsum in torch would also round
+    its output to bf16. A product of two bf16 values is exact in f32 (and in
+    TF32), so only the summation order differs from witw_tpu's."""
     fs_cat = torch.cat([fs.real, fs.imag], dim=-1)
     fo_re_cat = torch.cat([fo.real, fo.imag], dim=-1)
     fo_im_cat = torch.cat([fo.imag, -fo.real], dim=-1)
+    if fast:
+        fs_cat, fo_re_cat, fo_im_cat = (_bf16_rounded(t) for t in (fs_cat, fo_re_cat, fo_im_cat))
     return torch.einsum(sub, fo_re_cat, fs_cat), torch.einsum(sub, fo_im_cat, fs_cat)
 
 
@@ -90,19 +102,22 @@ def _irfft_small(prod, w: int) -> torch.Tensor:
 
 
 def gallery_vs_queries(
-    fo: torch.Tensor, wsq: torch.Tensor, fs: torch.Tensor, s_norm: torch.Tensor, w: int
+    fo: torch.Tensor, wsq: torch.Tensor, fs: torch.Tensor, s_norm: torch.Tensor, w: int,
+    fast: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """All pairs: gallery FFTs [G, h, wf, c] x query FFTs [Q, h, wf, c] ->
-    (distances [G, Q], orientations [G, Q]). wsq: [G, w], s_norm: [Q]."""
-    corr = _irfft_small(_freq_product(fo, fs, "ghfc,qhfc->gqf"), w)  # [G, Q, w]
+    (distances [G, Q], orientations [G, Q]). wsq: [G, w], s_norm: [Q].
+    ``fast``: bf16 frequency product (see _freq_product)."""
+    corr = _irfft_small(_freq_product(fo, fs, "ghfc,qhfc->gqf", fast), w)  # [G, Q, w]
     return chord_scores(corr, wsq[:, None, :], s_norm[None, :])
 
 
 def candidates_vs_queries(
-    fo: torch.Tensor, wsq: torch.Tensor, fs: torch.Tensor, s_norm: torch.Tensor, w: int
+    fo: torch.Tensor, wsq: torch.Tensor, fs: torch.Tensor, s_norm: torch.Tensor, w: int,
+    fast: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Each query q against its own M candidates. fo: [Q, M, h, wf, c],
     wsq: [Q, M, w], fs: [Q, h, wf, c], s_norm: [Q] -> (distances [Q, M],
-    orientations [Q, M])."""
-    corr = _irfft_small(_freq_product(fo, fs, "qmhfc,qhfc->qmf"), w)  # [Q, M, w]
+    orientations [Q, M]). ``fast``: bf16 frequency product."""
+    corr = _irfft_small(_freq_product(fo, fs, "qmhfc,qhfc->qmf", fast), w)  # [Q, M, w]
     return chord_scores(corr, wsq, s_norm[:, None])

@@ -20,8 +20,7 @@ Tables (``prepare_static_qparams``) keep witw_tpu's keys: per conv
 [Co, 3, 3, Cin_p] form that the plain versions read, and ``kernel_wgmma``,
 the table of kernels A and C (``ops.int8_conv.pack_weights_wgmma``).
 Not ported here: the dynamic-scale path, the
-SAFA and baseline static paths, ``calibrate_overhead_span`` and the TPU
-lowering variants (``first_conv_bf16``, ``first_conv_w2d``,
+SAFA and baseline static paths and the TPU lowering variants (``first_conv_bf16``, ``first_conv_w2d``,
 ``first_conv_im2col``, ``split_block1``, ``block2_w2d``, ``pool_slices``,
 ``corner_major="p"``).
 """
@@ -30,7 +29,7 @@ from __future__ import annotations
 
 import contextlib
 import warnings
-from typing import Any, Dict, Iterable, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -333,6 +332,25 @@ def static_int8_saturation(sq: Dict[str, Any], x: torch.Tensor,
     hits = sum(int(h) for h, _ in sats)
     total = sum(t for _, t in sats)
     return hits / max(total, 1)
+
+
+def calibrate_overhead_span(state_dict: StateDict, read_item: Callable[[int], np.ndarray],
+                            n: int, sample_size: int,
+                            preprocess: Callable[[torch.Tensor], torch.Tensor]):
+    """Gallery-spanning static-int8 calibration of an overhead tower.
+
+    Samples ``sample_size`` items evenly over [0, n) (witw_tpu's indices:
+    np.linspace, cast to int, np.unique), reads each with ``read_item(i) ->
+    HWC f32``, preprocesses them together on the tower's device
+    (``preprocess``: normalize + polar) and calibrates. Returns (the static
+    tables, {sampled index: the array read}), so that an embed loop need not
+    read the sampled items again."""
+    calib_idx = np.unique(np.linspace(0, n - 1, min(n, sample_size)).astype(int))
+    calib = np.stack([read_item(int(i)) for i in calib_idx])
+    items = dict(zip(calib_idx.tolist(), calib))
+    device = state_dict["vgg.conv_0.weight"].device
+    polar = preprocess(torch.from_numpy(calib).to(device))
+    return quantize_tower_static(state_dict, [polar], True), items
 
 
 def check_saturation(sq: Dict[str, Any], x: torch.Tensor, circ_padding: bool = True,

@@ -13,15 +13,17 @@ and writes only d and orient; the [G, Q, W] correlation never reaches device
 memory. The multiply-adds bound it: W * sw * hc = 262k per (g, q) pair at
 CVUSA shapes (W = sw = 64, hc = h*c = 4*16). They run on the tensor cores as
 3xTF32 ``wgmma`` (each f32 split into two tf32 parts, three products), which
-keeps f32 accuracy. Each block holds two gallery maps in shared memory, split
-and with their first 63 rows repeated after the last, so that a circular
-shift is an offset of the ``wgmma`` descriptor, and streams 64 queries'
-width columns past them, one bulk copy a column (:func:`geometry`). The
-channels run in chunks of at most 64: one where hc <= 64 and the maps fit in
-227 KB of shared memory beside two ring stages (W <= 127 at hc = 64), more
-for a larger hc or W, each map refilled per chunk. The kernel takes any hc
-and W up to 1720 (one 8-channel step per chunk); the wrapper raises
-ValueError for anything else.
+keeps f32 accuracy. Each block holds windows of two gallery maps in shared
+memory, split: the rows that a pass of 64 shifts reads over a window of
+``kcols`` query columns, kcols + 63 rows wrapping past the map's end, so
+that a circular shift is an offset of the ``wgmma`` descriptor. It streams
+64 queries' width columns past them, one bulk copy a column
+(:func:`geometry`), and refills the windows per pass, window and channel
+chunk. The channels run in chunks of at most 64: one where hc <= 64 and a
+window of all sw columns fits in 227 KB of shared memory beside two ring
+stages (sw <= 127 at hc = 64), more for a larger hc or sw. Past sw = 1720,
+where even 8-channel chunks of all sw columns do not fit, kcols is the most
+columns that do. So the kernel takes any hc and W.
 
 ``fused_chord_distance_nhwc`` is the public entry point. On CPU tensors it
 computes the plain PyTorch version (``fused_chord_distance_plain``); on CUDA
@@ -32,7 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -62,39 +64,52 @@ MIN_STAGES = 2
 SMEM_LIMIT_BYTES = 232448
 
 
-def geometry(g: int, q: int, w: int, hc: int) -> dict:
-    """The kernel's layout for o [g, w, hc] and s [sw, q, hc]: the rows of a
-    gallery map in shared memory (w + 63), the channel chunks and the
-    channels of one (hc_pad, a multiple of 8), the query rows' pitch in
-    floats, the maps per block, the ring stages, the shared memory of a
-    block and the grid. The fewest chunks whose maps leave room for
-    MIN_STAGES ring stages; where even 8-channel chunks leave none, stages
-    is 0 (the kernel does not take the shape) and smem_bytes what they
-    would need."""
+def _chunking(steps: int, most: int):
+    """Channel chunks of at most ``most`` 8-channel steps: (chunks, hc_pad,
+    the query rows' pitch in floats, the bytes of a ring stage)."""
+    chunks = -(-steps // most)
+    hc_pad = 8 * -(-steps // chunks)  # the fewest steps for that many chunks
+    # Query rows `pitch` floats apart put a warp's 8-byte fragment loads
+    # (rows g, channels 2t) on 32 distinct banks: pitch % 32 in (8, 24).
+    pitch = hc_pad if hc_pad % 32 in (8, 24) else hc_pad + 8
+    return chunks, hc_pad, pitch, Q_TILE * pitch * 4 + 16  # a stage with its two barriers
+
+
+def geometry(g: int, q: int, w: int, hc: int, sw: Optional[int] = None) -> dict:
+    """The kernel's layout for o [g, w, hc] and s [sw, q, hc] (sw = w when
+    None): the rows of a gallery map's window in shared memory, the channel
+    chunks and the channels of one (hc_pad, a multiple of 8), the query rows'
+    pitch in floats, the maps per block, the ring stages, the shared memory
+    of a block, the grid, and kcols, the query columns of a window (see the
+    module's docstring). One window of all sw columns (kcols = sw) in the
+    fewest chunks that leave room for MIN_STAGES ring stages beside it; where
+    even 8-channel chunks leave none, 8-step chunks and windows of the most
+    columns that do."""
+    sw = w if sw is None else sw
     steps = max(1, -(-hc // 8))
-    rows = w + SHIFTS - 1
-    for most in range(min(MAX_STEPS, steps), 0, -1):
-        chunks = -(-steps // most)
-        hc_pad = 8 * -(-steps // chunks)  # the fewest steps for that many chunks
-        # Query rows `pitch` floats apart put a warp's 8-byte fragment loads
-        # (rows g, channels 2t) on 32 distinct banks: pitch % 32 in (8, 24).
-        pitch = hc_pad if hc_pad % 32 in (8, 24) else hc_pad + 8
-        maps = MAPS * 2 * hc_pad * 4 * rows  # big and small copies
-        stage = Q_TILE * pitch * 4 + 16  # with its two barriers
-        stages = min(MAX_STAGES, (SMEM_LIMIT_BYTES - maps) // stage)
-        if stages >= MIN_STAGES:
-            break
-    else:
-        stages = 0
+
+    def layout(most):
+        chunks, hc_pad, pitch, stage = _chunking(steps, most)
+        row_bytes = MAPS * 2 * hc_pad * 4  # a row of both maps, big and small copies
+        fit = (SMEM_LIMIT_BYTES - MIN_STAGES * stage) // row_bytes - (SHIFTS - 1)
+        return chunks, hc_pad, pitch, stage, row_bytes, fit
+
+    layouts = [layout(most) for most in range(min(MAX_STEPS, steps), 0, -1)]
+    fits = [lay for lay in layouts if lay[-1] >= sw]
+    chunks, hc_pad, pitch, stage, row_bytes, fit = fits[0] if fits else layouts[0]
+    kcols = min(sw, fit)
+    rows = kcols + SHIFTS - 1
+    maps = row_bytes * rows
+    stages = min(MAX_STAGES, (SMEM_LIMIT_BYTES - maps) // stage)
     return {"rows": rows, "chunks": chunks, "hc_pad": hc_pad, "pitch": pitch, "maps": MAPS,
-            "stages": stages, "smem_bytes": maps + max(stages, MIN_STAGES) * stage,
-            "grid": (-(-g // MAPS), -(-q // Q_TILE))}
+            "stages": stages, "smem_bytes": maps + stages * stage,
+            "grid": (-(-g // MAPS), -(-q // Q_TILE)), "kcols": kcols}
 
 
-def smem_bytes(w: int, hc: int) -> int:
+def smem_bytes(w: int, hc: int, sw: Optional[int] = None) -> int:
     """Shared memory of one block (:func:`geometry`); the kernel takes it
     as an argument and checks it against the same layout."""
-    return geometry(1, 1, w, hc)["smem_bytes"]
+    return geometry(1, 1, w, hc, sw)["smem_bytes"]
 
 
 def query_columns(s_swqh: torch.Tensor, geo: dict) -> torch.Tensor:
@@ -115,7 +130,7 @@ def query_columns(s_swqh: torch.Tensor, geo: dict) -> torch.Tensor:
 def _lib() -> ctypes.CDLL:
     lib = load_library("fused_match")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.witw_fused_corr_distance.argtypes = [ptr] * 5 + [i32] * 9 + [ctypes.c_size_t, ptr]
+    lib.witw_fused_corr_distance.argtypes = [ptr] * 5 + [i32] * 10 + [ctypes.c_size_t, ptr]
     lib.witw_fused_corr_distance.restype = i32
     return lib
 
@@ -152,13 +167,7 @@ def fused_corr_distance(
         raise ValueError(f"query width {sw} must be in [1, gallery width {w}]")
     if hc < 1 or -(-q // Q_TILE) > 65535:
         raise ValueError(f"hc {hc} must be positive and Q {q} at most {65535 * Q_TILE}")
-    geo = geometry(g, q, w, hc)
-    if geo["stages"] == 0:
-        raise ValueError(
-            f"W={w}, hc={hc}: the kernel needs {MIN_STAGES} ring stages within "
-            f"{SMEM_LIMIT_BYTES} bytes of shared memory per block; this shape needs "
-            f"{geo['smem_bytes']}"
-        )
+    geo = geometry(g, q, w, hc, sw)
     # o and wsq are read by the kernel's scalar loads (o by 16-byte loads
     # only where it is so aligned); s goes to the bulk copies as s_pad below.
     device = check_cuda_tensors("fused_corr_distance", align=4, **tensors)
@@ -173,7 +182,8 @@ def fused_corr_distance(
         err = lib.witw_fused_corr_distance(
             o_flat.data_ptr(), s_pad.data_ptr(), wsq.data_ptr(),
             d.data_ptr(), orient.data_ptr(),
-            g, w, hc, geo["hc_pad"], geo["chunks"], geo["pitch"], q, sw, geo["stages"], geo["smem_bytes"],
+            g, w, hc, geo["hc_pad"], geo["chunks"], geo["pitch"], q, sw, geo["stages"], geo["kcols"],
+            geo["smem_bytes"],
             torch.cuda.current_stream(device).cuda_stream,
         )
     check_launch(lib, err, "fused_corr_distance")

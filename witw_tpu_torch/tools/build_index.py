@@ -1,0 +1,224 @@
+"""Build a serving GalleryIndex from a dataset CSV's overhead tiles (port of
+witw_tpu/tools/build_index.py, FOV family).
+
+Each tile listed in the CSV (either reference schema: CVUSA headerless, WITW
+17-column) is decoded, resized, normalized, polar-transformed and embedded
+by the overhead tower: the bf16 tower, whose stride-1 convs run on the
+conv3x3_bf16 kernel, or with ``--int8`` the static-int8 tower (kernels A, B
+and C), calibrated on tiles sampled across the whole gallery. The index
+records its precision ("f32" for the float towers, as witw_tpu stamps it,
+or "int8"), family, the overhead tower's weights fingerprint and the tile
+paths, so that the serving daemon of either package refuses towers that did
+not build it.
+
+Run: ``python -m witw_tpu_torch.tools.build_index --csv test.csv --out
+gallery.npz --dataset witw --fov 70 [--int8] [--meta-cols longitude:x,latitude:y]``
+(headerless CVUSA CSVs address extra columns by position: ``2:x,3:y``).
+The towers come from ``--weights/--tag``'s ``best`` checkpoint, the port's
+``best.pt`` or witw_tpu's ``best.msgpack``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import os
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+from torch.func import functional_call
+
+from witw_tpu_torch.configs import fov_experiment
+from witw_tpu_torch.data.csv_registry import read_pair_paths, read_rows
+from witw_tpu_torch.data.loader import decode_image, prefetch_iter, resize_host
+from witw_tpu_torch.evaluation.index import GalleryIndex
+from witw_tpu_torch.models import quantize
+from witw_tpu_torch.ops.image import normalize_images
+from witw_tpu_torch.ops.polar import polar_transform
+from witw_tpu_torch.train.checkpoint import Checkpointer
+from witw_tpu_torch.train.pipeline import FovPipeline
+from witw_tpu_torch.utils.hashing import params_fingerprint
+
+# Embedded batches in flight before the oldest is fetched: consecutive
+# batches' upload, embed and fetch overlap (witw_tpu's depth).
+IN_FLIGHT = 3
+
+
+def load_params(cfg, directory: str, device):
+    """The towers' params from ``directory``'s ``best`` checkpoint (the
+    port's ``.pt`` or witw_tpu's ``.msgpack``), on ``device``."""
+    state = FovPipeline(cfg, device).init_state(torch.Generator().manual_seed(0))
+    return Checkpointer(directory).restore("best", state).params
+
+
+def _column(values: List[str]) -> np.ndarray:
+    """A CSV column as pandas would type it: float64 when every field is a
+    number or empty (NaN), else strings ("nan" for empty fields)."""
+    try:
+        return np.asarray([float(v) if v != "" else np.nan for v in values], np.float64)
+    except ValueError:
+        return np.asarray(["nan" if v == "" else v for v in values]).astype(str)
+
+
+def read_meta_cols(csv_path: str, header: Optional[int], specs: Sequence[str]) -> Dict[str, np.ndarray]:
+    """``--meta-cols``: each ``"src[:dst]"`` copies CSV column src under the
+    key dst. Header CSVs name their columns; headerless ones (CVUSA) address
+    them by position (``"2:x"``)."""
+    names, rows = read_rows(csv_path, header)
+    columns = list(names) if names is not None else list(range(max(map(len, rows), default=0)))
+    meta = {}
+    for spec in specs:
+        col, _, dst = spec.partition(":")
+        dst = dst or col
+        if col in columns:
+            pos = columns.index(col)
+        elif names is None and col.lstrip("-").isdigit() and int(col) in columns:
+            pos = int(col)
+        else:
+            raise ValueError(
+                f"--meta-cols column {col!r} not in CSV (has: {columns}; headerless CSVs use "
+                f"integer positions, e.g. '2:x')"
+            )
+        meta[dst] = _column([row[pos] if pos < len(row) else "" for row in rows])
+    return meta
+
+
+@torch.no_grad()
+def build_index(
+    csv_path: str,
+    out_path: Optional[str] = None,
+    dataset: str = "witw",
+    fov: int = 70,
+    checkpoint_dir: str = "./weights",
+    tag: Optional[str] = None,
+    batch_size: int = 64,
+    int8: bool = False,
+    meta_cols: Optional[Sequence[str]] = None,
+    state=None,
+    cfg=None,
+    verbose: bool = True,
+    device=None,
+) -> GalleryIndex:
+    """Embed every overhead tile listed in ``csv_path`` with the overhead
+    tower and return (and save to ``out_path``) a GalleryIndex on
+    ``device`` (the card when None; the CPU only when asked for).
+
+    ``state``: the towers' params ``{"surface": sd, "overhead": sd}`` or a
+    TrainState; None restores them from ``checkpoint_dir``. ``meta_cols``:
+    CSV columns copied into the index meta (``"src:dst"`` renames, e.g.
+    ``["lon:x", "lat:y"]`` for the daemon's x/y). ``int8``: the static-int8
+    tower, calibrated on batch_size tiles spread over the gallery."""
+    if cfg is None:
+        cfg = fov_experiment(dataset=dataset, fov=fov)
+    d = cfg.data
+    pipeline = FovPipeline(cfg, device)
+    device = pipeline.device
+    if state is None:
+        state = load_params(cfg, os.path.join(checkpoint_dir, tag or f"fov_{fov}_{dataset}"),
+                            device)
+    params = getattr(state, "params", state)
+    overhead = {k: v.to(device) for k, v in params["overhead"].items()}
+
+    overhead_paths = [o for _, o in read_pair_paths(d.dataset, csv_path)]
+    n = len(overhead_paths)
+    tile_size = d.overhead_size
+
+    def read_tile(path):
+        tile = decode_image(path)
+        return resize_host(tile[..., : d.channels], tile_size, tile_size)
+
+    def preprocess(x: torch.Tensor) -> torch.Tensor:
+        x = normalize_images(x, d.img_mean, d.img_std)
+        return polar_transform(x, d.surface_height, d.surface_width_max)
+
+    sq, calib_tiles = None, {}
+    if int8:
+        # gallery-spanning calibration sample; its tiles are reused below
+        sq, calib_tiles = quantize.calibrate_overhead_span(
+            overhead, lambda i: read_tile(overhead_paths[i]), n, batch_size, preprocess)
+
+    def embed(x: torch.Tensor) -> torch.Tensor:
+        polar = preprocess(x)
+        if int8:
+            return quantize.quantized_fov_forward_static(sq, polar, True)
+        return functional_call(pipeline.overhead_model, overhead, (polar,),
+                               {"train": False, "generator": None}, strict=True)
+
+    def tile_batches():
+        for start in range(0, n, batch_size):
+            stop = min(start + batch_size, n)
+            buf = np.zeros((batch_size, tile_size, tile_size, d.channels), np.float32)
+            for j in range(stop - start):
+                tile = calib_tiles.pop(start + j, None)
+                buf[j] = read_tile(overhead_paths[start + j]) if tile is None else tile
+            yield stop - start, buf
+
+    def upload(buf: np.ndarray) -> torch.Tensor:
+        x = torch.from_numpy(buf)
+        if device.type == "cuda":  # pinned, so the copy does not wait for the embeds queued
+            return x.pin_memory().to(device, non_blocking=True)
+        return x.to(device)
+
+    # Decode in a producer thread; hold up to IN_FLIGHT embedded batches
+    # before fetching the oldest.
+    sat_frac = None
+    parts, pending = [], collections.deque()
+    for real, buf in prefetch_iter(tile_batches(), depth=2):
+        x = upload(buf)
+        if int8 and sat_frac is None:
+            sat_frac = quantize.check_saturation(sq, preprocess(x), True, context="gallery")
+        pending.append((embed(x), real))
+        if len(pending) >= IN_FLIGHT:
+            emb, r = pending.popleft()
+            parts.append(emb[:r].cpu().numpy())
+    while pending:
+        emb, r = pending.popleft()
+        parts.append(emb[:r].cpu().numpy())
+    embeds = np.concatenate(parts)[:n]
+
+    meta = {
+        "precision": "int8" if int8 else "f32",
+        "family": "fov",
+        "params_sha": params_fingerprint(params["overhead"]),
+        "path": np.asarray(overhead_paths),
+    }
+    if sat_frac is not None:
+        meta["int8_saturation"] = sat_frac
+    if meta_cols:
+        meta.update(read_meta_cols(csv_path, d.dataset.header, meta_cols))
+
+    index = GalleryIndex(embeds, meta=meta, device=device)
+    if out_path:
+        index.save(out_path)
+        if verbose:
+            print(f"embedded {n} tiles -> {out_path}")
+    return index
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--csv", required=True, help="dataset CSV (either schema)")
+    parser.add_argument("--out", required=True, help="output GalleryIndex .npz")
+    parser.add_argument("--dataset", default="witw", choices=["cvusa", "witw"])
+    parser.add_argument("--fov", type=int, default=70)
+    parser.add_argument("--weights", default="./weights")
+    parser.add_argument("--tag", default=None)
+    parser.add_argument("--batch-size", type=int, default=64)
+    parser.add_argument("--int8", action="store_true", help="embed with the static-int8 towers")
+    parser.add_argument("--family", choices=("fov",), default="fov",
+                        help="tower/index family: fov = FOV-DSM feature-map GalleryIndex")
+    parser.add_argument("--meta-cols", default=None,
+                        help="comma-separated CSV columns to copy into the index meta; "
+                             "'src:dst' renames (e.g. lon:x,lat:y for the serving daemon's x/y)")
+    args = parser.parse_args(argv)
+    return build_index(
+        args.csv, args.out, dataset=args.dataset, fov=args.fov,
+        checkpoint_dir=args.weights, tag=args.tag,
+        batch_size=args.batch_size, int8=args.int8,
+        meta_cols=args.meta_cols.split(",") if args.meta_cols else None,
+    )
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,472 @@
+"""Geolocalization serving daemon: an HTTP endpoint over a prebuilt tile
+index (port of witw_tpu/tools/serve.py, FOV family, one device).
+
+The daemon loads the FOV towers once, loads a GalleryIndex (built by
+``tools.build_index``, by either package) and answers:
+
+    POST /geolocate?k=5[&candidates=256]   body: JPEG/PNG photo bytes
+        -> {"results": [{"x", "y", "tile", "distance", "orientation_deg",
+            "score"}, ...]}  (the top-k tiles by orientation-aligned chord
+        distance; ``candidates`` switches to the two-stage approximate
+        search: a pooled-cosine prefilter, then the exact rerank of that
+        many tiles)
+    GET  /healthz            -> {"status": "ok", "gallery_size": N, ...}
+    GET  /stats              -> request/dispatch/error counters, uptime and
+        mean requests per device dispatch (micro-batching occupancy)
+
+Run: ``python -m witw_tpu_torch.tools.serve --index tiles.npz --weights
+./weights --tag fov_70_witw --fov 70 [--int8] [--max-batch 8] [--port 8000]``
+
+The query photo is embedded by the surface tower: bf16 (its stride-1 convs
+on the conv3x3_bf16 kernel) or, with ``--int8``, the static-int8 tower
+(kernels A, B and C), calibrated on the first real photo. ``--max-batch N``
+(N >= 2) groups concurrent requests into one embed and one search;
+``--batch-workers`` threads drain the queue, so that one group's search and
+fetch overlap the next group's embed. Groups are padded to power-of-two
+sizes and k to power-of-two buckets, as witw_tpu pads them for its
+compiled shapes.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import queue
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional
+
+import numpy as np
+import torch
+
+from witw_tpu_torch.configs import fov_experiment
+from witw_tpu_torch.data.loader import decode_image_bytes, resize_host
+from witw_tpu_torch.evaluation.index import GalleryIndex
+from witw_tpu_torch.models import quantize
+from witw_tpu_torch.models.fov_dsm import FovDsm
+from witw_tpu_torch.ops.image import normalize_images
+from witw_tpu_torch.tools.build_index import load_params
+from witw_tpu_torch.utils.hashing import params_fingerprint
+
+
+class _Pending:
+    """One queued request awaiting a batched dispatch."""
+
+    __slots__ = ("img", "k", "candidates", "done", "result", "error")
+
+    def __init__(self, img, k: int, candidates: int):
+        self.img = img
+        self.k = k
+        self.candidates = candidates
+        self.done = threading.Event()
+        self.result = None
+        self.error: Optional[BaseException] = None
+
+
+def _check_index_matches_towers(index, params, int8: bool) -> None:
+    """Fail fast when the index was built at another precision or by other
+    weights than the serving towers. Indexes without the recorded keys
+    (hand-built GalleryIndex objects) pass unchecked."""
+    want = "int8" if int8 else "f32"
+    got = index.meta.get("precision")
+    if got is not None and str(got) != want:
+        raise ValueError(
+            f"index was built at precision {got!r} but the daemon would embed "
+            f"queries at {want!r} — rebuild the index with "
+            f"{'--int8' if int8 else 'no --int8'} (or pass "
+            f"allow_mismatch=True / --allow-mismatch to score anyway)"
+        )
+    recorded = index.meta.get("params_sha")
+    if recorded is not None:
+        current = params_fingerprint(params["overhead"])
+        if str(recorded) != current:
+            raise ValueError(
+                "index gallery embeddings were produced by a different "
+                f"checkpoint (index params_sha {str(recorded)[:12]}..., "
+                f"serving towers {current[:12]}...) — rebuild the index from "
+                "this checkpoint (or pass allow_mismatch=True / "
+                "--allow-mismatch to score anyway)"
+            )
+
+
+class GeolocateService:
+    """Embed a query photo, then top-k search a gallery index.
+
+    ``params``: the towers' params ``{"surface": sd, "overhead": sd}`` (or a
+    TrainState), moved to the index's device, where the embeds run.
+    ``max_batch`` >= 2 enables micro-batching: ``batch_workers`` threads
+    each drain up to ``max_batch`` concurrent requests (waiting at most
+    ``batch_window_ms`` after the first) and run one embed and one search
+    per group. Exact and approximate requests are searched separately, each
+    keeping its contract; an approximate group's candidate pool is the
+    group's largest (never smaller than any request asked for). ``fast``:
+    the bf16 frequency product in the searches (an opt-in approximation).
+    ``int8``: the static-int8 surface tower, calibrated on the first real
+    photo."""
+
+    def __init__(self, index: GalleryIndex, cfg, params, int8: bool = False,
+                 fast: bool = False, max_batch: int = 0, batch_window_ms: float = 3.0,
+                 allow_mismatch: bool = False, batch_workers: int = 2,
+                 max_candidates: int = 65536):
+        if index.embeds.ndim != 4:
+            raise ValueError(f"the FOV family needs a GalleryIndex of [N, h, W, c] embeds, got "
+                             f"{index.embeds.ndim}-D ones")
+        params = getattr(params, "params", params)
+        if not allow_mismatch:
+            _check_index_matches_towers(index, params, int8)
+        self.index = index
+        self.cfg = cfg
+        self.family = "fov"
+        self._int8 = int8
+        self._fast = fast
+        self.device = index.device
+        # A tower of its own holding the weights: the batch workers call it
+        # concurrently, which functional_call's parameter swap would race.
+        self._tower = FovDsm(cfg.model, circ_padding=False).to(self.device).eval()
+        self._tower.load_state_dict(params["surface"])
+        self._surface = dict(self._tower.state_dict())
+        self._surface_hw = (cfg.data.surface_height, cfg.data.surface_width)
+        self._sq = None  # calibrated on the first real photo, so that the
+        self._sq_lock = threading.Lock()  # scales match traffic, not a probe
+
+        self.max_batch = int(max_batch)
+        # bound on an approximate request's rerank pool: the rerank gathers
+        # that many gallery items per query onto the device
+        self.max_candidates = int(max_candidates)
+        self.started_at = time.time()
+        self.stats = {"requests": 0, "dispatches": 0, "errors": 0,
+                      "exact_searches": 0, "approx_searches": 0}
+        # bumped from concurrent request threads; += drops counts without a lock
+        self._stats_lock = threading.Lock()
+        self._lifecycle = threading.Lock()  # geolocate enqueue vs close()
+        self._queue: Optional[queue.Queue] = None
+        self._workers: list = []
+        if self.max_batch >= 2:
+            self._window = batch_window_ms / 1000.0
+            self._queue = queue.Queue()
+            self._workers = [
+                threading.Thread(target=self._batch_loop, daemon=True, name=f"geolocate-batcher-{i}")
+                for i in range(max(1, int(batch_workers)))
+            ]
+            for t in self._workers:
+                t.start()
+
+    def _normalize(self, x: torch.Tensor) -> torch.Tensor:
+        d = self.cfg.data
+        return normalize_images(x, d.img_mean, d.img_std)
+
+    @torch.no_grad()
+    def _embed(self, imgs: np.ndarray) -> np.ndarray:
+        """Photos [B, h, sw, 3] (0-255) -> surface embeddings [B, h', sw', c]."""
+        x = self._normalize(torch.from_numpy(imgs).to(self.device))
+        if not self._int8:
+            emb = self._tower(x)
+        else:
+            with self._sq_lock:
+                if self._sq is None:
+                    self._sq = quantize.quantize_tower_static(self._surface, [x], False)
+            emb = quantize.quantized_fov_forward_static(self._sq, x, False)
+        return emb.cpu().numpy()
+
+    def _decode(self, image_bytes: bytes) -> np.ndarray:
+        return resize_host(decode_image_bytes(image_bytes), *self._surface_hw)
+
+    def geolocate(self, image_bytes: bytes, k: int = 5, candidates: int = 0):
+        # Decode and resize on the request thread even when batching: host
+        # image work runs in parallel across request threads; only the
+        # device work goes through the batcher.
+        img = self._decode(image_bytes)
+        k = max(1, min(int(k), len(self.index)))
+        req = _Pending(img, k, int(candidates))
+        # inline when batching is off or the batcher was closed; the
+        # lifecycle lock closes the check-then-put race against close()
+        with self._lifecycle:
+            batching = self._queue is not None and bool(self._workers)
+            if batching:
+                self._queue.put(req)
+        if not batching:
+            self._run_group([req])
+        else:
+            req.done.wait()
+        if req.error is not None:
+            raise req.error
+        return req.result
+
+    def close(self) -> None:
+        """Stop the batcher threads (idempotent; no-op without batching).
+        In-flight requests finish; requests racing the shutdown are served
+        inline by their own thread."""
+        with self._lifecycle:
+            workers, self._workers = self._workers, []
+            for _ in workers:
+                self._queue.put(None)
+        if not workers:
+            return
+        for worker in workers:
+            worker.join(timeout=30)
+        if any(w.is_alive() for w in workers):
+            return  # a long dispatch still drains the queue; it owns a sentinel
+        while True:  # serve anything that slipped in behind the sentinels
+            try:
+                req = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            if req is not None:
+                self._run_group([req])
+
+    def _k_bucket(self, k_max: int) -> int:
+        """The k a search runs at: clamped to the gallery and rounded up to
+        a power of two, so that client k values map onto few search shapes.
+        Shared by _run_group and warmup."""
+        cap = len(self.index)
+        kb = max(1, min(int(k_max), cap))
+        return min(1 << (kb - 1).bit_length(), cap)
+
+    def warmup(self, ks=(1, 5, 10)) -> None:
+        """Run the real group path once for every power-of-two batch bucket
+        up to max_batch (its top padded bucket included) at each k bucket of
+        ``ks``, with zero photos, so that the first clients meet built
+        kernels, allocated memory and resident index tables. Stats are
+        restored afterwards (exception-safe), so /stats counts only client
+        traffic. With --int8 before calibration only the searches run (a
+        zero photo must not calibrate the scales)."""
+        img = np.zeros(self._surface_hw + (3,), np.float32)
+        top = 1 << (max(1, self.max_batch) - 1).bit_length()  # groups pad up to this bucket
+        buckets = [1 << i for i in range(top.bit_length())]
+        k_buckets = sorted({self._k_bucket(k) for k in ks})
+        with self._stats_lock:
+            before = dict(self.stats)
+        try:
+            for b in buckets:
+                for kb in k_buckets:
+                    if self._int8 and self._sq is None:
+                        _, h, _, c = self.index.embeds.shape
+                        emb = np.zeros((b, h, self._surface_hw[1] // 8, c), np.float32)
+                        self.index.search(emb, k=kb, fast=self._fast)
+                        continue
+                    group = [_Pending(img, kb, 0) for _ in range(b)]
+                    self._run_group(group)
+                    for r in group:
+                        if r.error is not None:
+                            raise r.error
+        finally:
+            with self._stats_lock:
+                self.stats.update(before)
+
+    def _batch_loop(self) -> None:
+        while True:
+            item = self._queue.get()
+            if item is None:
+                return
+            group = [item]
+            deadline = time.monotonic() + self._window
+            while len(group) < self.max_batch:
+                remain = deadline - time.monotonic()
+                if remain <= 0:
+                    break
+                try:
+                    nxt = self._queue.get(timeout=remain)
+                except queue.Empty:
+                    break
+                if nxt is None:
+                    self._run_group(group)
+                    return
+                group.append(nxt)
+            self._run_group(group)
+
+    @staticmethod
+    def _pad_pow2(x: np.ndarray) -> np.ndarray:
+        """Pad the batch axis to a power of two with copies of the first row."""
+        n = len(x)
+        bucket = 1 << (n - 1).bit_length()
+        if bucket == n:
+            return x
+        return np.concatenate([x, np.broadcast_to(x[:1], (bucket - n,) + x.shape[1:])])
+
+    def _run_group(self, group) -> None:
+        try:
+            b = len(group)
+            with self._stats_lock:
+                self.stats["requests"] += b
+                self.stats["dispatches"] += 1
+            s_emb = self._embed(self._pad_pow2(np.stack([r.img for r in group])))[:b]
+            for approx in (False, True):
+                rows = [i for i, r in enumerate(group) if (r.candidates > 0) == approx]
+                if not rows:
+                    continue
+                with self._stats_lock:
+                    self.stats["approx_searches" if approx else "exact_searches"] += len(rows)
+                k_max = max(group[i].k for i in rows)
+                embs = self._pad_pow2(s_emb[rows])
+                if approx:
+                    cand = max(max(group[i].candidates for i in rows), k_max)
+                    # a larger pool than requested only improves recall; the
+                    # cap bounds what the rerank gathers onto the device
+                    cand = min(1 << (cand - 1).bit_length(), len(self.index), self.max_candidates)
+                    idx, dist, orient = self.index.search_approx(
+                        embs, k=min(k_max, cand), candidates=cand, fast=self._fast)
+                else:
+                    idx, dist, orient = self.index.search(embs, k=self._k_bucket(k_max),
+                                                          fast=self._fast)
+                for out_row, i in enumerate(rows):
+                    r = group[i]
+                    r.result = self._format(idx[out_row], dist[out_row], orient[out_row], r.k)
+        except BaseException as err:  # propagate to every waiter
+            with self._stats_lock:
+                self.stats["errors"] += len(group)
+            for r in group:
+                r.error = err
+        finally:
+            for r in group:
+                r.done.set()
+
+    def _format(self, idx_row, dist_row, orient_row, k: int):
+        """Results of one request: tile centres (meta x/y), distance, the
+        orientation in degrees and the score exp(10 (1 - d)) (d is in [0, 2])."""
+        w = self.index.embeds.shape[2]
+        xs = self.index.meta.get("x")
+        ys = self.index.meta.get("y")
+        results = []
+        for j, (i, dd) in enumerate(zip(idx_row[:k], dist_row[:k])):
+            results.append({
+                "x": float(xs[i]) if xs is not None else None,
+                "y": float(ys[i]) if ys is not None else None,
+                "tile": int(i),
+                "distance": float(dd),
+                "orientation_deg": float(orient_row[j] * 360.0 / w - 180.0),
+                "score": float(np.exp(10.0 * (1.0 - dd))),
+            })
+        return results
+
+
+def make_handler(service: GeolocateService):
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *args):  # quiet by default
+            pass
+
+        def _json(self, code: int, payload) -> None:
+            body = json.dumps(payload).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            if self.path.startswith("/healthz"):
+                self._json(200, {
+                    "status": "ok",
+                    "gallery_size": len(service.index),
+                    "family": service.family,
+                    "int8": service._int8,
+                    "max_batch": service.max_batch,
+                    "sharded_devices": 1,
+                })
+            elif self.path.startswith("/stats"):
+                with service._stats_lock:
+                    s = dict(service.stats)
+                s["uptime_s"] = round(time.time() - service.started_at, 3)
+                s["mean_batch"] = round(s["requests"] / s["dispatches"], 3) if s["dispatches"] else 0.0
+                self._json(200, s)
+            else:
+                self._json(404, {"error": "unknown path"})
+
+        def do_POST(self):
+            if not self.path.startswith("/geolocate"):
+                self._json(404, {"error": "unknown path"})
+                return
+            k = 5
+            candidates = 0  # 0 = exact search; > 0 = two-stage approximate
+            if "?" in self.path:
+                for part in self.path.split("?", 1)[1].split("&"):
+                    if part.startswith("k="):
+                        try:
+                            k = int(part[2:])
+                            if k < 1:
+                                raise ValueError(k)
+                        except ValueError:
+                            self._json(400, {"error": "bad k"})
+                            return
+                    elif part.startswith("candidates="):
+                        try:
+                            candidates = int(part[len("candidates="):])
+                            if candidates < 0:  # must not enable a k-sized pool
+                                raise ValueError(candidates)
+                        except ValueError:
+                            self._json(400, {"error": "bad candidates"})
+                            return
+            length = int(self.headers.get("Content-Length", 0))
+            if length <= 0:
+                self._json(400, {"error": "empty body (expect image bytes)"})
+                return
+            data = self.rfile.read(length)
+            try:
+                results = service.geolocate(data, k=k, candidates=candidates)
+            except Exception as err:  # bad image etc.
+                self._json(400, {"error": f"{type(err).__name__}: {err}"})
+                return
+            self._json(200, {"results": results})
+
+    return Handler
+
+
+def serve(service: GeolocateService, port: int = 8000, host: str = "127.0.0.1") -> ThreadingHTTPServer:
+    """Bind the HTTP server (returned; call .serve_forever(), and .shutdown()
+    from another thread)."""
+    return ThreadingHTTPServer((host, port), make_handler(service))
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--index", required=True, help="gallery index .npz (GalleryIndex)")
+    parser.add_argument("--weights", default="./weights")
+    parser.add_argument("--tag", default=None)
+    parser.add_argument("--dataset", default="witw")
+    parser.add_argument("--fov", type=int, default=70)
+    parser.add_argument("--family", choices=("fov",), default="fov",
+                        help="tower/index family: fov = FOV-DSM towers + orientation-aligned FFT index")
+    parser.add_argument("--port", type=int, default=8000)
+    parser.add_argument("--host", default="127.0.0.1")
+    parser.add_argument("--int8", action="store_true")
+    parser.add_argument("--fast-eval", action="store_true",
+                        help="bf16 frequency product in the searches (opt-in approximation; "
+                             "exact is the default)")
+    parser.add_argument("--max-batch", type=int, default=0,
+                        help=">=2 enables request micro-batching: concurrent requests share one "
+                             "embed+search dispatch")
+    parser.add_argument("--batch-window-ms", type=float, default=3.0,
+                        help="max wait after the first queued request before dispatching a "
+                             "partial batch")
+    parser.add_argument("--allow-mismatch", action="store_true",
+                        help="serve even when the index's recorded precision or weights "
+                             "fingerprint differs from the serving towers (degrades ranking)")
+    parser.add_argument("--batch-workers", type=int, default=2,
+                        help="concurrent batch-dispatch threads (>=2 lets groups overlap)")
+    parser.add_argument("--no-warmup", action="store_true",
+                        help="skip the warm-up pass over the batch and k buckets at startup")
+    parser.add_argument("--max-candidates", type=int, default=65536,
+                        help="cap on any request's approximate-search rerank pool")
+    args = parser.parse_args(argv)
+
+    cfg = fov_experiment(dataset=args.dataset, fov=args.fov)
+    index = GalleryIndex.load(args.index)
+    params = load_params(cfg, os.path.join(args.weights, args.tag or f"fov_{args.fov}_{args.dataset}"),
+                         index.device)
+    service = GeolocateService(index, cfg, params, int8=args.int8, fast=args.fast_eval,
+                               max_batch=args.max_batch, batch_window_ms=args.batch_window_ms,
+                               allow_mismatch=args.allow_mismatch,
+                               batch_workers=args.batch_workers,
+                               max_candidates=args.max_candidates)
+    # Bind first, so that a port in use fails fast; connections made during
+    # the warm-up wait in the listen backlog.
+    server = serve(service, args.port, args.host)
+    if not args.no_warmup:
+        service.warmup()
+    print(f"serving {len(index)} tiles on http://{args.host}:{args.port}")
+    server.serve_forever()
+
+
+if __name__ == "__main__":
+    main()

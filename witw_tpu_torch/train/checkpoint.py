@@ -9,6 +9,15 @@ of the step, the params, the optimizer state and, when given, generator
 states; files are written to a temporary name and renamed, so a reader never
 sees half a file. Restoring copies the saved tensors into the state's own,
 so on one device a resumed run continues bit for bit.
+
+``restore`` also reads witw_tpu's own checkpoints, ``<name>.msgpack``
+(flax.serialization, witw_tpu/train/checkpoint.py:76-77,123-126), where no
+``.pt`` of that name exists: their step and params (through
+``models.convert_jax``), so that the port serves towers trained by
+witw_tpu. Their optax moments are not carried over; the optimizer keeps the
+state it has. So ``exists`` and the training resume (``restore_latest``)
+count only the port's ``.pt`` files: a run never resumes from a witw_tpu
+checkpoint with fresh moments.
 """
 
 from __future__ import annotations
@@ -19,7 +28,9 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from witw_tpu_torch.models.convert_jax import jax_params_to_state_dict
 from witw_tpu_torch.train.pipeline import TrainState
+from witw_tpu_torch.utils.msgpack import restore_flax_state
 
 
 def _write_atomic(path: str, write) -> None:
@@ -56,13 +67,24 @@ class Checkpointer:
             _write_atomic(os.path.join(self.directory, f"{name}.json"), write_meta)
         return path
 
+    def _flax_path(self, name: str) -> str:
+        return os.path.join(self.directory, f"{name}.msgpack")
+
     def load(self, name: str) -> Dict[str, Any]:
-        """The raw payload of ``name`` (tensors on the CPU)."""
+        """The raw payload of ``name`` (tensors on the CPU). A witw_tpu
+        ``.msgpack`` checkpoint gives its step and params in the port's
+        layout, and no optimizer state."""
+        if not os.path.exists(self._path(name)) and os.path.exists(self._flax_path(name)):
+            with open(self._flax_path(name), "rb") as f:
+                tree = restore_flax_state(f.read())
+            return {"step": int(tree["step"]),
+                    "params": jax_params_to_state_dict(tree["params"])}
         return torch.load(self._path(name), map_location="cpu", weights_only=True)
 
     def restore(self, name: str, state: TrainState) -> TrainState:
-        """Copy ``name``'s step, params and optimizer state into ``state``
-        (which keeps its devices) and return it."""
+        """Copy ``name``'s step, params and optimizer state (a witw_tpu
+        checkpoint has none) into ``state`` (which keeps its devices) and
+        return it."""
         payload = self.load(name)
         with torch.no_grad():
             for tower, saved in payload["params"].items():
@@ -71,7 +93,8 @@ class Checkpointer:
                     raise ValueError(f"checkpoint {name!r} does not fit the {tower} tower")
                 for k, v in saved.items():
                     own[k].copy_(v)
-        state.optimizer.load_state_dict(payload["optimizer"])
+        if "optimizer" in payload:
+            state.optimizer.load_state_dict(payload["optimizer"])
         state.step = int(payload["step"])
         return state
 
@@ -83,6 +106,7 @@ class Checkpointer:
             return json.load(f)
 
     def exists(self, name: str) -> bool:
+        """Whether the port's own ``<name>.pt`` exists."""
         return os.path.exists(self._path(name))
 
     # ---- training protocol ----
