@@ -126,6 +126,33 @@ Phases, each of which passes or raises:
    and C at the 128 x 99 photo's widths, non-circular), and the right
    kernels must launch. Prints requests/s and p50 / p99 latency.
 
+21. The heatmap sweep: tools.heatmap.main at the CLI's defaults (edge 225 m,
+   offset 56.25 m) over bounds that give a 100 x 100 grid, 10,000 tiles of
+   750^2 px resampled to 256^2, cut from a synthetic 3-band uint8 strip at
+   0.3 m per pixel (about 19,500^2 px, 1.1 GB, written uncompressed into
+   .smoke_heatmap/ and removed at the end), 2 photos, fov_experiment("witw",
+   70) with random weights from a seed saved as `best`: bf16 cold then warm
+   (a cache hit), then --int8 against the bf16 cache (stale by precision:
+   rebuilt) cold then warm. Each run must launch its kernels (conv3x3_bf16;
+   kernels A, B and C) and not the fused match; the CSV has 2 x 10,000 rows
+   under witw_tpu's header, score = exp(10 (1 - d)), warm rows == cold rows;
+   the cache's first 8 embeddings agree with the same tiles through the
+   kernels' plain versions (bf16 cosine >= 0.999 each; int8 within 1e-6);
+   photo 0's dissimilarity and orientation on every tile equal
+   index.score_all of its embedding. Prints cold tiles/s (arguments to CSV,
+   host clock), the warm seconds, score_all's ms at 10,000 tiles (CUDA
+   events) and peak device memory.
+22. The training CLI: cli.cvig_fov.main --dataset cvusa --fov 360 (full
+   width, batch 64) on 640 synthetic pairs (val_quantity 128 by wrapping
+   run_train: 8 train and 2 val steps), --mode train --epochs 1, then
+   --mode test, then --mode test --fast-eval, in .smoke_cli/ (removed at
+   the end). Losses finite, best.pt and latest.pt written, the metrics
+   JSONL holds witw_tpu's records, test mode's metrics == loop.test on the
+   restored best, --fast-eval's top-1 == the fused path's on planted
+   embeddings; train and test launch conv3x3_bf16, test the fused match,
+   --fast-eval and train not. Prints the CLI's train pairs/s beside [14]'s
+   staged-batch rate.
+
 The launch counts are reset just before the path they count and read right
 after it: the fused match's and the conv kernel's before phase 4 and after
 test() in phase 5 (forward_distance at fov 360 and 90, and test(), must each
@@ -134,8 +161,10 @@ after it (its fov 360 and 90 runs must each raise every count); the conv
 kernel's before the training of phase 13 and after it (its train and val
 phases must each raise it); the probes' before phase 17 and after it; the
 conv kernel's (bf16) and kernels A, B and C's (int8) before each index build
-of phase 18 and each daemon's 32 requests of phase 20, read after each (the
-records' `serving_launches` sum them). The second-to-last line is the
+of phase 18, each daemon's 32 requests of phase 20 and each sweep of phase 21,
+read after each (the records' `serving_launches` sum them); the conv
+kernel's and the fused match's before each CLI run of phase 22, read after
+each (their records' `cli_launches` sum them). The second-to-last line is the
 kernels' JSON record; the last line is {"ok": true, "device": {...}}.
 Without a GPU, or without the repo beside it, the script exits non-zero and
 prints no result.
@@ -145,9 +174,11 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import csv
 import dataclasses
 import io
 import json
+import os
 import re
 import shutil
 import statistics
@@ -163,8 +194,11 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
+from witw_tpu_torch.cli import common as cli_common
+from witw_tpu_torch.cli import cvig_fov
 from witw_tpu_torch.configs import fov_experiment
 from witw_tpu_torch.data import loader, synthetic
+from witw_tpu_torch.data.csv_registry import read_pair_paths
 from witw_tpu_torch.evaluation.gallery import FovGalleryEvaluator, metrics_from_ranks
 from witw_tpu_torch.evaluation.index import GalleryIndex
 from witw_tpu_torch.exp import int8_isolate, int8_mm_probe, mosaic_caps
@@ -177,7 +211,7 @@ from witw_tpu_torch.models.fov_dsm import HEAD_CONVS, FovDsm
 from witw_tpu_torch.ops import conv3x3, fused_block2, fused_match, int8_conv, maxpool
 from witw_tpu_torch.ops.image import normalize_images
 from witw_tpu_torch.ops.polar import polar_transform
-from witw_tpu_torch.tools import build_index
+from witw_tpu_torch.tools import build_index, geotiff, heatmap
 from witw_tpu_torch.tools import serve as serve_tool
 from witw_tpu_torch.train import loop
 from witw_tpu_torch.train.checkpoint import Checkpointer
@@ -186,6 +220,7 @@ from witw_tpu_torch.utils.device import require_cuda
 from witw_tpu_torch.utils.hashing import params_fingerprint
 from witw_tpu_torch.utils.profiling import cuda_ms, graph_ms
 
+T_START = time.perf_counter()
 RTOL, ATOL = 1e-5, 1e-6
 TIE_REL = 1e-5  # plain top-2 correlation gap under which a pair is a near tie
 KERNEL_SOURCE = "witw_tpu_torch/csrc/fused_match.cu"
@@ -962,7 +997,7 @@ def conv_phases(card, device, cfg, built):
         "replaces": CONV_REPLACES, "launches": conv_launches, "max_abs_err": max_err,
         "max_ulp_err": max_ulps, "ms": t_k, "plain_ms": t_p, "bound_ms": t_b,
         "bound_by": by, "library_ms": t_lib,
-    }
+    }, batch_size * 1000.0 / t_train
 
 # --- the int8 profiling harness (phases 15-17) --------------------------------
 
@@ -1222,13 +1257,15 @@ def write_serving_dataset(directory: Path, n: int, shards: int = 8) -> str:
     return str(csv_path)
 
 
-def check_index_build(index, cfg, params, sq, int8):
-    """The first 8 embeddings of a built index against the same tiles run
-    through the plain versions of the kernels on the card: bf16 cosine >=
-    0.999 per embedding, int8 within phase 9's atol 1e-6."""
+def check_index_build(index, cfg, params, sq, int8, tiles=None):
+    """The first 8 embeddings of a built index against the same tiles
+    (``tiles``, or those of the index's paths) run through the plain
+    versions of the kernels on the card: bf16 cosine >= 0.999 per
+    embedding, int8 within phase 9's atol 1e-6."""
     d = cfg.data
-    tiles = np.stack([loader.resize_host(loader.decode_image(p)[..., :3], d.overhead_size,
-                                         d.overhead_size) for p in index.meta["path"][:8]])
+    if tiles is None:
+        tiles = np.stack([loader.resize_host(loader.decode_image(p)[..., :3], d.overhead_size,
+                                             d.overhead_size) for p in index.meta["path"][:8]])
     x = torch.from_numpy(tiles).to(index.device)
     polar = polar_transform(normalize_images(x, d.img_mean, d.img_std), d.surface_height,
                             d.surface_width_max)
@@ -1507,6 +1544,273 @@ def phase_daemon(card, device, cfg, indexes, params):
     return launches
 
 
+# --- the heatmap sweep and the training CLI (21-22) ---------------------------
+
+HEATMAP_DIR = Path(__file__).resolve().parent / ".smoke_heatmap"
+CLI_DIR = Path(__file__).resolve().parent / ".smoke_cli"
+SWEEP_SIDE = 100  # tiles per side of the grid at the CLI's edge 225 m and offset 56.25 m
+GSD = 0.3  # m per pixel, the WITW strips' ground resolution
+SWEEP_ORIGIN = (447000.0, 5412000.0)  # (min easting, max northing) of the sweep bounds
+CSV_HEADER = ["photo", "x", "y", "orientation", "dissimilarity", "score"]
+CLI_PAIRS, CLI_VAL = 640, 128  # 8 train steps and 2 val steps at batch 64; 10 test batches
+
+
+def write_strip(directory: Path):
+    """A synthetic 3-band uint8 strip at GSD around the sweep's bounds,
+    written uncompressed as 03_paris.tif (the CLI's default AOI). Returns
+    (the bounds, the strip's side in pixels)."""
+    e0, n0 = SWEEP_ORIGIN
+    span = SWEEP_SIDE * 56.25 - 1.0
+    bounds = (e0, n0 - span, e0 + span, n0)
+    margin = 150.0  # the windows reach 112.5 m past the bounds' low edges
+    side = int(np.ceil((span + 2 * margin) / GSD))
+    rng = np.random.default_rng(21)
+    strip = rng.integers(0, 256, (side, side, 3), dtype=np.uint8)
+    geotiff.write_geotiff_u8(str(directory / "03_paris.tif"), strip,
+                             np.array([e0 - margin, GSD, 0.0, n0 + margin, 0.0, -GSD]), 32631,
+                             compress=False)
+    return bounds, side
+
+
+def read_sweep_csv(path: Path):
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    return rows[0], rows[1:]
+
+
+def phase_heatmap(card, device):
+    """[21] tools.heatmap.main on a 10,000-tile grid, bf16 and --int8, cold
+    and warm; returns launches per kernel (summed over the four runs)."""
+    cfg = fov_experiment("witw", 70)
+    log(f"[21] tools.heatmap.main: a {SWEEP_SIDE} x {SWEEP_SIDE} grid ({SWEEP_SIDE ** 2} tiles of "
+        f"225 m = 750^2 px resampled to 256^2), 2 photos, fov_experiment('witw', 70), random "
+        f"weights from a seed; bf16 then --int8 on the same index cache, each cold then warm")
+    shutil.rmtree(HEATMAP_DIR, ignore_errors=True)
+    HEATMAP_DIR.mkdir(parents=True)
+    t0 = time.perf_counter()
+    bounds, side = write_strip(HEATMAP_DIR)
+    rng = np.random.default_rng(22)
+    photos = []
+    for k in range(2):
+        photos.append(str(HEATMAP_DIR / f"photo{k}.png"))
+        (HEATMAP_DIR / f"photo{k}.png").write_bytes(
+            png_bytes(rng.integers(0, 256, (300, 400, 3), dtype=np.uint8)))
+    state = FovPipeline(cfg, device).init_state(torch.Generator().manual_seed(0))
+    Checkpointer(str(HEATMAP_DIR / "weights" / "fov_70_witw")).save("best", state)
+    params = state.params
+    log(f"    wrote a {side} x {side} x 3 strip ({side * side * 3 / 1e9:.2f} GB, uncompressed), "
+        f"the photos and the weights in {time.perf_counter() - t0:.2f} s")
+    cache = HEATMAP_DIR / "tiles.npz"
+    counted = dict(INT8_MODULES, conv3x3=conv3x3, fused_match=fused_match)
+    launches, seen = {}, {}
+    real_span, real_score = quantize.calibrate_overhead_span, GalleryIndex.score_all
+
+    def record_span(*args, **kwargs):  # the int8 tables of the tile tower
+        seen["sq"], items = real_span(*args, **kwargs)
+        return seen["sq"], items
+
+    def record_score(index, surface_embeds, *args, **kwargs):  # the photos' embeddings
+        seen["s_emb"] = np.array(surface_embeds)
+        return real_score(index, surface_embeds, *args, **kwargs)
+
+    _, _, windows = heatmap.window_grid(bounds, 225.0, 56.25)
+    with geotiff.GeoTiff(str(HEATMAP_DIR / "03_paris.tif")) as sat:
+        size = cfg.data.overhead_size
+        first_tiles = np.stack([geotiff.resample(sat.read_world_window(*w).astype(np.float32),
+                                                 size, size) for w in windows[:8]])
+    quantize.calibrate_overhead_span = record_span
+    GalleryIndex.score_all = record_score
+    try:
+        for precision, flags, mods in (("bf16", [], ["conv3x3"]),
+                                       ("int8", ["--int8"], list(INT8_MODULES))):
+            argv = (["-a", "3", "-b", *map(str, bounds), "-s", str(HEATMAP_DIR), "-p", *photos,
+                     "--weights", str(HEATMAP_DIR / "weights"), "--index-cache", str(cache)]
+                    + flags)
+            runs = {}
+            launches[precision] = {n: 0 for n in counted}
+            for run in ("cold", "warm"):
+                out_csv = HEATMAP_DIR / f"{precision}_{run}.csv"
+                for mod in counted.values():
+                    mod.launches = 0
+                torch.cuda.reset_peak_memory_stats(device)
+                t0 = time.perf_counter()
+                heatmap.main(argv + ["-c", str(out_csv)])
+                torch.cuda.synchronize()
+                runs[run] = (time.perf_counter() - t0, torch.cuda.max_memory_allocated(device))
+                for n, mod in counted.items():
+                    launches[precision][n] += mod.launches
+                idle = [n for n in mods if counted[n].launches < 1]
+                if idle:
+                    raise AssertionError(f"the {precision} {run} sweep did not launch {idle}")
+                if run == "cold" and fused_match.launches:
+                    raise AssertionError("the sweep launched the fused match; it scores through "
+                                         "the FFT matcher")
+            header, cold = read_sweep_csv(HEATMAP_DIR / f"{precision}_cold.csv")
+            _, warm = read_sweep_csv(HEATMAP_DIR / f"{precision}_warm.csv")
+            n = SWEEP_SIDE ** 2
+            if header != CSV_HEADER or len(cold) != 2 * n or warm != cold:
+                raise AssertionError(f"{precision} CSV: header {header}, {len(cold)} rows, warm "
+                                     f"== cold {warm == cold}")
+            d_col = np.asarray([r[4] for r in cold], np.float32)
+            score = np.asarray([r[5] for r in cold], np.float32)
+            if not (np.isfinite(d_col).all() and np.allclose(score, np.exp(10.0 * (1.0 - d_col)),
+                                                             rtol=1e-6, atol=0)):
+                raise AssertionError(f"{precision}: scores are not exp(10 (1 - d))")
+            index = GalleryIndex.load(str(cache), device)
+            meta = index.meta
+            if (len(index) != n or str(meta["precision"]) != ("int8" if flags else "f32")
+                    or str(meta["params_sha"]) != params_fingerprint(params["overhead"])):
+                raise AssertionError(f"{precision} cache: {len(index)} tiles, meta "
+                                     f"{ {k: str(v)[:40] for k, v in meta.items()} }")
+            check_index_build(index, cfg, params, seen.get("sq"), bool(flags), first_tiles)
+            q = seen["s_emb"]  # both photos, as the warm sweep embedded them
+            d0, o0 = index.score_all(q[:1], gallery_chunk=2048)
+            orient = o0[:, 0] * 360.0 / index.embeds.shape[2] - 180.0
+            dd = float(np.abs(d0[:, 0] - d_col[:n]).max())
+            if (not np.array_equal(orient, np.asarray([r[3] for r in cold[:n]], np.float64))
+                    or not dd <= 1e-6):
+                raise AssertionError(f"{precision}: photo 0's CSV rows differ from index.score_all "
+                                     f"(max |dd| {dd})")
+            t_score = cuda_ms(lambda: index.score_all(q, gallery_chunk=2048), 1, 5)
+            sat_frac = f", int8_saturation {float(meta['int8_saturation']):.3e}" if flags else ""
+            log(f"    {precision}: cold {runs['cold'][0]:.3f} s = {n / runs['cold'][0]:.2f} tiles/s "
+                f"(arguments to CSV, host clock), peak device memory "
+                f"{runs['cold'][1] / 1e9:.3f} GB; warm (cache hit) {runs['warm'][0]:.3f} s, peak "
+                f"{runs['warm'][1] / 1e9:.3f} GB; score_all of {len(q)} photos at {n} tiles "
+                f"{t_score:.3f} ms (CUDA events, median of 5) ({card}); launches "
+                f"{ {k: v for k, v in launches[precision].items() if v} }; {len(cold)} rows == "
+                f"warm rows, score == exp(10 (1 - d)), photo 0's rows == index.score_all (max "
+                f"|dd| {dd:.3e}){sat_frac}")
+            if flags and (len(index) != n or str(meta["precision"]) != "int8"):
+                raise AssertionError("--int8 did not rebuild the bf16 cache")
+    finally:
+        quantize.calibrate_overhead_span = real_span
+        GalleryIndex.score_all = real_score
+        shutil.rmtree(HEATMAP_DIR, ignore_errors=True)
+    return launches
+
+
+def write_cli_dataset(directory: Path, n: int, shards: int = 8) -> str:
+    """A headerless CVUSA-schema CSV of n synthetic full-size pairs, written
+    by write_synthetic_dataset in ``shards`` parts at once."""
+    def part(k):
+        return synthetic.write_synthetic_dataset(
+            str(directory / f"part{k}"), n=n // shards, schema="cvusa", surface_hw=(128, 512),
+            overhead_hw=(256, 256), seed=100 + k)
+
+    with concurrent.futures.ThreadPoolExecutor(shards) as pool:
+        parts = list(pool.map(part, range(shards)))
+    lines = []
+    for k, csv_part in enumerate(parts):
+        lines += [",".join(f"part{k}/{p}" for p in line.split(","))
+                  for line in Path(csv_part).read_text().splitlines()]
+    path = directory / "pairs.csv"
+    path.write_text("\n".join(lines) + "\n")
+    return str(path)
+
+
+def phase_cli(card, device, staged_pairs_per_s):
+    """[22] cli.cvig_fov.main at full CVUSA width: train one epoch, test,
+    test --fast-eval; returns launches per kernel per run."""
+    log(f"[22] cli.cvig_fov.main --dataset cvusa --fov 360 (batch 64): --mode train --epochs 1 on "
+        f"{CLI_PAIRS} synthetic pairs ({CLI_PAIRS - CLI_VAL} train, val_quantity {CLI_VAL} by "
+        f"wrapping run_train), then --mode test and --mode test --fast-eval")
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    CLI_DIR.mkdir(parents=True)
+    t0 = time.perf_counter()
+    csv_path = write_cli_dataset(CLI_DIR / "data", CLI_PAIRS)
+    log(f"    wrote the dataset in {time.perf_counter() - t0:.2f} s")
+    flags = ["--dataset", "cvusa", "--fov", "360", "--train-csv", csv_path, "--test-csv", csv_path]
+    real_run_train = cli_common.run_train
+
+    def run_train_small_val(cfg, tag, num_epochs=None, profile_dir=None, device=None):
+        cfg = cfg.replace(train=dataclasses.replace(cfg.train, val_quantity=CLI_VAL))
+        return real_run_train(cfg, tag, num_epochs=num_epochs, profile_dir=profile_dir,
+                              device=device)
+
+    counted = {"conv3x3": conv3x3, "fused_match": fused_match}
+    launches = {}
+    cwd = os.getcwd()
+    os.chdir(CLI_DIR)  # the CLI's ./weights and ./runs
+    cli_common.run_train = run_train_small_val
+    try:
+        results = {}
+        for run, argv in (("train", ["--mode", "train", "--epochs", "1"]),
+                          ("test", ["--mode", "test"]),
+                          ("test --fast-eval", ["--mode", "test", "--fast-eval"])):
+            for mod in counted.values():
+                mod.launches = 0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                results[run] = cvig_fov.main(argv + flags)
+            torch.cuda.synchronize()
+            launches[run] = {n: mod.launches for n, mod in counted.items()}
+            log(f"    {run}: {time.perf_counter() - t0:.2f} s (host clock, arguments to return); "
+                f"launches {launches[run]}")
+        want = {"train": ("conv3x3",), "test": ("conv3x3", "fused_match"),
+                "test --fast-eval": ("conv3x3",)}
+        for run, mods in want.items():
+            idle = [n for n in mods if launches[run][n] < 1]
+            if idle:
+                raise AssertionError(f"cvig_fov {run} did not launch {idle}")
+        if launches["test --fast-eval"]["fused_match"] or launches["train"]["fused_match"]:
+            raise AssertionError("--fast-eval or train launched the fused match")
+        weights = CLI_DIR / "weights" / "fov_360_cvusa"
+        if not ((weights / "best.pt").exists() and (weights / "latest.pt").exists()):
+            raise AssertionError(f"no best.pt / latest.pt in {weights}")
+        cfg = cli_common.apply_overrides(fov_experiment("cvusa", 360),
+                                         cli_common.base_parser(True).parse_args(flags))
+        steps = (CLI_PAIRS - CLI_VAL) // cfg.train.batch_size + -(-CLI_VAL // cfg.train.batch_size)
+        records = [json.loads(line) for line in
+                   (CLI_DIR / "runs" / "fov_360_cvusa" / "train" / "metrics.jsonl").read_text()
+                   .splitlines()]
+        keys = {tuple(r) for r in records}
+        allowed = {("t", "tag", "value", "step"), ("t", "tag", "text", "step"),
+                   ("t", "tag", "embedding_shape", "step")}
+        tags = {r["tag"] for r in records}
+        losses = [r["value"] for r in records if r["tag"] in ("train loss", "val loss")]
+        if (not keys <= allowed or not {"train loss", "val loss", "train pairs_per_sec",
+                                        "val_embedding", "best_loss"} <= tags
+                or len(losses) != steps or not np.isfinite(losses).all()):
+            raise AssertionError(f"train metrics.jsonl: keys {keys}, tags {tags}, losses {losses}")
+        cli_rate = next(r["value"] for r in records if r["tag"] == "train pairs_per_sec")
+
+        # test mode's metrics == loop.test on the restored best params
+        pipeline = FovPipeline(cfg, device)
+        params = Checkpointer(str(weights)).restore(
+            "best", pipeline.init_state(torch.Generator().manual_seed(0))).params
+        test_loader = cli_common.build_loader(
+            cfg, read_pair_paths(cfg.data.dataset, csv_path), shuffle=False, drop_last=False,
+            batch_size=cfg.eval.batch_size)
+        try:
+            direct = loop.test(cfg, pipeline, test_loader, params, verbose=False)
+        finally:
+            test_loader.close()
+        if direct != results["test"]:
+            raise AssertionError(f"test mode {results['test']} != loop.test {direct}")
+        fast = results["test --fast-eval"]
+        if fast["locations"] != CLI_PAIRS or not np.isfinite(list(fast.values())).all():
+            raise AssertionError(f"--fast-eval metrics {fast}")
+        o_pl, s_pl = planted_embeddings(np.random.default_rng(23), 1024, 4, 64, 16, 64)
+        r_fast = FovGalleryEvaluator(fast_matmul=True, device=device).ranks(o_pl, s_pl)
+        r_exact = FovGalleryEvaluator(use_fused=True, device=device).ranks(o_pl, s_pl)
+        if not np.array_equal(r_fast == 1, r_exact == 1):
+            raise AssertionError("--fast-eval's top-1 differs from the exact path's on planted "
+                                 "embeddings")
+        log(f"    losses finite {[round(v, 5) for v in losses]}; best.pt, latest.pt; metrics.jsonl "
+            f"records {sorted(keys)}; test {json.dumps(results['test'])} == loop.test on the "
+            f"restored best; --fast-eval {json.dumps(fast)}, planted [1024, 4, 64, 16] top-1 "
+            f"{float(np.mean(r_fast == 1)):.4f} == the fused path's")
+        log(f"    train through the CLI: {cli_rate:.2f} pairs/s (the loop's StepTimer, host clock, "
+            f"steps 3-8 of 8) against {staged_pairs_per_s:.2f} on staged device batches ([14]) "
+            f"({card})")
+    finally:
+        cli_common.run_train = real_run_train
+        os.chdir(cwd)
+        shutil.rmtree(CLI_DIR, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     # 1. device
     device = require_cuda()
@@ -1725,7 +2029,7 @@ def main() -> int:
     del staged
 
     int8_records = int8_phases(card, device, cfg, pipeline, params, built)
-    conv_record = conv_phases(card, device, cfg, built)
+    conv_record, staged_train_rate = conv_phases(card, device, cfg, built)
     probe_records = probe_phases(card, device, built)
 
     cfg_witw = fov_experiment("witw", 70)
@@ -1733,12 +2037,18 @@ def main() -> int:
     phase_gallery_index(card, device)
     daemon_launches = phase_daemon(card, device, cfg_witw, indexes, serve_params)
     shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    sweep_launches = phase_heatmap(card, device)
+    cli_launches = phase_cli(card, device, staged_train_rate)
     serving = {n: build_launches[p].get(n, 0) + daemon_launches[p].get(n, 0)
+               + sweep_launches[p].get(n, 0)
                for p in ("bf16", "int8") for n in build_launches[p]}
-    log(f"    serving-path launches (index builds and daemons): {serving}")
+    log(f"    serving-path launches (index builds, daemons, heatmap sweeps): {serving}; "
+        f"the sweeps' alone {sweep_launches}")
     conv_record["serving_launches"] = serving["conv3x3"]
     for record, mod in zip(int8_records, INT8_KERNELS):
         record["serving_launches"] = serving[mod]
+    conv_record["cli_launches"] = sum(r["conv3x3"] for r in cli_launches.values())
+    match_cli_launches = sum(r["fused_match"] for r in cli_launches.values())
 
     log(card)
     log(json.dumps({"kernels": [{
@@ -1755,7 +2065,9 @@ def main() -> int:
         "bound_ms": match_bound[0],
         "bound_by": match_bound[1],
         "library_ms": None,
+        "cli_launches": match_cli_launches,
     }] + int8_records + [conv_record] + probe_records}))
+    log(f"smoke total: {time.perf_counter() - T_START:.2f} s")
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

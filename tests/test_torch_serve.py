@@ -33,6 +33,7 @@ from witw_tpu.tools.serve import GeolocateService as JaxService
 from witw_tpu.train.pipeline import make_pipeline
 from witw_tpu.utils.hashing import params_fingerprint as jax_fingerprint
 from witw_tpu_torch.configs import fov_experiment
+from witw_tpu_torch.data.csv_registry import read_pair_paths
 from witw_tpu_torch.evaluation.index import GalleryIndex
 from witw_tpu_torch.models import quantize as tq
 from witw_tpu_torch.models.convert_jax import jax_params_to_state_dict
@@ -93,6 +94,24 @@ def test_build_index_matches_jax(towers, dataset, tmp_path):
     with pytest.raises(ValueError, match="not in CSV"):
         tbuild.build_index(dataset, None, batch_size=2, meta_cols=["nope"], state=params, cfg=tcfg,
                            verbose=False, device="cpu")
+
+
+def test_build_index_mixed_grayscale_gallery_matches_jax(towers, tmp_path):
+    """Grayscale tiles, the first of the gallery and one inside a later
+    batch, fill every channel of the batch buffer as in witw_tpu's
+    build_index; the embeddings agree at the bf16 towers' tolerance."""
+    jcfg, state, tcfg, params = towers
+    csv_path = write_synthetic_dataset(str(tmp_path), n=5, schema="witw", surface_hw=(32, 64),
+                                       overhead_hw=(40, 40), seed=3)
+    overhead = [o for _, o in read_pair_paths(tcfg.data.dataset, csv_path)]
+    for i in (0, 3):
+        with Image.open(overhead[i]) as im:
+            im.convert("L").save(overhead[i])
+    want = jax_build_index(csv_path, None, batch_size=2, state=state, cfg=jcfg, verbose=False)
+    got = tbuild.build_index(csv_path, None, batch_size=2, state=params, cfg=tcfg,
+                             verbose=False, device="cpu")
+    assert got.embeds.shape == want.embeds.shape == (5, 2, 16, 16)
+    _bf16_close(got.embeds, want.embeds)
 
 
 def test_build_index_headerless_integer_meta_cols(towers, tmp_path):

@@ -142,11 +142,13 @@ def test_embed_all_and_ranks_match_jax(rng, jax_state):
 
 
 def test_port_imports_no_jax():
-    """Every module of witw_tpu_torch (its exp probes and the serving
-    modules included: the data layer, the index, build_index and the
-    daemon), chip_smoke and the profile scripts import with JAX and every
-    witw_tpu module made unimportable, and none pulls in flax, optax, the
-    pandas/PIL deps of witw_tpu.data or the root exp scripts."""
+    """Every module of witw_tpu_torch (its exp probes, the serving modules
+    and this slice's: the data layer, the index, build_index, the daemon,
+    the GeoTIFF binding, the heatmap sweep, the metric writer and the CLIs),
+    chip_smoke and the profile scripts import with JAX and every witw_tpu
+    module made unimportable, and none pulls in flax, optax, the
+    pandas/PIL deps of witw_tpu.data, the root exp scripts, or (at import
+    time) the image decoders imageio and cv2."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
@@ -154,14 +156,17 @@ def test_port_imports_no_jax():
         import witw_tpu_torch
         names = [m.name for m in pkgutil.walk_packages(
             witw_tpu_torch.__path__, "witw_tpu_torch.")]
-        serving = ["witw_tpu_torch." + m for m in (
+        wanted = ["witw_tpu_torch." + m for m in (
             "data.csv_registry", "data.loader", "data.synthetic", "utils.hashing",
-            "utils.msgpack", "evaluation.index", "tools.build_index", "tools.serve")]
-        assert set(serving) <= set(names), sorted(set(serving) - set(names))
+            "utils.msgpack", "evaluation.index", "tools.build_index", "tools.serve",
+            "tools.geotiff", "tools.cities", "tools.heatmap", "train.metrics", "cli.common",
+            "cli.cvig_fov", "cli.cvig_semantic")]
+        assert set(wanted) <= set(names), sorted(set(wanted) - set(names))
         for name in names + ["chip_smoke", "profile_int8", "profile_bf16", "profile_conv",
-                             "profile_match"]:
+                             "profile_match", "profile_host"]:
             importlib.import_module(name)
-        banned = ("jax", "jaxlib", "flax", "optax", "pandas", "PIL", "witw_tpu", "exp")
+        banned = ("jax", "jaxlib", "flax", "optax", "pandas", "PIL", "witw_tpu", "exp",
+                  "imageio", "cv2")
         bad = sorted(m for m, mod in sys.modules.items()
                      if m.split(".")[0] in banned and mod is not None)
         assert not bad, bad
@@ -170,7 +175,7 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 49
+    assert int(out.stdout.split()[-1]) >= 57
 
 
 @pytest.mark.parametrize("make", [

@@ -22,10 +22,20 @@ backward, cuBLAS GEMMs, ``torch.fft``).
 - ``match``      — circular correlation, chord distance, DSM triplet loss,
                    FFT matcher.
 - ``kernels``    — nvcc build + ctypes loading of ``csrc/``.
-- ``evaluation`` — single-device gallery rank sweep and metrics.
+- ``evaluation`` — single-device gallery rank sweep and metrics, the
+                   gallery index.
+- ``data``       — CSV registry, decode / resize, the pair loader,
+                   synthetic data.
 - ``train``      — the FOV pipeline (train, eval and embed steps), the
-                   train/val loop, checkpoints, embed + test.
-- ``utils``      — device selection, the step timer, CUDA-event timing.
+                   train/val loop, checkpoints, embed + test, the metric
+                   writer.
+- ``tools``      — build_index, the serving daemon, the heatmap sweep and
+                   its native GeoTIFF binding (``native/geotiff_io.cpp``,
+                   built with g++ at first use).
+- ``cli``        — the FOV and semantic training / test CLIs:
+                   ``python -m witw_tpu_torch.cli.cvig_fov``.
+- ``utils``      — device selection, the step timer, CUDA-event timing,
+                   profiler traces.
 - ``exp``        — the int8 profiling harness, counterparts of the root
                    ``exp/`` probes: ``python3 -m witw_tpu_torch.exp.<name>``.
 

@@ -1,5 +1,6 @@
-"""Synthetic on-disk datasets for the tests and the smoke run (port of
-witw_tpu/data/synthetic.py:write_synthetic_dataset).
+"""Synthetic paired data for the tests and the smoke run (port of
+witw_tpu/data/synthetic.py: ``SyntheticPairs`` in memory and
+``write_synthetic_dataset`` on disk).
 
 Matched pairs share a low-frequency structure: a few random sinusoids over
 the angle, which the surface image sees along x and the overhead tile along
@@ -9,7 +10,7 @@ its polar angle. The same seed writes the same files as witw_tpu's.
 from __future__ import annotations
 
 import os
-from typing import Tuple
+from typing import Dict, Iterator, Tuple
 
 import numpy as np
 
@@ -38,6 +39,49 @@ def _pair(rng: np.random.Generator, surface_hw, overhead_hw, channels: int):
     surface = (surface + noise_s) * 30 + 127
     overhead = (overhead + noise_o) * 30 + 127
     return np.clip(surface, 0, 255), np.clip(overhead, 0, 255)
+
+
+class SyntheticPairs:
+    """In-memory dataset; iterates batches like ``loader.PairLoader``
+    (float32 0-255 images, seeded shuffles as witw_tpu's)."""
+
+    def __init__(
+        self,
+        n: int,
+        batch_size: int,
+        surface_hw: Tuple[int, int] = (128, 512),
+        overhead_hw: Tuple[int, int] = (256, 256),
+        channels: int = 3,
+        seed: int = 0,
+        shuffle: bool = False,
+        drop_last: bool = False,
+    ):
+        rng = np.random.default_rng(seed)
+        data = [_pair(rng, surface_hw, overhead_hw, channels) for _ in range(n)]
+        self.surface = np.stack([s for s, _ in data])
+        self.overhead = np.stack([o for _, o in data])
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.seed = seed
+        self.epoch = 0
+
+    def __len__(self) -> int:
+        n = len(self.surface)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        n = len(self.surface)
+        order = np.arange(n)
+        if self.shuffle:
+            np.random.default_rng(self.seed + self.epoch).shuffle(order)
+        self.epoch += 1
+        for start in range(0, n, self.batch_size):
+            idx = order[start:start + self.batch_size]
+            if self.drop_last and len(idx) < self.batch_size:
+                continue
+            yield {"surface": self.surface[idx], "overhead": self.overhead[idx],
+                   "idx": idx.astype(np.int32)}
 
 
 def write_synthetic_dataset(

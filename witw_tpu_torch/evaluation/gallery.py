@@ -29,15 +29,17 @@ from witw_tpu_torch.ops.fused_match import fused_chord_distance_nhwc
 from witw_tpu_torch.utils.device import require_cuda
 
 
-def _paired_distance_batched(overhead: torch.Tensor, surface: torch.Tensor) -> torch.Tensor:
+def _paired_distance_batched(overhead: torch.Tensor, surface: torch.Tensor,
+                             fast: bool = False) -> torch.Tensor:
     """True-match distances [N] through the same fft_matcher arithmetic as
-    the FFT sweep (query_fft padding + chord_scores' rsqrt/epsilon guards)."""
+    the FFT sweep (query_fft padding + chord_scores' rsqrt/epsilon guards);
+    ``fast`` as the sweep's, so that a bf16 sweep meets a bf16 threshold."""
     w = overhead.shape[2]
     sw = surface.shape[2]
     fs, s_norm = query_fft(surface, w)
     fo = torch.fft.rfft(overhead.to(torch.float32), dim=2)[:, None]
     wsq = window_sq_norms(overhead, sw)[:, None]
-    d, _ = candidates_vs_queries(fo, wsq, fs, s_norm, w)
+    d, _ = candidates_vs_queries(fo, wsq, fs, s_norm, w, fast=fast)
     return d[:, 0]
 
 
@@ -47,9 +49,12 @@ class FovGalleryEvaluator:
     Gallery (overhead) and query (surface) embeddings: [N, h, w(|sw), c]
     NHWC, numpy or tensors. ``use_fused`` runs the sweep through the fused
     correlation + distance kernel (witw_tpu_torch.ops.fused_match), which
-    never materializes the [G, Q, W] correlation. ``device`` is where the
-    sweep runs; None keeps tensors where they are and puts numpy on the
-    CUDA device (RuntimeError without one): the CPU only when asked for.
+    never materializes the [G, Q, W] correlation. ``fast_matmul`` (FFT
+    path only; witw_tpu's ``--fast-eval``) computes the frequency products
+    in bf16 with f32 sums, an opt-in approximation: near-threshold ranks can
+    flip. ``device`` is where the sweep runs; None keeps tensors where they
+    are and puts numpy on the CUDA device (RuntimeError without one): the
+    CPU only when asked for.
     """
 
     def __init__(
@@ -58,11 +63,16 @@ class FovGalleryEvaluator:
         gallery_chunk: int = 1024,
         use_fused: bool = False,
         device: Optional[torch.device] = None,
+        fast_matmul: bool = False,
     ):
+        if use_fused and fast_matmul:
+            raise ValueError("fast_matmul applies to the FFT sweep only; the fused match kernel "
+                             "has no bf16 frequency-product variant")
         self.query_block = query_block
         self.gallery_chunk = gallery_chunk
         self.use_fused = use_fused
         self.device = device
+        self.fast_matmul = fast_matmul
 
     def _tensor(self, x) -> torch.Tensor:
         if isinstance(x, torch.Tensor):
@@ -88,7 +98,7 @@ class FovGalleryEvaluator:
         else:
             tm = torch.as_tensor(np.asarray(true_match), dtype=torch.int64, device=gal.device)
             tm_rows = gal[tm]
-        d_true = _paired_distance_batched(tm_rows, s_all)
+        d_true = _paired_distance_batched(tm_rows, s_all, self.fast_matmul)
 
         w = gal.shape[2]
         sw = s_all.shape[2]
@@ -107,7 +117,8 @@ class FovGalleryEvaluator:
                 if self.use_fused:
                     d, _ = fused_chord_distance_nhwc(gal[c0:c1], s_block)
                 else:
-                    d, _ = gallery_vs_queries(fo[c0:c1], wsq[c0:c1], fs, s_norm, w)
+                    d, _ = gallery_vs_queries(fo[c0:c1], wsq[c0:c1], fs, s_norm, w,
+                                              fast=self.fast_matmul)
                 le = (d <= d_true[None, q0:q1]) & (gal_idx[c0:c1, None] != tm[None, q0:q1])
                 counts[q0:q1] += le.sum(dim=0)
         return (counts + 1).cpu().numpy().astype(np.int32)

@@ -48,3 +48,48 @@ def chord_distance(
     # Degenerate all-zero windows or queries give a finite distance (2.0).
     cos = corr_max / (crop_norm.clamp_min(1e-10) * s_norm.clamp_min(1e-10)[None, :])
     return 2.0 * (1.0 - cos), orientation.to(torch.int32)
+
+
+def _paired_from_corr(o: torch.Tensor, s: torch.Tensor,
+                      corr: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    orientation = torch.argmax(corr, dim=-1)
+    corr_max = torch.amax(corr, dim=-1)
+    wsq = window_sq_norms(o, s.shape[2])
+    crop_norm = torch.sqrt(torch.gather(wsq, 1, orientation[:, None]))[:, 0]
+    s_norm = torch.sqrt((s * s).sum(dim=(1, 2, 3)))
+    cos = corr_max / (crop_norm * s_norm).clamp_min(1e-20)
+    return 2.0 * (1.0 - cos), orientation.to(torch.int32)
+
+
+def paired_chord_distance(
+    overhead_embed: torch.Tensor, surface_embed: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chord distance of matching pairs only (the diagonal): overhead[i]
+    against surface[i], O(B). Returns (distance [B], orientation int32
+    [B])."""
+    o = overhead_embed.to(torch.float32)
+    s = surface_embed.to(torch.float32)
+    w, sw = o.shape[2], s.shape[2]
+    if sw > w:
+        raise ValueError(f"surface width {sw} exceeds overhead width {w}")
+    idx = (torch.arange(w, device=o.device)[:, None] + torch.arange(sw, device=o.device)[None]) % w
+    windows = o[:, :, idx, :]  # [B, h, W, sw, c]
+    corr = torch.einsum("bhwkc,bhkc->bw", windows, s)
+    return _paired_from_corr(o, s, corr)
+
+
+def paired_chord_distance_fft(
+    overhead_embed: torch.Tensor, surface_embed: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """FFT form of :func:`paired_chord_distance` (O(B W log W), no window
+    materialized): the independent-arithmetic cross-check."""
+    o = overhead_embed.to(torch.float32)
+    s = surface_embed.to(torch.float32)
+    w, sw = o.shape[2], s.shape[2]
+    if sw > w:
+        raise ValueError(f"surface width {sw} exceeds overhead width {w}")
+    s_pad = torch.nn.functional.pad(s, (0, 0, 0, w - sw)) if sw < w else s
+    prod = torch.einsum("bhfc,bhfc->bf", torch.fft.rfft(o, dim=2),
+                        torch.conj(torch.fft.rfft(s_pad, dim=2)))
+    corr = torch.fft.irfft(prod, n=w, dim=-1)  # [B, W]
+    return _paired_from_corr(o, s, corr)

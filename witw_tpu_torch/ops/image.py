@@ -58,3 +58,10 @@ def normalize_images_masked_bias(
     b = -mean_t / std_t
     mask = torch.as_tensor(bias_mask, dtype=torch.float32, device=x.device)
     return x * k + mask[..., None] * b
+
+
+def denormalize_images(x: torch.Tensor, mean: Sequence[float], std: Sequence[float]) -> torch.Tensor:
+    """Inverse of the standardization step (reference cvig_fov.py:151-154)."""
+    mean_t = torch.tensor(mean, dtype=torch.float32, device=x.device)
+    std_t = torch.tensor(std, dtype=torch.float32, device=x.device)
+    return x * std_t + mean_t

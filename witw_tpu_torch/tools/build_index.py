@@ -22,8 +22,10 @@ from __future__ import annotations
 
 import argparse
 import collections
+import concurrent.futures as futures
+import itertools
 import os
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +45,9 @@ from witw_tpu_torch.utils.hashing import params_fingerprint
 # Embedded batches in flight before the oldest is fetched: consecutive
 # batches' upload, embed and fetch overlap (witw_tpu's depth).
 IN_FLIGHT = 3
+# Threads reading a batch's tiles: decode, the native GeoTIFF reader and its
+# resample release the interpreter lock.
+READERS = min(8, os.cpu_count() or 1)
 
 
 def load_params(cfg, directory: str, device):
@@ -84,6 +89,99 @@ def read_meta_cols(csv_path: str, header: Optional[int], specs: Sequence[str]) -
     return meta
 
 
+def preprocess_tiles(data_cfg, x: torch.Tensor) -> torch.Tensor:
+    """Raw tiles [B, S, S, C] (any dtype, 0-255) -> the overhead tower's
+    normalized polar input, normalize then polar as witw_tpu's tools do."""
+    x = normalize_images(x.to(torch.float32), data_cfg.img_mean, data_cfg.img_std)
+    return polar_transform(x, data_cfg.surface_height, data_cfg.surface_width_max)
+
+
+@torch.no_grad()
+def embed_tiles(
+    pipeline: FovPipeline,
+    overhead: Dict[str, torch.Tensor],
+    read_tile: Callable[[int], np.ndarray],
+    n: int,
+    batch_size: int,
+    int8: bool = False,
+    prefetch: int = 2,
+    context: str = "gallery",
+    tile_dtype=np.float32,
+) -> Tuple[np.ndarray, Optional[float]]:
+    """Embed tiles 0..n-1 with the overhead tower; ``read_tile(i)`` returns
+    tile i as an [S, S, C'] array, C' the data config's channels or 1 (a
+    grayscale tile fills every channel), and must be safe to call from
+    READERS threads at once. ``tile_dtype``: the batch buffers' dtype,
+    float32 or uint8 (a quarter of the upload; cast to f32 on the device).
+    Batches of ``batch_size`` are read by those threads in a producer thread
+    ``prefetch`` batches ahead (0: in the caller's thread), uploaded from
+    pinned memory, and up to IN_FLIGHT embedded batches are held before the
+    oldest is fetched. ``int8``: the static-int8 tower, calibrated on
+    ``batch_size`` tiles spread over [0, n), whose reads are reused; its
+    clip fraction on the first batch is checked (``context`` names the tiles
+    in the warning). Returns (embeddings [n, h, W', c] float32, the clip
+    fraction or None)."""
+    d = pipeline.cfg.data
+    device = pipeline.device
+    overhead = {k: v.to(device) for k, v in overhead.items()}
+
+    def preprocess(x: torch.Tensor) -> torch.Tensor:
+        return preprocess_tiles(d, x)
+
+    sq, calib_tiles = None, {}
+    if int8:
+        # gallery-spanning calibration sample; its tiles are reused below
+        sq, calib_tiles = quantize.calibrate_overhead_span(overhead, read_tile, n, batch_size,
+                                                           preprocess)
+
+    def embed(x: torch.Tensor) -> torch.Tensor:
+        polar = preprocess(x)
+        if int8:
+            return quantize.quantized_fov_forward_static(sq, polar, True)
+        return functional_call(pipeline.overhead_model, overhead, (polar,),
+                               {"train": False, "generator": None}, strict=True)
+
+    def tile_batches(pool):
+        # a fresh buffer per batch: batches wait in the prefetch queue while
+        # the device embeds earlier ones
+        for start in range(0, n, batch_size):
+            stop = min(start + batch_size, n)
+            tiles = [calib_tiles.pop(i, None) for i in range(start, stop)]
+            missing = [i for i, t in zip(range(start, stop), tiles) if t is None]
+            # each reader takes a run of neighbouring tiles, whose windows
+            # share most of the strip rows its handle has just read
+            per = max(1, -(-len(missing) // READERS))
+            runs = pool.map(lambda run: [read_tile(i) for i in run],
+                            [missing[k:k + per] for k in range(0, len(missing), per)])
+            read = dict(zip(missing, itertools.chain.from_iterable(runs)))
+            buf = np.zeros((batch_size, d.overhead_size, d.overhead_size, d.channels), tile_dtype)
+            for j, tile in enumerate(tiles):
+                buf[j] = read[start + j] if tile is None else tile
+            yield stop - start, buf
+
+    def upload(buf: np.ndarray) -> torch.Tensor:
+        x = torch.from_numpy(buf)
+        if device.type == "cuda":  # pinned, so the copy does not wait for the embeds queued
+            return x.pin_memory().to(device, non_blocking=True)
+        return x.to(device)
+
+    sat_frac = None
+    parts, pending = [], collections.deque()
+    with futures.ThreadPoolExecutor(READERS) as pool:
+        for real, buf in prefetch_iter(tile_batches(pool), depth=prefetch):
+            x = upload(buf)
+            if int8 and sat_frac is None:
+                sat_frac = quantize.check_saturation(sq, preprocess(x), True, context=context)
+            pending.append((embed(x), real))
+            if len(pending) >= IN_FLIGHT:
+                emb, r = pending.popleft()
+                parts.append(emb[:r].cpu().numpy())
+    while pending:
+        emb, r = pending.popleft()
+        parts.append(emb[:r].cpu().numpy())
+    return np.concatenate(parts)[:n], sat_frac
+
+
 @torch.no_grad()
 def build_index(
     csv_path: str,
@@ -113,69 +211,20 @@ def build_index(
         cfg = fov_experiment(dataset=dataset, fov=fov)
     d = cfg.data
     pipeline = FovPipeline(cfg, device)
-    device = pipeline.device
     if state is None:
         state = load_params(cfg, os.path.join(checkpoint_dir, tag or f"fov_{fov}_{dataset}"),
-                            device)
+                            pipeline.device)
     params = getattr(state, "params", state)
-    overhead = {k: v.to(device) for k, v in params["overhead"].items()}
 
     overhead_paths = [o for _, o in read_pair_paths(d.dataset, csv_path)]
     n = len(overhead_paths)
-    tile_size = d.overhead_size
 
-    def read_tile(path):
-        tile = decode_image(path)
-        return resize_host(tile[..., : d.channels], tile_size, tile_size)
+    def read_tile(i):
+        tile = decode_image(overhead_paths[i])
+        return resize_host(tile[..., : d.channels], d.overhead_size, d.overhead_size)
 
-    def preprocess(x: torch.Tensor) -> torch.Tensor:
-        x = normalize_images(x, d.img_mean, d.img_std)
-        return polar_transform(x, d.surface_height, d.surface_width_max)
-
-    sq, calib_tiles = None, {}
-    if int8:
-        # gallery-spanning calibration sample; its tiles are reused below
-        sq, calib_tiles = quantize.calibrate_overhead_span(
-            overhead, lambda i: read_tile(overhead_paths[i]), n, batch_size, preprocess)
-
-    def embed(x: torch.Tensor) -> torch.Tensor:
-        polar = preprocess(x)
-        if int8:
-            return quantize.quantized_fov_forward_static(sq, polar, True)
-        return functional_call(pipeline.overhead_model, overhead, (polar,),
-                               {"train": False, "generator": None}, strict=True)
-
-    def tile_batches():
-        for start in range(0, n, batch_size):
-            stop = min(start + batch_size, n)
-            buf = np.zeros((batch_size, tile_size, tile_size, d.channels), np.float32)
-            for j in range(stop - start):
-                tile = calib_tiles.pop(start + j, None)
-                buf[j] = read_tile(overhead_paths[start + j]) if tile is None else tile
-            yield stop - start, buf
-
-    def upload(buf: np.ndarray) -> torch.Tensor:
-        x = torch.from_numpy(buf)
-        if device.type == "cuda":  # pinned, so the copy does not wait for the embeds queued
-            return x.pin_memory().to(device, non_blocking=True)
-        return x.to(device)
-
-    # Decode in a producer thread; hold up to IN_FLIGHT embedded batches
-    # before fetching the oldest.
-    sat_frac = None
-    parts, pending = [], collections.deque()
-    for real, buf in prefetch_iter(tile_batches(), depth=2):
-        x = upload(buf)
-        if int8 and sat_frac is None:
-            sat_frac = quantize.check_saturation(sq, preprocess(x), True, context="gallery")
-        pending.append((embed(x), real))
-        if len(pending) >= IN_FLIGHT:
-            emb, r = pending.popleft()
-            parts.append(emb[:r].cpu().numpy())
-    while pending:
-        emb, r = pending.popleft()
-        parts.append(emb[:r].cpu().numpy())
-    embeds = np.concatenate(parts)[:n]
+    embeds, sat_frac = embed_tiles(pipeline, params["overhead"], read_tile, n, batch_size, int8,
+                                   context="gallery")
 
     meta = {
         "precision": "int8" if int8 else "f32",
@@ -188,7 +237,7 @@ def build_index(
     if meta_cols:
         meta.update(read_meta_cols(csv_path, d.dataset.header, meta_cols))
 
-    index = GalleryIndex(embeds, meta=meta, device=device)
+    index = GalleryIndex(embeds, meta=meta, device=pipeline.device)
     if out_path:
         index.save(out_path)
         if verbose:

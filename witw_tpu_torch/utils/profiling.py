@@ -2,13 +2,15 @@
 witw_tpu/utils/profiling.py:StepTimer) and a device timer. Host clock: on
 the card, a step's time is right only where the loop synchronizes once a
 step (the train loop fetches each loss one step late). :func:`cuda_ms` times
-device work with CUDA events, :func:`graph_ms` launch-bound work."""
+device work with CUDA events, :func:`graph_ms` launch-bound work;
+:func:`trace_profile` records a torch.profiler trace of a run."""
 
 from __future__ import annotations
 
+import contextlib
 import statistics
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, Iterator, List, Optional
 
 import torch
 
@@ -46,6 +48,23 @@ def graph_ms(fn: Callable[[], object], calls: int = 64, reps: int = 5) -> float:
         for _ in range(calls):
             fn()
     return cuda_ms(graph.replay, 1, reps) / calls
+
+
+@contextlib.contextmanager
+def trace_profile(profile_dir: Optional[str]) -> Iterator[None]:
+    """Record a torch.profiler trace (host, and the card's kernels where
+    CUDA is available) of the body into ``profile_dir`` as a Chrome /
+    TensorBoard trace file; a no-op when ``profile_dir`` is None."""
+    if profile_dir is None:
+        yield
+        return
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(
+            activities=activities,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(profile_dir)):
+        yield
 
 
 class StepTimer:
