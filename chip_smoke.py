@@ -153,6 +153,39 @@ Phases, each of which passes or raises:
    --fast-eval and train not. Prints the CLI's train pairs/s beside [14]'s
    staged-batch rate.
 
+23. SAFA towers and ranks at full CVUSA geometry (safa_experiment("cvusa",
+   360): 128 x 512 surface, 256^2 tile polar-mapped to 128 x 512; random
+   weights from a seed): SafaPipeline.embed_step at batch 128 in bf16
+   (conv3x3_bf16) against the same towers under plain_kernels() (rtol 2e-2,
+   atol 2e-2 max|y|, unit norms), then both static-int8 towers (calibrated on
+   8 preprocessed samples; kernels A, B, C and conv4_3 on kernel A's dequant
+   epilogue at Co 512) against plain_kernels() (atol 1e-6) and against the
+   f32 towers (cosine > 0.99). euclidean_ranks on 8832 planted
+   integer-lattice pairs at D = 4096 (exact in f32) equal to an f64 numpy
+   oracle, with the global TF32 flag set True around the call and every
+   product seen running with TF32 off. Prints embed+match pairs/s in bf16 and
+   int8 (both towers, then the squared distances) and the sweep's seconds.
+24. SAFA serving at safa_experiment("witw", 70): build_index.main --family
+   safa on [18]'s 512 tiles, bf16 and --int8 (VectorIndex [512, 4096], meta,
+   first 8 embeddings against the plain kernels); a VectorIndex of 100,000
+   planted integer-lattice vectors (1.64 GB, resident): search(k=10) and
+   score_all against an f64 numpy oracle (indices equal, ties to the lower
+   index), with times and peak memory; GeolocateService(family="safa",
+   max_batch 8) behind serve() in bf16 and --int8, 16 PNG requests from 8
+   clients each equal to VectorIndex.search of the daemon's embeddings
+   (orientation null), those embeddings against the plain kernels, one
+   candidates=64 request searched exactly; heatmap.main --family safa on a
+   50 x 50 grid (2,500 tiles) of a synthetic strip in .smoke_safa/, bf16
+   then --int8, each cold and warm (CSV without orientation, warm == cold,
+   the cache's first 8 embeddings against the plain kernels, photo 0's rows
+   == VectorIndex.score_all).
+25. cli.cvig_safa.main --dataset cvusa --fov 360 (batch 32) on 320
+   synthetic pairs (val_quantity 64 by wrapping run_train: 8 train and 2 val
+   steps), --mode train --epochs 1 then --mode test, in .smoke_safa/: losses
+   finite, best.pt and latest.pt, no embedding dump, test mode's metrics ==
+   loop.test on the restored best (euclidean_ranks); conv3x3_bf16 launched,
+   the fused match not.
+
 The launch counts are reset just before the path they count and read right
 after it: the fused match's and the conv kernel's before phase 4 and after
 test() in phase 5 (forward_distance at fov 360 and 90, and test(), must each
@@ -164,7 +197,11 @@ conv kernel's (bf16) and kernels A, B and C's (int8) before each index build
 of phase 18, each daemon's 32 requests of phase 20 and each sweep of phase 21,
 read after each (the records' `serving_launches` sum them); the conv
 kernel's and the fused match's before each CLI run of phase 22, read after
-each (their records' `cli_launches` sum them). The second-to-last line is the
+each (their records' `cli_launches` sum them); the conv kernel's before the
+bf16 SAFA towers of phase 23 and kernels A, B and C's before its int8
+towers, and each kernel's before each build, daemon and sweep of phase 24
+and each CLI run of phase 25, read after each (the records'
+`safa_launches` sum them). The second-to-last line is the
 kernels' JSON record; the last line is {"ok": true, "device": {...}}.
 Without a GPU, or without the repo beside it, the script exits non-zero and
 prints no result.
@@ -195,19 +232,23 @@ import torch
 from torch.func import functional_call
 
 from witw_tpu_torch.cli import common as cli_common
-from witw_tpu_torch.cli import cvig_fov
-from witw_tpu_torch.configs import fov_experiment
+from witw_tpu_torch.cli import cvig_fov, cvig_safa
+from witw_tpu_torch.configs import fov_experiment, safa_experiment
 from witw_tpu_torch.data import loader, synthetic
 from witw_tpu_torch.data.csv_registry import read_pair_paths
+from witw_tpu_torch.evaluation import gallery
 from witw_tpu_torch.evaluation.gallery import FovGalleryEvaluator, metrics_from_ranks
 from witw_tpu_torch.evaluation.index import GalleryIndex
+from witw_tpu_torch.evaluation.vector_index import VectorIndex
 from witw_tpu_torch.exp import int8_isolate, int8_mm_probe, mosaic_caps
 from witw_tpu_torch.kernels.build import build_libraries, nvcc_path
 from witw_tpu_torch.match.correlation import circular_correlation
+from witw_tpu_torch.match.losses import pairwise_sq_distances
 from witw_tpu_torch.models import quantize
 from witw_tpu_torch.models.backbones import vgg16
 from witw_tpu_torch.models.backbones.vgg16 import VGG16_BLOCKS
 from witw_tpu_torch.models.fov_dsm import HEAD_CONVS, FovDsm
+from witw_tpu_torch.models.safa import VggSafa
 from witw_tpu_torch.ops import conv3x3, fused_block2, fused_match, int8_conv, maxpool
 from witw_tpu_torch.ops.image import normalize_images
 from witw_tpu_torch.ops.polar import polar_transform
@@ -215,7 +256,7 @@ from witw_tpu_torch.tools import build_index, geotiff, heatmap
 from witw_tpu_torch.tools import serve as serve_tool
 from witw_tpu_torch.train import loop
 from witw_tpu_torch.train.checkpoint import Checkpointer
-from witw_tpu_torch.train.pipeline import FovPipeline
+from witw_tpu_torch.train.pipeline import FovPipeline, SafaPipeline
 from witw_tpu_torch.utils.device import require_cuda
 from witw_tpu_torch.utils.hashing import params_fingerprint
 from witw_tpu_torch.utils.profiling import cuda_ms, graph_ms
@@ -1261,18 +1302,26 @@ def check_index_build(index, cfg, params, sq, int8, tiles=None):
     """The first 8 embeddings of a built index against the same tiles
     (``tiles``, or those of the index's paths) run through the plain
     versions of the kernels on the card: bf16 cosine >= 0.999 per
-    embedding, int8 within phase 9's atol 1e-6."""
+    embedding, int8 within phase 9's atol 1e-6. FOV maps or, for a SAFA
+    config, vectors (``sq`` then the (tables, head) pair)."""
     d = cfg.data
+    safa = cfg.model.kind == "vgg_safa"
     if tiles is None:
         tiles = np.stack([loader.resize_host(loader.decode_image(p)[..., :3], d.overhead_size,
                                              d.overhead_size) for p in index.meta["path"][:8]])
     x = torch.from_numpy(tiles).to(index.device)
     polar = polar_transform(normalize_images(x, d.img_mean, d.img_std), d.surface_height,
                             d.surface_width_max)
-    model = FovDsm(cfg.model, circ_padding=True).to(index.device).eval()
+    if safa:
+        model = VggSafa(cfg.model, (d.surface_height, d.surface_width_max), True)
+    else:
+        model = FovDsm(cfg.model, circ_padding=True)
+    model = model.to(index.device).eval()
     got = torch.from_numpy(index.embeds[:8]).to(index.device)
     with torch.no_grad(), plain_kernels():
-        if int8:
+        if int8 and safa:
+            want = quantize.quantized_safa_forward_static(*sq, polar, True)
+        elif int8:
             want = quantize.quantized_fov_forward_static(sq, polar, True)
         else:
             want = functional_call(model, params["overhead"], (polar,), strict=True)
@@ -1300,7 +1349,9 @@ def check_daemon_embeds(service, seen, int8):
     with torch.no_grad(), plain_kernels():
         for imgs, got in seen:
             x = service._normalize(torch.from_numpy(imgs).to(service.device))
-            if int8:
+            if int8 and service.family == "safa":
+                want = quantize.quantized_safa_forward_static(*service._sq, x, False)
+            elif int8:
                 want = quantize.quantized_fov_forward_static(service._sq, x, False)
             else:
                 want = service._tower(x)
@@ -1555,12 +1606,12 @@ CSV_HEADER = ["photo", "x", "y", "orientation", "dissimilarity", "score"]
 CLI_PAIRS, CLI_VAL = 640, 128  # 8 train steps and 2 val steps at batch 64; 10 test batches
 
 
-def write_strip(directory: Path):
-    """A synthetic 3-band uint8 strip at GSD around the sweep's bounds,
-    written uncompressed as 03_paris.tif (the CLI's default AOI). Returns
-    (the bounds, the strip's side in pixels)."""
+def write_strip(directory: Path, tiles_per_side: int = SWEEP_SIDE):
+    """A synthetic 3-band uint8 strip at GSD around the bounds of a sweep of
+    ``tiles_per_side``^2 tiles, written uncompressed as 03_paris.tif (the
+    CLI's default AOI). Returns (the bounds, the strip's side in pixels)."""
     e0, n0 = SWEEP_ORIGIN
-    span = SWEEP_SIDE * 56.25 - 1.0
+    span = tiles_per_side * 56.25 - 1.0
     bounds = (e0, n0 - span, e0 + span, n0)
     margin = 150.0  # the windows reach 112.5 m past the bounds' low edges
     side = int(np.ceil((span + 2 * margin) / GSD))
@@ -1811,6 +1862,521 @@ def phase_cli(card, device, staged_pairs_per_s):
     return launches
 
 
+# --- the SAFA family: towers and ranks, serving, the CLI (23-25) --------------
+
+SAFA_DIR = Path(__file__).resolve().parent / ".smoke_safa"
+SAFA_SWEEP_SIDE = 50  # 2,500 tiles
+SAFA_REQUESTS = 16
+SAFA_CLI_PAIRS, SAFA_CLI_VAL = 320, 64  # 8 train and 2 val steps at batch 32; 10 test batches
+RANK_PAIRS, RANK_D = 8832, 4096
+
+
+def lattice(gen, shape, device):
+    """Vectors of integers in [-2, 2]: every product and sum of two of them
+    at D = 4096 is an integer under 2^24, exact in f32 and f64 alike, so
+    distances (and their ties) compare exactly against a numpy oracle."""
+    return torch.randint(-2, 3, shape, generator=gen, device=device, dtype=torch.int8).float()
+
+
+def planted_queries(gen, gallery, rows, redrawn):
+    """Gallery rows ``rows`` with each coordinate redrawn with probability
+    ``redrawn[i]`` (a tensor): the more redrawn, the larger the true match's
+    distance."""
+    q = gallery[rows]
+    mask = torch.rand(q.shape, generator=gen, device=q.device) < redrawn[:, None]
+    return torch.where(mask, lattice(gen, q.shape, q.device), q)
+
+
+def oracle_ranks(g: np.ndarray, q: np.ndarray) -> np.ndarray:
+    """Rank of each query's own gallery row (ties count), squared Euclidean
+    distances in f64 numpy."""
+    g64, q64 = g.astype(np.float64), q.astype(np.float64)
+    d2 = (g64 * g64).sum(1)[:, None] + (q64 * q64).sum(1)[None, :] - 2.0 * (g64 @ q64.T)
+    d_true = np.diagonal(d2)
+    return (d2 <= d_true[None, :]).sum(0).astype(np.int32)
+
+
+def safa_int8_embed(data_cfg, towers, batch):
+    """The SAFA static-int8 serving forward: int8-first preprocessing, both
+    int8 towers -> (surface, overhead) vectors [B, 4096]."""
+    (sq_s, head_s), (sq_o, head_o) = towers
+    surf_q, polar_q = quantize.preprocess_static_int8(data_cfg, sq_s, sq_o, batch)
+    return (quantize.quantized_safa_forward_static(sq_s, head_s, surf_q, False, x_quantized=True),
+            quantize.quantized_safa_forward_static(sq_o, head_o, polar_q, True, x_quantized=True))
+
+
+def phase_safa_towers(card, device):
+    """[23] SAFA towers at full CVUSA geometry, bf16 and static int8, and
+    euclidean_ranks at 8832^2; returns launches per kernel per precision."""
+    cfg = safa_experiment("cvusa", 360)
+    d = cfg.data
+    log(f"[23] SAFA towers, safa_experiment('cvusa', 360): {d.surface_height} x "
+        f"{d.surface_width} surface, {d.overhead_size}^2 tile polar-mapped to "
+        f"{d.surface_height} x {d.surface_width_max}, batch 128, random weights from a seed; "
+        f"bf16 and static int8, each against the plain kernels on the card")
+    pipeline = SafaPipeline(cfg, device)
+    params = pipeline.init(torch.Generator().manual_seed(0))
+    batch = raw_batch(np.random.default_rng(30), cfg, 128)
+    launches = {}
+
+    conv3x3.launches = 0
+    s_emb, o_emb = pipeline.embed_step(params, batch)
+    torch.cuda.synchronize()
+    launches["bf16"] = {"conv3x3": conv3x3.launches}
+    if launches["bf16"]["conv3x3"] < 1:
+        raise AssertionError("the bf16 SAFA towers did not launch conv3x3_bf16")
+    with plain_kernels():
+        s_pl, o_pl = pipeline.embed_step(params, batch)
+    for name, got, want in (("surface", s_emb, s_pl), ("overhead", o_emb, o_pl)):
+        norms = got.norm(dim=1)
+        err = float((got - want).abs().max())
+        ok = (got.shape == (len(batch["surface"]), 4096) and bool(torch.isfinite(got).all())
+              and bool(torch.isclose(norms, torch.ones_like(norms), rtol=1e-5).all())
+              and bool(torch.isclose(got, want, rtol=2e-2,
+                                     atol=2e-2 * float(want.abs().max())).all()))
+        cos = torch.nn.functional.cosine_similarity(got, want, dim=1)
+        log(f"    bf16 {name} tower [128, 4096] vs plain kernels: max |d emb| {err:.3e} (rtol 2e-2, "
+            f"atol 2e-2 max|y| = {2e-2 * float(want.abs().max()):.3e}), cosine min "
+            f"{float(cos.min()):.6f}")
+        if not ok:
+            raise AssertionError(f"bf16 SAFA {name} tower disagrees with the plain kernels")
+
+    calib = {k: v[:8] for k, v in batch.items()}
+    s_in, p_in = pipeline.preprocess(calib)
+    t0 = time.perf_counter()
+    towers = quantize.quantize_safa_pipeline_static(params, [(s_in, p_in)])
+    torch.cuda.synchronize()
+    log(f"    calibrated both int8 trunks on 8 preprocessed samples in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for mod in INT8_MODULES.values():
+        mod.launches = 0
+    s8, o8 = safa_int8_embed(d, towers, batch)
+    torch.cuda.synchronize()
+    launches["int8"] = {n: m.launches for n, m in INT8_MODULES.items()}
+    idle = [n for n, c in launches["int8"].items() if c < 1]
+    if idle:
+        raise AssertionError(f"the int8 SAFA towers did not launch {idle}")
+    with plain_kernels():
+        s8p, o8p = safa_int8_embed(d, towers, batch)
+    for name, got, want in (("surface", s8, s8p), ("overhead", o8, o8p)):
+        err = float((got - want).abs().max())
+        log(f"    int8 {name} tower [128, 4096] vs plain kernels (conv4_3 on the dequant "
+            f"epilogue at Co 512): max |d emb| {err:.3e} (atol {INT8_ATOL})")
+        if got.shape != (len(batch["surface"]), 4096) or not err <= INT8_ATOL:
+            raise AssertionError(f"int8 SAFA {name} tower disagrees with the plain kernels")
+    f32 = SafaPipeline(cfg.replace(model=dataclasses.replace(cfg.model, compute_dtype="float32")),
+                       device)
+    with torch.no_grad():
+        s32, o32 = f32._towers(params, s_in, p_in, False, None)
+        (sq_s, head_s), (sq_o, head_o) = towers
+        for name, want, got in (
+                ("surface", s32, quantize.quantized_safa_forward_static(sq_s, head_s, s_in, False)),
+                ("overhead", o32, quantize.quantized_safa_forward_static(sq_o, head_o, p_in, True))):
+            cos = torch.nn.functional.cosine_similarity(got, want, dim=1)
+            log(f"    int8 vs f32 {name} tower on the 8 calibration samples: cosine min "
+                f"{float(cos.min()):.6f} (> 0.99)")
+            if not bool((cos > 0.99).all()):
+                raise AssertionError(f"int8 SAFA {name} tower disagrees with the f32 tower")
+    log(f"    launches: bf16 {launches['bf16']}, int8 {launches['int8']}")
+
+    # euclidean_ranks at the test set's scale, TF32 forced off for the product
+    gen = torch.Generator(device=device).manual_seed(31)
+    g = lattice(gen, (RANK_PAIRS, RANK_D), device)
+    q = planted_queries(gen, g, torch.arange(RANK_PAIRS, device=device),
+                        torch.linspace(0.0, 1.0, RANK_PAIRS, device=device))
+    tf32_seen = []
+    real_sq = gallery.sq_distances
+
+    def recording_sq(*args):
+        tf32_seen.append(torch.backends.cuda.matmul.allow_tf32)
+        return real_sq(*args)
+
+    gallery.sq_distances = recording_sq
+    torch.backends.cuda.matmul.allow_tf32 = True  # the global flag may say anything
+    try:
+        gallery.euclidean_ranks(g, q)
+        t0 = time.perf_counter()
+        ranks = gallery.euclidean_ranks(g, q)
+        t_ranks = time.perf_counter() - t0
+    finally:
+        gallery.sq_distances = real_sq
+        torch.backends.cuda.matmul.allow_tf32 = False
+    if not tf32_seen or any(tf32_seen):
+        raise AssertionError(f"euclidean_ranks ran its products with TF32 allowed: {tf32_seen}")
+    t0 = time.perf_counter()
+    want = oracle_ranks(g.cpu().numpy(), q.cpu().numpy())
+    t_oracle = time.perf_counter() - t0
+    if not np.array_equal(ranks, want):
+        raise AssertionError(f"euclidean_ranks differs from the f64 oracle on "
+                             f"{int((ranks != want).sum())} of {RANK_PAIRS} queries")
+    log(f"    euclidean_ranks, {RANK_PAIRS} planted integer-lattice pairs at D = {RANK_D}: == the "
+        f"f64 numpy oracle ({t_oracle:.2f} s), mean rank {ranks.mean():.4f}, "
+        f"{len(np.unique(ranks))} distinct ranks; TF32 off in all {len(tf32_seen)} products "
+        f"(global flag set True around the call); {t_ranks:.4f} s (host clock, second of two "
+        f"runs) ({card})")
+    del g, q
+
+    gen_in = torch.Generator(device=device).manual_seed(32)
+    staged = [
+        {"surface": torch.rand(128, d.surface_height, d.surface_width_max, 3,
+                               generator=gen_in, device=device) * 255.0,
+         "overhead": torch.rand(128, d.overhead_size, d.overhead_size, 3,
+                                generator=gen_in, device=device) * 255.0}
+        for _ in range(4)
+    ]
+    step_of = iter(range(10**9))
+
+    def stage(fn):
+        return lambda: fn(staged[next(step_of) % len(staged)])
+
+    def bf16_step(b):
+        s, o = pipeline.embed_step(params, b)
+        return pairwise_sq_distances(o, s)
+
+    def int8_step(b):
+        s, o = safa_int8_embed(d, towers, b)
+        return pairwise_sq_distances(o, s)
+
+    t_bf16 = cuda_ms(stage(bf16_step), 8, 5)
+    t_int8 = cuda_ms(stage(int8_step), 8, 5)
+    log(f"    embed+match SAFA batch 128 (both towers, then the [128, 128] squared distances): "
+        f"bf16 {t_bf16:.3f} ms/step = {128 * 1000.0 / t_bf16:.2f} pairs/s; static int8 "
+        f"{t_int8:.3f} ms/step = {128 * 1000.0 / t_int8:.2f} pairs/s (CUDA events, varied "
+        f"inputs, median of 5 runs of 8) ({card})")
+    return launches
+
+
+def phase_safa_serving(card, device, csv_path):
+    """[24] build_index --family safa on [18]'s 512 tiles, VectorIndex at
+    100,000 vectors, the daemon and the heatmap sweep with the SAFA towers;
+    returns launches per kernel per precision, summed."""
+    cfg = safa_experiment("witw", 70)
+    d = cfg.data
+    log(f"[24] SAFA serving, safa_experiment('witw', 70) ({d.surface_height} x {d.surface_width} "
+        f"photo crop), random weights from a seed saved as `best`: build_index --family safa "
+        f"on [18]'s {SERVE_TILES} tiles, VectorIndex at {INDEX_TILES} vectors, the daemon, "
+        f"the heatmap sweep")
+    shutil.rmtree(SAFA_DIR, ignore_errors=True)
+    SAFA_DIR.mkdir(parents=True)
+    weights = SAFA_DIR / "weights"
+    state = SafaPipeline(cfg, device).init_state(torch.Generator().manual_seed(0))
+    Checkpointer(str(weights / "safa_70_witw")).save("best", state)
+    params = state.params
+    counted = dict(INT8_MODULES, conv3x3=conv3x3, fused_match=fused_match)
+    mods = {"bf16": ["conv3x3"], "int8": list(INT8_MODULES)}
+    launches = {p: {n: 0 for n in counted} for p in mods}
+
+    def count(precision, what):
+        torch.cuda.synchronize()
+        for n, m in counted.items():
+            launches[precision][n] += m.launches
+        idle = [n for n in mods[precision] if counted[n].launches < 1]
+        if idle:
+            raise AssertionError(f"{what} ({precision}) did not launch {idle}")
+        if fused_match.launches:
+            raise AssertionError(f"{what} ({precision}) launched the fused match")
+
+    def reset():
+        for m in counted.values():
+            m.launches = 0
+
+    # build_index --family safa
+    seen = {}
+    real_span = quantize.calibrate_overhead_span
+
+    def record_span(*args, **kwargs):
+        seen["sq"], items = real_span(*args, **kwargs)
+        return seen["sq"], items
+
+    indexes = {}
+    quantize.calibrate_overhead_span = record_span
+    try:
+        for precision, flags in (("bf16", []), ("int8", ["--int8"])):
+            out = SAFA_DIR / f"index_{precision}.npz"
+            reset()
+            t0 = time.perf_counter()
+            build_index.main(["--csv", csv_path, "--out", str(out), "--weights", str(weights),
+                              "--dataset", "witw", "--fov", "70", "--family", "safa",
+                              "--meta-cols", "col0:x,col1:y"] + flags)
+            count(precision, "build_index --family safa")
+            dt = time.perf_counter() - t0
+            index = VectorIndex.load(str(out), device)
+            meta = index.meta
+            if (index.embeds.shape != (SERVE_TILES, 4096) or not np.isfinite(index.embeds).all()
+                    or str(meta["family"]) != "safa"
+                    or str(meta["precision"]) != ("int8" if flags else "f32")
+                    or str(meta["params_sha"]) != params_fingerprint(params["overhead"])
+                    or not np.array_equal(meta["x"], 1000.0 + 10 * np.arange(SERVE_TILES))):
+                raise AssertionError(f"SAFA {precision} index: embeds {index.embeds.shape}, meta "
+                                     f"{ {k: str(v)[:40] for k, v in meta.items()} }")
+            log(f"    build_index {precision}: {SERVE_TILES} tiles in {dt:.3f} s = "
+                f"{SERVE_TILES / dt:.2f} tiles/s (host clock) ({card}); VectorIndex "
+                f"{index.embeds.shape}, family 'safa'")
+            check_index_build(index, cfg, params, seen.get("sq"), bool(flags))
+            indexes[precision] = index
+    finally:
+        quantize.calibrate_overhead_span = real_span
+
+    # VectorIndex at 100,000 vectors, resident
+    gen = torch.Generator(device=device).manual_seed(33)
+    t0 = time.perf_counter()
+    gal = lattice(gen, (INDEX_TILES, RANK_D), device)
+    planted = torch.randperm(INDEX_TILES, generator=gen, device=device)[:8]
+    queries = planted_queries(gen, gal, planted,
+                              torch.full((8,), 0.125, device=device)).cpu().numpy()
+    embeds = gal.cpu().numpy()
+    planted = planted.cpu().numpy()
+    del gal
+    log(f"    made {INDEX_TILES} planted integer-lattice vectors [N, {RANK_D}] in "
+        f"{time.perf_counter() - t0:.2f} s ({embeds.nbytes / 1e9:.2f} GB f32)")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    vindex = VectorIndex(embeds, device=device)
+    i_s, d_s = vindex.search(queries, k=10)
+    q64 = queries.astype(np.float64)
+    d2 = np.empty((len(queries), INDEX_TILES))
+    for a in range(0, INDEX_TILES, 10_000):
+        g64 = embeds[a:a + 10_000].astype(np.float64)
+        d2[:, a:a + 10_000] = ((q64 * q64).sum(1)[:, None] + (g64 * g64).sum(1)[None, :]
+                               - 2.0 * q64 @ g64.T)
+    order = np.argsort(d2, axis=1, kind="stable")[:, :10]
+    want_d = np.sqrt(np.maximum(np.take_along_axis(d2, order, axis=1), 0.0))
+    if not (np.array_equal(i_s, order) and np.array_equal(i_s[:, 0], planted)
+            and np.allclose(d_s, want_d, rtol=1e-5, atol=1e-6)):
+        raise AssertionError(f"VectorIndex.search differs from the numpy oracle: top-1 "
+                             f"{i_s[:, 0]} (planted {planted})")
+    scores = vindex.score_all(queries[:2])
+    if not np.allclose(scores, np.sqrt(np.maximum(d2[:2].T, 0.0)), rtol=1e-5, atol=1e-6):
+        raise AssertionError("VectorIndex.score_all differs from the numpy oracle")
+    timings = {f"search(k=10) Q {qn}": cuda_ms(lambda qn=qn: vindex.search(queries[:qn], k=10),
+                                               1, 5) for qn in (1, 8)}
+    timings["score_all Q 2"] = cuda_ms(lambda: vindex.score_all(queries[:2]), 1, 5)
+    peak = torch.cuda.max_memory_allocated(device) - base
+    log(f"    VectorIndex {INDEX_TILES} x {RANK_D}: search(k=10) == the f64 numpy oracle's top-10 "
+        f"(indices, ties to the lower index; distances within rtol 1e-5), top-1 == planted, "
+        f"resident score_all == the oracle; " + ", ".join(f"{k} {v:.3f} ms" for k, v in
+                                                     timings.items())
+        + f" (CUDA events, median of 5); peak device memory {peak / 1e9:.3f} GB above the "
+        f"baseline ({card})")
+    del vindex, embeds
+    torch.cuda.empty_cache()
+
+    # the daemon
+    rng = np.random.default_rng(34)
+    photos = [png_bytes(rng.integers(0, 256, (300, 400, 3), dtype=np.uint8))
+              for _ in range(SAFA_REQUESTS)]
+    for precision, int8 in (("bf16", False), ("int8", True)):
+        index = indexes[precision]
+        service = serve_tool.GeolocateService(index, cfg, params, int8=int8, max_batch=8,
+                                              family="safa")
+        seen_embeds = []
+        real_embed = service._embed
+
+        def recording_embed(imgs, real_embed=real_embed, seen=seen_embeds):
+            out = real_embed(imgs)
+            seen.append((imgs, out))
+            return out
+
+        service._embed = recording_embed
+        server = serve_tool.serve(service, port=0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        try:
+            service.warmup()
+            seen_embeds.clear()
+            reset()
+            t0 = time.perf_counter()
+            with concurrent.futures.ThreadPoolExecutor(8) as pool:
+                answers = list(pool.map(lambda p: http_json(f"{url}/geolocate?k=5", p), photos))
+            wall = time.perf_counter() - t0
+            count(precision, "the SAFA daemon")
+            approx, _ = http_json(f"{url}/geolocate?k=5&candidates=64", photos[0])
+            health, _ = http_json(f"{url}/healthz")
+            stats, _ = http_json(f"{url}/stats")
+            direct = []
+            for imgs, embs in seen_embeds[:-1]:
+                i_d, d_d = index.search(embs, k=service._k_bucket(5))
+                direct += [(imgs[r], i_d[r, :5], d_d[r, :5]) for r in range(len(imgs))]
+            for photo, (out, _) in zip(photos, answers):
+                img = service._decode(photo)
+                _, i_d, d_d = next(t for t in direct if np.array_equal(t[0], img))
+                res = out["results"]
+                if ([r["tile"] for r in res] != i_d.tolist()
+                        or [r["distance"] for r in res] != [float(v) for v in d_d]
+                        or any(r["orientation_deg"] is not None for r in res)
+                        or [r["x"] for r in res] != [1000.0 + 10 * t for t in i_d]
+                        or [r["score"] for r in res]
+                        != [float(np.exp(10.0 * (1.0 - v))) for v in d_d]):
+                    raise AssertionError(f"{precision} SAFA daemon answer differs from the "
+                                         f"direct search")
+            batches, worst = check_daemon_embeds(service, seen_embeds, int8)
+            if (len(approx["results"]) != 5 or stats["requests"] != SAFA_REQUESTS + 1
+                    or stats["errors"] != 0 or stats["approx_searches"] != 0
+                    or health["family"] != "safa" or health["int8"] != int8):
+                raise AssertionError(f"{precision} SAFA daemon: stats {stats}, health {health}")
+            p50, p99 = (1e3 * float(np.percentile([t for _, t in answers], q)) for q in (50, 99))
+            log(f"    daemon {precision}: {SAFA_REQUESTS} requests in {wall:.3f} s = "
+                f"{SAFA_REQUESTS / wall:.2f} requests/s, latency p50 {p50:.2f} ms, p99 "
+                f"{p99:.2f} ms (host clock, 8 clients) ({card}); mean batch "
+                f"{stats['mean_batch']}; every answer == VectorIndex.search on the daemon's "
+                f"embeddings, orientation null; those embeddings (batches {batches}) vs the "
+                f"plain kernels: {'max |d emb|' if int8 else 'cosine min'} {worst:.6g}; "
+                f"candidates=64 searched exactly")
+        finally:
+            server.shutdown()
+            server.server_close()
+            service.close()
+
+    # the heatmap sweep
+    t0 = time.perf_counter()
+    bounds, side = write_strip(SAFA_DIR, SAFA_SWEEP_SIDE)
+    photo_paths = []
+    for k in range(2):
+        photo_paths.append(str(SAFA_DIR / f"photo{k}.png"))
+        (SAFA_DIR / f"photo{k}.png").write_bytes(
+            png_bytes(rng.integers(0, 256, (300, 400, 3), dtype=np.uint8)))
+    log(f"    wrote a {side} x {side} x 3 strip for a {SAFA_SWEEP_SIDE} x {SAFA_SWEEP_SIDE} grid "
+        f"in {time.perf_counter() - t0:.2f} s")
+    _, _, windows = heatmap.window_grid(bounds, 225.0, 56.25)
+    with geotiff.GeoTiff(str(SAFA_DIR / "03_paris.tif")) as sat:
+        first_tiles = np.stack([geotiff.resample(sat.read_world_window(*w).astype(np.float32),
+                                                 d.overhead_size, d.overhead_size)
+                                for w in windows[:8]])
+    cache = SAFA_DIR / "tiles.npz"
+    n = SAFA_SWEEP_SIDE ** 2
+    real_score = VectorIndex.score_all
+
+    def record_score(index, query_embeds, *args, **kwargs):
+        seen["s_emb"] = np.array(query_embeds)
+        return real_score(index, query_embeds, *args, **kwargs)
+
+    quantize.calibrate_overhead_span = record_span
+    VectorIndex.score_all = record_score
+    try:
+        for precision, flags in (("bf16", []), ("int8", ["--int8"])):
+            argv = (["-a", "3", "-b", *map(str, bounds), "-s", str(SAFA_DIR), "-p", *photo_paths,
+                     "--weights", str(weights), "--family", "safa", "--index-cache", str(cache)]
+                    + flags)
+            runs = {}
+            for run in ("cold", "warm"):
+                reset()
+                t0 = time.perf_counter()
+                heatmap.main(argv + ["-c", str(SAFA_DIR / f"{precision}_{run}.csv")])
+                count(precision, f"the {run} SAFA sweep")
+                runs[run] = time.perf_counter() - t0
+            header, cold = read_sweep_csv(SAFA_DIR / f"{precision}_cold.csv")
+            _, warm = read_sweep_csv(SAFA_DIR / f"{precision}_warm.csv")
+            if header != ["photo", "x", "y", "dissimilarity", "score"] or len(cold) != 2 * n \
+                    or warm != cold:
+                raise AssertionError(f"SAFA {precision} CSV: header {header}, {len(cold)} rows")
+            d_col = np.asarray([r[3] for r in cold], np.float32)
+            score = np.asarray([r[4] for r in cold], np.float32)
+            if not (np.isfinite(d_col).all()
+                    and np.allclose(score, np.exp(10.0 * (1.0 - d_col)), rtol=1e-6, atol=0)):
+                raise AssertionError(f"SAFA {precision}: scores are not exp(10 (1 - d))")
+            index = VectorIndex.load(str(cache), device)
+            if (len(index) != n or str(index.meta["family"]) != "safa"
+                    or str(index.meta["precision"]) != ("int8" if flags else "f32")):
+                raise AssertionError(f"SAFA {precision} cache: {len(index)} tiles, meta "
+                                     f"{ {k: str(v)[:40] for k, v in index.meta.items()} }")
+            check_index_build(index, cfg, params, seen.get("sq"), bool(flags), first_tiles)
+            dd = float(np.abs(real_score(index, seen["s_emb"][:1])[:, 0] - d_col[:n]).max())
+            if not dd <= 1e-6:
+                raise AssertionError(f"SAFA {precision}: photo 0's rows differ from score_all "
+                                     f"({dd})")
+            log(f"    heatmap --family safa {precision}: {n} tiles cold {runs['cold']:.3f} s = "
+                f"{n / runs['cold']:.2f} tiles/s (arguments to CSV, host clock), warm (cache "
+                f"hit) {runs['warm']:.3f} s ({card}); {len(cold)} rows == warm rows, no "
+                f"orientation column, score == exp(10 (1 - d)), photo 0's rows == "
+                f"VectorIndex.score_all (max |dd| {dd:.3e})")
+    finally:
+        quantize.calibrate_overhead_span = real_span
+        VectorIndex.score_all = real_score
+        shutil.rmtree(SAFA_DIR, ignore_errors=True)
+    log(f"    launches, build + daemon + sweeps: { {p: {k: v for k, v in c.items() if v} for p, c in launches.items()} }")
+    return launches
+
+
+def phase_safa_cli(card, device):
+    """[25] cli.cvig_safa.main at full CVUSA width: train one epoch, then
+    test; returns launches per kernel per run."""
+    log(f"[25] cli.cvig_safa.main --dataset cvusa --fov 360 (batch 32): --mode train --epochs 1 "
+        f"on {SAFA_CLI_PAIRS} synthetic pairs ({SAFA_CLI_PAIRS - SAFA_CLI_VAL} train, "
+        f"val_quantity {SAFA_CLI_VAL} by wrapping run_train), then --mode test")
+    shutil.rmtree(SAFA_DIR, ignore_errors=True)
+    SAFA_DIR.mkdir(parents=True)
+    t0 = time.perf_counter()
+    csv_path = write_cli_dataset(SAFA_DIR / "data", SAFA_CLI_PAIRS)
+    log(f"    wrote the dataset in {time.perf_counter() - t0:.2f} s")
+    flags = ["--dataset", "cvusa", "--fov", "360", "--train-csv", csv_path, "--test-csv", csv_path]
+    real_run_train = cli_common.run_train
+
+    def run_train_small_val(cfg, tag, num_epochs=None, profile_dir=None, device=None):
+        cfg = cfg.replace(train=dataclasses.replace(cfg.train, val_quantity=SAFA_CLI_VAL))
+        return real_run_train(cfg, tag, num_epochs=num_epochs, profile_dir=profile_dir,
+                              device=device)
+
+    counted = {"conv3x3": conv3x3, "fused_match": fused_match}
+    launches, results = {}, {}
+    cwd = os.getcwd()
+    os.chdir(SAFA_DIR)
+    cli_common.run_train = run_train_small_val
+    try:
+        for run, argv in (("train", ["--mode", "train", "--epochs", "1"]),
+                          ("test", ["--mode", "test"])):
+            for mod in counted.values():
+                mod.launches = 0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                results[run] = cvig_safa.main(argv + flags)
+            torch.cuda.synchronize()
+            launches[run] = {n: mod.launches for n, mod in counted.items()}
+            log(f"    {run}: {time.perf_counter() - t0:.2f} s (host clock, arguments to return); "
+                f"launches {launches[run]}")
+            if launches[run]["conv3x3"] < 1 or launches[run]["fused_match"]:
+                raise AssertionError(f"cvig_safa {run}: launches {launches[run]}")
+        weights = SAFA_DIR / "weights" / "safa_360_cvusa"
+        if not ((weights / "best.pt").exists() and (weights / "latest.pt").exists()):
+            raise AssertionError(f"no best.pt / latest.pt in {weights}")
+        cfg = cli_common.apply_overrides(safa_experiment("cvusa", 360),
+                                         cli_common.base_parser(True).parse_args(flags))
+        records = [json.loads(line) for line in
+                   (SAFA_DIR / "runs" / "safa_360_cvusa" / "train" / "metrics.jsonl").read_text()
+                   .splitlines()]
+        tags = {r["tag"] for r in records}
+        losses = [r["value"] for r in records if r["tag"] in ("train loss", "val loss")]
+        steps = ((SAFA_CLI_PAIRS - SAFA_CLI_VAL) // cfg.train.batch_size
+                 + -(-SAFA_CLI_VAL // cfg.train.batch_size))
+        if (not {"train loss", "val loss", "train pairs_per_sec", "best_loss"} <= tags
+                or "val_embedding" in tags or len(losses) != steps
+                or not np.isfinite(losses).all()):
+            raise AssertionError(f"train metrics.jsonl: tags {tags}, losses {losses}")
+        cli_rate = next(r["value"] for r in records if r["tag"] == "train pairs_per_sec")
+        pipeline = SafaPipeline(cfg, device)
+        params = Checkpointer(str(weights)).restore(
+            "best", pipeline.init_state(torch.Generator().manual_seed(0))).params
+        test_loader = cli_common.build_loader(
+            cfg, read_pair_paths(cfg.data.dataset, csv_path), shuffle=False, drop_last=False,
+            batch_size=cfg.eval.batch_size)
+        try:
+            direct = loop.test(cfg, pipeline, test_loader, params, verbose=False)
+        finally:
+            test_loader.close()
+        if direct != results["test"] or direct["locations"] != SAFA_CLI_PAIRS:
+            raise AssertionError(f"test mode {results['test']} != loop.test {direct}")
+        log(f"    losses finite {[round(v, 5) for v in losses]}; best.pt, latest.pt; no "
+            f"embedding dump; test {json.dumps(results['test'])} == loop.test on the restored "
+            f"best (euclidean_ranks); train {cli_rate:.2f} pairs/s (the loop's StepTimer, host "
+            f"clock) ({card})")
+    finally:
+        cli_common.run_train = real_run_train
+        os.chdir(cwd)
+        shutil.rmtree(SAFA_DIR, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     # 1. device
     device = require_cuda()
@@ -2036,9 +2602,17 @@ def main() -> int:
     indexes, serve_params, build_launches = phase_build_index(card, device, cfg_witw)
     phase_gallery_index(card, device)
     daemon_launches = phase_daemon(card, device, cfg_witw, indexes, serve_params)
-    shutil.rmtree(SERVE_DIR, ignore_errors=True)
     sweep_launches = phase_heatmap(card, device)
     cli_launches = phase_cli(card, device, staged_train_rate)
+    safa_runs = [phase_safa_towers(card, device)]
+    safa_runs.append(phase_safa_serving(card, device, str(SERVE_DIR / "data" / "pairs.csv")))
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    safa_runs.append(phase_safa_cli(card, device))
+    safa = {n: sum(c.get(n, 0) for run in safa_runs for c in run.values())
+            for n in ("conv3x3", "fused_match", *INT8_MODULES)}
+    log(f"    SAFA-path launches ([23] towers, [24] serving, [25] CLI): {safa}")
+    if safa["fused_match"]:
+        raise AssertionError("the SAFA path launched the fused match")
     serving = {n: build_launches[p].get(n, 0) + daemon_launches[p].get(n, 0)
                + sweep_launches[p].get(n, 0)
                for p in ("bf16", "int8") for n in build_launches[p]}
@@ -2048,6 +2622,9 @@ def main() -> int:
     for record, mod in zip(int8_records, INT8_KERNELS):
         record["serving_launches"] = serving[mod]
     conv_record["cli_launches"] = sum(r["conv3x3"] for r in cli_launches.values())
+    conv_record["safa_launches"] = safa["conv3x3"]
+    for record, mod in zip(int8_records, INT8_KERNELS):
+        record["safa_launches"] = safa[mod]
     match_cli_launches = sum(r["fused_match"] for r in cli_launches.values())
 
     log(card)
@@ -2066,6 +2643,7 @@ def main() -> int:
         "bound_by": match_bound[1],
         "library_ms": None,
         "cli_launches": match_cli_launches,
+        "safa_launches": safa["fused_match"],
     }] + int8_records + [conv_record] + probe_records}))
     log(f"smoke total: {time.perf_counter() - T_START:.2f} s")
     log(json.dumps({"ok": True, "device": {

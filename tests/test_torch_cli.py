@@ -396,3 +396,81 @@ def test_cvig_semantic_parses_and_routes(monkeypatch):
     assert seen["tag"] == "semantic_90_witw" and seen["device"] == "cpu"
     assert seen["cfg"].data.channels == 5 and seen["cfg"].eval.batch_size == 4
     assert isinstance(seen["cfg"].data.dataset, DatasetConfig)
+
+
+def test_cvig_safa_train_then_test(tmp_path, monkeypatch):
+    """cvig_safa --mode train then --mode test on the planted CSV (the SAFA
+    preset at the narrow geometry, f32, fov 360, val_quantity 2):
+    checkpoints under safa_360_cvusa, the train log without an embedding
+    dump (the reference dumps only in the FOV scripts), test metrics from
+    euclidean_ranks; then run_test's ranks on the trained towers equal
+    witw_tpu's euclidean_ranks of witw_tpu's embeddings of the same batches
+    (the surface tower given the overhead tower's weights, so the planted
+    surfaces sit next to their tiles)."""
+    from witw_tpu.configs import safa_experiment as jax_safa_experiment
+    from witw_tpu.evaluation.gallery import euclidean_ranks as jax_ranks
+    from witw_tpu.train.pipeline import TrainState as JaxTrainState
+    from witw_tpu_torch.cli import cvig_safa
+    from witw_tpu_torch.configs import safa_experiment
+    from witw_tpu_torch.models.convert_jax import state_dict_to_jax_params
+    from witw_tpu_torch.train.checkpoint import Checkpointer
+    from witw_tpu_torch.train.pipeline import SafaPipeline, TrainState
+
+    csv_path = _planted_csv(tmp_path, 12)
+    monkeypatch.chdir(tmp_path)
+
+    def small(make, dataset, fov):
+        cfg = make(dataset, fov)
+        return cfg.replace(data=dataclasses.replace(cfg.data, **GEOMETRY),
+                           model=dataclasses.replace(cfg.model, compute_dtype="float32"),
+                           train=dataclasses.replace(cfg.train, val_quantity=2))
+
+    monkeypatch.setattr(cvig_safa, "safa_experiment",
+                        lambda dataset, fov: small(safa_experiment, dataset, fov))
+    flags = ["--dataset", "cvusa", "--fov", "360", "--train-csv", csv_path, "--test-csv",
+             csv_path, "--batch-size", "2"]
+    state = cvig_safa.main(["--mode", "train", "--epochs", "1"] + flags, device="cpu")
+    assert state.step == 5
+    weights = tmp_path / "weights" / "safa_360_cvusa"
+    assert (weights / "best.pt").exists() and (weights / "latest.pt").exists()
+    with open(tmp_path / "runs" / "safa_360_cvusa" / "train" / "metrics.jsonl") as f:
+        tags = {json.loads(line)["tag"] for line in f}
+    assert {"train loss", "val loss", "best_loss"} <= tags and "val_embedding" not in tags
+
+    ranks = {}
+
+    def record(r, real=loop.metrics_from_ranks):
+        ranks["port"] = r
+        return real(r)
+
+    monkeypatch.setattr(loop, "metrics_from_ranks", record)
+    params = Checkpointer(str(weights)).load("best")["params"]
+    shared = {"surface": {k: v.clone() for k, v in params["overhead"].items()},
+              "overhead": params["overhead"]}
+    cfg = cvig_safa.safa_experiment("cvusa", 360)
+    Checkpointer(str(tmp_path / "weights" / "shared")).save(
+        "best", TrainState(0, shared, SafaPipeline(cfg, "cpu").optimizer(shared)))
+    ds = dataclasses.replace(cfg.data.dataset, test_csv=csv_path)
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data, dataset=ds),
+                      train=dataclasses.replace(cfg.train,
+                                                checkpoint_dir=str(tmp_path / "weights")),
+                      eval=dataclasses.replace(cfg.eval, batch_size=5))
+    metrics = common.run_test(cfg, "shared", device="cpu")
+    assert metrics["locations"] == 12 and len(set(ranks["port"].tolist())) > 1
+
+    jcfg = small(jax_safa_experiment, "cvusa", 360)
+    jstate = JaxTrainState(step=0, params=state_dict_to_jax_params(shared), batch_stats={},
+                           opt_state=None)
+    test_loader = common.build_loader(cfg, read_pair_paths(cfg.data.dataset, csv_path),
+                                      shuffle=False, drop_last=False, batch_size=5)
+    try:
+        embeds = [make_pipeline(jcfg).embed_step(jstate, {k: jnp.asarray(b[k]) for k in
+                                                          ("surface", "overhead")},
+                                                 jax.random.PRNGKey(cfg.train.seed + 1))
+                  for b in test_loader]
+    finally:
+        test_loader.close()
+    s = np.concatenate([np.asarray(e[0]) for e in embeds])
+    o = np.concatenate([np.asarray(e[1]) for e in embeds])
+    np.testing.assert_array_equal(ranks["port"], np.asarray(jax_ranks(o, s)))
+    assert cvig_safa.main(["--mode", "test"] + flags, device="cpu")["locations"] == 12

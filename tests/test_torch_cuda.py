@@ -321,6 +321,52 @@ def test_static_int8_tower_on_gpu_matches_cpu(int8_cuda, circ):
     assert int8_conv.launches == 11 and maxpool.launches == 2 and fused_block2.launches == 1
 
 
+@pytest.mark.parametrize("circ", [False, True])
+def test_static_int8_safa_tower_on_gpu_matches_cpu(int8_cuda, circ):
+    """A SAFA tower's int8 trunk, conv4_3 on the dequant epilogue, then the
+    f32 head: the kernels on the card against the CPU plain path on the
+    same tables, unit embeddings within atol 1e-6; kernel A 7 requant + 1
+    dequant launches (block 2's convs are kernel C's), B 2, C 1."""
+    from witw_tpu_torch.configs.base import SafaModelConfig
+    from witw_tpu_torch.models.safa import VggSafa
+
+    model = VggSafa(SafaModelConfig(compute_dtype="float32"), (32, 64), circ)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    sd = {k: v.detach() for k, v in model.state_dict().items()}
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal((2, 32, 64, 3))
+                         .astype(np.float32))
+    sq_cpu, head = quantize.quantize_safa_tower_static(sd, [x], circ)
+    sq_gpu = quantize.static_qparams_to_device(sq_cpu, int8_cuda)
+    head_gpu = {k: v.to(int8_cuda) for k, v in head.items()}
+    want = quantize.quantized_safa_forward_static(sq_cpu, head, x, circ)
+    got = quantize.quantized_safa_forward_static(sq_gpu, head_gpu, x.to(int8_cuda), circ)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-6)
+    assert int8_conv.launches == 8 and maxpool.launches == 2 and fused_block2.launches == 1
+
+
+@pytest.mark.parametrize("w,pad_w", [(64, 1), (66, 0)])
+def test_int8_dequant_conv4_3_at_full_safa_shape(int8_cuda, w, pad_w):
+    """conv4_3 of the SAFA towers on kernel A's dequant epilogue at the main
+    path's shape, batch 128, 16 x 64 outputs, Cin = Co = 512 (zero padded,
+    and width-VALID on the circular tower's 66-column input): within rtol
+    1e-6, atol 1e-6 of the plain version."""
+    gen = torch.Generator(device=int8_cuda).manual_seed(5)
+    x = torch.randint(0, 128, (128, 16, w, 512), generator=gen, device=int8_cuda,
+                      dtype=torch.int8)
+    k = torch.randint(-127, 128, (512, 3, 3, 512), generator=gen, device=int8_cuda,
+                      dtype=torch.int8)
+    w_wgmma = torch.from_numpy(int8_conv.pack_weights_wgmma(
+        k.permute(1, 2, 3, 0).cpu().numpy())).to(int8_cuda)
+    dequant = 1e-6 * (1 + torch.rand(512, generator=gen, device=int8_cuda))
+    bias_f = torch.randn(512, generator=gen, device=int8_cuda)
+    got = int8_conv.conv3x3_int8_dequant(x, k, dequant, bias_f, 1, pad_w, w_wgmma)
+    want = int8_conv.conv3x3_int8_dequant_plain(x, k, dequant, bias_f, 1, pad_w)
+    torch.cuda.synchronize()
+    assert got.shape == (128, 16, 64, 512) and int8_conv.launches == 1
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
 # The bf16 conv + bias + ReLU kernel (ops.conv3x3) against its plain version:
 # the same f32 products summed in another order, then one bf16 rounding, so
 # outputs agree to a bf16 ulp (rtol 2^-7) except where a sum cancels to far

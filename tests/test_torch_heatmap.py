@@ -16,6 +16,7 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from witw_tpu.configs import fov_experiment as jax_fov_experiment
@@ -276,3 +277,47 @@ def test_int8_sweep_matches_jax_given_its_scales(scene, states, monkeypatch):
     meta = GalleryIndex.load(cache, "cpu").meta
     assert str(meta["precision"]) == "int8"
     assert 0.0 <= float(meta["int8_saturation"]) < theat.SATURATION_WARN_FRACTION
+
+
+def test_safa_sweep_matches_jax(scene, states):
+    """--family safa, f32 towers (the fixture's VGG weights, a seeded SAFA
+    head): no orientation column, dissimilarity within the f32 towers'
+    rtol 1e-3 / atol 1e-4 of witw_tpu's, score exp(10 (1 - d)); the cache
+    is a VectorIndex stamped "safa" that a warm sweep reuses."""
+    from types import SimpleNamespace
+
+    from witw_tpu.configs import safa_experiment as jax_safa_experiment
+    from witw_tpu_torch.configs import safa_experiment
+    from witw_tpu_torch.evaluation.vector_index import VectorIndex
+    from witw_tpu_torch.models.convert_jax import state_dict_to_jax_params
+
+    (_, fov_params), _ = states
+    jcfg, tcfg = (make("witw", 70) for make in (jax_safa_experiment, safa_experiment))
+    jcfg, tcfg = (c.replace(data=dataclasses.replace(c.data, **GEOMETRY),
+                            model=dataclasses.replace(c.model, compute_dtype="float32"))
+                  for c in (jcfg, tcfg))
+    rng = np.random.default_rng(12)
+    params = {}
+    for tower, hw in (("surface", 24), ("overhead", 128)):
+        sd = {k: v for k, v in fov_params[tower].items() if k.startswith("vgg.")}
+        for name, shape in (("fc1", (hw, hw // 2, 8)), ("fc1_bias", (hw // 2, 8)),
+                            ("fc2", (hw // 2, hw, 8)), ("fc2_bias", (hw, 8))):
+            scale = 0.005 if name in ("fc1", "fc2") else 0.1
+            sd[f"safa.{name}"] = torch.from_numpy(
+                (scale * rng.standard_normal(shape)).astype(np.float32))
+        params[tower] = sd
+    state = SimpleNamespace(params=state_dict_to_jax_params(params), batch_stats={})
+    cache = str(scene[0] / "safa_cache.npz")
+    want, want_csv = _jax_sweep(scene, state, "jsafa", jcfg, family="safa")
+    got, got_csv = _port_sweep(scene, params, "tsafa", tcfg, family="safa", index_cache=cache)
+    columns = ["x", "y", "dissimilarity", "score"]
+    assert list(got) == list(want.columns) == columns
+    assert _rows(got_csv)[0] == _rows(want_csv)[0] == columns
+    np.testing.assert_array_equal(got["x"], want["x"])
+    np.testing.assert_allclose(got["dissimilarity"], want["dissimilarity"], rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(got["score"], np.exp(10 * (1 - got["dissimilarity"])), rtol=1e-6)
+    index = VectorIndex.load(cache, "cpu")
+    assert index.embeds.shape == (4, 4096) and str(index.meta["family"]) == "safa"
+    warm, _ = _port_sweep(scene, params, "tsafa_warm", tcfg, family="safa", index_cache=cache,
+                          sat=str(scene[0] / "missing.tif"))  # a cache hit reads no strip
+    np.testing.assert_array_equal(warm["dissimilarity"], got["dissimilarity"])

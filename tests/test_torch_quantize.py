@@ -387,3 +387,90 @@ def test_wrap_pad_width_matches_jnp_pad(rng):
         got = wrap_pad_width(nchw, halo)
         np.testing.assert_array_equal(got.permute(0, 2, 3, 1).numpy(), want)
         assert got.is_contiguous(memory_format=torch.channels_last)
+
+
+# --- the SAFA family's static-int8 towers ------------------------------------
+
+
+@pytest.fixture(scope="module")
+def safa_towers():
+    """Port SAFA towers at 32 x 64 (head h·w 32) from a seeded init: {circ:
+    (witw_tpu's flax tree, the port's state dict)}, and two calibration
+    batches."""
+    from witw_tpu_torch.configs.base import SafaModelConfig
+    from witw_tpu_torch.models.convert_jax import state_dict_to_tower
+    from witw_tpu_torch.models.safa import VggSafa
+
+    out = {}
+    for circ in (False, True):
+        model = VggSafa(SafaModelConfig(compute_dtype="float32"), (32, 64), circ)
+        model.reset_parameters(torch.Generator().manual_seed(3 + circ))
+        sd = {k: v.detach() for k, v in model.state_dict().items()}
+        out[circ] = (state_dict_to_tower(sd), sd)
+    rng = np.random.default_rng(8)
+    return out, [_normal(rng, 2, 32, 64, 3) for _ in range(2)]
+
+
+@functools.partial(jax.jit, static_argnums=(3,))
+def _jax_safa_forward(sq, head, x, circ):
+    sats = []
+    y = jq.quantized_safa_forward_static(sq, head, x, circ, saturation_out=sats)
+    return y, sats
+
+
+@pytest.mark.parametrize("circ", [False, True])
+def test_safa_calibration_and_tables_match_jax(safa_towers, monkeypatch, circ):
+    """include_head=False: the trunk's scales (input and the ten convs) within
+    rtol 1e-3 of witw_tpu's; given witw_tpu's scales quantize_safa_tower_static
+    folds array_equal trunk tables and hands over the f32 head unchanged."""
+    towers, batches = safa_towers
+    tree, sd = towers[circ]
+    want = jq.calibrate_fov_activation_scales(tree, batches, circ, include_head=False)
+    got = tq.calibrate_fov_activation_scales(sd, batches, circ, include_head=False)
+    assert set(got) == set(want) == {"input"} | set(tq.TRUNK_ORDER)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-3, err_msg=k)
+    monkeypatch.setattr(tq, "calibrate_fov_activation_scales", lambda *a, **k: want)
+    sq, head = tq.quantize_safa_tower_static(sd, batches, circ)
+    sq_j, head_j = jq.prepare_static_qparams(tree, want), tree["safa"]
+    assert set(sq["vgg"]) == set(sq_j["vgg"]) == set(tq.TRUNK_ORDER)
+    assert float(sq["input_scale"]) == float(sq_j["input_scale"])
+    for name, entry in sq_j["vgg"].items():
+        for key, value in entry.items():
+            np.testing.assert_array_equal(sq["vgg"][name][key].numpy(), value,
+                                          err_msg=f"{name}.{key}")
+    for key, value in head_j.items():
+        np.testing.assert_array_equal(head[key].numpy(), value)
+
+
+@pytest.mark.parametrize("circ", [False, True])
+def test_safa_static_forward_matches_jax(rng, monkeypatch, safa_towers, circ):
+    """Given witw_tpu's tables: unit embeddings [2, 8 x 512] within atol 1e-6
+    of witw_tpu's quantized_safa_forward_static (conv4_3 dequantized, the
+    head in f32), block 2 fused and unfused; equal saturation counts and
+    clip fraction (static_int8_saturation_safa); no kernel launches on CPU
+    tensors."""
+    for mod in (int8_conv, maxpool, fused_block2):
+        monkeypatch.setattr(mod, "launches", 0)
+    towers, batches = safa_towers
+    tree, sd = towers[circ]
+    scales = jq.calibrate_fov_activation_scales(tree, batches, circ, include_head=False)
+    sq_j = _jax_tables(tree, scales)
+    head_j = jax.tree.map(jnp.asarray, tree["safa"])
+    monkeypatch.setattr(tq, "calibrate_fov_activation_scales", lambda *a, **k: scales)
+    sq_head = tq.quantize_safa_tower_static(sd, batches, circ)
+    x = 1.5 * _normal(rng, 2, 32, 64, 3)
+    want, sats_j = _jax_safa_forward(sq_j, head_j, jnp.asarray(x), circ)
+    want = np.asarray(want)
+    got = tq.quantized_safa_forward_static(*sq_head, torch.from_numpy(x), circ)
+    assert got.shape == want.shape == (2, 4096) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+    sats_t = []
+    unfused = tq.quantized_safa_forward_static(*sq_head, torch.from_numpy(x), circ,
+                                               saturation_out=sats_t)
+    np.testing.assert_array_equal(unfused.numpy(), got.numpy())
+    assert [(int(h), t) for h, t in sats_t] == [(int(h), int(t)) for h, t in sats_j]
+    assert len(sats_t) == 9  # every trunk conv but conv4_3 requantizes
+    frac = tq.static_int8_saturation_safa(sq_head, torch.from_numpy(x), circ)
+    assert frac == sum(int(h) for h, _ in sats_j) / sum(int(t) for _, t in sats_j)
+    assert int8_conv.launches == maxpool.launches == fused_block2.launches == 0

@@ -22,6 +22,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from witw_tpu.configs import fov_experiment as jax_fov_experiment
@@ -354,3 +355,200 @@ def test_http_round_trip_with_batching(towers, rng):
         server.server_close()
         batched.close()
         plain.close()
+
+
+# --- the SAFA family: build_index --family safa and the daemon on a VectorIndex
+
+
+@pytest.fixture(scope="module")
+def safa_towers(towers):
+    """SAFA towers on the FOV fixture's VGG weights and seeded head arrays
+    (surface h·w 8 x 3 at the 64 x 24 photo crop, overhead 8 x 16): (witw_tpu
+    config and a state with those params, port config and params)."""
+    from types import SimpleNamespace
+
+    from witw_tpu.configs import safa_experiment as jax_safa_experiment
+    from witw_tpu_torch.configs import safa_experiment
+    from witw_tpu_torch.models.convert_jax import state_dict_to_jax_params
+
+    _, _, _, fov_params = towers
+    cfgs = []
+    for make in (jax_safa_experiment, safa_experiment):
+        cfg = make("witw", 70)
+        cfgs.append(cfg.replace(data=dataclasses.replace(cfg.data, **GEOMETRY)))
+    rng = np.random.default_rng(11)
+    params = {}
+    for tower, hw in (("surface", 24), ("overhead", 128)):
+        sd = {k: v for k, v in fov_params[tower].items() if k.startswith("vgg.")}
+        for name, shape in (("fc1", (hw, hw // 2, 8)), ("fc1_bias", (hw // 2, 8)),
+                            ("fc2", (hw // 2, hw, 8)), ("fc2_bias", (hw, 8))):
+            scale = 0.005 if name in ("fc1", "fc2") else 0.1
+            sd[f"safa.{name}"] = torch.from_numpy(
+                (scale * rng.standard_normal(shape)).astype(np.float32))
+        params[tower] = sd
+    state = SimpleNamespace(params=state_dict_to_jax_params(params), batch_stats={})
+    return cfgs[0], state, cfgs[1], params
+
+
+def test_build_index_safa_matches_jax(safa_towers, dataset, tmp_path):
+    """--family safa in bf16: a VectorIndex of [5, 4096] unit vectors at the
+    bf16 towers' tolerance, meta equal (family "safa"), and witw_tpu's
+    VectorIndex loads the saved file."""
+    from witw_tpu.evaluation.vector_index import VectorIndex as JaxVectorIndex
+    from witw_tpu_torch.evaluation.vector_index import VectorIndex
+
+    jcfg, state, tcfg, params = safa_towers
+    want = jax_build_index(dataset, None, batch_size=2, state=state, cfg=jcfg, verbose=False,
+                           family="safa")
+    got = tbuild.build_index(dataset, str(tmp_path / "t.npz"), batch_size=2, state=params,
+                             cfg=tcfg, verbose=False, device="cpu", family="safa")
+    assert isinstance(got, VectorIndex)
+    assert got.embeds.shape == want.embeds.shape == (5, 4096)
+    _bf16_close(got.embeds, want.embeds)
+    assert sorted(got.meta) == sorted(want.meta)
+    for key in ("precision", "family", "params_sha", "path"):
+        np.testing.assert_array_equal(got.meta[key], want.meta[key], err_msg=key)
+    assert str(got.meta["family"]) == "safa"
+    np.testing.assert_array_equal(JaxVectorIndex.load(str(tmp_path / "t.npz")).embeds, got.embeds)
+    with pytest.raises(ValueError, match="does not fit"):
+        tbuild.build_index(dataset, None, state=params, cfg=tcfg, verbose=False, device="cpu")
+    with pytest.raises(NotImplementedError, match="baseline"):
+        tbuild.build_index(dataset, None, state=params, verbose=False, device="cpu",
+                           family="baseline")
+
+
+def test_build_index_safa_int8_matches_jax_given_its_tables(safa_towers, dataset, monkeypatch):
+    """--family safa --int8: with witw_tpu's calibrated trunk scales the
+    port's SAFA int8 tower gives witw_tpu's static forward on the inputs it
+    builds (within atol 1e-6); the calibration samples the same tiles."""
+    jcfg, state, tcfg, params = safa_towers
+    seen = {}
+    real_scales = jq.calibrate_fov_activation_scales
+    real_span = jq.calibrate_overhead_span
+
+    def record_scales(*args, **kwargs):
+        seen["scales"] = real_scales(*args, **kwargs)
+        return seen["scales"]
+
+    def record_span(*args, **kwargs):
+        seen["sq"], items = real_span(*args, **kwargs)
+        seen["items"] = sorted(items)
+        return seen["sq"], items
+
+    monkeypatch.setattr(jq, "calibrate_fov_activation_scales", record_scales)
+    monkeypatch.setattr(jq, "calibrate_overhead_span", record_span)
+    want = jax_build_index(dataset, None, batch_size=2, int8=True, state=state, cfg=jcfg,
+                           verbose=False, family="safa")
+
+    inputs = []
+    real_forward = tq.quantized_safa_forward_static
+    real_tspan = tq.calibrate_overhead_span
+
+    def record_forward(sq, head, x, *args, **kwargs):
+        out = real_forward(sq, head, x, *args, **kwargs)
+        if kwargs.get("saturation_out") is None:
+            inputs.append((x.numpy().copy(), out.numpy()))
+        return out
+
+    def record_tspan(*args, **kwargs):
+        sq, items = real_tspan(*args, **kwargs)
+        seen["port_items"] = sorted(items)
+        return sq, items
+
+    monkeypatch.setattr(tq, "calibrate_fov_activation_scales", lambda *a, **k: seen["scales"])
+    monkeypatch.setattr(tq, "quantized_safa_forward_static", record_forward)
+    monkeypatch.setattr(tq, "calibrate_overhead_span", record_tspan)
+    got = tbuild.build_index(dataset, None, batch_size=2, int8=True, state=params, cfg=tcfg,
+                             verbose=False, device="cpu", family="safa")
+
+    assert seen["port_items"] == seen["items"] == [0, 4]
+    assert set(seen["scales"]) == {"input"} | set(tq.TRUNK_ORDER)
+    forward = jax.jit(lambda sq, head, x: jq.quantized_safa_forward_static(sq, head, x, True))
+    for x, out in inputs:
+        np.testing.assert_allclose(out, np.asarray(forward(*seen["sq"], jnp.asarray(x))),
+                                   rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(got.embeds, np.concatenate([o for _, o in inputs])[:5])
+    assert str(got.meta["precision"]) == "int8" and str(got.meta["family"]) == "safa"
+    assert 0.0 <= float(got.meta["int8_saturation"]) < 0.05
+    np.testing.assert_allclose(got.embeds, want.embeds, rtol=0,
+                               atol=0.05 * float(np.abs(want.embeds).max()))
+
+
+def _planted_vectors(service, photo, rng, n=12, noise=(0.02, 0.1, 0.2, 0.3, 0.4)):
+    """Unit vectors where tiles 2, 4, 6, 8, 10 are the photo's embedding (as
+    ``service`` embeds it) under rising noise and the others are noise: the
+    exact top-5 is those tiles in that order."""
+    emb = service._embed(service._decode(photo)[None])[0]
+    gal = rng.standard_normal((n, emb.size)).astype(np.float32)
+    for j, eps in enumerate(noise):
+        gal[2 + 2 * j] = emb / np.linalg.norm(emb) * np.sqrt(emb.size) + eps * gal[2 + 2 * j]
+    return (gal / np.linalg.norm(gal, axis=1, keepdims=True)).astype(np.float32)
+
+
+def test_geolocate_safa_matches_jax_on_planted_data(safa_towers, rng):
+    """GeolocateService(family="safa") against witw_tpu's on a planted
+    VectorIndex: the same tiles, no orientation, the distances at the bf16
+    towers' tolerance, score exp(10 (1 - d)); a candidates request is
+    searched exactly."""
+    from witw_tpu.evaluation.vector_index import VectorIndex as JaxVectorIndex
+    from witw_tpu_torch.evaluation.vector_index import VectorIndex
+
+    jcfg, state, tcfg, params = safa_towers
+    photo = _photo(rng)
+    probe = GeolocateService(VectorIndex(np.zeros((1, 4096), np.float32), device="cpu"), tcfg,
+                             params, family="safa")
+    gal = _planted_vectors(probe, photo, rng)
+    meta = {"x": np.arange(12.0) * 10, "y": np.arange(12.0) * -5, "family": "safa"}
+    port = GeolocateService(VectorIndex(gal, meta=meta, device="cpu"), tcfg, params,
+                            family="safa")
+    ref = JaxService(JaxVectorIndex(gal, meta=meta), jcfg, state, family="safa")
+    want = ref.geolocate(photo, k=5)
+    got = port.geolocate(photo, k=5)
+    assert [r["tile"] for r in got] == [r["tile"] for r in want] == [2, 4, 6, 8, 10]
+    assert [r["orientation_deg"] for r in got] == [None] * 5
+    assert [r["x"] for r in got] == [20.0, 40.0, 60.0, 80.0, 100.0]
+    np.testing.assert_allclose([r["distance"] for r in got], [r["distance"] for r in want],
+                               rtol=5e-2, atol=5e-3)
+    for r in got:
+        assert r["score"] == pytest.approx(np.exp(10.0 * (1.0 - r["distance"])), rel=1e-6)
+    exact = port.geolocate(photo, k=3, candidates=6)
+    assert [r["tile"] for r in exact] == [2, 4, 6]
+    assert port.stats == {"requests": 2, "dispatches": 2, "errors": 0, "exact_searches": 2,
+                          "approx_searches": 0}
+
+
+def test_safa_serving_checks_family_and_calibrates_int8_on_the_first_photo(safa_towers, towers,
+                                                                            rng):
+    """The family must fit the index type, the config and the index's
+    recorded family; --fast-eval warns and runs exact; --int8 calibrates the
+    SAFA trunk on the first real photo, not on the warm-up."""
+    from witw_tpu_torch.evaluation.vector_index import VectorIndex
+
+    _, _, tcfg, params = safa_towers
+    _, _, fov_cfg, fov_params = towers
+    vectors = rng.standard_normal((8, 4096)).astype(np.float32)
+    maps = rng.standard_normal((4, 2, 16, 16)).astype(np.float32)
+    with pytest.raises(ValueError, match="needs a VectorIndex"):
+        GeolocateService(GalleryIndex(maps, device="cpu"), tcfg, params, family="safa")
+    with pytest.raises(ValueError, match="needs a GalleryIndex"):
+        GeolocateService(VectorIndex(vectors, device="cpu"), fov_cfg, fov_params)
+    with pytest.raises(ValueError, match="does not fit"):
+        GeolocateService(VectorIndex(vectors, device="cpu"), fov_cfg, fov_params, family="safa")
+    with pytest.raises(ValueError, match="--family safa"):
+        GeolocateService(VectorIndex(vectors, {"family": "fov"}, device="cpu"), tcfg, params,
+                         family="safa")
+    with pytest.warns(UserWarning, match="no effect"):
+        GeolocateService(VectorIndex(vectors, device="cpu"), tcfg, params, fast=True,
+                         family="safa").close()
+    service = GeolocateService(VectorIndex(vectors, device="cpu"), tcfg, params, int8=True,
+                               max_batch=2, family="safa")
+    try:
+        service.warmup(ks=(2,))
+        assert service._sq is None and service.stats["requests"] == 0
+        first = service.geolocate(_photo(rng), k=2)
+        assert len(first) == 2 and first[0]["orientation_deg"] is None
+        sq, head = service._sq
+        assert set(sq["vgg"]) == set(tq.TRUNK_ORDER) and set(head) == {
+            "fc1", "fc1_bias", "fc2", "fc2_bias"}
+    finally:
+        service.close()

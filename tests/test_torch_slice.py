@@ -142,9 +142,10 @@ def test_embed_all_and_ranks_match_jax(rng, jax_state):
 
 
 def test_port_imports_no_jax():
-    """Every module of witw_tpu_torch (its exp probes, the serving modules
-    and this slice's: the data layer, the index, build_index, the daemon,
-    the GeoTIFF binding, the heatmap sweep, the metric writer and the CLIs),
+    """Every module of witw_tpu_torch (its exp probes, the serving modules,
+    the data layer, the index, build_index, the daemon, the GeoTIFF binding,
+    the heatmap sweep, the metric writer, the CLIs, and the SAFA towers, the
+    vector index and cvig_safa),
     chip_smoke and the profile scripts import with JAX and every witw_tpu
     module made unimportable, and none pulls in flax, optax, the
     pandas/PIL deps of witw_tpu.data, the root exp scripts, or (at import
@@ -160,7 +161,8 @@ def test_port_imports_no_jax():
             "data.csv_registry", "data.loader", "data.synthetic", "utils.hashing",
             "utils.msgpack", "evaluation.index", "tools.build_index", "tools.serve",
             "tools.geotiff", "tools.cities", "tools.heatmap", "train.metrics", "cli.common",
-            "cli.cvig_fov", "cli.cvig_semantic")]
+            "cli.cvig_fov", "cli.cvig_semantic", "models.safa", "evaluation.vector_index",
+            "cli.cvig_safa")]
         assert set(wanted) <= set(names), sorted(set(wanted) - set(names))
         for name in names + ["chip_smoke", "profile_int8", "profile_bf16", "profile_conv",
                              "profile_match", "profile_host"]:
@@ -175,7 +177,7 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 57
+    assert int(out.stdout.split()[-1]) >= 60
 
 
 @pytest.mark.parametrize("make", [
@@ -184,7 +186,10 @@ def test_port_imports_no_jax():
     lambda c: c.fov_experiment("witw", 360),
     lambda c: c.fov_experiment("witw", 90),
     lambda c: c.semantic_experiment(),
-], ids=["cvusa-360", "cvusa-90", "witw-360", "witw-90", "semantic"])
+    lambda c: c.safa_experiment("cvusa", 360),
+    lambda c: c.safa_experiment("witw", 70),
+], ids=["cvusa-360", "cvusa-90", "witw-360", "witw-90", "semantic", "safa-cvusa-360",
+        "safa-witw-70"])
 def test_port_configs_equal_witw_tpu(make):
     """The port's copy of the configs gives the same presets as witw_tpu's."""
     import witw_tpu.configs as jcfg

@@ -23,13 +23,14 @@ from witw_tpu_torch.data.loader import PairLoader, split_train_val
 from witw_tpu_torch.train import loop
 from witw_tpu_torch.train.checkpoint import Checkpointer
 from witw_tpu_torch.train.metrics import MetricWriter
-from witw_tpu_torch.train.pipeline import FovPipeline
+from witw_tpu_torch.train.pipeline import make_pipeline
 from witw_tpu_torch.utils.profiling import trace_profile
 
 
 def host_geometry(cfg: ExperimentConfig) -> Tuple[Tuple[int, int], Tuple[int, int]]:
-    """Canonical decode geometry shipped host -> device (the FOV family's:
-    the whole panorama where the dataset has one, else the photo crop)."""
+    """Canonical decode geometry shipped host -> device (the FOV and SAFA
+    families': the whole panorama where the dataset has one, else the photo
+    crop)."""
     d = cfg.data
     surface_w = d.surface_width_max if d.dataset.panorama else d.surface_width
     return (d.surface_height, surface_w), (d.overhead_size, d.overhead_size)
@@ -65,7 +66,7 @@ def run_train(
     train_pairs, val_pairs = split_train_val(pairs, cfg.train.val_quantity, cfg.train.seed)
     train_loader = build_loader(cfg, train_pairs, shuffle=True, drop_last=True)
     val_loader = build_loader(cfg, val_pairs, shuffle=False, drop_last=False)
-    pipeline = FovPipeline(cfg, device)
+    pipeline = make_pipeline(cfg, device)
     ckpt = Checkpointer(os.path.join(cfg.train.checkpoint_dir, tag), cfg.train.keep_checkpoints)
     writer = MetricWriter(os.path.join(cfg.train.tensorboard_dir, tag, "train"))
     try:
@@ -84,7 +85,7 @@ def run_test(cfg: ExperimentConfig, tag: str, device=None):
     pairs = read_pair_paths(cfg.data.dataset, cfg.data.dataset.test_csv)
     test_loader = build_loader(cfg, pairs, shuffle=False, drop_last=False,
                                batch_size=cfg.eval.batch_size)
-    pipeline = FovPipeline(cfg, device)
+    pipeline = make_pipeline(cfg, device)
     ckpt = Checkpointer(os.path.join(cfg.train.checkpoint_dir, tag))
     writer = MetricWriter(os.path.join(cfg.train.tensorboard_dir, tag, "test"))
     try:

@@ -15,6 +15,7 @@ from witw_tpu_torch.configs.registry import (
     DATASETS,
     dataset_config,
     fov_experiment,
+    safa_experiment,
     semantic_experiment,
 )
 
@@ -33,5 +34,6 @@ __all__ = [
     "DATASETS",
     "dataset_config",
     "fov_experiment",
+    "safa_experiment",
     "semantic_experiment",
 ]

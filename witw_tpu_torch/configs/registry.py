@@ -1,6 +1,7 @@
-"""Dataset + experiment presets of the FOV-DSM families (the port's copy of
-``dataset_config``, ``fov_experiment`` and ``semantic_experiment`` from
-witw_tpu/configs/registry.py; tests/test_torch_slice.py holds them equal).
+"""Dataset + experiment presets of the FOV-DSM and SAFA families (the port's
+copy of ``dataset_config``, ``fov_experiment``, ``semantic_experiment`` and
+``safa_experiment`` from witw_tpu/configs/registry.py;
+tests/test_torch_slice.py holds them equal).
 
 CVUSA is a headerless CSV with [overhead, surface] in columns 0/1 and
 panoramic surface photos; WITW has a 17-column CSV with header where columns
@@ -19,6 +20,7 @@ from witw_tpu_torch.configs.base import (
     FovDsmModelConfig,
     MatchConfig,
     OptimConfig,
+    SafaModelConfig,
     TrainConfig,
 )
 
@@ -92,6 +94,20 @@ def semantic_experiment(dataset: str = "witw", fov: int = 360, **overrides) -> E
     cfg = ExperimentConfig(
         data=data,
         model=FovDsmModelConfig(in_channels=5, train_first_conv=True),
+        match=MatchConfig(alpha=10.0),
+        train=TrainConfig(batch_size=32, optim=OptimConfig(learning_rate=1e-5)),
+        eval=EvalConfig(batch_size=32),
+    )
+    return cfg.replace(**overrides) if overrides else cfg
+
+
+def safa_experiment(dataset: str = "cvusa", fov: int = 360, **overrides) -> ExperimentConfig:
+    """VGG16+SAFA preset (BASELINE.json config 1's tower family): global
+    embeddings matched by Euclidean distance, polar-aligned aerial branch."""
+    data = DataConfig(dataset=dataset_config(dataset), fov=fov)
+    cfg = ExperimentConfig(
+        data=data,
+        model=SafaModelConfig(),
         match=MatchConfig(alpha=10.0),
         train=TrainConfig(batch_size=32, optim=OptimConfig(learning_rate=1e-5)),
         eval=EvalConfig(batch_size=32),

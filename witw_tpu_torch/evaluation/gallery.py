@@ -1,5 +1,7 @@
 """Full-gallery retrieval evaluation on one device (port of the single-device
-path of witw_tpu/evaluation/gallery.py).
+path of witw_tpu/evaluation/gallery.py: ``FovGalleryEvaluator`` for the
+FOV family's feature maps and ``euclidean_ranks`` for the SAFA family's
+embedding vectors).
 
 - One paired O(N) pass gives every query's true-match distance (the rank
   threshold), through the FFT matcher's arithmetic.
@@ -14,6 +16,7 @@ counted as +1, so kernel-batching roundoff cannot drop it.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional
 
 import numpy as np
@@ -122,6 +125,75 @@ class FovGalleryEvaluator:
                 le = (d <= d_true[None, q0:q1]) & (gal_idx[c0:c1, None] != tm[None, q0:q1])
                 counts[q0:q1] += le.sum(dim=0)
         return (counts + 1).cpu().numpy().astype(np.int32)
+
+
+@contextlib.contextmanager
+def full_precision_matmul():
+    """f32 matmuls without TF32 inside the block, whatever the global flag
+    says (restored on exit)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def sq_distances(g: torch.Tensor, q: torch.Tensor, g_sq: torch.Tensor) -> torch.Tensor:
+    """[G, Q] squared Euclidean distances, g² + q² − 2 g·qᵀ in f32 (one
+    GEMM); ``g_sq``: the gallery's squared norms [G]."""
+    q_sq = (q * q).sum(dim=1)
+    return g_sq[:, None] + q_sq[None, :] - 2.0 * (g @ q.T)
+
+
+@torch.no_grad()
+def euclidean_ranks(gallery_embeds, query_embeds, block: int = 1024,
+                    true_match: Optional[np.ndarray] = None, mesh=None,
+                    device: Optional[torch.device] = None) -> np.ndarray:
+    """Ranks under plain Euclidean distance on embedding vectors, the SAFA
+    family's eval (reference cvig_baseline.py:456-460); squared distances
+    rank as the reference's sqrt distances do. Rank(q) = 1 + #{g != tm(q) :
+    d(g, q) <= d(tm(q), q)}, the true match's distance read off the same
+    matrix, so its own tie is exact.
+
+    Gallery [G, D] and queries [Q, D]: numpy (put on ``device``, the card
+    when None) or tensors (kept where they are unless ``device`` says).
+    ``true_match``: the gallery index of each query's match [Q]; None =
+    arange (Q == G). The products run in f32 with TF32 off. ``mesh`` (the
+    gallery sharded over devices) waits for the multi-GPU port. Returns int32
+    [Q]."""
+    if mesh is not None:
+        raise NotImplementedError("euclidean_ranks(mesh=...) shards the gallery over devices, "
+                                  "which comes with the multi-GPU port")
+
+    def tensor(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(device or x.device, torch.float32)
+        return torch.as_tensor(np.asarray(x), dtype=torch.float32,
+                               device=device if device is not None else require_cuda())
+
+    g = tensor(gallery_embeds)
+    q_all = tensor(query_embeds).to(g.device)
+    nq, ng = q_all.shape[0], g.shape[0]
+    if true_match is None:
+        if ng != nq:
+            raise ValueError("asymmetric query/gallery requires explicit true_match indices")
+        tm = torch.arange(nq, device=g.device)
+    else:
+        tm = torch.as_tensor(np.asarray(true_match), dtype=torch.int64, device=g.device)
+        if tm.shape != (nq,):
+            raise ValueError(f"true_match has shape {tuple(tm.shape)}, expected ({nq},)")
+    idx = torch.arange(ng, device=g.device)
+    g_sq = (g * g).sum(dim=1)
+    counts = torch.empty(nq, dtype=torch.int64, device=g.device)
+    with full_precision_matmul():
+        for q0 in range(0, nq, block):
+            q1 = min(q0 + block, nq)
+            d2 = sq_distances(g, q_all[q0:q1], g_sq)  # [G, Qb]
+            is_tm = idx[:, None] == tm[None, q0:q1]
+            d_true = torch.where(is_tm, d2, torch.zeros((), device=g.device)).sum(dim=0)
+            counts[q0:q1] = ((d2 <= d_true[None, :]) & ~is_tm).sum(dim=0)
+    return (counts + 1).cpu().numpy().astype(np.int32)
 
 
 def metrics_from_ranks(ranks: np.ndarray) -> Dict[str, float]:

@@ -1,5 +1,6 @@
-"""DSM soft-margin triplet loss over a [B, B] distance matrix (port of
-witw_tpu/match/losses.py:dsm_triplet_loss; reference model/cvig_fov.py:366-382)."""
+"""Metric-learning losses (port of witw_tpu/match/losses.py:
+``dsm_triplet_loss``, reference model/cvig_fov.py:366-382, and
+``pairwise_sq_distances``, the SAFA family's in-batch distance matrix)."""
 
 from __future__ import annotations
 
@@ -32,3 +33,14 @@ def dsm_triplet_loss(distances: torch.Tensor, alpha: float = 10.0,
     nv = v.sum()
     loss = (F.softplus(alpha * d_s2o) * pair).sum() + (F.softplus(alpha * d_o2s) * pair).sum()
     return loss / torch.clamp(2.0 * nv * (nv - 1.0), min=1.0)
+
+
+def pairwise_sq_distances(embed1: torch.Tensor, embed2: torch.Tensor) -> torch.Tensor:
+    """D2[i, j] = ||embed1[i] - embed2[j]||^2 in f32 through one GEMM,
+    clamped at 0."""
+    e1 = embed1.to(torch.float32)
+    e2 = embed2.to(torch.float32)
+    sq1 = (e1 * e1).sum(dim=-1)
+    sq2 = (e2 * e2).sum(dim=-1)
+    d2 = sq1[:, None] + sq2[None, :] - 2.0 * (e1 @ e2.T)
+    return d2.clamp_min(0.0)

@@ -1,11 +1,14 @@
-"""Weight bridge between flax FOV-DSM params and the port's state dicts.
+"""Weight bridge between flax tower params and the port's state dicts.
 
 A flax tower tree ``{"vgg": {"conv_0": {"kernel": HWIO, "bias": [O]}, ...},
 "conv_23": {...}, ...}`` maps to a torch state dict ``{"vgg.conv_0.weight":
-OIHW, "vgg.conv_0.bias": [O], ..., "conv_23.weight": ...}``. The two-tower
-``{"surface": ..., "overhead": ...}`` tree that witw_tpu's
-``FovPipeline.init`` produces (as numpy arrays) maps to the port's params,
-``{"surface": state_dict, "overhead": state_dict}``.
+OIHW, "vgg.conv_0.bias": [O], ..., "conv_23.weight": ...}``. The SAFA head's
+node holds four bare arrays, ``{"safa": {"fc1": ..., "fc1_bias": ...,
+"fc2": ..., "fc2_bias": ...}}``; they map to ``safa.fc1`` etc. unchanged.
+The two-tower ``{"surface": ..., "overhead": ...}`` tree that witw_tpu's
+``FovPipeline.init`` or ``SafaPipeline.init`` produces (as numpy arrays)
+maps to the port's params, ``{"surface": state_dict, "overhead":
+state_dict}``.
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ import numpy as np
 import torch
 
 TOWERS = ("surface", "overhead")
+# Bare arrays of a flax node, carried across as they are (the SAFA head's).
+BARE_LEAVES = ("fc1", "fc1_bias", "fc2", "fc2_bias")
 
 
 def tower_to_state_dict(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -30,7 +35,10 @@ def tower_to_state_dict(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             out[prefix + "bias"] = torch.from_numpy(np.array(node["bias"], np.float32))
             return
         for key, child in node.items():
-            walk(child, prefix + key + ".")
+            if key in BARE_LEAVES:
+                out[prefix + key] = torch.from_numpy(np.array(child, np.float32))
+            else:
+                walk(child, prefix + key + ".")
 
     walk(tree, "")
     return out
@@ -46,8 +54,8 @@ def state_dict_to_tower(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         arr = value.detach().to("cpu", torch.float32).numpy()
         if leaf == "weight":
             node["kernel"] = np.ascontiguousarray(np.transpose(arr, (2, 3, 1, 0)))
-        elif leaf == "bias":
-            node["bias"] = arr.copy()
+        elif leaf == "bias" or leaf in BARE_LEAVES:
+            node[leaf] = arr.copy()
         else:
             raise ValueError(f"unexpected parameter name {name!r}")
     return tree

@@ -1,5 +1,5 @@
-"""Static-int8 serving path of the FOV-DSM towers (port of the static part
-of witw_tpu/models/quantize.py).
+"""Static-int8 serving path of the FOV-DSM and SAFA towers (port of the
+static part of witw_tpu/models/quantize.py).
 
 Activation scales are calibrated offline on the f32 tower; each conv then
 runs as one int8 conv with an int32 accumulator and one fused per-channel
@@ -19,8 +19,12 @@ Tables (``prepare_static_qparams``) keep witw_tpu's keys: per conv
 ``bias_f`` (f32), and ``input_scale``; plus ``kernel_packed``, the int8
 [Co, 3, 3, Cin_p] form that the plain versions read, and ``kernel_wgmma``,
 the table of kernels A and C (``ops.int8_conv.pack_weights_wgmma``).
+A SAFA tower quantizes its VGG trunk the same way
+(``include_head=False`` calibration): conv4_3 dequantizes its accumulator
+to f32 on kernel A's dequant epilogue (ReLU in f32) and the SAFA head stays
+f32 (``quantized_safa_forward_static``).
 Not ported here: the dynamic-scale path, the
-SAFA and baseline static paths and the TPU lowering variants (``first_conv_bf16``, ``first_conv_w2d``,
+baseline static path and the TPU lowering variants (``first_conv_bf16``, ``first_conv_w2d``,
 ``first_conv_im2col``, ``split_block1``, ``block2_w2d``, ``pool_slices``,
 ``corner_major="p"``).
 """
@@ -39,6 +43,7 @@ from witw_tpu_torch.configs.base import FovDsmModelConfig
 from witw_tpu_torch.models.backbones.vgg16 import VGG16_BLOCKS, wrap_pad_width
 from witw_tpu_torch.models.convert_jax import state_dict_to_tower
 from witw_tpu_torch.models.fov_dsm import HEAD_CONVS, FovDsm
+from witw_tpu_torch.models.safa import HEAD_PARAMS, safa_head_apply
 from witw_tpu_torch.ops.fov import fov_crop, random_fov_starts
 from witw_tpu_torch.ops.fused_block2 import fused_block2
 from witw_tpu_torch.ops.image import normalize_images
@@ -78,13 +83,16 @@ def _module_name(name: str) -> str:
 
 @torch.no_grad()
 def calibrate_fov_activation_scales(state_dict: StateDict, batches: Iterable,
-                                    circ_padding: bool = False) -> Dict[str, float]:
+                                    circ_padding: bool = False,
+                                    include_head: bool = True) -> Dict[str, float]:
     """Run the f32 tower (the port's ``FovDsm`` on ``state_dict``) over
     calibration batches of normalized NHWC floats, recording the abs-max of
     the input and of every conv's output after its ReLU (the head's last
     conv has none). Returns {'input': s0, 'conv_N': s, ...} with each scale
     max(abs-max, 1e-12) / 127: the scale under a conv's name is the next
-    conv's input scale. Runs on the state dict's device."""
+    conv's input scale. ``include_head=False`` runs and calibrates the VGG
+    trunk alone, from the state dict's ``vgg.*`` entries (the SAFA family:
+    trunk int8, head f32). Runs on the state dict's device."""
     batches = list(batches)
     if not batches:
         raise ValueError(
@@ -96,8 +104,14 @@ def calibrate_fov_activation_scales(state_dict: StateDict, batches: Iterable,
     device = w0.device
     cfg = FovDsmModelConfig(in_channels=w0.shape[1], compute_dtype="float32")
     model = FovDsm(cfg, circ_padding=circ_padding).eval()
+    order = CONV_ORDER if include_head else TRUNK_ORDER
+    if include_head:
+        run, params = model, state_dict
+    else:  # the trunk alone: NHWC in, as the tower takes it
+        run = model.vgg
+        params = {k[len("vgg."):]: v for k, v in state_dict.items() if k.startswith("vgg.")}
     zero = torch.zeros((), dtype=torch.float32, device=device)
-    maxes = {name: zero for name in CONV_ORDER}
+    maxes = {name: zero for name in order}
 
     def record(name):
         def hook(_module, _inputs, out):
@@ -107,14 +121,15 @@ def calibrate_fov_activation_scales(state_dict: StateDict, batches: Iterable,
         return hook
 
     handles = [model.get_submodule(_module_name(n)).register_forward_hook(record(n))
-               for n in CONV_ORDER]
+               for n in order]
     in_max = zero
     try:
         with _full_precision_convs():
             for x in batches:
                 x = torch.as_tensor(x, dtype=torch.float32).to(device)
                 in_max = torch.maximum(in_max, x.abs().amax())
-                functional_call(model, state_dict, (x,), strict=True)
+                functional_call(run, params, (x if include_head else x.permute(0, 3, 1, 2),),
+                                strict=True)
     finally:
         for h in handles:
             h.remove()
@@ -221,6 +236,25 @@ def quantized_fov_forward_static(sq: Dict[str, Any], x: torch.Tensor,
     A, B) in place of kernel C, which never writes conv2_1's output; the
     results are the same."""
     pad_w = 0 if circ_padding else 1
+    h, requant_conv = _int8_input(sq, x, x_quantized, pad_w, saturation_out)
+    h = _int8_trunk(sq, h, circ_padding, requant_conv, fuse_block2=saturation_out is None)
+    if circ_padding:
+        h = wrap_pad_width(h, len(HEAD_CONVS), dim=2)
+    for i, (name, _, strides, relu_after) in enumerate(HEAD_CONVS):
+        entry = sq[name]
+        if i + 1 < len(HEAD_CONVS):
+            h = requant_conv(h, entry, strides[0], relu_after)
+        else:
+            # Final conv: dequantize the accumulator without bias_q and add
+            # the float bias, for exactness.
+            y = conv3x3_int8_dequant(h, entry["kernel_packed"], entry["dequant"],
+                                     entry["bias_f"], strides[0], pad_w, entry["kernel_wgmma"])
+            return torch.relu(y) if relu_after else y
+
+
+def _int8_input(sq, x, x_quantized, pad_w, saturation_out):
+    """(The tower's int8 input, its requant conv: kernel A with the tables
+    of one conv, counting clip hits into ``saturation_out`` when given)."""
     if x_quantized:
         if x.dtype != torch.int8:
             raise ValueError(f"x_quantized needs an int8 input, got {x.dtype}")
@@ -235,9 +269,21 @@ def quantized_fov_forward_static(sq: Dict[str, Any], x: torch.Tensor,
             saturation_out.append(((q == 127).sum() + (q == -127).sum(), q.numel()))
         return q
 
+    return h, requant_conv
+
+
+def _int8_trunk(sq, h, circ_padding, requant_conv, fuse_block2, dequant_last=False):
+    """The VGG trunk of a static-int8 tower on int8 NHWC ``h``: block 2 on
+    kernel C with ``fuse_block2`` (else kernels A, A, B, as counting
+    saturation needs: kernel C never writes conv2_1's output), pools after
+    blocks 1-3 on kernel B, the other convs on kernel A's requant; the
+    circular tower wraps each block's input by ``len(block)`` columns and
+    runs its convs width-VALID. Returns int8 conv4_3 outputs, or with
+    ``dequant_last`` f32 ones: conv4_3's accumulator dequantized (without
+    bias_q) plus the float bias, then ReLU in f32."""
     for block_i, block in enumerate(VGG16_BLOCKS):
         entries = [sq["vgg"][f"conv_{i}"] for i, _ in block]
-        if block_i == 1 and saturation_out is None:
+        if block_i == 1 and fuse_block2:
             e1, e2 = entries
             h = fused_block2(h, e1["kernel_packed"], e1["bias_q"], e1["requant_m"],
                              e2["kernel_packed"], e2["bias_q"], e2["requant_m"],
@@ -246,22 +292,61 @@ def quantized_fov_forward_static(sq: Dict[str, Any], x: torch.Tensor,
             continue
         if circ_padding:
             h = wrap_pad_width(h, len(block), dim=2)
-        for entry in entries:
+        for j, entry in enumerate(entries):
+            if dequant_last and block_i == len(VGG16_BLOCKS) - 1 and j == len(entries) - 1:
+                y = conv3x3_int8_dequant(h, entry["kernel_packed"], entry["dequant"],
+                                         entry["bias_f"], 1, 0 if circ_padding else 1,
+                                         entry["kernel_wgmma"])
+                return torch.relu(y)
             h = requant_conv(h, entry)
         if block_i < 3:
             h = maxpool2x2(h)
-    if circ_padding:
-        h = wrap_pad_width(h, len(HEAD_CONVS), dim=2)
-    for i, (name, _, strides, relu_after) in enumerate(HEAD_CONVS):
-        entry = sq[name]
-        if i + 1 < len(HEAD_CONVS):
-            h = requant_conv(h, entry, strides[0], relu_after)
-        else:
-            # Final conv: dequantize the accumulator without bias_q and add
-            # the float bias, for exactness.
-            y = conv3x3_int8_dequant(h, entry["kernel_packed"], entry["dequant"],
-                                     entry["bias_f"], strides[0], pad_w, entry["kernel_wgmma"])
-            return torch.relu(y) if relu_after else y
+    return h
+
+
+def quantized_safa_forward_static(sq: Dict[str, Any], head_params, x: torch.Tensor,
+                                  circ_padding: bool = False, x_quantized: bool = False,
+                                  saturation_out: Optional[List] = None) -> torch.Tensor:
+    """Static-scale int8 forward of one SAFA tower (inference only): the
+    int8 VGG trunk (as :func:`quantized_fov_forward_static`'s), conv4_3's
+    accumulator dequantized to f32 on kernel A's dequant epilogue (without
+    bias_q, plus the float bias, then ReLU in f32: the head takes
+    full-precision features, not 127-level ones), then the f32 SAFA head ->
+    unit embedding [B, M·C].
+
+    ``sq``: trunk tables from :func:`quantize_safa_tower_static`;
+    ``head_params``: its f32 head {fc1, fc1_bias, fc2, fc2_bias}. Same input
+    and ``saturation_out`` contract as the FOV forward."""
+    pad_w = 0 if circ_padding else 1
+    h, requant_conv = _int8_input(sq, x, x_quantized, pad_w, saturation_out)
+    feats = _int8_trunk(sq, h, circ_padding, requant_conv,
+                        fuse_block2=saturation_out is None, dequant_last=True)
+    return safa_head_apply(head_params, feats)
+
+
+def quantize_safa_tower_static(state_dict: StateDict, calib_batches: Iterable,
+                               circ_padding: bool) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
+    """Calibrate one SAFA tower's VGG trunk on normalized NHWC batches and
+    fold its static tables; returns (the trunk's tables, the f32 head
+    params), on the state dict's device, for
+    :func:`quantized_safa_forward_static`."""
+    scales = calibrate_fov_activation_scales(state_dict, calib_batches, circ_padding,
+                                             include_head=False)
+    device = state_dict["vgg.conv_0.weight"].device
+    sq = static_qparams_to_device(prepare_static_qparams(state_dict, scales), device)
+    head = {k: state_dict[f"safa.{k}"].detach().to(device, torch.float32) for k in HEAD_PARAMS}
+    return sq, head
+
+
+def quantize_safa_pipeline_static(params: Dict[str, StateDict], calib_batches: Iterable):
+    """Calibrate and fold both SAFA towers; returns ((sq_s, head_s),
+    (sq_o, head_o)). ``calib_batches``: iterable of (surface_norm,
+    polar_norm) f32 NHWC pairs, as :func:`quantize_pipeline_static`."""
+    calib = list(calib_batches)
+    return (
+        quantize_safa_tower_static(params["surface"], [s for s, _ in calib], False),
+        quantize_safa_tower_static(params["overhead"], [p for _, p in calib], True),
+    )
 
 
 def polar_transform_static_int8(tile_q: torch.Tensor, surface_height: int,
@@ -329,6 +414,18 @@ def static_int8_saturation(sq: Dict[str, Any], x: torch.Tensor,
     the input distribution."""
     sats: List = []
     quantized_fov_forward_static(sq, x, circ_padding, saturation_out=sats)
+    return _clip_fraction(sats)
+
+
+def static_int8_saturation_safa(sq_head, x: torch.Tensor, circ_padding: bool = False) -> float:
+    """:func:`static_int8_saturation` for a SAFA tower's (sq, head) pair:
+    the clip fraction over the int8 trunk's requantized activations."""
+    sats: List = []
+    quantized_safa_forward_static(sq_head[0], sq_head[1], x, circ_padding, saturation_out=sats)
+    return _clip_fraction(sats)
+
+
+def _clip_fraction(sats: List) -> float:
     hits = sum(int(h) for h, _ in sats)
     total = sum(t for _, t in sats)
     return hits / max(total, 1)
@@ -336,13 +433,17 @@ def static_int8_saturation(sq: Dict[str, Any], x: torch.Tensor,
 
 def calibrate_overhead_span(state_dict: StateDict, read_item: Callable[[int], np.ndarray],
                             n: int, sample_size: int,
-                            preprocess: Callable[[torch.Tensor], torch.Tensor]):
+                            preprocess: Callable[[torch.Tensor], torch.Tensor],
+                            quantize_fn: Optional[Callable] = None):
     """Gallery-spanning static-int8 calibration of an overhead tower.
 
     Samples ``sample_size`` items evenly over [0, n) (witw_tpu's indices:
     np.linspace, cast to int, np.unique), reads each with ``read_item(i) ->
     HWC f32``, preprocesses them together on the tower's device
-    (``preprocess``: normalize + polar) and calibrates. Returns (the static
+    (``preprocess``: normalize + polar) and calibrates with
+    ``quantize_fn(state_dict, batches, circ_padding)``, the family's static
+    folder (default :func:`quantize_tower_static`, the FOV towers'; the SAFA
+    family passes :func:`quantize_safa_tower_static`). Returns (the static
     tables, {sampled index: the array read}), so that an embed loop need not
     read the sampled items again."""
     calib_idx = np.unique(np.linspace(0, n - 1, min(n, sample_size)).astype(int))
@@ -350,14 +451,16 @@ def calibrate_overhead_span(state_dict: StateDict, read_item: Callable[[int], np
     items = dict(zip(calib_idx.tolist(), calib))
     device = state_dict["vgg.conv_0.weight"].device
     polar = preprocess(torch.from_numpy(calib).to(device))
-    return quantize_tower_static(state_dict, [polar], True), items
+    return (quantize_fn or quantize_tower_static)(state_dict, [polar], True), items
 
 
-def check_saturation(sq: Dict[str, Any], x: torch.Tensor, circ_padding: bool = True,
-                     context: str = "input") -> float:
-    """Measure the clip fraction on a held-out batch and warn above
+def check_saturation(sq, x: torch.Tensor, circ_padding: bool = True,
+                     context: str = "input", saturation_fn: Optional[Callable] = None) -> float:
+    """Measure the clip fraction on a held-out batch with ``saturation_fn``
+    (default :func:`static_int8_saturation`; a SAFA tower's (sq, head) pair
+    takes :func:`static_int8_saturation_safa`) and warn above
     SATURATION_WARN_FRACTION. Returns the fraction."""
-    frac = static_int8_saturation(sq, x, circ_padding)
+    frac = (saturation_fn or static_int8_saturation)(sq, x, circ_padding)
     if frac > SATURATION_WARN_FRACTION:
         warnings.warn(
             f"int8 activation saturation {frac:.2%} exceeds "

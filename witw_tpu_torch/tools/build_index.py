@@ -1,21 +1,24 @@
-"""Build a serving GalleryIndex from a dataset CSV's overhead tiles (port of
-witw_tpu/tools/build_index.py, FOV family).
+"""Build a serving index from a dataset CSV's overhead tiles (port of
+witw_tpu/tools/build_index.py, FOV and SAFA families).
 
 Each tile listed in the CSV (either reference schema: CVUSA headerless, WITW
 17-column) is decoded, resized, normalized, polar-transformed and embedded
 by the overhead tower: the bf16 tower, whose stride-1 convs run on the
 conv3x3_bf16 kernel, or with ``--int8`` the static-int8 tower (kernels A, B
-and C), calibrated on tiles sampled across the whole gallery. The index
-records its precision ("f32" for the float towers, as witw_tpu stamps it,
-or "int8"), family, the overhead tower's weights fingerprint and the tile
-paths, so that the serving daemon of either package refuses towers that did
-not build it.
+and C), calibrated on tiles sampled across the whole gallery. ``--family
+fov`` (the default) embeds FOV-DSM feature maps into a GalleryIndex;
+``--family safa`` embeds VGG16+SAFA unit vectors into a VectorIndex. The
+index records its precision ("f32" for the float towers, as witw_tpu stamps
+it, or "int8"), family, the overhead tower's weights fingerprint and the
+tile paths, so that the serving daemon of either package refuses towers
+that did not build it.
 
 Run: ``python -m witw_tpu_torch.tools.build_index --csv test.csv --out
-gallery.npz --dataset witw --fov 70 [--int8] [--meta-cols longitude:x,latitude:y]``
-(headerless CVUSA CSVs address extra columns by position: ``2:x,3:y``).
-The towers come from ``--weights/--tag``'s ``best`` checkpoint, the port's
-``best.pt`` or witw_tpu's ``best.msgpack``.
+gallery.npz --dataset witw --fov 70 [--family safa] [--int8]
+[--meta-cols longitude:x,latitude:y]`` (headerless CVUSA CSVs address extra
+columns by position: ``2:x,3:y``). The towers come from
+``--weights/--tag``'s ``best`` checkpoint (tag ``<family>_<fov>_<dataset>``
+by default), the port's ``best.pt`` or witw_tpu's ``best.msgpack``.
 """
 
 from __future__ import annotations
@@ -31,15 +34,16 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
-from witw_tpu_torch.configs import fov_experiment
+from witw_tpu_torch.configs import fov_experiment, safa_experiment
 from witw_tpu_torch.data.csv_registry import read_pair_paths, read_rows
 from witw_tpu_torch.data.loader import decode_image, prefetch_iter, resize_host
 from witw_tpu_torch.evaluation.index import GalleryIndex
+from witw_tpu_torch.evaluation.vector_index import VectorIndex
 from witw_tpu_torch.models import quantize
 from witw_tpu_torch.ops.image import normalize_images
 from witw_tpu_torch.ops.polar import polar_transform
 from witw_tpu_torch.train.checkpoint import Checkpointer
-from witw_tpu_torch.train.pipeline import FovPipeline
+from witw_tpu_torch.train.pipeline import Pipeline, SafaPipeline, make_pipeline
 from witw_tpu_torch.utils.hashing import params_fingerprint
 
 # Embedded batches in flight before the oldest is fetched: consecutive
@@ -48,13 +52,45 @@ IN_FLIGHT = 3
 # Threads reading a batch's tiles: decode, the native GeoTIFF reader and its
 # resample release the interpreter lock.
 READERS = min(8, os.cpu_count() or 1)
+FAMILIES = ("fov", "safa")
+
+
+def check_family(family: str, pipeline: Optional[Pipeline] = None) -> None:
+    """Raise for a family the port does not serve, or one that is not
+    ``pipeline``'s."""
+    if family == "baseline":
+        raise NotImplementedError("the baseline family is not ported yet: it comes with the "
+                                  "baseline slice")
+    if family not in FAMILIES:
+        raise ValueError(f"unsupported family {family!r}")
+    if pipeline is not None and isinstance(pipeline, SafaPipeline) != (family == "safa"):
+        raise ValueError(f"family {family!r} does not fit the config's "
+                         f"{type(pipeline.cfg.model).__name__}")
+
+
+def family_config(family: str, dataset: str, fov: int):
+    """The preset of a tower family: ``fov_experiment`` or
+    ``safa_experiment``."""
+    check_family(family)
+    return (safa_experiment if family == "safa" else fov_experiment)(dataset=dataset, fov=fov)
 
 
 def load_params(cfg, directory: str, device):
     """The towers' params from ``directory``'s ``best`` checkpoint (the
     port's ``.pt`` or witw_tpu's ``.msgpack``), on ``device``."""
-    state = FovPipeline(cfg, device).init_state(torch.Generator().manual_seed(0))
+    state = make_pipeline(cfg, device).init_state(torch.Generator().manual_seed(0))
     return Checkpointer(directory).restore("best", state).params
+
+
+def int8_tower(pipeline: Pipeline):
+    """The family's static-int8 pieces: (the tower folder for
+    ``calibrate_overhead_span``, the forward, the saturation count)."""
+    if isinstance(pipeline, SafaPipeline):
+        return (quantize.quantize_safa_tower_static,
+                lambda sq, x, circ: quantize.quantized_safa_forward_static(*sq, x, circ),
+                quantize.static_int8_saturation_safa)
+    return (quantize.quantize_tower_static, quantize.quantized_fov_forward_static,
+            quantize.static_int8_saturation)
 
 
 def _column(values: List[str]) -> np.ndarray:
@@ -98,7 +134,7 @@ def preprocess_tiles(data_cfg, x: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def embed_tiles(
-    pipeline: FovPipeline,
+    pipeline: Pipeline,
     overhead: Dict[str, torch.Tensor],
     read_tile: Callable[[int], np.ndarray],
     n: int,
@@ -129,15 +165,16 @@ def embed_tiles(
         return preprocess_tiles(d, x)
 
     sq, calib_tiles = None, {}
+    fold, forward_int8, saturation = int8_tower(pipeline)
     if int8:
         # gallery-spanning calibration sample; its tiles are reused below
         sq, calib_tiles = quantize.calibrate_overhead_span(overhead, read_tile, n, batch_size,
-                                                           preprocess)
+                                                           preprocess, quantize_fn=fold)
 
     def embed(x: torch.Tensor) -> torch.Tensor:
         polar = preprocess(x)
         if int8:
-            return quantize.quantized_fov_forward_static(sq, polar, True)
+            return forward_int8(sq, polar, True)
         return functional_call(pipeline.overhead_model, overhead, (polar,),
                                {"train": False, "generator": None}, strict=True)
 
@@ -171,7 +208,8 @@ def embed_tiles(
         for real, buf in prefetch_iter(tile_batches(pool), depth=prefetch):
             x = upload(buf)
             if int8 and sat_frac is None:
-                sat_frac = quantize.check_saturation(sq, preprocess(x), True, context=context)
+                sat_frac = quantize.check_saturation(sq, preprocess(x), True, context=context,
+                                                     saturation_fn=saturation)
             pending.append((embed(x), real))
             if len(pending) >= IN_FLIGHT:
                 emb, r = pending.popleft()
@@ -197,10 +235,13 @@ def build_index(
     cfg=None,
     verbose: bool = True,
     device=None,
-) -> GalleryIndex:
+    family: str = "fov",
+):
     """Embed every overhead tile listed in ``csv_path`` with the overhead
-    tower and return (and save to ``out_path``) a GalleryIndex on
-    ``device`` (the card when None; the CPU only when asked for).
+    tower and return (and save to ``out_path``) the index on ``device``
+    (the card when None; the CPU only when asked for): a GalleryIndex of
+    FOV-DSM maps, or with ``family="safa"`` a VectorIndex of VGG16+SAFA
+    unit vectors (Euclidean serving, the daemon's ``--family safa``).
 
     ``state``: the towers' params ``{"surface": sd, "overhead": sd}`` or a
     TrainState; None restores them from ``checkpoint_dir``. ``meta_cols``:
@@ -208,11 +249,12 @@ def build_index(
     ``["lon:x", "lat:y"]`` for the daemon's x/y). ``int8``: the static-int8
     tower, calibrated on batch_size tiles spread over the gallery."""
     if cfg is None:
-        cfg = fov_experiment(dataset=dataset, fov=fov)
+        cfg = family_config(family, dataset, fov)
     d = cfg.data
-    pipeline = FovPipeline(cfg, device)
+    pipeline = make_pipeline(cfg, device)
+    check_family(family, pipeline)
     if state is None:
-        state = load_params(cfg, os.path.join(checkpoint_dir, tag or f"fov_{fov}_{dataset}"),
+        state = load_params(cfg, os.path.join(checkpoint_dir, tag or f"{family}_{fov}_{dataset}"),
                             pipeline.device)
     params = getattr(state, "params", state)
 
@@ -228,7 +270,7 @@ def build_index(
 
     meta = {
         "precision": "int8" if int8 else "f32",
-        "family": "fov",
+        "family": family,
         "params_sha": params_fingerprint(params["overhead"]),
         "path": np.asarray(overhead_paths),
     }
@@ -237,7 +279,8 @@ def build_index(
     if meta_cols:
         meta.update(read_meta_cols(csv_path, d.dataset.header, meta_cols))
 
-    index = GalleryIndex(embeds, meta=meta, device=pipeline.device)
+    index_cls = VectorIndex if family == "safa" else GalleryIndex
+    index = index_cls(embeds, meta=meta, device=pipeline.device)
     if out_path:
         index.save(out_path)
         if verbose:
@@ -248,15 +291,17 @@ def build_index(
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--csv", required=True, help="dataset CSV (either schema)")
-    parser.add_argument("--out", required=True, help="output GalleryIndex .npz")
+    parser.add_argument("--out", required=True,
+                        help="output index .npz (GalleryIndex, or VectorIndex for --family safa)")
     parser.add_argument("--dataset", default="witw", choices=["cvusa", "witw"])
     parser.add_argument("--fov", type=int, default=70)
     parser.add_argument("--weights", default="./weights")
     parser.add_argument("--tag", default=None)
     parser.add_argument("--batch-size", type=int, default=64)
     parser.add_argument("--int8", action="store_true", help="embed with the static-int8 towers")
-    parser.add_argument("--family", choices=("fov",), default="fov",
-                        help="tower/index family: fov = FOV-DSM feature-map GalleryIndex")
+    parser.add_argument("--family", choices=FAMILIES, default="fov",
+                        help="tower/index family: fov = FOV-DSM feature-map GalleryIndex "
+                             "(default); safa = VGG16+SAFA Euclidean VectorIndex")
     parser.add_argument("--meta-cols", default=None,
                         help="comma-separated CSV columns to copy into the index meta; "
                              "'src:dst' renames (e.g. lon:x,lat:y for the serving daemon's x/y)")
@@ -266,6 +311,7 @@ def main(argv=None):
         checkpoint_dir=args.weights, tag=args.tag,
         batch_size=args.batch_size, int8=args.int8,
         meta_cols=args.meta_cols.split(",") if args.meta_cols else None,
+        family=args.family,
     )
 
 

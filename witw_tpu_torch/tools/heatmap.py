@@ -1,5 +1,6 @@
-"""Geolocation heatmap sweep, FOV family (port of witw_tpu/tools/heatmap.py:
-``window_grid``, ``_cache_is_stale``, ``sweep``, ``layer`` and ``main``).
+"""Geolocation heatmap sweep, FOV and SAFA families (port of
+witw_tpu/tools/heatmap.py: ``window_grid``, ``_cache_is_stale``, ``sweep``,
+``layer`` and ``main``).
 
 A UTM bounding box is gridded into overlapping edge-meter tiles (reference
 heatmap.py:119-124); each tile is cut from the satellite strip with the
@@ -8,8 +9,11 @@ tower's tile size; the query photo(s) and every tile are embedded by the
 FOV towers (bf16, whose stride-1 convs run on the conv3x3_bf16 kernel, or
 with ``int8`` the static-int8 towers on kernels A, B and C), and every tile
 is scored against every photo through ``GalleryIndex.score_all`` (the FFT
-matcher). The tile embed loop is ``tools.build_index.embed_tiles``, shared
-with the index builder.
+matcher). With ``--family safa`` the VGG16+SAFA towers embed photos and
+tiles to unit vectors, the tiles go into a VectorIndex and are scored by
+Euclidean distance (``VectorIndex.score_all``); the CSV then has no
+orientation column. The tile embed loop is ``tools.build_index.embed_tiles``,
+shared with the index builder.
 
 The CSV's columns are witw_tpu's (``photo`` first when several photos are
 swept, then x, y, orientation, dissimilarity, score), written with the
@@ -18,9 +22,9 @@ arrays. Orientation is in degrees from the embedding's actual width.
 
 Run: ``python -m witw_tpu_torch.tools.heatmap -a 3 -b LEFT BOTTOM RIGHT TOP
 -s SATDIR -p photo.jpg [more.jpg ...] -c out.csv --weights ./weights
-[--index-cache tiles.npz] [--int8] [--fast-eval] [-i -l layer.tiff]``. The
-towers come from ``--weights``/``fov_<fov>_witw``'s ``best`` checkpoint (the
-port's ``best.pt`` or witw_tpu's ``best.msgpack``).
+[--family safa] [--index-cache tiles.npz] [--int8] [--fast-eval] [-i -l
+layer.tiff]``. The towers come from ``--weights``/``<family>_<fov>_witw``'s
+``best`` checkpoint (the port's ``best.pt`` or witw_tpu's ``best.msgpack``).
 """
 
 from __future__ import annotations
@@ -36,16 +40,16 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
-from witw_tpu_torch.configs import fov_experiment
 from witw_tpu_torch.data.loader import decode_image, resize_host
 from witw_tpu_torch.evaluation.index import GalleryIndex
-from witw_tpu_torch.models import quantize
+from witw_tpu_torch.evaluation.vector_index import VectorIndex
 from witw_tpu_torch.models.quantize import SATURATION_WARN_FRACTION  # noqa: F401 (witw_tpu's name)
 from witw_tpu_torch.ops.image import normalize_images
-from witw_tpu_torch.tools.build_index import embed_tiles, load_params
+from witw_tpu_torch.tools.build_index import (FAMILIES, check_family, embed_tiles,
+                                              family_config, int8_tower, load_params)
 from witw_tpu_torch.tools.cities import CITIES, strip_filename
 from witw_tpu_torch.tools.geotiff import GeoTiff, resample, write_geotiff_u8
-from witw_tpu_torch.train.pipeline import FovPipeline
+from witw_tpu_torch.train.pipeline import make_pipeline
 from witw_tpu_torch.utils.hashing import params_fingerprint
 
 TILE_DTYPES = ("float32", "uint8")
@@ -147,6 +151,7 @@ def sweep(
     tile_dtype: str = "float32",
     prefetch_tiles: int = 2,
     device=None,
+    family: str = "fov",
 ) -> Dict[str, np.ndarray]:
     """Sweep the photo(s) over the tile grid of ``bounds`` on ``device``
     (the card when None; the CPU only when asked for); writes ``csv_path``
@@ -163,8 +168,11 @@ def sweep(
     static-int8 towers, the surface tower calibrated on the normalized
     photo(s), the overhead tower on batch_size tiles spread over the grid.
     ``fast``: bf16 frequency products in the scoring sweep (an opt-in
-    approximation). ``cfg``: an ExperimentConfig in place of
-    ``fov_experiment("witw", fov)`` (reduced geometries for tests).
+    approximation; FOV only). ``cfg``: an ExperimentConfig in place of the
+    family's ``fov_experiment("witw", fov)`` or ``safa_experiment("witw",
+    fov)`` (reduced geometries for tests). ``family="safa"``: the VGG16+SAFA
+    towers, a VectorIndex of tile vectors scored by Euclidean distance, and
+    no orientation column.
     ``tile_dtype="uint8"``: tiles are rounded to uint8 on the host and cast
     to f32 on the device (a quarter of the upload); the cache records it.
     ``prefetch_tiles``: the tile reader's queue depth (0: batches read in
@@ -173,14 +181,18 @@ def sweep(
     strip."""
     if tile_dtype not in TILE_DTYPES:
         raise ValueError(f"tile_dtype must be one of {TILE_DTYPES}, got {tile_dtype!r}")
+    vector = family == "safa"
     if cfg is None:
-        cfg = fov_experiment(dataset="witw", fov=fov)
+        cfg = family_config(family, "witw", fov)
     d = cfg.data
-    pipeline = FovPipeline(cfg, device)
+    pipeline = make_pipeline(cfg, device)
+    check_family(family, pipeline)
     device = pipeline.device
     if state is None:
-        state = load_params(cfg, os.path.join(checkpoint_dir, tag or f"fov_{fov}_witw"), device)
+        state = load_params(cfg, os.path.join(checkpoint_dir, tag or f"{family}_{fov}_witw"),
+                            device)
     params = getattr(state, "params", state)
+    index_cls = VectorIndex if vector else GalleryIndex
 
     centers_e, centers_n, windows = window_grid(bounds, edge, offset)
     n = len(windows)
@@ -191,8 +203,12 @@ def sweep(
     if index_cache:
         index_cache = GalleryIndex._npz_path(index_cache)
         if os.path.exists(index_cache):
-            index = GalleryIndex.load(index_cache, device)
-            if _cache_is_stale(index, n, centers_e, precision, params_sha, tile_dtype):
+            try:
+                index = index_cls.load(index_cache, device)
+            except ValueError:
+                index = None  # the other family's index type at this path
+            if index is not None and _cache_is_stale(index, n, centers_e, precision, params_sha,
+                                                     tile_dtype, family):
                 index = None
 
     photo_paths = ([photo_path] if isinstance(photo_path, (str, os.PathLike))
@@ -202,8 +218,8 @@ def sweep(
     surface = {k: v.to(device) for k, v in params["surface"].items()}
     x = normalize_images(torch.from_numpy(photo).to(device), d.img_mean, d.img_std)
     if int8:
-        sq_surface = quantize.quantize_tower_static(surface, [x], False)
-        s_emb = quantize.quantized_fov_forward_static(sq_surface, x, False)
+        fold, forward_int8, _ = int8_tower(pipeline)
+        s_emb = forward_int8(fold(surface, [x], False), x, False)
     else:
         s_emb = functional_call(pipeline.surface_model, surface, (x,),
                                 {"train": False, "generator": None}, strict=True)
@@ -218,15 +234,17 @@ def sweep(
                                            batch_size, int8, prefetch_tiles, context="tile",
                                            tile_dtype=np.uint8 if u8 else np.float32)
         meta = {"x": centers_e, "y": centers_n, "precision": precision,
-                "tile_dtype": tile_dtype, "family": "fov", "params_sha": params_sha}
+                "tile_dtype": tile_dtype, "family": family, "params_sha": params_sha}
         if sat_frac is not None:
             meta["int8_saturation"] = sat_frac
-        index = GalleryIndex(embeds, meta=meta, device=device)
+        index = index_cls(embeds, meta=meta, device=device)
         if index_cache:
             index.save(index_cache)
 
-    distances, orientations = index.score_all(s_emb, gallery_chunk=2048, fast=fast)
-    out_width = index.embeds.shape[2]
+    if vector:
+        distances, orientations = index.score_all(s_emb), None
+    else:
+        distances, orientations = index.score_all(s_emb, gallery_chunk=2048, fast=fast)
     parts = []
     for q, path in enumerate(photo_paths):
         cols = {}
@@ -234,7 +252,8 @@ def sweep(
             cols["photo"] = np.full(n, str(path), dtype=object)
         cols["x"] = centers_e
         cols["y"] = centers_n
-        cols["orientation"] = orientations[:, q] * 360.0 / out_width - 180.0
+        if orientations is not None:
+            cols["orientation"] = orientations[:, q] * 360.0 / index.embeds.shape[2] - 180.0
         cols["dissimilarity"] = distances[:, q]
         cols["score"] = np.exp(10.0 * (1.0 - distances[:, q]))
         parts.append(cols)
@@ -279,8 +298,9 @@ def main(argv=None):
                         help="npz path caching the embedded tile gallery between sweeps")
     parser.add_argument("--int8", action="store_true",
                         help="embed with the static-int8 towers")
-    parser.add_argument("--family", choices=("fov",), default="fov",
-                        help="tower family: fov = orientation-aligned FFT sweep")
+    parser.add_argument("--family", choices=FAMILIES, default="fov",
+                        help="tower family: fov = orientation-aligned FFT sweep (default); safa = "
+                             "VGG16+SAFA Euclidean sweep (no orientation column)")
     parser.add_argument("--fast-eval", action="store_true",
                         help="bf16 frequency product in the tile scoring sweep "
                              "(opt-in approximation; exact is the default)")
@@ -289,7 +309,7 @@ def main(argv=None):
     sat_path = os.path.join(args.satdir, strip_filename(name))
     columns = sweep(sat_path, args.photopath, args.csvpath, args.bounds, args.edge, args.offset,
                     args.fov, checkpoint_dir=args.weights, index_cache=args.index_cache,
-                    int8=args.int8, fast=args.fast_eval)
+                    int8=args.int8, fast=args.fast_eval, family=args.family)
     if args.image:
         layer(sat_path, args.bounds, args.layerpath)
     return columns

@@ -1,7 +1,7 @@
 """Geolocalization serving daemon: an HTTP endpoint over a prebuilt tile
-index (port of witw_tpu/tools/serve.py, FOV family, one device).
+index (port of witw_tpu/tools/serve.py, FOV and SAFA families, one device).
 
-The daemon loads the FOV towers once, loads a GalleryIndex (built by
+The daemon loads the towers once, loads an index (built by
 ``tools.build_index``, by either package) and answers:
 
     POST /geolocate?k=5[&candidates=256]   body: JPEG/PNG photo bytes
@@ -15,7 +15,15 @@ The daemon loads the FOV towers once, loads a GalleryIndex (built by
         mean requests per device dispatch (micro-batching occupancy)
 
 Run: ``python -m witw_tpu_torch.tools.serve --index tiles.npz --weights
-./weights --tag fov_70_witw --fov 70 [--int8] [--max-batch 8] [--port 8000]``
+./weights --tag fov_70_witw --fov 70 [--family safa] [--int8] [--max-batch 8]
+[--port 8000]``
+
+``--family safa`` serves VGG16+SAFA towers against a VectorIndex (plain
+Euclidean distance on unit embeddings): results carry ``orientation_deg:
+null`` (the global embedding has no orientation axis), every request is
+searched exactly (``candidates`` has no effect: the search is one GEMM), and
+``--fast-eval`` has no effect. The score is exp(10 (1 - d)) in both
+families (d in [0, 2]).
 
 The query photo is embedded by the surface tower: bf16 (its stride-1 convs
 on the conv3x3_bf16 kernel) or, with ``--int8``, the static-int8 tower
@@ -35,19 +43,21 @@ import os
 import queue
 import threading
 import time
+import warnings
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
 import numpy as np
 import torch
 
-from witw_tpu_torch.configs import fov_experiment
 from witw_tpu_torch.data.loader import decode_image_bytes, resize_host
 from witw_tpu_torch.evaluation.index import GalleryIndex
+from witw_tpu_torch.evaluation.vector_index import VectorIndex
 from witw_tpu_torch.models import quantize
 from witw_tpu_torch.models.fov_dsm import FovDsm
+from witw_tpu_torch.models.safa import VggSafa
 from witw_tpu_torch.ops.image import normalize_images
-from witw_tpu_torch.tools.build_index import load_params
+from witw_tpu_torch.tools.build_index import FAMILIES, check_family, family_config, load_params
 from witw_tpu_torch.utils.hashing import params_fingerprint
 
 
@@ -65,10 +75,17 @@ class _Pending:
         self.error: Optional[BaseException] = None
 
 
-def _check_index_matches_towers(index, params, int8: bool) -> None:
-    """Fail fast when the index was built at another precision or by other
-    weights than the serving towers. Indexes without the recorded keys
-    (hand-built GalleryIndex objects) pass unchecked."""
+def _check_index_matches_towers(index, params, int8: bool, family: str = "fov") -> None:
+    """Fail fast when the index was built by another tower family, at
+    another precision or by other weights than the serving towers. Indexes
+    without the recorded keys (hand-built index objects) pass unchecked."""
+    got_family = index.meta.get("family")
+    if got_family is not None and str(got_family) != family:
+        raise ValueError(
+            f"index was built by the {str(got_family)!r} towers but the daemon serves the "
+            f"{family!r} family — rebuild the index with --family {family} (or pass "
+            f"allow_mismatch=True / --allow-mismatch to score anyway)"
+        )
     want = "int8" if int8 else "f32"
     got = index.meta.get("precision")
     if got is not None and str(got) != want:
@@ -94,6 +111,13 @@ def _check_index_matches_towers(index, params, int8: bool) -> None:
 class GeolocateService:
     """Embed a query photo, then top-k search a gallery index.
 
+    ``family`` pairs the towers with the index: ``"fov"`` embeds with the
+    FOV-DSM surface tower and searches a GalleryIndex (orientation-aligned
+    chord distance); ``"safa"`` embeds with the VGG16+SAFA surface tower and
+    searches a VectorIndex (Euclidean distance, no orientation axis, so
+    results carry ``orientation_deg: None``, and every request is searched
+    exactly).
+
     ``params``: the towers' params ``{"surface": sd, "overhead": sd}`` (or a
     TrainState), moved to the index's device, where the embeds run.
     ``max_batch`` >= 2 enables micro-batching: ``batch_workers`` threads
@@ -106,28 +130,46 @@ class GeolocateService:
     ``int8``: the static-int8 surface tower, calibrated on the first real
     photo."""
 
-    def __init__(self, index: GalleryIndex, cfg, params, int8: bool = False,
+    def __init__(self, index, cfg, params, int8: bool = False,
                  fast: bool = False, max_batch: int = 0, batch_window_ms: float = 3.0,
                  allow_mismatch: bool = False, batch_workers: int = 2,
-                 max_candidates: int = 65536):
-        if index.embeds.ndim != 4:
-            raise ValueError(f"the FOV family needs a GalleryIndex of [N, h, W, c] embeds, got "
-                             f"{index.embeds.ndim}-D ones")
+                 max_candidates: int = 65536, family: str = "fov"):
+        check_family(family)
+        self._vector = family == "safa"
+        # the index type must match the family: scoring feature maps as flat
+        # vectors (or the reverse) would not fail loudly on its own
+        if self._vector != (index.embeds.ndim == 2):
+            raise ValueError(
+                f"family {family!r} needs a {'VectorIndex' if self._vector else 'GalleryIndex'} "
+                f"but the index embeds are {index.embeds.ndim}-D — rebuild the index with the "
+                f"matching --family")
+        if getattr(cfg.model, "kind", None) != ("vgg_safa" if self._vector else "fov_dsm"):
+            raise ValueError(f"family {family!r} does not fit the config's "
+                             f"{type(cfg.model).__name__}")
         params = getattr(params, "params", params)
         if not allow_mismatch:
-            _check_index_matches_towers(index, params, int8)
+            _check_index_matches_towers(index, params, int8, family)
+        if fast and self._vector:
+            warnings.warn(f"--fast-eval has no effect for family {family!r}: the vector search "
+                          "is a single exact GEMM (no bf16 frequency-product variant); running "
+                          "exact search", stacklevel=2)
+            fast = False
         self.index = index
         self.cfg = cfg
-        self.family = "fov"
+        self.family = family
         self._int8 = int8
         self._fast = fast
         self.device = index.device
+        self._surface_hw = (cfg.data.surface_height, cfg.data.surface_width)
         # A tower of its own holding the weights: the batch workers call it
         # concurrently, which functional_call's parameter swap would race.
-        self._tower = FovDsm(cfg.model, circ_padding=False).to(self.device).eval()
+        if self._vector:
+            self._tower = VggSafa(cfg.model, self._surface_hw, circ_padding=False)
+        else:
+            self._tower = FovDsm(cfg.model, circ_padding=False)
+        self._tower = self._tower.to(self.device).eval()
         self._tower.load_state_dict(params["surface"])
         self._surface = dict(self._tower.state_dict())
-        self._surface_hw = (cfg.data.surface_height, cfg.data.surface_width)
         self._sq = None  # calibrated on the first real photo, so that the
         self._sq_lock = threading.Lock()  # scales match traffic, not a probe
 
@@ -159,15 +201,21 @@ class GeolocateService:
 
     @torch.no_grad()
     def _embed(self, imgs: np.ndarray) -> np.ndarray:
-        """Photos [B, h, sw, 3] (0-255) -> surface embeddings [B, h', sw', c]."""
+        """Photos [B, h, sw, 3] (0-255) -> surface embeddings: FOV maps
+        [B, h', sw', c], SAFA vectors [B, D]."""
         x = self._normalize(torch.from_numpy(imgs).to(self.device))
         if not self._int8:
             emb = self._tower(x)
         else:
             with self._sq_lock:
                 if self._sq is None:
-                    self._sq = quantize.quantize_tower_static(self._surface, [x], False)
-            emb = quantize.quantized_fov_forward_static(self._sq, x, False)
+                    fold = (quantize.quantize_safa_tower_static if self._vector
+                            else quantize.quantize_tower_static)
+                    self._sq = fold(self._surface, [x], False)
+            if self._vector:
+                emb = quantize.quantized_safa_forward_static(*self._sq, x, False)
+            else:
+                emb = quantize.quantized_fov_forward_static(self._sq, x, False)
         return emb.cpu().numpy()
 
     def _decode(self, image_bytes: bytes) -> np.ndarray:
@@ -242,6 +290,10 @@ class GeolocateService:
             for b in buckets:
                 for kb in k_buckets:
                     if self._int8 and self._sq is None:
+                        if self._vector:
+                            emb = np.zeros((b, self.index.embeds.shape[1]), np.float32)
+                            self.index.search(emb, k=kb)
+                            continue
                         _, h, _, c = self.index.embeds.shape
                         emb = np.zeros((b, h, self._surface_hw[1] // 8, c), np.float32)
                         self.index.search(emb, k=kb, fast=self._fast)
@@ -292,8 +344,11 @@ class GeolocateService:
                 self.stats["requests"] += b
                 self.stats["dispatches"] += 1
             s_emb = self._embed(self._pad_pow2(np.stack([r.img for r in group])))[:b]
+            # the vector family serves every request exactly: its exact
+            # search is one GEMM, no sweep cost to approximate away
             for approx in (False, True):
-                rows = [i for i, r in enumerate(group) if (r.candidates > 0) == approx]
+                rows = [i for i, r in enumerate(group)
+                        if (r.candidates > 0 and not self._vector) == approx]
                 if not rows:
                     continue
                 with self._stats_lock:
@@ -307,12 +362,16 @@ class GeolocateService:
                     cand = min(1 << (cand - 1).bit_length(), len(self.index), self.max_candidates)
                     idx, dist, orient = self.index.search_approx(
                         embs, k=min(k_max, cand), candidates=cand, fast=self._fast)
+                elif self._vector:
+                    idx, dist = self.index.search(embs, k=self._k_bucket(k_max))
+                    orient = None
                 else:
                     idx, dist, orient = self.index.search(embs, k=self._k_bucket(k_max),
                                                           fast=self._fast)
                 for out_row, i in enumerate(rows):
                     r = group[i]
-                    r.result = self._format(idx[out_row], dist[out_row], orient[out_row], r.k)
+                    r.result = self._format(idx[out_row], dist[out_row],
+                                            None if orient is None else orient[out_row], r.k)
         except BaseException as err:  # propagate to every waiter
             with self._stats_lock:
                 self.stats["errors"] += len(group)
@@ -324,8 +383,9 @@ class GeolocateService:
 
     def _format(self, idx_row, dist_row, orient_row, k: int):
         """Results of one request: tile centres (meta x/y), distance, the
-        orientation in degrees and the score exp(10 (1 - d)) (d is in [0, 2])."""
-        w = self.index.embeds.shape[2]
+        orientation in degrees (None for the vector family, ``orient_row``
+        None) and the score exp(10 (1 - d)) (d is in [0, 2]: chord distance,
+        or the Euclidean distance of unit vectors)."""
         xs = self.index.meta.get("x")
         ys = self.index.meta.get("y")
         results = []
@@ -335,7 +395,9 @@ class GeolocateService:
                 "y": float(ys[i]) if ys is not None else None,
                 "tile": int(i),
                 "distance": float(dd),
-                "orientation_deg": float(orient_row[j] * 360.0 / w - 180.0),
+                "orientation_deg": (None if orient_row is None else
+                                    float(orient_row[j] * 360.0 / self.index.embeds.shape[2]
+                                          - 180.0)),
                 "score": float(np.exp(10.0 * (1.0 - dd))),
             })
         return results
@@ -420,13 +482,16 @@ def serve(service: GeolocateService, port: int = 8000, host: str = "127.0.0.1") 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--index", required=True, help="gallery index .npz (GalleryIndex)")
+    parser.add_argument("--index", required=True,
+                        help="gallery index .npz (GalleryIndex for --family fov, VectorIndex for "
+                             "--family safa)")
     parser.add_argument("--weights", default="./weights")
     parser.add_argument("--tag", default=None)
     parser.add_argument("--dataset", default="witw")
     parser.add_argument("--fov", type=int, default=70)
-    parser.add_argument("--family", choices=("fov",), default="fov",
-                        help="tower/index family: fov = FOV-DSM towers + orientation-aligned FFT index")
+    parser.add_argument("--family", choices=FAMILIES, default="fov",
+                        help="tower/index family: fov = FOV-DSM towers + orientation-aligned FFT "
+                             "index (default); safa = VGG16+SAFA towers + Euclidean vector index")
     parser.add_argument("--port", type=int, default=8000)
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--int8", action="store_true")
@@ -450,15 +515,15 @@ def main(argv=None):
                         help="cap on any request's approximate-search rerank pool")
     args = parser.parse_args(argv)
 
-    cfg = fov_experiment(dataset=args.dataset, fov=args.fov)
-    index = GalleryIndex.load(args.index)
-    params = load_params(cfg, os.path.join(args.weights, args.tag or f"fov_{args.fov}_{args.dataset}"),
-                         index.device)
+    cfg = family_config(args.family, args.dataset, args.fov)
+    index = (VectorIndex if args.family == "safa" else GalleryIndex).load(args.index)
+    tag = args.tag or f"{args.family}_{args.fov}_{args.dataset}"
+    params = load_params(cfg, os.path.join(args.weights, tag), index.device)
     service = GeolocateService(index, cfg, params, int8=args.int8, fast=args.fast_eval,
                                max_batch=args.max_batch, batch_window_ms=args.batch_window_ms,
                                allow_mismatch=args.allow_mismatch,
                                batch_workers=args.batch_workers,
-                               max_candidates=args.max_candidates)
+                               max_candidates=args.max_candidates, family=args.family)
     # Bind first, so that a port in use fails fast; connections made during
     # the warm-up wait in the listen backlog.
     server = serve(service, args.port, args.host)

@@ -12,7 +12,10 @@ generators seeded by (seed, epoch, phase), so a resumed run sees epoch k's
 draws. Loaders are iterables of dicts of numpy arrays ("surface",
 "overhead", optionally "valid"), which ``device_prefetch`` moves to the
 pipeline's device ahead of the step. A ``MetricWriter`` gets witw_tpu's
-scalars and texts. Not ported: the mesh and multi-host branches.
+scalars and texts. Each function takes either family's pipeline
+(``FovPipeline`` or ``SafaPipeline``); ``test`` ranks the FOV family's maps
+by the orientation-aligned chord distance and the SAFA family's vectors by
+Euclidean distance. Not ported: the mesh and multi-host branches.
 """
 
 from __future__ import annotations
@@ -25,12 +28,13 @@ import numpy as np
 import torch
 
 from witw_tpu_torch.configs.base import ExperimentConfig
-from witw_tpu_torch.evaluation.gallery import FovGalleryEvaluator, metrics_from_ranks
+from witw_tpu_torch.evaluation.gallery import (FovGalleryEvaluator, euclidean_ranks,
+                                               metrics_from_ranks)
 from witw_tpu_torch.match.distance import paired_chord_distance
 from witw_tpu_torch.ops.image import denormalize_images
 from witw_tpu_torch.train.checkpoint import Checkpointer
 from witw_tpu_torch.train.metrics import MetricWriter
-from witw_tpu_torch.train.pipeline import FovPipeline, Params, TrainState
+from witw_tpu_torch.train.pipeline import FovPipeline, Params, Pipeline, TrainState
 from witw_tpu_torch.utils.profiling import StepTimer
 
 PHASES = {"train": 0, "val": 1, "dump": 2}
@@ -91,7 +95,7 @@ def device_prefetch(loader: Iterable, device, depth: int = 2) -> Iterator[Tuple[
 
 
 def run_phase(
-    pipeline: FovPipeline,
+    pipeline: Pipeline,
     state: TrainState,
     loader: Iterable,
     generator: torch.Generator,
@@ -162,7 +166,7 @@ def run_phase(
 
 def train(
     cfg: ExperimentConfig,
-    pipeline: FovPipeline,
+    pipeline: Pipeline,
     train_loader: Iterable,
     val_loader: Iterable,
     num_epochs: Optional[int] = None,
@@ -243,7 +247,7 @@ def train(
 
 
 def embed_all(
-    pipeline: FovPipeline,
+    pipeline: Pipeline,
     params: Params,
     loader: Iterable,
     generator: Optional[torch.Generator] = None,
@@ -270,14 +274,18 @@ def _aligned_crop(o_emb: torch.Tensor, orientation: torch.Tensor, sw: int) -> to
 
 
 @torch.no_grad()
-def dump_val_embeddings(pipeline: FovPipeline, params: Params, val_loader: Iterable,
+def dump_val_embeddings(pipeline: Pipeline, params: Params, val_loader: Iterable,
                         writer: MetricWriter, epoch: int,
                         generator: Optional[torch.Generator] = None) -> None:
     """TensorBoard projector dump after the val phase (reference
     cvig_fov.py:475-479): the first val batch's surface embeddings and each
     overhead map's orientation-aligned crop for its own query, with the
     denormalized network inputs as thumbnails (the surface padded to the
-    polar map's width, then both to squares, as the projector needs)."""
+    polar map's width, then both to squares, as the projector needs). The
+    reference dumps embeddings only in the FOV and semantic scripts: other
+    pipelines dump nothing."""
+    if not isinstance(pipeline, FovPipeline):
+        return
     batch = next(iter(val_loader), None)
     if batch is None:
         return
@@ -304,7 +312,7 @@ def dump_val_embeddings(pipeline: FovPipeline, params: Params, val_loader: Itera
 
 def test_ranks(
     cfg: ExperimentConfig,
-    pipeline: FovPipeline,
+    pipeline: Pipeline,
     test_loader: Iterable,
     params: Optional[Params] = None,
     verbose: bool = True,
@@ -314,9 +322,10 @@ def test_ranks(
     """Full-gallery retrieval eval: embed, rank, and report the reference
     metric suite. Returns the metrics and the per-query ranks they were
     computed from. ``params`` None restores the checkpointer's ``best``
-    (``cfg.train.checkpoint_dir`` when no checkpointer is given). The ranks
+    (``cfg.train.checkpoint_dir`` when no checkpointer is given). FOV ranks
     come from the fused match kernel, or with ``cfg.eval.fast_matmul``
-    (``--fast-eval``) from the FFT sweep with bf16 frequency products.
+    (``--fast-eval``) from the FFT sweep with bf16 frequency products; SAFA
+    ranks from ``euclidean_ranks`` (f32, ``fast_matmul`` has no effect).
     ``writer`` gets each metric as a text."""
     if params is None:
         if checkpointer is None:
@@ -325,13 +334,16 @@ def test_ranks(
         params = checkpointer.restore("best", target).params
     generator = torch.Generator().manual_seed(cfg.train.seed + 1)
     s_emb, o_emb = embed_all(pipeline, params, test_loader, generator)
-    evaluator = FovGalleryEvaluator(
-        query_block=cfg.eval.query_block,
-        gallery_chunk=cfg.eval.gallery_chunk,
-        use_fused=not cfg.eval.fast_matmul,
-        fast_matmul=cfg.eval.fast_matmul,
-    )
-    ranks = evaluator.ranks(o_emb, s_emb)
+    if isinstance(pipeline, FovPipeline):
+        evaluator = FovGalleryEvaluator(
+            query_block=cfg.eval.query_block,
+            gallery_chunk=cfg.eval.gallery_chunk,
+            use_fused=not cfg.eval.fast_matmul,
+            fast_matmul=cfg.eval.fast_matmul,
+        )
+        ranks = evaluator.ranks(o_emb, s_emb)
+    else:
+        ranks = euclidean_ranks(o_emb, s_emb)
     results = metrics_from_ranks(ranks)
     if verbose:
         print("Top  1: {:.2f}%".format(results["top_1"]))
@@ -349,7 +361,7 @@ def test_ranks(
 
 def test(
     cfg: ExperimentConfig,
-    pipeline: FovPipeline,
+    pipeline: Pipeline,
     test_loader: Iterable,
     params: Optional[Params] = None,
     verbose: bool = True,

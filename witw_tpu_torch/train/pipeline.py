@@ -1,5 +1,5 @@
-"""The FOV-DSM pipeline: train, eval and embed steps (port of
-witw_tpu/train/pipeline.py:FovPipeline).
+"""The FOV-DSM and SAFA pipelines: train, eval and embed steps (port of
+witw_tpu/train/pipeline.py: FovPipeline, SafaPipeline, make_pipeline).
 
 Raw uint8-scale batches go in; FOV crop, normalization and the polar
 transform run on the pipeline's device, then the twin towers, then the
@@ -14,12 +14,16 @@ as ``fov_dsm_trainable_mask`` says); the frozen ones never get a gradient.
 Random draws come from an explicit CPU ``torch.Generator`` per step, in
 this order: the crop origins (with ``random_orientation``), the surface
 tower's three dropout masks, the overhead tower's.
+
+``SafaPipeline`` shares the preprocessing and the steps; its towers
+(``models.safa.VggSafa``, no dropout) emit unit vectors, and its loss is the
+same soft-margin triplet loss on the in-batch squared Euclidean distances.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 from torch.func import functional_call
@@ -27,8 +31,9 @@ from torch.func import functional_call
 from witw_tpu_torch.configs.base import ExperimentConfig
 from witw_tpu_torch.match.correlation import circular_correlation
 from witw_tpu_torch.match.distance import chord_distance
-from witw_tpu_torch.match.losses import dsm_triplet_loss
+from witw_tpu_torch.match.losses import dsm_triplet_loss, pairwise_sq_distances
 from witw_tpu_torch.models.fov_dsm import FovDsm, fov_dsm_trainable_mask
+from witw_tpu_torch.models.safa import VggSafa, safa_trainable_mask
 from witw_tpu_torch.ops.fov import fov_crop, random_fov_starts
 from witw_tpu_torch.ops.fused_match import fused_chord_distance_nhwc
 from witw_tpu_torch.ops.image import normalize_images, normalize_images_masked_bias
@@ -50,33 +55,40 @@ class TrainState:
     optimizer: torch.optim.Optimizer
 
 
-class FovPipeline:
-    """cvig_fov / cvig_semantic pipeline (reference cvig_fov.py:385-575) on
-    ``device``: the CUDA device when None (RuntimeError without one); the
-    CPU only when asked for."""
+class _TwinPipeline:
+    """What the two families share: params, Adam on the trainable names,
+    the preprocessing (crop, normalization, polar transform) and the steps.
+    A family gives ``_tower(circ)``, ``trainable_names`` and
+    ``_forward_loss``."""
+
+    kind = None
 
     def __init__(self, cfg: ExperimentConfig, device=None):
-        if getattr(cfg.model, "kind", None) != "fov_dsm":
-            raise TypeError(f"FovPipeline needs a FovDsmModelConfig, got {type(cfg.model)}")
+        if getattr(cfg.model, "kind", None) != self.kind:
+            raise TypeError(f"{type(self).__name__} needs a model config of kind {self.kind!r}, "
+                            f"got {type(cfg.model)}")
         self.cfg = cfg
         self.device = torch.device(device) if device is not None else require_cuda()
-        self.surface_model = FovDsm(cfg.model, circ_padding=False).to(self.device).eval()
+        self.surface_model = self._tower(False).to(self.device).eval()
         # The overhead tower convolves the polar pseudo-panorama, which wraps
         # horizontally -> circular padding (reference cvig_fov.py:407).
-        self.overhead_model = FovDsm(cfg.model, circ_padding=True).to(self.device).eval()
+        self.overhead_model = self._tower(True).to(self.device).eval()
+
+    def _tower(self, circ: bool) -> torch.nn.Module:
+        raise NotImplementedError
 
     def init(self, generator: torch.Generator) -> Params:
         """Fresh params from the flax init distributions, drawn from a CPU
         ``generator`` (surface tower first) and placed on the device."""
         params = {}
         for tower, circ in (("surface", False), ("overhead", True)):
-            model = FovDsm(self.cfg.model, circ_padding=circ)
+            model = self._tower(circ)
             model.reset_parameters(generator)
             params[tower] = {k: v.to(self.device) for k, v in model.state_dict().items()}
         return params
 
     def trainable_names(self, tower_params: Dict[str, torch.Tensor]) -> List[str]:
-        return fov_dsm_trainable_mask(tower_params, self.cfg.model)
+        raise NotImplementedError
 
     def optimizer(self, params: Params) -> torch.optim.Adam:
         """Adam (lr, b1, b2, eps from ``cfg.train.optim``) over the trainable
@@ -147,21 +159,6 @@ class FovPipeline:
                                 {"train": train, "generator": generator}, strict=True)
         return s_emb, o_emb
 
-    def _forward_loss(self, params: Params, batch, generator: Optional[torch.Generator],
-                      train: bool) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Preprocess, both towers, matmul correlation, chord distance, DSM
-        triplet loss (with ``batch["valid"]``, when given, masking padded
-        rows)."""
-        surface, polar = self.preprocess(batch, generator)
-        s_emb, o_emb = self._towers(params, surface, polar, train, generator)
-        corr = circular_correlation(o_emb, s_emb, method="matmul")
-        distance, orientation = chord_distance(o_emb, s_emb, corr)
-        valid = batch.get("valid")
-        if valid is not None:
-            valid = torch.as_tensor(valid, device=self.device)
-        loss = dsm_triplet_loss(distance, alpha=self.cfg.match.alpha, valid=valid)
-        return loss, {"distance": distance, "orientation": orientation}
-
     def train_step(self, state: TrainState, batch,
                    generator: torch.Generator) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One Adam step on ``batch`` (train-mode dropout); updates ``state``
@@ -183,10 +180,40 @@ class FovPipeline:
     def embed_step(
         self, params: Params, batch, generator: Optional[torch.Generator] = None
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Embed a batch: (surface maps [B, h, sw', 16], overhead maps
-        [B, h, W', 16]), float32 NHWC."""
+        """Embed a batch: (surface embeddings, overhead embeddings), float32:
+        FOV maps [B, h, sw', 16] and [B, h, W', 16] NHWC, SAFA vectors
+        [B, M·512]."""
         surface, polar = self.preprocess(batch, generator)
         return self._towers(params, surface, polar, False, None)
+
+
+class FovPipeline(_TwinPipeline):
+    """cvig_fov / cvig_semantic pipeline (reference cvig_fov.py:385-575) on
+    ``device``: the CUDA device when None (RuntimeError without one); the
+    CPU only when asked for."""
+
+    kind = "fov_dsm"
+
+    def _tower(self, circ: bool) -> FovDsm:
+        return FovDsm(self.cfg.model, circ_padding=circ)
+
+    def trainable_names(self, tower_params: Dict[str, torch.Tensor]) -> List[str]:
+        return fov_dsm_trainable_mask(tower_params, self.cfg.model)
+
+    def _forward_loss(self, params: Params, batch, generator: Optional[torch.Generator],
+                      train: bool) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Preprocess, both towers, matmul correlation, chord distance, DSM
+        triplet loss (with ``batch["valid"]``, when given, masking padded
+        rows)."""
+        surface, polar = self.preprocess(batch, generator)
+        s_emb, o_emb = self._towers(params, surface, polar, train, generator)
+        corr = circular_correlation(o_emb, s_emb, method="matmul")
+        distance, orientation = chord_distance(o_emb, s_emb, corr)
+        valid = batch.get("valid")
+        if valid is not None:
+            valid = torch.as_tensor(valid, device=self.device)
+        loss = dsm_triplet_loss(distance, alpha=self.cfg.match.alpha, valid=valid)
+        return loss, {"distance": distance, "orientation": orientation}
 
     @torch.no_grad()
     def forward_distance(
@@ -199,3 +226,51 @@ class FovPipeline:
         s_emb, o_emb = self.embed_step(params, batch, generator)
         d, _ = fused_chord_distance_nhwc(o_emb, s_emb)
         return d
+
+
+class SafaPipeline(_TwinPipeline):
+    """VGG16+SAFA global-embedding pipeline on ``device`` (the CUDA device
+    when None): FOV-style preprocessing, twin SAFA towers emitting unit
+    vectors, the soft-margin triplet loss on the in-batch squared Euclidean
+    distance matrix; plain Euclidean retrieval eval
+    (``evaluation.gallery.euclidean_ranks``)."""
+
+    kind = "vgg_safa"
+
+    def _tower(self, circ: bool) -> VggSafa:
+        d = self.cfg.data
+        width = d.surface_width_max if circ else d.surface_width
+        return VggSafa(self.cfg.model, (d.surface_height, width), circ_padding=circ)
+
+    def trainable_names(self, tower_params: Dict[str, torch.Tensor]) -> List[str]:
+        return safa_trainable_mask(tower_params, self.cfg.model)
+
+    def _forward_loss(self, params: Params, batch, generator: Optional[torch.Generator],
+                      train: bool) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Preprocess, both towers, squared Euclidean distances [B_o, B_s],
+        DSM triplet loss (``batch["valid"]`` masking padded rows)."""
+        surface, polar = self.preprocess(batch, generator)
+        s_emb, o_emb = self._towers(params, surface, polar, train, generator)
+        d2 = pairwise_sq_distances(o_emb, s_emb)
+        valid = batch.get("valid")
+        if valid is not None:
+            valid = torch.as_tensor(valid, device=self.device)
+        loss = dsm_triplet_loss(d2, alpha=self.cfg.match.alpha, valid=valid)
+        return loss, {"distance": d2}
+
+
+Pipeline = Union[FovPipeline, SafaPipeline]
+
+
+def make_pipeline(cfg: ExperimentConfig, device=None) -> Pipeline:
+    """The pipeline of ``cfg.model``'s family on ``device`` (the card when
+    None)."""
+    kind = getattr(cfg.model, "kind", None)
+    if kind == "fov_dsm":
+        return FovPipeline(cfg, device)
+    if kind == "vgg_safa":
+        return SafaPipeline(cfg, device)
+    if kind == "baseline":
+        raise NotImplementedError("the baseline family (BaselinePipeline) is not ported yet: it "
+                                  "comes with the baseline slice")
+    raise TypeError(f"unknown model config: {type(cfg.model)}")
