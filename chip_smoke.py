@@ -186,6 +186,43 @@ Phases, each of which passes or raises:
    loop.test on the restored best (euclidean_ranks); conv3x3_bf16 launched,
    the fused match not.
 
+26. The baseline family at full CVUSA width (baseline_experiment("cvusa"):
+   224 x 1232 surfaces, rows repeated to 448 x 1232 on the card, raw 750^2
+   tiles, batch 16, random weights from a seed; cuDNN convs): the synced
+   rotation card against CPU (surfaces equal, rotated tiles equal but at
+   rounding ties), the f32 towers (TF32 off) card against CPU on the same 2
+   preprocessed samples (rtol 1e-4, atol 1e-5), the bf16 towers against f32
+   (cosine >= 0.999 per row), 4 train steps (losses finite, every BatchNorm
+   buffer moved), bf16 embed+match and train-step pairs/s (CUDA events), and
+   euclidean_ranks at 8832^2, D 1536, on planted integer-lattice pairs
+   against the f64 oracle.
+27. The baseline static-int8 towers (im2col of strided views +
+   torch._int_mm, f32 epilogue), calibrated on 8 preprocessed samples:
+   against f32 on them (cosine > 0.99, pseudo-norm within rtol 0.05,
+   saturation < 1%), card against CPU on 2 samples (every layer's int32
+   accumulators equal, embeddings within rtol 1e-5, atol 1e-6) and on a WITW
+   500^2 photo at batch 1 (conv7's GEMM at M = 1, padded to 17 rows), int8
+   embed+match pairs/s; then a device profile (torch.profiler, 4 steps) of
+   one bf16 and one int8 embed+match step at batch 16: each stage's device
+   time by outermost PyTorch op, grouped as the cuDNN convs, the BatchNorm /
+   LeakyReLU / GeM passes, the rotation gather, im2col, torch._int_mm and
+   the epilogue.
+28. Baseline serving and CLI at baseline_experiment("witw") (500^2 photos,
+   raw 750^2 tiles), random weights from a seed saved as `best`:
+   build_index.main --family baseline on [18]'s 512 tiles (resized to
+   750^2) in bf16 and --int8 (VectorIndex [512, 1536], meta, the first 8
+   vectors against the tower on the same tiles); a 100,000 x 1536
+   VectorIndex of planted lattice vectors against an f64 oracle, with times
+   and peak memory; the daemon (family "baseline", max_batch 8) in bf16 and
+   --int8, 16 PNG requests from 8 clients each equal to VectorIndex.search
+   of the daemon's embeddings, score exp(-d); heatmap.main --family
+   baseline on a 50 x 50 grid (2,500 tiles of 750^2) of a synthetic strip in
+   .smoke_baseline/, bf16 then --int8, each cold and warm (score exp(-d),
+   warm == cold, photo 0's rows == VectorIndex.score_all); cli.cvig_baseline
+   --dataset witw (batch 16) on 160 synthetic pairs (val 32 by wrapping
+   run_train), --mode train --epochs 1 then --mode test (== loop.test on the
+   restored best). Prints each step's rate.
+
 The launch counts are reset just before the path they count and read right
 after it: the fused match's and the conv kernel's before phase 4 and after
 test() in phase 5 (forward_distance at fov 360 and 90, and test(), must each
@@ -201,7 +238,9 @@ each (their records' `cli_launches` sum them); the conv kernel's before the
 bf16 SAFA towers of phase 23 and kernels A, B and C's before its int8
 towers, and each kernel's before each build, daemon and sweep of phase 24
 and each CLI run of phase 25, read after each (the records'
-`safa_launches` sum them). The second-to-last line is the
+`safa_launches` sum them); every kernel's before each step of phases 26-28,
+which must launch none of them (the records' `baseline_launches`, 0). The
+second-to-last line is the
 kernels' JSON record; the last line is {"ok": true, "device": {...}}.
 Without a GPU, or without the repo beside it, the script exits non-zero and
 prints no result.
@@ -209,6 +248,7 @@ prints no result.
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import contextlib
 import csv
@@ -232,8 +272,8 @@ import torch
 from torch.func import functional_call
 
 from witw_tpu_torch.cli import common as cli_common
-from witw_tpu_torch.cli import cvig_fov, cvig_safa
-from witw_tpu_torch.configs import fov_experiment, safa_experiment
+from witw_tpu_torch.cli import cvig_baseline, cvig_fov, cvig_safa
+from witw_tpu_torch.configs import baseline_experiment, fov_experiment, safa_experiment
 from witw_tpu_torch.data import loader, synthetic
 from witw_tpu_torch.data.csv_registry import read_pair_paths
 from witw_tpu_torch.evaluation import gallery
@@ -246,17 +286,18 @@ from witw_tpu_torch.match.correlation import circular_correlation
 from witw_tpu_torch.match.losses import pairwise_sq_distances
 from witw_tpu_torch.models import quantize
 from witw_tpu_torch.models.backbones import vgg16
+from witw_tpu_torch.models.baseline import BaselineEncoder
 from witw_tpu_torch.models.backbones.vgg16 import VGG16_BLOCKS
 from witw_tpu_torch.models.fov_dsm import HEAD_CONVS, FovDsm
 from witw_tpu_torch.models.safa import VggSafa
-from witw_tpu_torch.ops import conv3x3, fused_block2, fused_match, int8_conv, maxpool
+from witw_tpu_torch.ops import conv3x3, fused_block2, fused_match, int8_conv, maxpool, rotation
 from witw_tpu_torch.ops.image import normalize_images
 from witw_tpu_torch.ops.polar import polar_transform
 from witw_tpu_torch.tools import build_index, geotiff, heatmap
 from witw_tpu_torch.tools import serve as serve_tool
 from witw_tpu_torch.train import loop
 from witw_tpu_torch.train.checkpoint import Checkpointer
-from witw_tpu_torch.train.pipeline import FovPipeline, SafaPipeline
+from witw_tpu_torch.train.pipeline import BaselinePipeline, FovPipeline, SafaPipeline, TrainState
 from witw_tpu_torch.utils.device import require_cuda
 from witw_tpu_torch.utils.hashing import params_fingerprint
 from witw_tpu_torch.utils.profiling import cuda_ms, graph_ms
@@ -1348,7 +1389,7 @@ def check_daemon_embeds(service, seen, int8):
     worst = 0.0 if int8 else 1.0
     with torch.no_grad(), plain_kernels():
         for imgs, got in seen:
-            x = service._normalize(torch.from_numpy(imgs).to(service.device))
+            x = service._tower_input(torch.from_numpy(imgs).to(service.device))
             if int8 and service.family == "safa":
                 want = quantize.quantized_safa_forward_static(*service._sq, x, False)
             elif int8:
@@ -2377,6 +2418,706 @@ def phase_safa_cli(card, device):
     return launches
 
 
+# --- the baseline family (phases 26-28) --------------------------------------
+
+BASE_DIR = Path(__file__).resolve().parent / ".smoke_baseline"
+BASE_BATCH = 16  # the preset's train and eval batch
+BASE_D = 1536
+BASE_REQUESTS = 16
+BASE_SWEEP_SIDE = 50  # 2,500 tiles, [24]'s cut
+BASE_CLI_PAIRS, BASE_CLI_VAL = 160, 32  # 8 train and 2 val steps at batch 16; 10 test batches
+BASE_F32_RTOL, BASE_F32_ATOL = 1e-4, 1e-5  # the card's f32 towers against the CPU's
+BASE_INT8_RTOL = 1e-5  # the int8 towers, card against CPU: GeM's means sum in another order
+PROFILE_STEPS = 4
+
+
+BASELINE_LAUNCHES = collections.Counter()  # kernel launches seen on the baseline path
+
+
+def kernel_counts():
+    """Launch counts of every hand-written kernel of the port, by the names
+    of the kernels line's records' counters."""
+    counts = {"fused_match": fused_match.launches, "conv3x3": conv3x3.launches,
+              "conv_like": sum(int8_isolate.launches.values()),
+              "mm_s8": int8_mm_probe.launches["mm"], "mm_bf16": int8_mm_probe.launches["mmf"],
+              "caps": sum(mosaic_caps.launches.values())}
+    counts.update({n: m.launches for n, m in INT8_MODULES.items()})
+    return counts
+
+
+def reset_kernel_counts():
+    fused_match.launches = conv3x3.launches = 0
+    for mod in INT8_MODULES.values():
+        mod.launches = 0
+    for mod in (int8_isolate, int8_mm_probe, mosaic_caps):
+        for k in mod.launches:
+            mod.launches[k] = 0
+
+
+def check_no_kernel(what):
+    """The baseline path runs cuDNN, cuBLAS(Lt) and PyTorch ops only: fail
+    if any hand-written kernel launched since the last reset."""
+    torch.cuda.synchronize()
+    launched = {n: c for n, c in kernel_counts().items() if c}
+    BASELINE_LAUNCHES.update(launched)
+    if launched:
+        raise AssertionError(f"{what} launched the port's kernels {launched}")
+
+
+def baseline_batch(rng, cfg, b, surface_hw=None):
+    """Raw uint8-scale float NHWC at the baseline's host geometry."""
+    surface_hw, overhead_hw = cli_common.host_geometry(cfg) if surface_hw is None else (
+        surface_hw, (750, 750))
+    return {"surface": rng.uniform(0, 255, (b, *surface_hw, 3)).astype(np.float32),
+            "overhead": rng.uniform(0, 255, (b, *overhead_hw, 3)).astype(np.float32)}
+
+
+def staged_batches(cfg, device, seed, n=4):
+    """``n`` varied raw batches of BASE_BATCH, made on the card."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    surface_hw, overhead_hw = cli_common.host_geometry(cfg)
+    return [{"surface": torch.rand(BASE_BATCH, *surface_hw, 3, generator=gen, device=device) * 255,
+             "overhead": torch.rand(BASE_BATCH, *overhead_hw, 3, generator=gen, device=device) * 255}
+            for _ in range(n)]
+
+
+def rotation_tie_pixels(got, want, degrees):
+    """Pixels where two rotations of the same tiles differ; raise unless
+    each samples a source coordinate within 1e-4 of a rounding tie."""
+    differ = np.argwhere((got != want).any(-1))
+    s = got.shape[1]
+    c = (s - 1) / 2.0
+    theta = degrees.astype(np.float64) * np.pi / 180.0
+    for n, i, j in differ:
+        sx = np.cos(theta[n]) * (j - c) - np.sin(theta[n]) * (i - c) + c
+        sy = np.sin(theta[n]) * (j - c) + np.cos(theta[n]) * (i - c) + c
+        if min(abs(abs(sx - np.floor(sx)) - 0.5), abs(abs(sy - np.floor(sy)) - 0.5)) >= 1e-4:
+            raise AssertionError(f"rotated pixel {(n, i, j)} differs away from a rounding tie")
+    return len(differ)
+
+
+def baseline_int8_embed(towers, s_in, o_in):
+    (sq_s, sq_o) = towers
+    return (quantize.quantized_baseline_forward_static(sq_s, s_in),
+            quantize.quantized_baseline_forward_static(sq_o, o_in))
+
+
+def int8_card_vs_cpu(sq, x, device):
+    """One int8 tower on the card and on the CPU with the same tables:
+    (every layer's int32 accumulators equal, or raise; the largest
+    |d emb| / |emb|; the last accumulator's shape)."""
+    accs, outs = {"card": [], "cpu": []}, {}
+    real_acc = quantize.conv4x4s2_int8_acc
+    sq_cpu = quantize.static_qparams_to_device(sq, "cpu")
+    try:
+        for where, tables, inputs in (("card", sq, x.to(device)), ("cpu", sq_cpu, x.cpu())):
+            def record(h, kernel_mm, seen=accs[where]):
+                out = real_acc(h, kernel_mm)
+                seen.append(out.cpu())
+                return out
+
+            quantize.conv4x4s2_int8_acc = record
+            outs[where] = quantize.quantized_baseline_forward_static(tables, inputs).cpu()
+    finally:
+        quantize.conv4x4s2_int8_acc = real_acc
+    got, want = outs["card"], outs["cpu"]
+    for i, (g, w) in enumerate(zip(accs["card"], accs["cpu"]), 1):
+        if not torch.equal(g, w):
+            raise AssertionError(f"conv{i}'s int32 accumulators differ between the card and the CPU")
+    if not torch.allclose(got, want, rtol=BASE_INT8_RTOL, atol=1e-6):
+        raise AssertionError(f"int8 baseline tower: card vs CPU max |d emb| "
+                             f"{float((got - want).abs().max())}")
+    return (float(((got - want).abs() / want.abs().clamp_min(1e-12)).max()),
+            tuple(accs["card"][-1].shape))
+
+
+def phase_baseline_towers(card, device):
+    """[26] baseline towers at full CVUSA width in f32 and bf16, 4 train
+    steps, euclidean_ranks at 8832^2, D 1536; returns (params, pipeline,
+    timings)."""
+    cfg = baseline_experiment("cvusa")
+    surface_hw, overhead_hw = cli_common.host_geometry(cfg)
+    log(f"[26] baseline towers, baseline_experiment('cvusa'): {surface_hw[0]} x {surface_hw[1]} "
+        f"surface (rows repeated to {2 * surface_hw[0]} x {surface_hw[1]} on the card), raw "
+        f"{overhead_hw[0]}^2 tiles, batch {BASE_BATCH}, random weights from a seed; cuDNN convs, "
+        f"no kernel of the port")
+    reset_kernel_counts()
+    pipeline = BaselinePipeline(cfg, device)
+    params = pipeline.init(torch.Generator().manual_seed(0))
+    cfg32 = cfg.replace(model=dataclasses.replace(cfg.model, compute_dtype="float32"))
+    p32, cpu32 = BaselinePipeline(cfg32, device), BaselinePipeline(cfg32, "cpu")
+    cpu_params = {t: {k: v.cpu() for k, v in p.items()} for t, p in params.items()}
+    rng = np.random.default_rng(40)
+    two = baseline_batch(rng, cfg, 2)
+    degrees = rotation.rotation_degrees(torch.Generator().manual_seed(41), 2).numpy()
+    s_gpu, o_gpu = p32.preprocess(two, torch.Generator().manual_seed(41))
+    s_cpu, o_cpu = cpu32.preprocess(two, torch.Generator().manual_seed(41))
+    if not torch.equal(s_gpu.cpu(), s_cpu):
+        raise AssertionError("the rolled, row-repeated surfaces differ between the card and the CPU")
+    ties = rotation_tie_pixels(o_gpu.cpu().numpy(), o_cpu.numpy(), degrees)
+    with torch.no_grad():
+        want = cpu32._towers(cpu_params, s_cpu, o_cpu, False, None)
+        got = p32._towers(params, s_cpu.to(device), o_cpu.to(device), False, None)
+    for name, g, w in zip(("surface", "overhead"), got, want):
+        g = g.cpu()
+        rel = float(((g - w).abs() / w.abs().clamp_min(1e-12)).max())
+        log(f"    f32 {name} tower, card (TF32 off) vs CPU, 2 samples: max |d emb| "
+            f"{float((g - w).abs().max()):.3e}, max rel {rel:.3e} (rtol {BASE_F32_RTOL}, atol "
+            f"{BASE_F32_ATOL})")
+        if not torch.allclose(g, w, rtol=BASE_F32_RTOL, atol=BASE_F32_ATOL):
+            raise AssertionError(f"the card's f32 baseline {name} tower disagrees with the CPU's")
+    log(f"    preprocess card vs CPU: surfaces equal; rotated tiles differ at {ties} of "
+        f"{o_cpu.shape[0] * o_cpu.shape[1] * o_cpu.shape[2]} pixels, each at a rounding tie")
+
+    batch = baseline_batch(rng, cfg, BASE_BATCH)
+    s_in, o_in = pipeline.preprocess(batch, torch.Generator().manual_seed(43))
+    with torch.no_grad():
+        e16 = pipeline._towers(params, s_in, o_in, False, None)
+        e32 = p32._towers(params, s_in, o_in, False, None)
+    for name, g, w in zip(("surface", "overhead"), e16, e32):
+        cos = torch.nn.functional.cosine_similarity(g, w, dim=1)
+        log(f"    bf16 vs f32 {name} tower [{BASE_BATCH}, {BASE_D}]: cosine min "
+            f"{float(cos.min()):.6f} (>= 0.999)")
+        if g.shape != (BASE_BATCH, BASE_D) or not bool((cos >= 0.999).all()):
+            raise AssertionError(f"the bf16 baseline {name} tower disagrees with f32")
+    check_no_kernel("the baseline towers")
+
+    train_params = {t: {k: v.clone() for k, v in p.items()} for t, p in params.items()}
+    state = TrainState(0, train_params, pipeline.optimizer(train_params))
+    staged = staged_batches(cfg, device, 44)
+    gen = torch.Generator().manual_seed(45)
+    losses = []
+    for b in staged:
+        state, metrics = pipeline.train_step(state, b, gen)
+        losses.append(float(metrics["loss"]))
+    moved = [k for k in train_params["overhead"] if "running" in k
+             and not torch.equal(train_params["overhead"][k], params["overhead"][k])]
+    if not np.isfinite(losses).all() or len(moved) != 14:
+        raise AssertionError(f"train steps: losses {losses}, running stats moved {moved}")
+    log(f"    4 train steps at batch {BASE_BATCH}: losses {[round(v, 5) for v in losses]}, all 14 "
+        f"BatchNorm buffers of a tower moved")
+    check_no_kernel("the baseline train steps")
+
+    step_of = iter(range(10**9))
+
+    def stage(fn):
+        return lambda: fn(staged[next(step_of) % len(staged)])
+
+    def bf16_step(b):
+        s, o = pipeline.embed_step(params, b)
+        return pairwise_sq_distances(o, s)
+
+    def train_once():
+        pipeline.train_step(state, staged[next(step_of) % len(staged)], gen)
+
+    timings = {"bf16": cuda_ms(stage(bf16_step), 8, 5), "train": cuda_ms(train_once, 4, 5)}
+    log(f"    embed+match bf16 batch {BASE_BATCH} (rotation, both towers, the [{BASE_BATCH}, "
+        f"{BASE_BATCH}] squared distances): {timings['bf16']:.3f} ms/step = {BASE_BATCH * 1000.0 / timings['bf16']:.2f} "
+        f"pairs/s; train step {timings['train']:.3f} ms/step = "
+        f"{BASE_BATCH * 1000.0 / timings['train']:.2f} pairs/s (CUDA events, varied inputs, "
+        f"median of 5) ({card})")
+    check_no_kernel("the baseline timing")
+    del state, train_params
+
+    gen = torch.Generator(device=device).manual_seed(46)
+    g = lattice(gen, (RANK_PAIRS, BASE_D), device)
+    q = planted_queries(gen, g, torch.arange(RANK_PAIRS, device=device),
+                        torch.linspace(0.0, 1.0, RANK_PAIRS, device=device))
+    gallery.euclidean_ranks(g, q)
+    t0 = time.perf_counter()
+    ranks = gallery.euclidean_ranks(g, q)
+    t_ranks = time.perf_counter() - t0
+    want = oracle_ranks(g.cpu().numpy(), q.cpu().numpy())
+    if not np.array_equal(ranks, want):
+        raise AssertionError(f"euclidean_ranks at D {BASE_D} differs from the f64 oracle on "
+                             f"{int((ranks != want).sum())} of {RANK_PAIRS} queries")
+    log(f"    euclidean_ranks, {RANK_PAIRS} planted integer-lattice pairs at D = {BASE_D}: == the "
+        f"f64 numpy oracle, mean rank {ranks.mean():.4f}; {t_ranks:.4f} s (host clock, second "
+        f"of two runs) ({card})")
+    timings["ranks"] = t_ranks
+    return pipeline, params, timings
+
+
+def phase_baseline_int8(card, device, pipeline, params):
+    """[27] the baseline static-int8 towers: calibration on 8 samples,
+    against f32, card against CPU, the padded-M case, embed pairs/s;
+    returns (the tables, the int8 step's ms)."""
+    cfg = pipeline.cfg
+    log(f"[27] baseline static int8 (im2col of strided views + torch._int_mm, f32 epilogue): "
+        f"both towers calibrated on 8 preprocessed samples")
+    reset_kernel_counts()
+    rng = np.random.default_rng(50)
+    calib = baseline_batch(rng, cfg, 8)
+    s8, o8 = pipeline.preprocess(calib, torch.Generator().manual_seed(51))
+    t0 = time.perf_counter()
+    towers = quantize.quantize_baseline_pipeline_static(params, [(s8, o8)])
+    torch.cuda.synchronize()
+    log(f"    calibrated and folded both towers in {time.perf_counter() - t0:.2f} s")
+    cfg32 = cfg.replace(model=dataclasses.replace(cfg.model, compute_dtype="float32"))
+    p32 = BaselinePipeline(cfg32, device)
+    with torch.no_grad():
+        f32 = p32._towers(params, s8, o8, False, None)
+        q8 = baseline_int8_embed(towers, s8, o8)
+    for name, sq, x, got, want in zip(("surface", "overhead"), towers, (s8, o8), q8, f32):
+        cos = torch.nn.functional.cosine_similarity(got, want, dim=1)
+        norm_rel = float(((got.norm(dim=1) - want.norm(dim=1)).abs() / want.norm(dim=1)).max())
+        sat = quantize.static_int8_saturation_baseline(sq, x)
+        log(f"    int8 vs f32 {name} tower on the 8 calibration samples: cosine min "
+            f"{float(cos.min()):.6f} (> 0.99), pseudo-norm max rel {norm_rel:.4f} (< 0.05), "
+            f"saturation {sat:.3e} (< 0.01)")
+        if not (bool((cos > 0.99).all()) and norm_rel < 0.05 and sat < 0.01):
+            raise AssertionError(f"the int8 baseline {name} tower breaks witw_tpu's contract")
+        rel, last = int8_card_vs_cpu(sq, x[:2], device)
+        log(f"    int8 {name} tower, card vs CPU on 2 samples, the same tables: every layer's "
+            f"int32 accumulators equal (conv7 {last}), embeddings max rel {rel:.3e}")
+    witw = baseline_experiment("witw")
+    photo = torch.from_numpy(baseline_batch(rng, witw, 1)["surface"])
+    rel, last = int8_card_vs_cpu(towers[0], photo, device)
+    if last[:3] != (1, 1, 1):
+        raise AssertionError(f"a WITW 500^2 photo at batch 1 gave conv7 {last}")
+    log(f"    batch 1 at WITW 500^2: conv7's GEMM has M = 1 (padded to 17 rows), accumulators "
+        f"equal, embeddings max rel {rel:.3e}")
+    check_no_kernel("the int8 baseline towers")
+
+    staged = staged_batches(cfg, device, 52)
+    step_of = iter(range(10**9))
+
+    def int8_step():
+        b = staged[next(step_of) % len(staged)]
+        s, o = pipeline.preprocess(b)
+        s_emb, o_emb = baseline_int8_embed(towers, s, o)
+        return pairwise_sq_distances(o_emb, s_emb)
+
+    t_int8 = cuda_ms(int8_step, 8, 5)
+    log(f"    embed+match static int8 batch {BASE_BATCH}: {t_int8:.3f} ms/step = "
+        f"{BASE_BATCH * 1000.0 / t_int8:.2f} pairs/s (CUDA events, varied inputs, median of 5) "
+        f"({card})")
+    check_no_kernel("the int8 baseline timing")
+    return towers, t_int8
+
+
+def top_op_device_us(run, steps):
+    """torch.profiler over ``steps`` calls of ``run``: device microseconds
+    per outermost PyTorch op (each kernel counted under the op that
+    launched it, then that op's outermost caller), and the device events'
+    total."""
+    run()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            run()
+        torch.cuda.synchronize()
+    by_op = collections.defaultdict(float)
+    device_us = 0.0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            device_us += e.time_range.elapsed_us()
+        elif e.kernels:
+            top = e
+            while top.cpu_parent is not None:
+                top = top.cpu_parent
+            by_op[top.name] += sum(k.duration for k in e.kernels)
+    return by_op, device_us
+
+
+def phase_baseline_profile(card, device, pipeline, params, towers):
+    """The device profile of one bf16 and one int8 embed step at batch 16:
+    the shares of the convs, the BatchNorm / LeakyReLU / GeM passes, the
+    rotation gather; for int8, im2col, torch._int_mm and the epilogue."""
+    log(f"[27] device profile (torch.profiler, {PROFILE_STEPS} steps each) of one embed+match "
+        f"step at batch {BASE_BATCH}, bf16 and int8, by stage and by outermost PyTorch op")
+    reset_kernel_counts()
+    b = staged_batches(pipeline.cfg, device, 53, n=1)[0]
+    with torch.no_grad():
+        s_in, o_in = pipeline.preprocess(b)
+        s_emb, o_emb = pipeline._towers(params, s_in, o_in, False, None)
+    stages = {
+        "preprocess": lambda: pipeline.preprocess(b),
+        "towers bf16": lambda: pipeline._towers(params, s_in, o_in, False, None),
+        "towers int8": lambda: baseline_int8_embed(towers, s_in, o_in),
+        "distances": lambda: pairwise_sq_distances(o_emb, s_emb),
+    }
+    groups = {  # stage: (outermost op -> group)
+        "preprocess": lambda op: "rotation gather" if op == "aten::index" else
+        "rest of preprocess (rotation indices, roll, row repeat)",
+        "towers bf16": lambda op: "cuDNN convs" if op in ("aten::conv2d", "aten::convolution")
+        else "BatchNorm / LeakyReLU / GeM passes and casts",
+        "towers int8": lambda op: {"aten::_int_mm": "torch._int_mm (cuBLASLt)",
+                                   "aten::reshape": "im2col copies",
+                                   "aten::cat": "im2col copies"}.get(
+            op, "epilogue, input quantization, GeM"),
+        "distances": lambda op: "distances",
+    }
+    report = {}
+    with torch.no_grad():
+        for stage, run in stages.items():
+            by_op, device_us = top_op_device_us(run, PROFILE_STEPS)
+            attributed = sum(by_op.values())
+            if device_us <= 0:
+                raise AssertionError(f"torch.profiler recorded no device time for {stage}")
+            g = collections.defaultdict(float)
+            if attributed < 0.5 * device_us:  # the profiler did not tie kernels to their ops
+                g[f"{stage} (not attributed to ops)"] = device_us / PROFILE_STEPS / 1e3
+            for op, us in by_op.items():
+                if attributed >= 0.5 * device_us:
+                    g[groups[stage](op)] += us / PROFILE_STEPS / 1e3
+            report[stage] = (dict(g), device_us / PROFILE_STEPS / 1e3, attributed / device_us,
+                             sorted(by_op.items(), key=lambda kv: -kv[1])[:6])
+    for path, tower in (("bf16", "towers bf16"), ("int8", "towers int8")):
+        parts = {}
+        for stage in ("preprocess", tower, "distances"):
+            parts.update(report[stage][0])
+        total = sum(parts.values())
+        log(f"    {path} embed+match step: {total:.3f} ms of device time ({card}); shares: "
+            + "; ".join(f"{k} {v:.3f} ms ({100 * v / total:.1f}%)"
+                        for k, v in sorted(parts.items(), key=lambda kv: -kv[1])))
+    for stage, (_, ms, covered, top) in report.items():
+        log(f"    {stage}: {ms:.3f} ms device time per step, {100 * covered:.1f}% attributed to "
+            f"ops; top ops " + ", ".join(f"{op} {us / PROFILE_STEPS / 1e3:.3f}" for op, us in top))
+    check_no_kernel("the profiled baseline steps")
+    return report
+
+
+def write_baseline_cli_dataset(directory: Path, n: int, shards: int = 8) -> str:
+    """A WITW-schema CSV of n synthetic pairs (250^2 photos, 375^2 tiles:
+    the loader resizes them to the baseline's 500^2 and 750^2), written in
+    ``shards`` parts at once."""
+    def part(k):
+        return synthetic.write_synthetic_dataset(
+            str(directory / f"part{k}"), n=n // shards, schema="witw", surface_hw=(250, 250),
+            overhead_hw=(375, 375), seed=200 + k)
+
+    with concurrent.futures.ThreadPoolExecutor(shards) as pool:
+        parts = list(pool.map(part, range(shards)))
+    header, rows = None, []
+    for k, csv_part in enumerate(parts):
+        with open(csv_part) as f:
+            header, *lines = f.read().splitlines()
+        rows += [line.replace("surface/", f"part{k}/surface/").replace("overhead/", f"part{k}/overhead/")
+                 for line in lines]
+    path = directory / "pairs.csv"
+    path.write_text("\n".join([header] + rows) + "\n")
+    return str(path)
+
+
+def phase_baseline_serving(card, device, csv_path):
+    """[28] at baseline_experiment('witw'): build_index --family baseline
+    on [18]'s 512 tiles (bf16, int8), a 100,000 x 1536 VectorIndex, the
+    daemon, the 2,500-tile heatmap sweep, cli.cvig_baseline train and test;
+    none launching a kernel of the port."""
+    cfg = baseline_experiment("witw")
+    log(f"[28] baseline serving and CLI, baseline_experiment('witw') (500^2 photos, raw 750^2 "
+        f"tiles), random weights from a seed saved as `best`: build_index --family baseline on "
+        f"[18]'s {SERVE_TILES} tiles, VectorIndex at {INDEX_TILES} x {BASE_D}, the daemon, the "
+        f"heatmap sweep, cli.cvig_baseline")
+    shutil.rmtree(BASE_DIR, ignore_errors=True)
+    BASE_DIR.mkdir(parents=True)
+    reset_kernel_counts()
+    weights = BASE_DIR / "weights"
+    state = BaselinePipeline(cfg, device).init_state(torch.Generator().manual_seed(0))
+    Checkpointer(str(weights / "baseline_70_witw")).save("best", state)
+    params = state.params
+    model = BaselineEncoder(cfg.model).to(device).eval()
+    seen = {}
+    real_span = quantize.calibrate_overhead_span
+
+    def record_span(*args, **kwargs):
+        seen["sq"], items = real_span(*args, **kwargs)
+        return seen["sq"], items
+
+    def check_vectors(got, want, int8, what):
+        """bf16 cosine >= 0.999 per vector; int8 (the same tables) within
+        rtol 1e-5, atol 1e-6."""
+        got = torch.as_tensor(got, device=device).reshape(want.shape)
+        if int8:
+            err = float((got - want).abs().max())
+            ok = bool(torch.allclose(got, want, rtol=BASE_INT8_RTOL, atol=1e-6))
+        else:
+            err = float(torch.nn.functional.cosine_similarity(got, want, dim=1).min())
+            ok = err >= 0.999
+        if not ok:
+            raise AssertionError(f"{what}: {'max |d emb|' if int8 else 'cosine min'} {err}")
+        return err
+
+    # build_index --family baseline
+    indexes = {}
+    quantize.calibrate_overhead_span = record_span
+    try:
+        for precision, flags in (("bf16", []), ("int8", ["--int8"])):
+            out = BASE_DIR / f"index_{precision}.npz"
+            t0 = time.perf_counter()
+            build_index.main(["--csv", csv_path, "--out", str(out), "--weights", str(weights),
+                              "--dataset", "witw", "--family", "baseline",
+                              "--meta-cols", "col0:x,col1:y"] + flags)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            check_no_kernel(f"build_index --family baseline ({precision})")
+            index = VectorIndex.load(str(out), device)
+            meta = index.meta
+            if (index.embeds.shape != (SERVE_TILES, BASE_D) or not np.isfinite(index.embeds).all()
+                    or str(meta["family"]) != "baseline"
+                    or str(meta["precision"]) != ("int8" if flags else "f32")
+                    or str(meta["params_sha"]) != params_fingerprint(params["overhead"])
+                    or not np.array_equal(meta["x"], 1000.0 + 10 * np.arange(SERVE_TILES))):
+                raise AssertionError(f"baseline {precision} index: embeds {index.embeds.shape}, "
+                                     f"meta { {k: str(v)[:40] for k, v in meta.items()} }")
+            tiles = np.stack([loader.resize_host(loader.decode_image(p)[..., :3], 750, 750)
+                              for p in meta["path"][:8]])
+            x = torch.from_numpy(tiles).to(device)
+            with torch.no_grad():
+                want = (quantize.quantized_baseline_forward_static(seen["sq"], x) if flags
+                        else functional_call(model, params["overhead"], (x,), strict=True))
+            err = check_vectors(index.embeds[:8], want, bool(flags), f"baseline {precision} index")
+            log(f"    build_index --family baseline {precision}: {SERVE_TILES} tiles in {dt:.3f} s "
+                f"= {SERVE_TILES / dt:.2f} tiles/s (decode, resize to 750^2, upload, embed; host "
+                f"clock) ({card}); VectorIndex {index.embeds.shape}; first 8 vectors vs the tower "
+                f"on the same tiles: {'max |d emb|' if flags else 'cosine min'} {err:.6g}")
+            indexes[precision] = index
+    finally:
+        quantize.calibrate_overhead_span = real_span
+
+    # VectorIndex at 100,000 x 1536, resident
+    gen = torch.Generator(device=device).manual_seed(54)
+    gal = lattice(gen, (INDEX_TILES, BASE_D), device)
+    planted = torch.randperm(INDEX_TILES, generator=gen, device=device)[:8]
+    queries = planted_queries(gen, gal, planted,
+                              torch.full((8,), 0.125, device=device)).cpu().numpy()
+    embeds, planted = gal.cpu().numpy(), planted.cpu().numpy()
+    del gal
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    vindex = VectorIndex(embeds, device=device)
+    i_s, d_s = vindex.search(queries, k=10)
+    q64 = queries.astype(np.float64)
+    d2 = np.empty((len(queries), INDEX_TILES))
+    for a in range(0, INDEX_TILES, 10_000):
+        g64 = embeds[a:a + 10_000].astype(np.float64)
+        d2[:, a:a + 10_000] = ((q64 * q64).sum(1)[:, None] + (g64 * g64).sum(1)[None, :]
+                               - 2.0 * q64 @ g64.T)
+    order = np.argsort(d2, axis=1, kind="stable")[:, :10]
+    want_d = np.sqrt(np.maximum(np.take_along_axis(d2, order, axis=1), 0.0))
+    if not (np.array_equal(i_s, order) and np.array_equal(i_s[:, 0], planted)
+            and np.allclose(d_s, want_d, rtol=1e-5, atol=1e-6)):
+        raise AssertionError(f"VectorIndex.search at D {BASE_D} differs from the numpy oracle")
+    if not np.allclose(vindex.score_all(queries[:2]), np.sqrt(np.maximum(d2[:2].T, 0.0)),
+                       rtol=1e-5, atol=1e-6):
+        raise AssertionError(f"VectorIndex.score_all at D {BASE_D} differs from the numpy oracle")
+    timings = {f"search(k=10) Q {qn}": cuda_ms(lambda qn=qn: vindex.search(queries[:qn], k=10),
+                                               1, 5) for qn in (1, 8)}
+    timings["score_all Q 2"] = cuda_ms(lambda: vindex.score_all(queries[:2]), 1, 5)
+    peak = torch.cuda.max_memory_allocated(device) - base
+    log(f"    VectorIndex {INDEX_TILES} x {BASE_D} ({embeds.nbytes / 1e9:.3f} GB): search(k=10) "
+        f"== the f64 oracle's top-10, top-1 == planted, score_all == the oracle; "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in timings.items())
+        + f" (CUDA events, median of 5); peak device memory {peak / 1e9:.3f} GB above the "
+        f"baseline ({card})")
+    del vindex, embeds
+    torch.cuda.empty_cache()
+    check_no_kernel("the baseline VectorIndex")
+
+    # the daemon
+    rng = np.random.default_rng(55)
+    photos = [png_bytes(rng.integers(0, 256, (300, 400, 3), dtype=np.uint8))
+              for _ in range(BASE_REQUESTS)]
+    for precision, int8 in (("bf16", False), ("int8", True)):
+        index = indexes[precision]
+        service = serve_tool.GeolocateService(index, cfg, params, int8=int8, max_batch=8,
+                                              family="baseline")
+        seen_embeds = []
+        real_embed = service._embed
+
+        def recording_embed(imgs, real_embed=real_embed, seen=seen_embeds):
+            out = real_embed(imgs)
+            seen.append((imgs, out))
+            return out
+
+        service._embed = recording_embed
+        server = serve_tool.serve(service, port=0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        try:
+            service.warmup()
+            seen_embeds.clear()
+            t0 = time.perf_counter()
+            with concurrent.futures.ThreadPoolExecutor(8) as pool:
+                answers = list(pool.map(lambda p: http_json(f"{url}/geolocate?k=5", p), photos))
+            wall = time.perf_counter() - t0
+            stats, _ = http_json(f"{url}/stats")
+            health, _ = http_json(f"{url}/healthz")
+            check_no_kernel(f"the baseline daemon ({precision})")
+            direct = []
+            for imgs, embs in seen_embeds:
+                i_d, d_d = index.search(embs, k=service._k_bucket(5))
+                direct += [(imgs[r], i_d[r, :5], d_d[r, :5]) for r in range(len(imgs))]
+                with torch.no_grad():
+                    x = service._tower_input(torch.from_numpy(imgs).to(device))
+                    want = (quantize.quantized_baseline_forward_static(service._sq, x) if int8
+                            else service._tower(x))
+                check_vectors(embs, want, int8, f"the {precision} baseline daemon's embeddings")
+            for photo, (out, _) in zip(photos, answers):
+                img = service._decode(photo)
+                _, i_d, d_d = next(t for t in direct if np.array_equal(t[0], img))
+                res = out["results"]
+                if ([r["tile"] for r in res] != i_d.tolist()
+                        or [r["distance"] for r in res] != [float(v) for v in d_d]
+                        or any(r["orientation_deg"] is not None for r in res)
+                        or [r["score"] for r in res] != [float(np.exp(-v)) for v in d_d]):
+                    raise AssertionError(f"{precision} baseline daemon answer differs from the "
+                                         f"direct search")
+            if (stats["requests"] != BASE_REQUESTS or stats["errors"] != 0
+                    or health["family"] != "baseline" or health["int8"] != int8
+                    or img.shape != (500, 500, 3)):
+                raise AssertionError(f"{precision} baseline daemon: stats {stats}, health {health}")
+            p50, p99 = (1e3 * float(np.percentile([t for _, t in answers], q)) for q in (50, 99))
+            log(f"    daemon {precision}: {BASE_REQUESTS} requests in {wall:.3f} s = "
+                f"{BASE_REQUESTS / wall:.2f} requests/s, latency p50 {p50:.2f} ms, p99 "
+                f"{p99:.2f} ms (host clock, 8 clients) ({card}); mean batch "
+                f"{stats['mean_batch']}; every answer == VectorIndex.search on the daemon's "
+                f"embeddings, score exp(-d), orientation null; the embeddings == the tower's")
+        finally:
+            server.shutdown()
+            server.server_close()
+            service.close()
+
+    # the heatmap sweep
+    t0 = time.perf_counter()
+    bounds, side = write_strip(BASE_DIR, BASE_SWEEP_SIDE)
+    photo_paths = []
+    for k in range(2):
+        photo_paths.append(str(BASE_DIR / f"photo{k}.png"))
+        (BASE_DIR / f"photo{k}.png").write_bytes(
+            png_bytes(rng.integers(0, 256, (300, 400, 3), dtype=np.uint8)))
+    log(f"    wrote a {side} x {side} x 3 strip for a {BASE_SWEEP_SIDE} x {BASE_SWEEP_SIDE} grid "
+        f"in {time.perf_counter() - t0:.2f} s")
+    _, _, windows = heatmap.window_grid(bounds, 225.0, 56.25)
+    with geotiff.GeoTiff(str(BASE_DIR / "03_paris.tif")) as sat:
+        first_tiles = np.stack([geotiff.resample(sat.read_world_window(*w).astype(np.float32),
+                                                 750, 750) for w in windows[:8]])
+    cache = BASE_DIR / "tiles.npz"
+    n = BASE_SWEEP_SIDE ** 2
+    real_score = VectorIndex.score_all
+
+    def record_score(index, query_embeds, *args, **kwargs):
+        seen["s_emb"] = np.array(query_embeds)
+        return real_score(index, query_embeds, *args, **kwargs)
+
+    quantize.calibrate_overhead_span = record_span
+    VectorIndex.score_all = record_score
+    try:
+        for precision, flags in (("bf16", []), ("int8", ["--int8"])):
+            argv = (["-a", "3", "-b", *map(str, bounds), "-s", str(BASE_DIR), "-p", *photo_paths,
+                     "--weights", str(weights), "--family", "baseline", "--index-cache",
+                     str(cache)] + flags)
+            runs = {}
+            for run in ("cold", "warm"):
+                torch.cuda.reset_peak_memory_stats(device)
+                t0 = time.perf_counter()
+                heatmap.main(argv + ["-c", str(BASE_DIR / f"{precision}_{run}.csv")])
+                torch.cuda.synchronize()
+                runs[run] = (time.perf_counter() - t0, torch.cuda.max_memory_allocated(device))
+                check_no_kernel(f"the {run} baseline sweep ({precision})")
+            header, cold = read_sweep_csv(BASE_DIR / f"{precision}_cold.csv")
+            _, warm = read_sweep_csv(BASE_DIR / f"{precision}_warm.csv")
+            if header != ["photo", "x", "y", "dissimilarity", "score"] or len(cold) != 2 * n \
+                    or warm != cold:
+                raise AssertionError(f"baseline {precision} CSV: header {header}, {len(cold)} rows")
+            d_col = np.asarray([r[3] for r in cold], np.float64)
+            score = np.asarray([r[4] for r in cold], np.float64)
+            if not (np.isfinite(d_col).all() and np.allclose(score, np.exp(-d_col), rtol=1e-6,
+                                                             atol=0)):
+                raise AssertionError(f"baseline {precision}: scores are not exp(-d)")
+            index = VectorIndex.load(str(cache), device)
+            if (len(index) != n or str(index.meta["family"]) != "baseline"
+                    or str(index.meta["precision"]) != ("int8" if flags else "f32")):
+                raise AssertionError(f"baseline {precision} cache: {len(index)} tiles, meta "
+                                     f"{ {k: str(v)[:40] for k, v in index.meta.items()} }")
+            x = torch.from_numpy(first_tiles).to(device)
+            with torch.no_grad():
+                want = (quantize.quantized_baseline_forward_static(seen["sq"], x) if flags
+                        else functional_call(model, params["overhead"], (x,), strict=True))
+            check_vectors(index.embeds[:8], want, bool(flags), f"baseline {precision} sweep cache")
+            dd = float(np.abs(real_score(index, seen["s_emb"][:1])[:, 0] - d_col[:n]).max())
+            if not dd <= 1e-5:
+                raise AssertionError(f"baseline {precision}: photo 0's rows differ from score_all "
+                                     f"({dd})")
+            log(f"    heatmap --family baseline {precision}: {n} tiles of 750^2 cold "
+                f"{runs['cold'][0]:.3f} s = {n / runs['cold'][0]:.2f} tiles/s (arguments to CSV, "
+                f"host clock), peak device memory {runs['cold'][1] / 1e9:.3f} GB; warm (cache hit) "
+                f"{runs['warm'][0]:.3f} s ({card}); {len(cold)} rows == warm rows, score == "
+                f"exp(-d), the cache's first 8 vectors == the tower's, photo 0's rows == "
+                f"VectorIndex.score_all (max |dd| {dd:.3e})")
+    finally:
+        quantize.calibrate_overhead_span = real_span
+        VectorIndex.score_all = real_score
+
+    # cli.cvig_baseline
+    t0 = time.perf_counter()
+    csv_cli = write_baseline_cli_dataset(BASE_DIR / "cli", BASE_CLI_PAIRS)
+    log(f"    wrote {BASE_CLI_PAIRS} WITW-schema pairs in {time.perf_counter() - t0:.2f} s")
+    flags = ["--dataset", "witw", "--train-csv", csv_cli, "--test-csv", csv_cli]
+    real_run_train = cli_common.run_train
+
+    def run_train_small_val(cfg, tag, num_epochs=None, profile_dir=None, device=None):
+        cfg = cfg.replace(train=dataclasses.replace(cfg.train, val_quantity=BASE_CLI_VAL))
+        return real_run_train(cfg, tag, num_epochs=num_epochs, profile_dir=profile_dir,
+                              device=device)
+
+    results = {}
+    cwd = os.getcwd()
+    os.chdir(BASE_DIR)
+    cli_common.run_train = run_train_small_val
+    try:
+        for run, argv in (("train", ["--mode", "train", "--epochs", "1"]),
+                          ("test", ["--mode", "test"])):
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                results[run] = cvig_baseline.main(argv + flags)
+            check_no_kernel(f"cvig_baseline {run}")
+            log(f"    cvig_baseline {run}: {time.perf_counter() - t0:.2f} s (host clock, arguments "
+                f"to return)")
+        ckpt = BASE_DIR / "weights" / "baseline_witw"
+        cli_cfg = cli_common.apply_overrides(baseline_experiment("witw"),
+                                             cli_common.base_parser(False).parse_args(flags))
+        cli_batch = cli_cfg.train.batch_size
+        if not ((ckpt / "best.pt").exists() and (ckpt / "latest.pt").exists()):
+            raise AssertionError(f"no best.pt / latest.pt in {ckpt}")
+        records = [json.loads(line) for line in
+                   (BASE_DIR / "runs" / "baseline_witw" / "train" / "metrics.jsonl").read_text()
+                   .splitlines()]
+        tags = {r["tag"] for r in records}
+        losses = [r["value"] for r in records if r["tag"] in ("train loss", "val loss")]
+        steps = ((BASE_CLI_PAIRS - BASE_CLI_VAL) // cli_batch + -(-BASE_CLI_VAL // cli_batch))
+        if (not {"train loss", "val loss", "train pairs_per_sec", "best_loss"} <= tags
+                or "val_embedding" in tags or len(losses) != steps
+                or not np.isfinite(losses).all()):
+            raise AssertionError(f"cvig_baseline train metrics.jsonl: tags {tags}, losses {losses}")
+        cli_rate = next(r["value"] for r in records if r["tag"] == "train pairs_per_sec")
+        cli_pipeline = BaselinePipeline(cli_cfg, device)
+        restored = Checkpointer(str(ckpt)).restore(
+            "best", cli_pipeline.init_state(torch.Generator().manual_seed(0))).params
+        test_loader = cli_common.build_loader(
+            cli_cfg, read_pair_paths(cli_cfg.data.dataset, csv_cli), shuffle=False,
+            drop_last=False, batch_size=cli_cfg.eval.batch_size)
+        try:
+            direct = loop.test(cli_cfg, cli_pipeline, test_loader, restored, verbose=False)
+        finally:
+            test_loader.close()
+        if direct != results["test"] or direct["locations"] != BASE_CLI_PAIRS:
+            raise AssertionError(f"cvig_baseline test {results['test']} != loop.test {direct}")
+        check_no_kernel("the baseline CLI check")
+        log(f"    cvig_baseline: losses finite {[round(v, 5) for v in losses]}; best.pt, latest.pt; "
+            f"no embedding dump; test {json.dumps(results['test'])} == loop.test on the restored "
+            f"best (euclidean_ranks, rotation seeded seed + 1); train {cli_rate:.2f} pairs/s "
+            f"(the loop's StepTimer, host clock, batch {cli_batch}) ({card})")
+    finally:
+        cli_common.run_train = real_run_train
+        os.chdir(cwd)
+        shutil.rmtree(BASE_DIR, ignore_errors=True)
+
+
 def main() -> int:
     # 1. device
     device = require_cuda()
@@ -2606,13 +3347,21 @@ def main() -> int:
     cli_launches = phase_cli(card, device, staged_train_rate)
     safa_runs = [phase_safa_towers(card, device)]
     safa_runs.append(phase_safa_serving(card, device, str(SERVE_DIR / "data" / "pairs.csv")))
-    shutil.rmtree(SERVE_DIR, ignore_errors=True)
     safa_runs.append(phase_safa_cli(card, device))
     safa = {n: sum(c.get(n, 0) for run in safa_runs for c in run.values())
             for n in ("conv3x3", "fused_match", *INT8_MODULES)}
     log(f"    SAFA-path launches ([23] towers, [24] serving, [25] CLI): {safa}")
     if safa["fused_match"]:
         raise AssertionError("the SAFA path launched the fused match")
+    base_pipeline, base_params, _ = phase_baseline_towers(card, device)
+    base_towers, _ = phase_baseline_int8(card, device, base_pipeline, base_params)
+    phase_baseline_profile(card, device, base_pipeline, base_params, base_towers)
+    del base_pipeline, base_params, base_towers
+    torch.cuda.empty_cache()
+    phase_baseline_serving(card, device, str(SERVE_DIR / "data" / "pairs.csv"))
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    log(f"    baseline-path launches of the port's kernels ([26]-[28]): "
+        f"{dict(BASELINE_LAUNCHES) or 'none'}")
     serving = {n: build_launches[p].get(n, 0) + daemon_launches[p].get(n, 0)
                + sweep_launches[p].get(n, 0)
                for p in ("bf16", "int8") for n in build_launches[p]}
@@ -2626,6 +3375,11 @@ def main() -> int:
     for record, mod in zip(int8_records, INT8_KERNELS):
         record["safa_launches"] = safa[mod]
     match_cli_launches = sum(r["fused_match"] for r in cli_launches.values())
+    conv_record["baseline_launches"] = BASELINE_LAUNCHES["conv3x3"]
+    for record, mod in zip(int8_records, INT8_KERNELS):
+        record["baseline_launches"] = BASELINE_LAUNCHES[mod]
+    for record, rec in zip(probe_records, PROBE_KERNELS):
+        record["baseline_launches"] = BASELINE_LAUNCHES[rec]
 
     log(card)
     log(json.dumps({"kernels": [{
@@ -2644,6 +3398,7 @@ def main() -> int:
         "library_ms": None,
         "cli_launches": match_cli_launches,
         "safa_launches": safa["fused_match"],
+        "baseline_launches": BASELINE_LAUNCHES["fused_match"],
     }] + int8_records + [conv_record] + probe_records}))
     log(f"smoke total: {time.perf_counter() - T_START:.2f} s")
     log(json.dumps({"ok": True, "device": {

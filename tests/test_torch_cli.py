@@ -474,3 +474,54 @@ def test_cvig_safa_train_then_test(tmp_path, monkeypatch):
     o = np.concatenate([np.asarray(e[1]) for e in embeds])
     np.testing.assert_array_equal(ranks["port"], np.asarray(jax_ranks(o, s)))
     assert cvig_safa.main(["--mode", "test"] + flags, device="cpu")["locations"] == 12
+
+
+def test_cvig_baseline_train_then_test(tmp_path, monkeypatch, dataset):
+    """cvig_baseline --mode train then --mode test on the WITW CSV (the
+    baseline preset in f32, batch 2, val_quantity 2; host geometry cut from
+    500² photos and 750² tiles to 384² both, the least the seven VALID
+    convs take): checkpoints under baseline_witw holding trained BatchNorm
+    buffers, the train log without an embedding dump, the test metrics
+    equal to loop.test on the restored best (euclidean_ranks, the eval-time
+    rotation drawn from a generator seeded seed + 1)."""
+    from witw_tpu_torch.cli import cvig_baseline
+    from witw_tpu_torch.configs import baseline_experiment
+    from witw_tpu_torch.train.checkpoint import Checkpointer
+    from witw_tpu_torch.train.pipeline import BaselinePipeline
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(common, "host_geometry", lambda cfg: ((384, 384), (384, 384)))
+
+    def small(dataset):
+        cfg = baseline_experiment(dataset)
+        return cfg.replace(data=dataclasses.replace(cfg.data, num_workers=2),
+                           model=dataclasses.replace(cfg.model, compute_dtype="float32"),
+                           train=dataclasses.replace(cfg.train, val_quantity=2))
+
+    monkeypatch.setattr(cvig_baseline, "baseline_experiment", small)
+    flags = ["--dataset", "witw", "--train-csv", dataset, "--test-csv", dataset,
+             "--batch-size", "2"]
+    state = cvig_baseline.main(["--mode", "train", "--epochs", "1"] + flags, device="cpu")
+    assert state.step == 2  # 5 train pairs in batches of 2, the last dropped
+    weights = tmp_path / "weights" / "baseline_witw"
+    assert (weights / "best.pt").exists() and (weights / "latest.pt").exists()
+    with open(tmp_path / "runs" / "baseline_witw" / "train" / "metrics.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    tags = {r["tag"] for r in records}
+    assert {"train loss", "val loss", "best_loss"} <= tags and "val_embedding" not in tags
+    assert all(np.isfinite(r["value"]) for r in records if "value" in r)
+    best = Checkpointer(str(weights)).load("best")["params"]
+    assert float(best["overhead"]["bn1.running_var"].sub(1.0).abs().max()) > 0
+
+    metrics = cvig_baseline.main(["--mode", "test"] + flags, device="cpu")
+    assert metrics["locations"] == 7
+    cfg = common.apply_overrides(small("witw"), common.base_parser(False).parse_args(flags))
+    pipeline = BaselinePipeline(cfg, "cpu")
+    params = Checkpointer(str(weights)).restore(
+        "best", pipeline.init_state(torch.Generator().manual_seed(0))).params
+    test_loader = common.build_loader(cfg, read_pair_paths(cfg.data.dataset, dataset),
+                                      shuffle=False, drop_last=False, batch_size=2)
+    try:
+        assert loop.test(cfg, pipeline, test_loader, params, verbose=False) == metrics
+    finally:
+        test_loader.close()

@@ -1,6 +1,7 @@
 """Card tests of the port's CUDA kernels (the fused match, the three
 static-int8 kernels, the bf16 conv + bias + ReLU and the int8 profiling
-harness's three); each skips without a CUDA device. This file imports no JAX, so it also runs where JAX is absent:
+harness's three) and of the baseline family's int8 convs on
+``torch._int_mm``; each skips without a CUDA device. This file imports no JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -343,6 +344,47 @@ def test_static_int8_safa_tower_on_gpu_matches_cpu(int8_cuda, circ):
     torch.cuda.synchronize()
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-6)
     assert int8_conv.launches == 8 and maxpool.launches == 2 and fused_block2.launches == 1
+
+
+@pytest.mark.parametrize("b,hw", [(1, (500, 500)), (2, (448, 1232))])
+def test_static_int8_baseline_tower_on_gpu_matches_cpu(int8_cuda, b, hw):
+    """The baseline int8 tower (im2col + torch._int_mm, cuBLASLt on the
+    card) against the CPU on the same tables: every layer's int32
+    accumulator equal, embeddings within rtol 1e-5, atol 1e-6 (GeM's means
+    sum in another order). A WITW photo at batch 1 leaves conv7 one output
+    row (M = 1), padded to the 17 rows the card's GEMM takes; CVUSA's
+    row-repeated 448 x 1232 at batch 2. None of the port's kernels runs."""
+    from witw_tpu_torch.configs.base import BaselineModelConfig
+    from witw_tpu_torch.models.baseline import BaselineEncoder
+
+    model = BaselineEncoder(BaselineModelConfig(compute_dtype="float32"))
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    sd = {k: v.detach() for k, v in model.state_dict().items()}
+    x = torch.from_numpy(np.random.default_rng(5).uniform(0, 255, (b, *hw, 3))
+                         .astype(np.float32))
+    sq_cpu = quantize.quantize_baseline_tower_static(sd, [x])
+    sq_gpu = quantize.static_qparams_to_device(sq_cpu, int8_cuda)
+    accs = {}
+    real_acc = quantize.conv4x4s2_int8_acc
+
+    def record(h, kernel_mm):
+        out = real_acc(h, kernel_mm)
+        accs.setdefault(h.device.type, []).append(out.cpu())
+        return out
+
+    quantize.conv4x4s2_int8_acc = record
+    try:
+        want = quantize.quantized_baseline_forward_static(sq_cpu, x)
+        got = quantize.quantized_baseline_forward_static(sq_gpu, x.to(int8_cuda))
+        torch.cuda.synchronize()
+    finally:
+        quantize.conv4x4s2_int8_acc = real_acc
+    assert len(accs["cuda"]) == len(accs["cpu"]) == 7
+    assert accs["cuda"][-1].shape[:3] == ((b, 1, 1) if hw == (500, 500) else (b, 1, 7))
+    for i, (g, w) in enumerate(zip(accs["cuda"], accs["cpu"]), 1):
+        assert torch.equal(g, w), f"conv{i}"
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)
+    assert int8_conv.launches == maxpool.launches == fused_block2.launches == 0
 
 
 @pytest.mark.parametrize("w,pad_w", [(64, 1), (66, 0)])

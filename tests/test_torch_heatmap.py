@@ -321,3 +321,77 @@ def test_safa_sweep_matches_jax(scene, states):
     warm, _ = _port_sweep(scene, params, "tsafa_warm", tcfg, family="safa", index_cache=cache,
                           sat=str(scene[0] / "missing.tif"))  # a cache hit reads no strip
     np.testing.assert_array_equal(warm["dissimilarity"], got["dissimilarity"])
+
+
+def test_baseline_sweep_matches_jax(scene, monkeypatch):
+    """--family baseline, f32 towers (witw_tpu's convs at "highest") from a
+    seeded port init with running statistics off 0 / 1: the two photos
+    resized to 500 x 500 raw pixels, the tiles resampled to a raw 750²; no
+    orientation column (batches of 4 tiles, the grid's), dissimilarity
+    within rtol 1e-4, atol 1e-4 of
+    witw_tpu's, score exp(-d); the cache is a VectorIndex stamped
+    "baseline" that a warm sweep reuses; --int8 calibrates the surface tower
+    on the raw photos (its vectors at cosine > 0.99 to the f32 ones)."""
+    from types import SimpleNamespace
+
+    from witw_tpu.configs import baseline_experiment as jax_baseline_experiment
+    from witw_tpu_torch.configs import baseline_experiment
+    from witw_tpu_torch.evaluation.vector_index import VectorIndex
+    from witw_tpu_torch.models.convert_jax import state_dict_to_jax_variables
+    from witw_tpu_torch.train.pipeline import BaselinePipeline
+
+    jcfg, tcfg = (make("witw") for make in (jax_baseline_experiment, baseline_experiment))
+    jcfg, tcfg = (c.replace(model=dataclasses.replace(c.model, compute_dtype="float32",
+                                                      conv_precision="highest"))
+                  for c in (jcfg, tcfg))
+    gen = torch.Generator().manual_seed(6)
+    params = BaselinePipeline(tcfg, "cpu").init(gen)
+    for sd in params.values():
+        for k in sd:
+            if k.endswith("running_mean"):
+                sd[k] = 0.1 * torch.randn(sd[k].shape, generator=gen)
+            elif k.endswith("running_var"):
+                sd[k] = torch.rand(sd[k].shape, generator=gen) + 0.5
+    jparams, jstats = state_dict_to_jax_variables(params)
+    state = SimpleNamespace(params=jparams, batch_stats=jstats)
+    photos = scene[2]
+    cache = str(scene[0] / "baseline_cache.npz")
+    want, want_csv = _jax_sweep(scene, state, "jbase", jcfg, family="baseline", batch_size=4, photos=photos)
+    got, got_csv = _port_sweep(scene, params, "tbase", tcfg, family="baseline", batch_size=4,
+                               index_cache=cache, photos=photos)
+    columns = ["photo", "x", "y", "dissimilarity", "score"]
+    assert list(got) == list(want.columns) == columns
+    assert _rows(got_csv)[0] == _rows(want_csv)[0] == columns
+    np.testing.assert_array_equal(got["x"], want["x"])
+    np.testing.assert_allclose(got["dissimilarity"], want["dissimilarity"], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got["score"], np.exp(-got["dissimilarity"]), rtol=1e-6)
+    index = VectorIndex.load(cache, "cpu")
+    assert index.embeds.shape == (4, 1536) and str(index.meta["family"]) == "baseline"
+    warm, _ = _port_sweep(scene, params, "tbase_warm", tcfg, family="baseline", batch_size=4, index_cache=cache,
+                          photos=photos, sat=str(scene[0] / "missing.tif"))
+    np.testing.assert_array_equal(warm["dissimilarity"], got["dissimilarity"])
+
+    calibrated = []
+    real_fold = tq.quantize_baseline_tower_static
+
+    def record_fold(sd, batches, *args, **kwargs):
+        calibrated.append(tuple(batches[0].shape))
+        return real_fold(sd, batches, *args, **kwargs)
+
+    monkeypatch.setattr(tq, "quantize_baseline_tower_static", record_fold)
+    seen = {}
+    real_score = VectorIndex.score_all
+
+    def record_score(index, query, *args, **kwargs):
+        seen.setdefault("s_emb", []).append(np.array(query))
+        return real_score(index, query, *args, **kwargs)
+
+    monkeypatch.setattr(VectorIndex, "score_all", record_score)
+    _port_sweep(scene, params, "tbase_f32", tcfg, family="baseline", batch_size=4, photos=photos)
+    int8, _ = _port_sweep(scene, params, "tbase8", tcfg, family="baseline", batch_size=4, int8=True,
+                          photos=photos)
+    assert calibrated == [(2, 500, 500, 3), (4, 750, 750, 3)]  # the photos, then the tiles
+    f32_q, int8_q = seen["s_emb"]
+    cos = np.sum(f32_q * int8_q, 1) / (np.linalg.norm(f32_q, axis=1) * np.linalg.norm(int8_q, axis=1))
+    assert np.all(cos > 0.99), cos
+    assert np.all(np.isfinite(int8["dissimilarity"]))

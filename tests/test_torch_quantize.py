@@ -474,3 +474,122 @@ def test_safa_static_forward_matches_jax(rng, monkeypatch, safa_towers, circ):
     frac = tq.static_int8_saturation_safa(sq_head, torch.from_numpy(x), circ)
     assert frac == sum(int(h) for h, _ in sats_j) / sum(int(t) for _, t in sats_j)
     assert int8_conv.launches == maxpool.launches == fused_block2.launches == 0
+
+
+# --- the baseline family's static-int8 towers ---------------------------------
+
+
+@pytest.fixture(scope="module")
+def baseline_tower():
+    """A port baseline tower from a seeded init with running statistics off
+    0 / 1: (witw_tpu's {"params", "batch_stats"} variables, the port's state
+    dict), and two raw 384² calibration images (the seven VALID stride-2
+    convs need 382 px)."""
+    from witw_tpu_torch.configs.base import BaselineModelConfig
+    from witw_tpu_torch.models.baseline import BaselineEncoder
+    from witw_tpu_torch.models.convert_jax import (state_dict_to_tower,
+                                                   state_dict_to_tower_stats)
+
+    model = BaselineEncoder(BaselineModelConfig(compute_dtype="float32"))
+    gen = torch.Generator().manual_seed(5)
+    model.reset_parameters(gen)
+    sd = {k: v.detach() for k, v in model.state_dict().items()}
+    for k in sd:
+        if k.endswith("running_mean"):
+            sd[k] = 0.1 * torch.randn(sd[k].shape, generator=gen)
+        elif k.endswith("running_var"):
+            sd[k] = torch.rand(sd[k].shape, generator=gen) + 0.5
+    variables = {"params": state_dict_to_tower(sd), "batch_stats": state_dict_to_tower_stats(sd)}
+    rng = np.random.default_rng(9)
+    calib = [rng.uniform(0, 255, (1, 384, 384, 3)).astype(np.float32) for _ in range(2)]
+    return variables, sd, calib
+
+
+def test_baseline_calibration_and_tables_match_jax(baseline_tower, monkeypatch):
+    """The input's and six BatchNorm outputs' scales within rtol 1e-3 of
+    witw_tpu's calibrate_baseline_scales; given witw_tpu's scales every
+    table of quantize_baseline_tower_static is array_equal to witw_tpu's
+    (``kernel_mm`` is ``kernel_q`` as [Co, 16 Cin] in (kh, kw, cin) order)."""
+    variables, sd, calib = baseline_tower
+    want = jq.calibrate_baseline_scales(variables["params"], variables["batch_stats"], calib)
+    got = tq.calibrate_baseline_scales(sd, calib)
+    assert set(got) == set(want) == {"input", 1, 2, 3, 4, 5, 6}
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-3, err_msg=str(k))
+    monkeypatch.setattr(tq, "calibrate_baseline_scales", lambda *a, **k: want)
+    sq = tq.quantize_baseline_tower_static(sd, calib)
+    monkeypatch.setattr(jq, "calibrate_baseline_scales", lambda *a, **k: want)
+    sq_j = jq.quantize_baseline_tower_static(variables, calib)
+    assert float(sq["input_scale"]) == float(sq_j["input_scale"])
+    assert len(sq["layers"]) == len(sq_j["layers"]) == 7
+    for i, (entry, entry_j) in enumerate(zip(sq["layers"], sq_j["layers"]), 1):
+        assert set(entry) == set(entry_j) | {"kernel_mm"}, i
+        for key, value in entry_j.items():
+            np.testing.assert_array_equal(entry[key].numpy(), np.asarray(value),
+                                          err_msg=f"layer {i} {key}")
+        kq = np.asarray(entry_j["kernel_q"])
+        np.testing.assert_array_equal(entry["kernel_mm"].numpy(),
+                                      kq.reshape(-1, kq.shape[3]).T)
+
+
+def test_baseline_static_forward_matches_jax(rng, baseline_tower, monkeypatch):
+    """Given witw_tpu's tables: embeddings [2, 1536] within atol 1e-6 of
+    witw_tpu's quantized_baseline_forward_static run op by op (int8 convs as
+    im2col + torch._int_mm, conv7's rows padded to the 17 the card's GEMM
+    takes), equal saturation counts over the six requants. Not under
+    ``jax.jit``: XLA fuses the f32 epilogue (dequant, bias, LeakyReLU,
+    BatchNorm affine, requant) with contracted multiply-adds, which moves
+    requant roundings at ties and the embeddings by up to 2.3e-3 from
+    witw_tpu's own op-by-op forward, which the port equals. And witw_tpu's
+    contract against the f32 tower (tests/test_quantize.py:228): cosine >
+    0.99 per row, the pseudo-norm within rtol 0.05, saturation < 1%."""
+    from witw_tpu_torch.configs.base import BaselineModelConfig
+    from witw_tpu_torch.models.baseline import BaselineEncoder
+
+    variables, sd, calib = baseline_tower
+    scales = jq.calibrate_baseline_scales(variables["params"], variables["batch_stats"], calib)
+    monkeypatch.setattr(tq, "calibrate_baseline_scales", lambda *a, **k: scales)
+    monkeypatch.setattr(jq, "calibrate_baseline_scales", lambda *a, **k: scales)
+    sq = tq.quantize_baseline_tower_static(sd, calib)
+    sq_j = jq.quantize_baseline_tower_static(variables, calib)
+    x = np.concatenate([calib[0], rng.uniform(0, 255, (1, 384, 384, 3)).astype(np.float32)])
+    sats_j = []
+    want = np.asarray(jq.quantized_baseline_forward_static(sq_j, jnp.asarray(x),
+                                                           saturation_out=sats_j))
+    sats_t = []
+    got = tq.quantized_baseline_forward_static(sq, torch.from_numpy(x), saturation_out=sats_t)
+    assert got.shape == want.shape == (2, 1536) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+    assert [(int(h), t) for h, t in sats_t] == [(int(h), int(t)) for h, t in sats_j]
+    assert len(sats_t) == 6
+    frac = tq.static_int8_saturation_baseline(sq, torch.from_numpy(x))
+    assert frac == sum(int(h) for h, _ in sats_j) / sum(int(t) for _, t in sats_j) < 0.01
+
+    model = BaselineEncoder(BaselineModelConfig(compute_dtype="float32"))
+    model.load_state_dict(sd)
+    with torch.no_grad():
+        f32 = model(torch.from_numpy(x)).numpy()
+    q = got.numpy()
+    cos = np.sum(q * f32, 1) / (np.linalg.norm(q, axis=1) * np.linalg.norm(f32, axis=1))
+    assert np.all(cos > 0.99), cos
+    np.testing.assert_allclose(np.linalg.norm(q, axis=1), np.linalg.norm(f32, axis=1), rtol=0.05)
+
+
+def test_baseline_int8_conv_im2col_matches_lax(rng):
+    """conv4x4s2_int8_acc (strided-view im2col + torch._int_mm) equals
+    lax.conv_general_dilated's int32 accumulator, at Cin 3 and 5 (the
+    orientation maps' K = 80), odd sizes, and a 1 x 1 output (M = 1,
+    padded to 17 rows); a kernel that does not fit raises."""
+    for b, h, w, cin, co in ((2, 11, 9, 3, 16), (1, 8, 13, 5, 8), (1, 4, 4, 64, 64)):
+        x = rng.integers(-127, 128, (b, h, w, cin), dtype=np.int8)
+        k = rng.integers(-127, 128, (4, 4, cin, co), dtype=np.int8)
+        want = np.asarray(jax.lax.conv_general_dilated(
+            jnp.asarray(x), jnp.asarray(k), (2, 2), "VALID",
+            dimension_numbers=("NHWC", "HWIO", "NHWC"), preferred_element_type=jnp.int32))
+        kmm = torch.from_numpy(np.ascontiguousarray(k.reshape(-1, co).T))
+        got = tq.conv4x4s2_int8_acc(torch.from_numpy(x), kmm)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+    with pytest.raises(ValueError, match="does not fit"):
+        tq.conv4x4s2_int8_acc(torch.zeros(1, 8, 8, 3, dtype=torch.int8),
+                              torch.zeros(16, 40, dtype=torch.int8))

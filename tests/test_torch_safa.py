@@ -32,8 +32,8 @@ from witw_tpu_torch.models.convert_jax import (jax_params_to_state_dict,
 from witw_tpu_torch.models.safa import VggSafa, safa_trainable_mask
 from witw_tpu_torch.train import loop
 from witw_tpu_torch.train.checkpoint import Checkpointer
-from witw_tpu_torch.train.pipeline import (FovPipeline, SafaPipeline, TrainState,
-                                           make_pipeline)
+from witw_tpu_torch.train.pipeline import (BaselinePipeline, FovPipeline, SafaPipeline,
+                                           TrainState, make_pipeline)
 
 GEOMETRY = dict(surface_height=32, surface_width_max=128, overhead_size=32,
                 random_orientation=False)
@@ -245,15 +245,16 @@ def test_euclidean_ranks_match_jax(rng, case):
 
 
 def test_make_pipeline_and_the_loop_take_safa(rng, params0):
-    """make_pipeline picks the family (the baseline's slice is not ported);
+    """make_pipeline picks the family (a baseline config gives a
+    BaselinePipeline);
     loop.test_ranks ranks SAFA vectors by euclidean_ranks (device default:
     the card, here a RuntimeError) and dump_val_embeddings writes nothing for
     them."""
     jcfg, tcfg = _cfgs()
     assert isinstance(make_pipeline(tcfg, "cpu"), SafaPipeline)
     assert isinstance(make_pipeline(fov_experiment("cvusa", 360), "cpu"), FovPipeline)
-    with pytest.raises(NotImplementedError, match="baseline"):
-        make_pipeline(tcfg.replace(model=BaselineModelConfig()), "cpu")
+    assert isinstance(make_pipeline(tcfg.replace(model=BaselineModelConfig()), "cpu"),
+                      BaselinePipeline)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             SafaPipeline(tcfg)

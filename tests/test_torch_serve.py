@@ -412,8 +412,8 @@ def test_build_index_safa_matches_jax(safa_towers, dataset, tmp_path):
     np.testing.assert_array_equal(JaxVectorIndex.load(str(tmp_path / "t.npz")).embeds, got.embeds)
     with pytest.raises(ValueError, match="does not fit"):
         tbuild.build_index(dataset, None, state=params, cfg=tcfg, verbose=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="baseline"):
-        tbuild.build_index(dataset, None, state=params, verbose=False, device="cpu",
+    with pytest.raises(ValueError, match="does not fit"):
+        tbuild.build_index(dataset, None, state=params, cfg=tcfg, verbose=False, device="cpu",
                            family="baseline")
 
 
@@ -550,5 +550,185 @@ def test_safa_serving_checks_family_and_calibrates_int8_on_the_first_photo(safa_
         sq, head = service._sq
         assert set(sq["vgg"]) == set(tq.TRUNK_ORDER) and set(head) == {
             "fc1", "fc1_bias", "fc2", "fc2_bias"}
+    finally:
+        service.close()
+
+
+# --- the baseline family: build_index --family baseline and the daemon --------
+
+
+@pytest.fixture(scope="module")
+def baseline_towers():
+    """The baseline preset's towers in f32 (witw_tpu's convs at "highest")
+    from a seeded port init with running statistics off 0 / 1: (witw_tpu
+    config and a state with those params and batch_stats, port config and
+    params)."""
+    from types import SimpleNamespace
+
+    from witw_tpu.configs import baseline_experiment as jax_baseline_experiment
+    from witw_tpu_torch.configs import baseline_experiment
+    from witw_tpu_torch.models.convert_jax import state_dict_to_jax_variables
+    from witw_tpu_torch.train.pipeline import BaselinePipeline
+
+    cfgs = []
+    for make in (jax_baseline_experiment, baseline_experiment):
+        cfg = make("witw")
+        cfgs.append(cfg.replace(model=dataclasses.replace(cfg.model, compute_dtype="float32",
+                                                          conv_precision="highest")))
+    gen = torch.Generator().manual_seed(4)
+    params = BaselinePipeline(cfgs[1], "cpu").init(gen)
+    for sd in params.values():
+        for k in sd:
+            if k.endswith("running_mean"):
+                sd[k] = 0.1 * torch.randn(sd[k].shape, generator=gen)
+            elif k.endswith("running_var"):
+                sd[k] = torch.rand(sd[k].shape, generator=gen) + 0.5
+    jparams, jstats = state_dict_to_jax_variables(params)
+    return cfgs[0], SimpleNamespace(params=jparams, batch_stats=jstats), cfgs[1], params
+
+
+def test_build_index_baseline_matches_jax(baseline_towers, dataset, tmp_path, monkeypatch):
+    """--family baseline: raw 750² tiles (no normalization, no polar), a
+    VectorIndex [5, 1536] within rtol 1e-4, atol 1e-4 of witw_tpu's f32
+    build (its own test's tolerance), meta equal (family "baseline", the
+    fingerprint of the overhead params alone), witw_tpu's VectorIndex loads
+    the file. With --int8 the port calibrates on the same sampled tiles as
+    witw_tpu (0 and 4): its scales within rtol 1e-3 of witw_tpu's
+    calibrate_baseline_scales on them, and given those scales witw_tpu's
+    tables; the int8 vectors hold witw_tpu's contract against the f32 ones
+    (cosine > 0.99, pseudo-norm within rtol 0.05). witw_tpu's own int8 build
+    is not run: XLA:CPU's int8 convs take 20 s per 750² pair, and the
+    forward's parity is tests/test_torch_quantize.py's."""
+    from witw_tpu.evaluation.vector_index import VectorIndex as JaxVectorIndex
+    from witw_tpu_torch.evaluation.vector_index import VectorIndex
+
+    jcfg, state, tcfg, params = baseline_towers
+    want = jax_build_index(dataset, None, batch_size=2, state=state, cfg=jcfg, verbose=False,
+                           family="baseline")
+    got = tbuild.build_index(dataset, str(tmp_path / "t.npz"), batch_size=2, state=params,
+                             cfg=tcfg, verbose=False, device="cpu", family="baseline")
+    assert isinstance(got, VectorIndex)
+    assert got.embeds.shape == want.embeds.shape == (5, 1536)
+    np.testing.assert_allclose(got.embeds, want.embeds, rtol=1e-4, atol=1e-4)
+    assert sorted(got.meta) == sorted(want.meta)
+    for key in ("precision", "family", "params_sha", "path"):
+        np.testing.assert_array_equal(got.meta[key], want.meta[key], err_msg=key)
+    assert str(got.meta["family"]) == "baseline"
+    np.testing.assert_array_equal(JaxVectorIndex.load(str(tmp_path / "t.npz")).embeds, got.embeds)
+
+    seen = {}
+    real_scales, real_span = tq.calibrate_baseline_scales, tq.calibrate_overhead_span
+
+    def record_scales(sd, batches, *args, **kwargs):
+        seen["port"] = real_scales(sd, batches, *args, **kwargs)
+        seen["jax"] = jq.calibrate_baseline_scales(
+            state.params["overhead"], state.batch_stats["overhead"],
+            [b.numpy() for b in batches])
+        return seen["jax"]
+
+    def record_span(*args, **kwargs):
+        seen["sq"], items = real_span(*args, **kwargs)
+        seen["items"] = sorted(items)
+        return seen["sq"], items
+
+    monkeypatch.setattr(tq, "calibrate_baseline_scales", record_scales)
+    monkeypatch.setattr(tq, "calibrate_overhead_span", record_span)
+    got8 = tbuild.build_index(dataset, None, batch_size=2, int8=True, state=params, cfg=tcfg,
+                              verbose=False, device="cpu", family="baseline")
+    assert seen["items"] == [0, 4]
+    for k, v in seen["jax"].items():
+        np.testing.assert_allclose(seen["port"][k], v, rtol=1e-3, err_msg=str(k))
+    monkeypatch.setattr(jq, "calibrate_baseline_scales", lambda *a, **k: seen["jax"])
+    tables = jq.quantize_baseline_tower_static(
+        {"params": state.params["overhead"], "batch_stats": state.batch_stats["overhead"]}, [])
+    for entry, entry_j in zip(seen["sq"]["layers"], tables["layers"]):
+        for key, value in entry_j.items():
+            np.testing.assert_array_equal(entry[key].numpy(), np.asarray(value), err_msg=key)
+    assert str(got8.meta["precision"]) == "int8" and str(got8.meta["family"]) == "baseline"
+    assert 0.0 <= float(got8.meta["int8_saturation"]) < 0.01
+    cos = np.sum(got8.embeds * got.embeds, 1) / (np.linalg.norm(got8.embeds, axis=1)
+                                                 * np.linalg.norm(got.embeds, axis=1))
+    assert np.all(cos > 0.99), cos
+    np.testing.assert_allclose(np.linalg.norm(got8.embeds, axis=1),
+                               np.linalg.norm(got.embeds, axis=1), rtol=0.05)
+
+
+def test_geolocate_baseline_matches_jax_on_planted_data(baseline_towers, rng):
+    """GeolocateService(family="baseline") against witw_tpu's on a planted
+    VectorIndex of non-unit vectors, WITW photos decoded to 500 x 500 raw
+    pixels: the same tiles, no orientation, distances within rtol 1e-4,
+    atol 1e-4 (f32 towers), score exp(-d)."""
+    from witw_tpu.evaluation.vector_index import VectorIndex as JaxVectorIndex
+    from witw_tpu_torch.evaluation.vector_index import VectorIndex
+
+    jcfg, state, tcfg, params = baseline_towers
+    photo = _photo(rng)
+    probe = GeolocateService(VectorIndex(np.zeros((1, 1536), np.float32), device="cpu"), tcfg,
+                             params, family="baseline")
+    assert probe._decode(photo).shape == (500, 500, 3)
+    emb = probe._embed(probe._decode(photo)[None])[0]
+    scale = float(np.linalg.norm(emb))
+    gal = (rng.standard_normal((12, 1536)) * scale / np.sqrt(1536)).astype(np.float32)
+    for j, eps in enumerate((0.02, 0.1, 0.2, 0.3, 0.4)):
+        gal[2 + 2 * j] = emb + eps * gal[2 + 2 * j]
+    meta = {"x": np.arange(12.0) * 10, "y": np.arange(12.0) * -5, "family": "baseline"}
+    port = GeolocateService(VectorIndex(gal, meta=meta, device="cpu"), tcfg, params,
+                            family="baseline")
+    ref = JaxService(JaxVectorIndex(gal, meta=meta), jcfg, state, family="baseline")
+    want = ref.geolocate(photo, k=5)
+    got = port.geolocate(photo, k=5)
+    assert [r["tile"] for r in got] == [r["tile"] for r in want] == [2, 4, 6, 8, 10]
+    assert [r["orientation_deg"] for r in got] == [None] * 5
+    np.testing.assert_allclose([r["distance"] for r in got], [r["distance"] for r in want],
+                               rtol=1e-4, atol=1e-4)
+    for r, w in zip(got, want):
+        assert r["score"] == pytest.approx(np.exp(-r["distance"]), rel=1e-6)
+        assert r["score"] == pytest.approx(w["score"], rel=1e-3)
+
+
+def test_baseline_serving_checks_family_and_calibrates_int8_on_the_first_photo(
+        baseline_towers, safa_towers, rng, monkeypatch):
+    """The baseline family must fit its config and the index's recorded
+    family; on CVUSA the daemon repeats the photo's rows on the device and
+    calibrates the int8 towers on the row-repeated photo (witw_tpu calibrates
+    on the raw one, which leaves conv6 a single row at 224 rows: the port
+    follows witw_tpu's sweep), not on the warm-up's zeros."""
+    from witw_tpu_torch.configs import baseline_experiment
+    from witw_tpu_torch.evaluation.vector_index import VectorIndex
+    from witw_tpu_torch.tools import serve as tserve
+
+    _, _, tcfg, params = baseline_towers
+    _, _, safa_cfg, safa_params = safa_towers
+    vectors = rng.standard_normal((8, 1536)).astype(np.float32)
+    with pytest.raises(ValueError, match="does not fit"):
+        GeolocateService(VectorIndex(vectors, device="cpu"), safa_cfg, safa_params,
+                         family="baseline")
+    with pytest.raises(ValueError, match="--family baseline"):
+        GeolocateService(VectorIndex(vectors, {"family": "safa"}, device="cpu"), tcfg, params,
+                         family="baseline")
+    with pytest.raises(ValueError, match="--family safa"):
+        GeolocateService(VectorIndex(rng.standard_normal((8, 4096)).astype(np.float32),
+                                     {"family": "baseline"}, device="cpu"),
+                         safa_cfg, safa_params, family="safa")
+    # CVUSA at a cut geometry: 192 x 384 photos, rows repeated to 384 x 384
+    monkeypatch.setattr(tserve, "host_geometry", lambda cfg: ((192, 384), (750, 750)))
+    cvusa = baseline_experiment("cvusa").replace(model=tcfg.model)
+    calibrated = []
+    real_fold = tq.quantize_baseline_tower_static
+
+    def record_fold(sd, batches, *args, **kwargs):
+        calibrated.extend(tuple(b.shape) for b in batches)
+        return real_fold(sd, batches, *args, **kwargs)
+
+    monkeypatch.setattr(tq, "quantize_baseline_tower_static", record_fold)
+    service = GeolocateService(VectorIndex(vectors, device="cpu"), cvusa, params, int8=True,
+                               max_batch=2, family="baseline")
+    try:
+        service.warmup(ks=(2,))
+        assert service._sq is None and service.stats["requests"] == 0
+        first = service.geolocate(_photo(rng), k=2)
+        assert len(first) == 2 and first[0]["orientation_deg"] is None
+        assert calibrated == [(1, 384, 384, 3)] and len(service._sq["layers"]) == 7
+        assert first[0]["score"] == pytest.approx(np.exp(-first[0]["distance"]), rel=1e-6)
     finally:
         service.close()

@@ -144,8 +144,9 @@ def test_embed_all_and_ranks_match_jax(rng, jax_state):
 def test_port_imports_no_jax():
     """Every module of witw_tpu_torch (its exp probes, the serving modules,
     the data layer, the index, build_index, the daemon, the GeoTIFF binding,
-    the heatmap sweep, the metric writer, the CLIs, and the SAFA towers, the
-    vector index and cvig_safa),
+    the heatmap sweep, the metric writer, the CLIs, the SAFA towers, the
+    vector index and cvig_safa, and the baseline towers, the synced rotation,
+    the orientation maps and cvig_baseline),
     chip_smoke and the profile scripts import with JAX and every witw_tpu
     module made unimportable, and none pulls in flax, optax, the
     pandas/PIL deps of witw_tpu.data, the root exp scripts, or (at import
@@ -162,7 +163,8 @@ def test_port_imports_no_jax():
             "utils.msgpack", "evaluation.index", "tools.build_index", "tools.serve",
             "tools.geotiff", "tools.cities", "tools.heatmap", "train.metrics", "cli.common",
             "cli.cvig_fov", "cli.cvig_semantic", "models.safa", "evaluation.vector_index",
-            "cli.cvig_safa")]
+            "cli.cvig_safa", "models.baseline", "ops.rotation", "ops.orientation_maps",
+            "cli.cvig_baseline")]
         assert set(wanted) <= set(names), sorted(set(wanted) - set(names))
         for name in names + ["chip_smoke", "profile_int8", "profile_bf16", "profile_conv",
                              "profile_match", "profile_host"]:
@@ -177,7 +179,7 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 60
+    assert int(out.stdout.split()[-1]) >= 64
 
 
 @pytest.mark.parametrize("make", [
@@ -188,8 +190,10 @@ def test_port_imports_no_jax():
     lambda c: c.semantic_experiment(),
     lambda c: c.safa_experiment("cvusa", 360),
     lambda c: c.safa_experiment("witw", 70),
+    lambda c: c.baseline_experiment("cvusa"),
+    lambda c: c.baseline_experiment("witw"),
 ], ids=["cvusa-360", "cvusa-90", "witw-360", "witw-90", "semantic", "safa-cvusa-360",
-        "safa-witw-70"])
+        "safa-witw-70", "baseline-cvusa", "baseline-witw"])
 def test_port_configs_equal_witw_tpu(make):
     """The port's copy of the configs gives the same presets as witw_tpu's."""
     import witw_tpu.configs as jcfg

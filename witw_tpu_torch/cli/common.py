@@ -28,10 +28,18 @@ from witw_tpu_torch.utils.profiling import trace_profile
 
 
 def host_geometry(cfg: ExperimentConfig) -> Tuple[Tuple[int, int], Tuple[int, int]]:
-    """Canonical decode geometry shipped host -> device (the FOV and SAFA
-    families': the whole panorama where the dataset has one, else the photo
-    crop)."""
+    """Canonical decode geometry shipped host -> device, (surface_hw,
+    overhead_hw). The FOV and SAFA families: the whole panorama where the
+    dataset has one, else the photo crop, and the tile at ``overhead_size``.
+    The baseline family: CVUSA surfaces stay 224 x 1232 (their rows are
+    repeated on the device, reference cvig_baseline.py:216-218), WITW
+    surfaces are resized to 500 x 500 (cvig_baseline.py:219-221), and tiles
+    stay at their native 750 x 750."""
     d = cfg.data
+    if getattr(cfg.model, "kind", None) == "baseline":
+        if d.dataset.name == "cvusa":
+            return (224, 1232), (750, 750)
+        return (500, 500), (750, 750)
     surface_w = d.surface_width_max if d.dataset.panorama else d.surface_width
     return (d.surface_height, surface_w), (d.overhead_size, d.overhead_size)
 

@@ -1,6 +1,7 @@
-"""Dataset + experiment presets of the FOV-DSM and SAFA families (the port's
-copy of ``dataset_config``, ``fov_experiment``, ``semantic_experiment`` and
-``safa_experiment`` from witw_tpu/configs/registry.py;
+"""Dataset + experiment presets of the four tower families (the port's copy
+of ``dataset_config``, ``baseline_experiment``, ``fov_experiment``,
+``semantic_experiment`` and ``safa_experiment`` from
+witw_tpu/configs/registry.py;
 tests/test_torch_slice.py holds them equal).
 
 CVUSA is a headerless CSV with [overhead, surface] in columns 0/1 and
@@ -13,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 
 from witw_tpu_torch.configs.base import (
+    BaselineModelConfig,
     DataConfig,
     DatasetConfig,
     EvalConfig,
@@ -65,6 +67,22 @@ def dataset_config(name: str, semantic: bool = False) -> DatasetConfig:
     if semantic:
         ds = dataclasses.replace(ds, semantic=True)
     return ds
+
+
+def baseline_experiment(dataset: str = "cvusa", **overrides) -> ExperimentConfig:
+    """cvig_baseline preset (reference cvig_baseline.py:318,349)."""
+    data = DataConfig(dataset=dataset_config(dataset), fov=360)
+    cfg = ExperimentConfig(
+        data=data,
+        model=BaselineModelConfig(),
+        match=MatchConfig(soft_margin=False),
+        train=TrainConfig(
+            batch_size=16,
+            optim=OptimConfig(learning_rate=1e-3),  # torch Adam default
+        ),
+        eval=EvalConfig(batch_size=16),
+    )
+    return cfg.replace(**overrides) if overrides else cfg
 
 
 def fov_experiment(dataset: str = "cvusa", fov: int = 360, **overrides) -> ExperimentConfig:

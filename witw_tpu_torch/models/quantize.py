@@ -1,5 +1,5 @@
-"""Static-int8 serving path of the FOV-DSM and SAFA towers (port of the
-static part of witw_tpu/models/quantize.py).
+"""Static-int8 serving path of the FOV-DSM, SAFA and baseline towers (port
+of the static part of witw_tpu/models/quantize.py).
 
 Activation scales are calibrated offline on the f32 tower; each conv then
 runs as one int8 conv with an int32 accumulator and one fused per-channel
@@ -23,8 +23,13 @@ A SAFA tower quantizes its VGG trunk the same way
 (``include_head=False`` calibration): conv4_3 dequantizes its accumulator
 to f32 on kernel A's dequant epilogue (ReLU in f32) and the SAFA head stays
 f32 (``quantized_safa_forward_static``).
-Not ported here: the dynamic-scale path, the
-baseline static path and the TPU lowering variants (``first_conv_bf16``, ``first_conv_w2d``,
+The baseline towers' seven 4x4 stride-2 VALID convs fit none of those
+kernels and have no Pallas kernel in witw_tpu either: each runs as an
+im2col of the int8 NHWC input (strided views) and ``torch._int_mm`` (exact
+int32 accumulation; cuBLASLt on the card), then one f32 epilogue
+(dequant, conv bias, LeakyReLU, the eval-mode BatchNorm affine, requant)
+in torch ops (``quantized_baseline_forward_static``).
+Not ported here: the dynamic-scale path and the TPU lowering variants (``first_conv_bf16``, ``first_conv_w2d``,
 ``first_conv_im2col``, ``split_block1``, ``block2_w2d``, ``pool_slices``,
 ``corner_major="p"``).
 """
@@ -37,9 +42,12 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.func import functional_call
 
 from witw_tpu_torch.configs.base import FovDsmModelConfig
+from witw_tpu_torch.models.baseline import CHANNELS as BASELINE_CHANNELS
+from witw_tpu_torch.models.baseline import GEM_FROM, scale_input
 from witw_tpu_torch.models.backbones.vgg16 import VGG16_BLOCKS, wrap_pad_width
 from witw_tpu_torch.models.convert_jax import state_dict_to_tower
 from witw_tpu_torch.models.fov_dsm import HEAD_CONVS, FovDsm
@@ -177,10 +185,12 @@ def prepare_static_qparams(state_dict: StateDict,
 
 
 def static_qparams_to_device(tables: Dict[str, Any], device) -> Dict[str, Any]:
-    """Tables (numpy arrays or tensors) -> the same tree of tensors on
-    ``device``."""
+    """Tables (numpy arrays or tensors, in dicts and lists) -> the same tree
+    of tensors on ``device``."""
     if isinstance(tables, dict):
         return {k: static_qparams_to_device(v, device) for k, v in tables.items()}
+    if isinstance(tables, (list, tuple)):
+        return [static_qparams_to_device(v, device) for v in tables]
     if isinstance(tables, torch.Tensor):
         return tables.to(device)
     return torch.from_numpy(np.array(tables)).to(device)
@@ -443,13 +453,14 @@ def calibrate_overhead_span(state_dict: StateDict, read_item: Callable[[int], np
     (``preprocess``: normalize + polar) and calibrates with
     ``quantize_fn(state_dict, batches, circ_padding)``, the family's static
     folder (default :func:`quantize_tower_static`, the FOV towers'; the SAFA
-    family passes :func:`quantize_safa_tower_static`). Returns (the static
+    family passes :func:`quantize_safa_tower_static`, the baseline family
+    its raw-pixel folder). Returns (the static
     tables, {sampled index: the array read}), so that an embed loop need not
     read the sampled items again."""
     calib_idx = np.unique(np.linspace(0, n - 1, min(n, sample_size)).astype(int))
     calib = np.stack([read_item(int(i)) for i in calib_idx])
     items = dict(zip(calib_idx.tolist(), calib))
-    device = state_dict["vgg.conv_0.weight"].device
+    device = next(iter(state_dict.values())).device
     polar = preprocess(torch.from_numpy(calib).to(device))
     return (quantize_fn or quantize_tower_static)(state_dict, [polar], True), items
 
@@ -468,3 +479,178 @@ def check_saturation(sq, x: torch.Tensor, circ_padding: bool = True,
             f"span the {context} distribution; scores may clip"
         )
     return frac
+
+
+# --- the baseline family's static-int8 path ----------------------------------
+# (witw_tpu/models/quantize.py:809-953; reference model/cvig_baseline.py:228-283)
+
+BASELINE_LAYERS = len(BASELINE_CHANNELS)
+_INT_MM_MIN_ROWS = 17  # torch._int_mm on the card takes more than 16 rows
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy()
+
+
+def _baseline_bn_affine(state_dict: StateDict, i: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Eval-mode BatchNorm of layer ``i`` as a per-channel affine (g, b),
+    numpy f32: y = x g + b, witw_tpu's arithmetic."""
+    g = _np(state_dict[f"bn{i}.weight"]) / np.sqrt(_np(state_dict[f"bn{i}.running_var"]) + 1e-5)
+    b = _np(state_dict[f"bn{i}.bias"]) - _np(state_dict[f"bn{i}.running_mean"]) * g
+    return g, b
+
+
+@torch.no_grad()
+def calibrate_baseline_scales(state_dict: StateDict, batches: Iterable,
+                              leaky_slope: float = 0.2) -> Dict[Any, float]:
+    """The f32 eval-mode tower (convs with TF32 off, each BatchNorm as its
+    affine) over raw 0-255 NHWC batches, recording the abs-max of the
+    [-1, 1]-scaled input and of each BatchNorm output but the last (the next
+    conv's int8 input scale; layer 7's output feeds only the f32 GeM pool).
+    Returns {"input": s0, 1: s1, ..., 6: s6}, each max(abs-max, 1e-12) / 127."""
+    batches = list(batches)
+    if not batches:
+        raise ValueError(
+            "calibration requires at least one batch: empty input would "
+            "leave every activation scale at its 1e-12 floor and quantize "
+            "all activations to +-127"
+        )
+    device = state_dict["conv1.weight"].device
+    affine = [tuple(torch.from_numpy(a).to(device)[:, None, None]
+                    for a in _baseline_bn_affine(state_dict, i))
+              for i in range(1, BASELINE_LAYERS + 1)]
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    maxes = {i: zero for i in range(1, BASELINE_LAYERS)}
+    in_max = zero
+    with _full_precision_convs():
+        for x in batches:
+            h = scale_input(torch.as_tensor(x).to(device))
+            in_max = torch.maximum(in_max, h.abs().amax())
+            h = h.permute(0, 3, 1, 2)
+            for i in range(1, BASELINE_LAYERS + 1):
+                h = F.conv2d(h, state_dict[f"conv{i}.weight"].float(), stride=2) \
+                    + state_dict[f"conv{i}.bias"].float()[:, None, None]
+                h = torch.where(h >= 0, h, leaky_slope * h)
+                g, b = affine[i - 1]
+                h = h * g + b
+                if i < BASELINE_LAYERS:
+                    maxes[i] = torch.maximum(maxes[i], h.abs().amax())
+    scales: Dict[Any, float] = {"input": max(float(in_max), 1e-12) / 127.0}
+    for i, v in maxes.items():
+        scales[i] = max(float(v), 1e-12) / 127.0
+    return scales
+
+
+def quantize_baseline_tower_static(state_dict: StateDict, calib_batches: Iterable,
+                                   leaky_slope: float = 0.2) -> Dict[str, Any]:
+    """Calibrate one baseline tower (its weights and BatchNorm buffers) on
+    raw 0-255 NHWC batches and fold the static tables of
+    :func:`quantized_baseline_forward_static`, as tensors on the state
+    dict's device: ``input_scale`` and per layer ``kernel_q`` (HWIO int8),
+    ``kernel_mm`` (int8 [Co, 16 Cin] in the im2col's (kh, kw, cin) order),
+    ``dequant`` (accumulator -> f32), ``bias_f``, ``bn_g``, ``bn_b`` and, but
+    for the last layer, ``inv_next`` (f32 -> the next layer's int8 domain).
+    Equal scales give witw_tpu's tables."""
+    scales = calibrate_baseline_scales(state_dict, calib_batches, leaky_slope)
+    prev = scales["input"]
+    layers = []
+    for i in range(1, BASELINE_LAYERS + 1):
+        k = np.ascontiguousarray(np.transpose(_np(state_dict[f"conv{i}.weight"]), (2, 3, 1, 0)))
+        s_w = np.maximum(np.max(np.abs(k), axis=(0, 1, 2)) / 127.0, 1e-12)
+        g, b = _baseline_bn_affine(state_dict, i)
+        kernel_q = np.clip(np.round(k / s_w), -127, 127).astype(np.int8)
+        entry = {
+            "kernel_q": kernel_q,
+            "kernel_mm": np.ascontiguousarray(kernel_q.reshape(-1, kernel_q.shape[3]).T),
+            # the conv bias is added in f32 after the dequant: no bias rounding
+            "dequant": (prev * s_w).astype(np.float32),
+            "bias_f": _np(state_dict[f"conv{i}.bias"]),
+            "bn_g": g.astype(np.float32),
+            "bn_b": b.astype(np.float32),
+        }
+        if i < BASELINE_LAYERS:
+            entry["inv_next"] = np.float32(1.0 / scales[i])
+            prev = scales[i]
+        layers.append(entry)
+    device = state_dict["conv1.weight"].device
+    return static_qparams_to_device({"input_scale": np.float32(scales["input"]),
+                                     "layers": layers}, device)
+
+
+def conv4x4s2_int8_acc(x: torch.Tensor, kernel_mm: torch.Tensor) -> torch.Tensor:
+    """Exact int32 accumulator [B, Ho, Wo, Co] of a 4x4 stride-2 VALID conv
+    of int8 NHWC ``x`` with ``kernel_mm`` (int8 [Co, 16 Cin]): the im2col of
+    strided views, then ``torch._int_mm`` against the kernel's transpose
+    (column-major, as cuBLASLt's int8 GEMM takes it). Rows are zero-padded to
+    the 17 the card's GEMM needs and sliced off."""
+    b, h, w, c = x.shape
+    co, k = kernel_mm.shape
+    if k != 16 * c or k % 8 or co % 8:
+        raise ValueError(f"kernel [{co}, {k}] does not fit a 4x4 conv of {c} channels with K and "
+                         f"Co multiples of 8")
+    ho, wo = (h - 4) // 2 + 1, (w - 4) // 2 + 1
+    if ho < 1 or wo < 1:
+        raise ValueError(f"a 4x4 stride-2 VALID conv needs an input of at least 4 x 4, got "
+                         f"{h} x {w}")
+    patches = x.unfold(1, 4, 2).unfold(2, 4, 2)  # [B, Ho, Wo, C, kh, kw]
+    patches = patches.permute(0, 1, 2, 4, 5, 3).reshape(b * ho * wo, k)
+    m = patches.shape[0]
+    if m < _INT_MM_MIN_ROWS:
+        patches = torch.cat([patches, patches.new_zeros(_INT_MM_MIN_ROWS - m, k)])
+    return torch._int_mm(patches, kernel_mm.t())[:m].reshape(b, ho, wo, co)
+
+
+def quantized_baseline_forward_static(sq: Dict[str, Any], x: torch.Tensor,
+                                      gem_power: float = 3.0, leaky_slope: float = 0.2,
+                                      saturation_out: Optional[List] = None) -> torch.Tensor:
+    """Static-scale int8 forward of one baseline tower (inference only).
+
+    ``x``: raw 0-255 NHWC (the encoder's input); it is scaled to [-1, 1] and
+    quantized. Each layer: :func:`conv4x4s2_int8_acc`, then one f32
+    epilogue (dequant, conv bias, LeakyReLU, BatchNorm affine), GeM of
+    layers 5-7, requant into the next layer's domain. Returns the f32
+    [B, 1536] embedding f / ||f||^0.5, as ``BaselineEncoder`` in eval mode.
+    ``saturation_out``: an optional list; each requant appends (clip hits at
+    +-127 as a 0-dim tensor, size)."""
+    h = quantize_input(scale_input(x), sq["input_scale"])
+    feats = []
+    n = len(sq["layers"])
+    for i, entry in enumerate(sq["layers"], start=1):
+        acc = conv4x4s2_int8_acc(h, entry["kernel_mm"])
+        z = acc.to(torch.float32) * entry["dequant"] + entry["bias_f"]
+        z = torch.where(z >= 0, z, leaky_slope * z)
+        z = z * entry["bn_g"] + entry["bn_b"]
+        if i >= GEM_FROM:
+            feats.append(torch.relu(z).pow(gem_power).mean(dim=(1, 2)).pow(1.0 / gem_power))
+        if i < n:
+            q = torch.clamp(torch.round(z * entry["inv_next"]), -127, 127)
+            h = q.to(torch.int8)
+            if saturation_out is not None:
+                saturation_out.append(((q == 127).sum() + (q == -127).sum(), q.numel()))
+    f = torch.cat(feats, dim=1)
+    # f / ||f||^0.5 without an epsilon, as the f32 tower
+    return f / f.norm(dim=1, keepdim=True).sqrt()
+
+
+def quantize_baseline_pipeline_static(params: Dict[str, StateDict], calib_batches: Iterable,
+                                      leaky_slope: float = 0.2) -> Tuple[Dict, Dict]:
+    """Calibrate and fold both baseline towers of ``{"surface": sd,
+    "overhead": sd}``; returns (sq_surface, sq_overhead). ``calib_batches``:
+    (surface_raw, overhead_raw) NHWC pairs in the encoder's raw-pixel domain,
+    after the host geometry, the synced rotation and any orientation-map
+    channels (``BaselinePipeline.preprocess``), before the [-1, 1] scaling."""
+    calib = list(calib_batches)
+    return (
+        quantize_baseline_tower_static(params["surface"], [s for s, _ in calib], leaky_slope),
+        quantize_baseline_tower_static(params["overhead"], [o for _, o in calib], leaky_slope),
+    )
+
+
+def static_int8_saturation_baseline(sq: Dict[str, Any], x: torch.Tensor,
+                                    circ_padding: bool = False) -> float:
+    """:func:`static_int8_saturation` for a baseline tower: the clip
+    fraction over its requantized activations (``circ_padding`` unused: the
+    baseline convs are unpadded, reference cvig_baseline.py:237-239)."""
+    sats: List = []
+    quantized_baseline_forward_static(sq, x, saturation_out=sats)
+    return _clip_fraction(sats)

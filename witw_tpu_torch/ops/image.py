@@ -1,4 +1,5 @@
-"""Batched NHWC image normalization (port of witw_tpu/ops/image.py)."""
+"""Batched NHWC image normalization and the baseline family's row repeat
+(port of witw_tpu/ops/image.py)."""
 
 from __future__ import annotations
 
@@ -65,3 +66,9 @@ def denormalize_images(x: torch.Tensor, mean: Sequence[float], std: Sequence[flo
     mean_t = torch.tensor(mean, dtype=torch.float32, device=x.device)
     std_t = torch.tensor(std, dtype=torch.float32, device=x.device)
     return x * std_t + mean_t
+
+
+def repeat_rows(x: torch.Tensor, repeats: int = 2) -> torch.Tensor:
+    """Repeat rows (the H axis) of an NHWC or HWC image: the baseline
+    family's CVUSA surface resize (reference cvig_baseline.py:216-218)."""
+    return torch.repeat_interleave(x, repeats, dim=x.ndim - 3)

@@ -1,5 +1,5 @@
 """Build a serving index from a dataset CSV's overhead tiles (port of
-witw_tpu/tools/build_index.py, FOV and SAFA families).
+witw_tpu/tools/build_index.py, all three serving families).
 
 Each tile listed in the CSV (either reference schema: CVUSA headerless, WITW
 17-column) is decoded, resized, normalized, polar-transformed and embedded
@@ -7,18 +7,23 @@ by the overhead tower: the bf16 tower, whose stride-1 convs run on the
 conv3x3_bf16 kernel, or with ``--int8`` the static-int8 tower (kernels A, B
 and C), calibrated on tiles sampled across the whole gallery. ``--family
 fov`` (the default) embeds FOV-DSM feature maps into a GalleryIndex;
-``--family safa`` embeds VGG16+SAFA unit vectors into a VectorIndex. The
-index records its precision ("f32" for the float towers, as witw_tpu stamps
+``--family safa`` embeds VGG16+SAFA unit vectors into a VectorIndex.
+``--family baseline`` embeds raw 750² tiles (no normalization, no polar
+transform: the encoder scales its input) with the 7-conv GeM overhead tower
+(cuDNN convs in bf16; with ``--int8`` im2col + ``torch._int_mm``) into a
+VectorIndex of f / ||f||^0.5 vectors, not unit ones (``--fov`` ignored).
+The index records its precision ("f32" for the float towers, as witw_tpu stamps
 it, or "int8"), family, the overhead tower's weights fingerprint and the
 tile paths, so that the serving daemon of either package refuses towers
 that did not build it.
 
 Run: ``python -m witw_tpu_torch.tools.build_index --csv test.csv --out
-gallery.npz --dataset witw --fov 70 [--family safa] [--int8]
+gallery.npz --dataset witw --fov 70 [--family safa|baseline] [--int8]
 [--meta-cols longitude:x,latitude:y]`` (headerless CVUSA CSVs address extra
 columns by position: ``2:x,3:y``). The towers come from
 ``--weights/--tag``'s ``best`` checkpoint (tag ``<family>_<fov>_<dataset>``
-by default), the port's ``best.pt`` or witw_tpu's ``best.msgpack``.
+by default, as witw_tpu names it for every family), the port's ``best.pt``
+or witw_tpu's ``best.msgpack``.
 """
 
 from __future__ import annotations
@@ -34,7 +39,8 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
-from witw_tpu_torch.configs import fov_experiment, safa_experiment
+from witw_tpu_torch.cli.common import host_geometry
+from witw_tpu_torch.configs import baseline_experiment, fov_experiment, safa_experiment
 from witw_tpu_torch.data.csv_registry import read_pair_paths, read_rows
 from witw_tpu_torch.data.loader import decode_image, prefetch_iter, resize_host
 from witw_tpu_torch.evaluation.index import GalleryIndex
@@ -43,7 +49,7 @@ from witw_tpu_torch.models import quantize
 from witw_tpu_torch.ops.image import normalize_images
 from witw_tpu_torch.ops.polar import polar_transform
 from witw_tpu_torch.train.checkpoint import Checkpointer
-from witw_tpu_torch.train.pipeline import Pipeline, SafaPipeline, make_pipeline
+from witw_tpu_torch.train.pipeline import BaselinePipeline, Pipeline, make_pipeline
 from witw_tpu_torch.utils.hashing import params_fingerprint
 
 # Embedded batches in flight before the oldest is fetched: consecutive
@@ -52,27 +58,36 @@ IN_FLIGHT = 3
 # Threads reading a batch's tiles: decode, the native GeoTIFF reader and its
 # resample release the interpreter lock.
 READERS = min(8, os.cpu_count() or 1)
-FAMILIES = ("fov", "safa")
+# Serving family -> its model config's kind; the vector families' indexes
+# are VectorIndexes.
+KINDS = {"fov": "fov_dsm", "safa": "vgg_safa", "baseline": "baseline"}
+FAMILIES = tuple(KINDS)
+VECTOR_FAMILIES = ("safa", "baseline")
 
 
-def check_family(family: str, pipeline: Optional[Pipeline] = None) -> None:
-    """Raise for a family the port does not serve, or one that is not
-    ``pipeline``'s."""
-    if family == "baseline":
-        raise NotImplementedError("the baseline family is not ported yet: it comes with the "
-                                  "baseline slice")
+def check_family(family: str, cfg=None) -> None:
+    """Raise for a family the port does not serve, or one that ``cfg``'s
+    model is not."""
     if family not in FAMILIES:
         raise ValueError(f"unsupported family {family!r}")
-    if pipeline is not None and isinstance(pipeline, SafaPipeline) != (family == "safa"):
+    if cfg is not None and getattr(cfg.model, "kind", None) != KINDS[family]:
         raise ValueError(f"family {family!r} does not fit the config's "
-                         f"{type(pipeline.cfg.model).__name__}")
+                         f"{type(cfg.model).__name__}")
 
 
 def family_config(family: str, dataset: str, fov: int):
-    """The preset of a tower family: ``fov_experiment`` or
-    ``safa_experiment``."""
+    """The preset of a tower family: ``fov_experiment``, ``safa_experiment``
+    or ``baseline_experiment`` (which has no fov)."""
     check_family(family)
+    if family == "baseline":
+        return baseline_experiment(dataset=dataset)
     return (safa_experiment if family == "safa" else fov_experiment)(dataset=dataset, fov=fov)
+
+
+def tile_size(cfg) -> int:
+    """The side the overhead tower takes its tiles at: ``overhead_size``, or
+    the baseline family's native 750."""
+    return host_geometry(cfg)[1][0]
 
 
 def load_params(cfg, directory: str, device):
@@ -82,10 +97,19 @@ def load_params(cfg, directory: str, device):
     return Checkpointer(directory).restore("best", state).params
 
 
-def int8_tower(pipeline: Pipeline):
-    """The family's static-int8 pieces: (the tower folder for
-    ``calibrate_overhead_span``, the forward, the saturation count)."""
-    if isinstance(pipeline, SafaPipeline):
+def int8_tower(cfg):
+    """The static-int8 pieces of ``cfg``'s family: (the tower folder for
+    ``calibrate_overhead_span``, the forward, the saturation count), each
+    taking the circular flag of the FOV family's."""
+    kind = getattr(cfg.model, "kind", None)
+    if kind == "baseline":
+        m = cfg.model
+        return (lambda sd, batches, circ: quantize.quantize_baseline_tower_static(
+                    sd, batches, m.leaky_slope),
+                lambda sq, x, circ: quantize.quantized_baseline_forward_static(
+                    sq, x, m.gem_power, m.leaky_slope),
+                quantize.static_int8_saturation_baseline)
+    if kind == "vgg_safa":
         return (quantize.quantize_safa_tower_static,
                 lambda sq, x, circ: quantize.quantized_safa_forward_static(*sq, x, circ),
                 quantize.static_int8_saturation_safa)
@@ -155,17 +179,20 @@ def embed_tiles(
     oldest is fetched. ``int8``: the static-int8 tower, calibrated on
     ``batch_size`` tiles spread over [0, n), whose reads are reused; its
     clip fraction on the first batch is checked (``context`` names the tiles
-    in the warning). Returns (embeddings [n, h, W', c] float32, the clip
-    fraction or None)."""
+    in the warning). Returns (embeddings [n, h, W', c] or vectors [n, D],
+    float32, the clip fraction or None)."""
     d = pipeline.cfg.data
+    size = tile_size(pipeline.cfg)
     device = pipeline.device
     overhead = {k: v.to(device) for k, v in overhead.items()}
 
     def preprocess(x: torch.Tensor) -> torch.Tensor:
+        if isinstance(pipeline, BaselinePipeline):
+            return x.to(torch.float32)  # raw pixels: the encoder scales them
         return preprocess_tiles(d, x)
 
     sq, calib_tiles = None, {}
-    fold, forward_int8, saturation = int8_tower(pipeline)
+    fold, forward_int8, saturation = int8_tower(pipeline.cfg)
     if int8:
         # gallery-spanning calibration sample; its tiles are reused below
         sq, calib_tiles = quantize.calibrate_overhead_span(overhead, read_tile, n, batch_size,
@@ -175,8 +202,7 @@ def embed_tiles(
         polar = preprocess(x)
         if int8:
             return forward_int8(sq, polar, True)
-        return functional_call(pipeline.overhead_model, overhead, (polar,),
-                               {"train": False, "generator": None}, strict=True)
+        return functional_call(pipeline.overhead_model, overhead, (polar,), strict=True)
 
     def tile_batches(pool):
         # a fresh buffer per batch: batches wait in the prefetch queue while
@@ -191,7 +217,7 @@ def embed_tiles(
             runs = pool.map(lambda run: [read_tile(i) for i in run],
                             [missing[k:k + per] for k in range(0, len(missing), per)])
             read = dict(zip(missing, itertools.chain.from_iterable(runs)))
-            buf = np.zeros((batch_size, d.overhead_size, d.overhead_size, d.channels), tile_dtype)
+            buf = np.zeros((batch_size, size, size, d.channels), tile_dtype)
             for j, tile in enumerate(tiles):
                 buf[j] = read[start + j] if tile is None else tile
             yield stop - start, buf
@@ -241,7 +267,9 @@ def build_index(
     tower and return (and save to ``out_path``) the index on ``device``
     (the card when None; the CPU only when asked for): a GalleryIndex of
     FOV-DSM maps, or with ``family="safa"`` a VectorIndex of VGG16+SAFA
-    unit vectors (Euclidean serving, the daemon's ``--family safa``).
+    unit vectors (Euclidean serving, the daemon's ``--family safa``), or
+    with ``family="baseline"`` a VectorIndex of the 7-conv GeM tower's
+    vectors of raw 750² tiles.
 
     ``state``: the towers' params ``{"surface": sd, "overhead": sd}`` or a
     TrainState; None restores them from ``checkpoint_dir``. ``meta_cols``:
@@ -251,8 +279,8 @@ def build_index(
     if cfg is None:
         cfg = family_config(family, dataset, fov)
     d = cfg.data
+    check_family(family, cfg)
     pipeline = make_pipeline(cfg, device)
-    check_family(family, pipeline)
     if state is None:
         state = load_params(cfg, os.path.join(checkpoint_dir, tag or f"{family}_{fov}_{dataset}"),
                             pipeline.device)
@@ -261,9 +289,11 @@ def build_index(
     overhead_paths = [o for _, o in read_pair_paths(d.dataset, csv_path)]
     n = len(overhead_paths)
 
+    size = tile_size(cfg)
+
     def read_tile(i):
         tile = decode_image(overhead_paths[i])
-        return resize_host(tile[..., : d.channels], d.overhead_size, d.overhead_size)
+        return resize_host(tile[..., : d.channels], size, size)
 
     embeds, sat_frac = embed_tiles(pipeline, params["overhead"], read_tile, n, batch_size, int8,
                                    context="gallery")
@@ -279,7 +309,7 @@ def build_index(
     if meta_cols:
         meta.update(read_meta_cols(csv_path, d.dataset.header, meta_cols))
 
-    index_cls = VectorIndex if family == "safa" else GalleryIndex
+    index_cls = VectorIndex if family in VECTOR_FAMILIES else GalleryIndex
     index = index_cls(embeds, meta=meta, device=pipeline.device)
     if out_path:
         index.save(out_path)
@@ -292,7 +322,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--csv", required=True, help="dataset CSV (either schema)")
     parser.add_argument("--out", required=True,
-                        help="output index .npz (GalleryIndex, or VectorIndex for --family safa)")
+                        help="output index .npz (GalleryIndex, or VectorIndex for --family safa "
+                             "and baseline)")
     parser.add_argument("--dataset", default="witw", choices=["cvusa", "witw"])
     parser.add_argument("--fov", type=int, default=70)
     parser.add_argument("--weights", default="./weights")
@@ -301,7 +332,9 @@ def main(argv=None):
     parser.add_argument("--int8", action="store_true", help="embed with the static-int8 towers")
     parser.add_argument("--family", choices=FAMILIES, default="fov",
                         help="tower/index family: fov = FOV-DSM feature-map GalleryIndex "
-                             "(default); safa = VGG16+SAFA Euclidean VectorIndex")
+                             "(default); safa = VGG16+SAFA Euclidean VectorIndex; baseline = "
+                             "7-conv GeM towers on raw 750^2 tiles (Euclidean VectorIndex; --fov "
+                             "ignored)")
     parser.add_argument("--meta-cols", default=None,
                         help="comma-separated CSV columns to copy into the index meta; "
                              "'src:dst' renames (e.g. lon:x,lat:y for the serving daemon's x/y)")

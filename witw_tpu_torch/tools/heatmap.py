@@ -1,4 +1,4 @@
-"""Geolocation heatmap sweep, FOV and SAFA families (port of
+"""Geolocation heatmap sweep, FOV, SAFA and baseline families (port of
 witw_tpu/tools/heatmap.py: ``window_grid``, ``_cache_is_stale``, ``sweep``,
 ``layer`` and ``main``).
 
@@ -12,8 +12,12 @@ is scored against every photo through ``GalleryIndex.score_all`` (the FFT
 matcher). With ``--family safa`` the VGG16+SAFA towers embed photos and
 tiles to unit vectors, the tiles go into a VectorIndex and are scored by
 Euclidean distance (``VectorIndex.score_all``); the CSV then has no
-orientation column. The tile embed loop is ``tools.build_index.embed_tiles``,
-shared with the index builder.
+orientation column. ``--family baseline`` does the same with the 7-conv GeM
+towers at their own geometry (``cli.common.host_geometry``: WITW photos
+500 x 500, CVUSA 224 x 1232 with their rows repeated; tiles resampled to a
+raw 750²; no normalization, no polar transform) and scores exp(-d), its
+distances being unbounded. The tile embed loop is
+``tools.build_index.embed_tiles``, shared with ``build_index``.
 
 The CSV's columns are witw_tpu's (``photo`` first when several photos are
 swept, then x, y, orientation, dissimilarity, score), written with the
@@ -22,8 +26,8 @@ arrays. Orientation is in degrees from the embedding's actual width.
 
 Run: ``python -m witw_tpu_torch.tools.heatmap -a 3 -b LEFT BOTTOM RIGHT TOP
 -s SATDIR -p photo.jpg [more.jpg ...] -c out.csv --weights ./weights
-[--family safa] [--index-cache tiles.npz] [--int8] [--fast-eval] [-i -l
-layer.tiff]``. The towers come from ``--weights``/``<family>_<fov>_witw``'s
+[--family safa|baseline] [--index-cache tiles.npz] [--int8] [--fast-eval]
+[-i -l layer.tiff]``. The towers come from ``--weights``/``<family>_<fov>_witw``'s
 ``best`` checkpoint (the port's ``best.pt`` or witw_tpu's ``best.msgpack``).
 """
 
@@ -40,13 +44,15 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
+from witw_tpu_torch.cli.common import host_geometry
 from witw_tpu_torch.data.loader import decode_image, resize_host
 from witw_tpu_torch.evaluation.index import GalleryIndex
 from witw_tpu_torch.evaluation.vector_index import VectorIndex
 from witw_tpu_torch.models.quantize import SATURATION_WARN_FRACTION  # noqa: F401 (witw_tpu's name)
-from witw_tpu_torch.ops.image import normalize_images
-from witw_tpu_torch.tools.build_index import (FAMILIES, check_family, embed_tiles,
-                                              family_config, int8_tower, load_params)
+from witw_tpu_torch.ops.image import normalize_images, repeat_rows
+from witw_tpu_torch.tools.build_index import (FAMILIES, VECTOR_FAMILIES, check_family,
+                                              embed_tiles, family_config, int8_tower,
+                                              load_params, tile_size)
 from witw_tpu_torch.tools.cities import CITIES, strip_filename
 from witw_tpu_torch.tools.geotiff import GeoTiff, resample, write_geotiff_u8
 from witw_tpu_torch.train.pipeline import make_pipeline
@@ -172,7 +178,9 @@ def sweep(
     family's ``fov_experiment("witw", fov)`` or ``safa_experiment("witw",
     fov)`` (reduced geometries for tests). ``family="safa"``: the VGG16+SAFA
     towers, a VectorIndex of tile vectors scored by Euclidean distance, and
-    no orientation column.
+    no orientation column. ``family="baseline"``: the same with the 7-conv
+    GeM towers on raw photos and 750² tiles, score exp(-d), the int8
+    surface tower calibrated on the raw (row-repeated) photos.
     ``tile_dtype="uint8"``: tiles are rounded to uint8 on the host and cast
     to f32 on the device (a quarter of the upload); the cache records it.
     ``prefetch_tiles``: the tile reader's queue depth (0: batches read in
@@ -181,12 +189,13 @@ def sweep(
     strip."""
     if tile_dtype not in TILE_DTYPES:
         raise ValueError(f"tile_dtype must be one of {TILE_DTYPES}, got {tile_dtype!r}")
-    vector = family == "safa"
+    vector = family in VECTOR_FAMILIES
+    baseline = family == "baseline"
     if cfg is None:
         cfg = family_config(family, "witw", fov)
     d = cfg.data
+    check_family(family, cfg)
     pipeline = make_pipeline(cfg, device)
-    check_family(family, pipeline)
     device = pipeline.device
     if state is None:
         state = load_params(cfg, os.path.join(checkpoint_dir, tag or f"{family}_{fov}_witw"),
@@ -213,23 +222,26 @@ def sweep(
 
     photo_paths = ([photo_path] if isinstance(photo_path, (str, os.PathLike))
                    else list(photo_path))
-    photo = np.stack([resize_host(decode_image(p), d.surface_height, d.surface_width)
-                      for p in photo_paths])
+    surface_hw = host_geometry(cfg)[0] if baseline else (d.surface_height, d.surface_width)
+    photo = np.stack([resize_host(decode_image(p), *surface_hw) for p in photo_paths])
     surface = {k: v.to(device) for k, v in params["surface"].items()}
-    x = normalize_images(torch.from_numpy(photo).to(device), d.img_mean, d.img_std)
+    x = torch.from_numpy(photo).to(device)
+    if not baseline:
+        x = normalize_images(x, d.img_mean, d.img_std)
+    elif pipeline.repeat_surface_rows:  # witw_tpu repeats them on the host: the same values
+        x = repeat_rows(x, 2)
     if int8:
-        fold, forward_int8, _ = int8_tower(pipeline)
+        fold, forward_int8, _ = int8_tower(cfg)
         s_emb = forward_int8(fold(surface, [x], False), x, False)
     else:
-        s_emb = functional_call(pipeline.surface_model, surface, (x,),
-                                {"train": False, "generator": None}, strict=True)
+        s_emb = functional_call(pipeline.surface_model, surface, (x,), strict=True)
     s_emb = s_emb.float().cpu().numpy()
 
     if index is None:
         # only a few batches of tiles are ever resident: a 100k-tile sweep
         # at 256^2 would need ~75 GB materialized up front
         u8 = tile_dtype == "uint8"
-        with tile_reader(sat_path, windows, d.overhead_size, u8) as read_tile:
+        with tile_reader(sat_path, windows, tile_size(cfg), u8) as read_tile:
             embeds, sat_frac = embed_tiles(pipeline, params["overhead"], read_tile, n,
                                            batch_size, int8, prefetch_tiles, context="tile",
                                            tile_dtype=np.uint8 if u8 else np.float32)
@@ -255,7 +267,9 @@ def sweep(
         if orientations is not None:
             cols["orientation"] = orientations[:, q] * 360.0 / index.embeds.shape[2] - 180.0
         cols["dissimilarity"] = distances[:, q]
-        cols["score"] = np.exp(10.0 * (1.0 - distances[:, q]))
+        # the baseline's f / ||f||^0.5 vectors give unbounded distances
+        cols["score"] = (np.exp(-distances[:, q]) if baseline
+                         else np.exp(10.0 * (1.0 - distances[:, q])))
         parts.append(cols)
     columns = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
     write_csv(csv_path, columns)
@@ -300,7 +314,8 @@ def main(argv=None):
                         help="embed with the static-int8 towers")
     parser.add_argument("--family", choices=FAMILIES, default="fov",
                         help="tower family: fov = orientation-aligned FFT sweep (default); safa = "
-                             "VGG16+SAFA Euclidean sweep (no orientation column)")
+                             "VGG16+SAFA Euclidean sweep (no orientation column); baseline = "
+                             "7-conv GeM towers on raw 750^2 tiles (Euclidean, score exp(-d))")
     parser.add_argument("--fast-eval", action="store_true",
                         help="bf16 frequency product in the tile scoring sweep "
                              "(opt-in approximation; exact is the default)")

@@ -1,5 +1,6 @@
 """Geolocalization serving daemon: an HTTP endpoint over a prebuilt tile
-index (port of witw_tpu/tools/serve.py, FOV and SAFA families, one device).
+index (port of witw_tpu/tools/serve.py, FOV, SAFA and baseline families,
+one device).
 
 The daemon loads the towers once, loads an index (built by
 ``tools.build_index``, by either package) and answers:
@@ -15,19 +16,25 @@ The daemon loads the towers once, loads an index (built by
         mean requests per device dispatch (micro-batching occupancy)
 
 Run: ``python -m witw_tpu_torch.tools.serve --index tiles.npz --weights
-./weights --tag fov_70_witw --fov 70 [--family safa] [--int8] [--max-batch 8]
-[--port 8000]``
+./weights --tag fov_70_witw --fov 70 [--family safa|baseline] [--int8]
+[--max-batch 8] [--port 8000]``
 
 ``--family safa`` serves VGG16+SAFA towers against a VectorIndex (plain
 Euclidean distance on unit embeddings): results carry ``orientation_deg:
 null`` (the global embedding has no orientation axis), every request is
 searched exactly (``candidates`` has no effect: the search is one GEMM), and
 ``--fast-eval`` has no effect. The score is exp(10 (1 - d)) in both
-families (d in [0, 2]).
+families (d in [0, 2]). ``--family baseline`` serves the 7-conv GeM towers
+against a VectorIndex the same way, with the baseline's photo geometry
+(``cli.common.host_geometry``: WITW 500 x 500, CVUSA 224 x 1232 with its
+rows repeated on the device), raw pixels (no normalization), and the score
+exp(-d): its f / ||f||^0.5 vectors are not unit ones, so d is unbounded.
 
 The query photo is embedded by the surface tower: bf16 (its stride-1 convs
-on the conv3x3_bf16 kernel) or, with ``--int8``, the static-int8 tower
-(kernels A, B and C), calibrated on the first real photo. ``--max-batch N``
+on the conv3x3_bf16 kernel; the baseline's strided convs on cuDNN) or, with
+``--int8``, the static-int8 tower (kernels A, B and C; the baseline's on
+im2col + ``torch._int_mm``), calibrated on the first real photo (the
+baseline's after its rows are repeated). ``--max-batch N``
 (N >= 2) groups concurrent requests into one embed and one search;
 ``--batch-workers`` threads drain the queue, so that one group's search and
 fetch overlap the next group's embed. Groups are padded to power-of-two
@@ -50,14 +57,16 @@ from typing import Optional
 import numpy as np
 import torch
 
+from witw_tpu_torch.cli.common import host_geometry
 from witw_tpu_torch.data.loader import decode_image_bytes, resize_host
 from witw_tpu_torch.evaluation.index import GalleryIndex
 from witw_tpu_torch.evaluation.vector_index import VectorIndex
-from witw_tpu_torch.models import quantize
+from witw_tpu_torch.models.baseline import BaselineEncoder
 from witw_tpu_torch.models.fov_dsm import FovDsm
 from witw_tpu_torch.models.safa import VggSafa
-from witw_tpu_torch.ops.image import normalize_images
-from witw_tpu_torch.tools.build_index import FAMILIES, check_family, family_config, load_params
+from witw_tpu_torch.ops.image import normalize_images, repeat_rows
+from witw_tpu_torch.tools.build_index import (FAMILIES, VECTOR_FAMILIES, check_family,
+                                              family_config, int8_tower, load_params)
 from witw_tpu_torch.utils.hashing import params_fingerprint
 
 
@@ -116,7 +125,8 @@ class GeolocateService:
     chord distance); ``"safa"`` embeds with the VGG16+SAFA surface tower and
     searches a VectorIndex (Euclidean distance, no orientation axis, so
     results carry ``orientation_deg: None``, and every request is searched
-    exactly).
+    exactly); ``"baseline"`` does the same with the 7-conv GeM surface tower
+    on raw photos at its own geometry, scored exp(-d).
 
     ``params``: the towers' params ``{"surface": sd, "overhead": sd}`` (or a
     TrainState), moved to the index's device, where the embeds run.
@@ -134,8 +144,9 @@ class GeolocateService:
                  fast: bool = False, max_batch: int = 0, batch_window_ms: float = 3.0,
                  allow_mismatch: bool = False, batch_workers: int = 2,
                  max_candidates: int = 65536, family: str = "fov"):
-        check_family(family)
-        self._vector = family == "safa"
+        check_family(family, cfg)
+        self._vector = family in VECTOR_FAMILIES
+        self._baseline = family == "baseline"
         # the index type must match the family: scoring feature maps as flat
         # vectors (or the reverse) would not fail loudly on its own
         if self._vector != (index.embeds.ndim == 2):
@@ -143,9 +154,6 @@ class GeolocateService:
                 f"family {family!r} needs a {'VectorIndex' if self._vector else 'GalleryIndex'} "
                 f"but the index embeds are {index.embeds.ndim}-D — rebuild the index with the "
                 f"matching --family")
-        if getattr(cfg.model, "kind", None) != ("vgg_safa" if self._vector else "fov_dsm"):
-            raise ValueError(f"family {family!r} does not fit the config's "
-                             f"{type(cfg.model).__name__}")
         params = getattr(params, "params", params)
         if not allow_mismatch:
             _check_index_matches_towers(index, params, int8, family)
@@ -160,10 +168,17 @@ class GeolocateService:
         self._int8 = int8
         self._fast = fast
         self.device = index.device
-        self._surface_hw = (cfg.data.surface_height, cfg.data.surface_width)
+        # the baseline's photo geometry is the dataset's (WITW 500 x 500, CVUSA
+        # 224 x 1232, rows repeated on the device)
+        self._surface_hw = (host_geometry(cfg)[0] if self._baseline
+                            else (cfg.data.surface_height, cfg.data.surface_width))
+        self._repeat_rows = self._baseline and cfg.data.dataset.name == "cvusa"
         # A tower of its own holding the weights: the batch workers call it
-        # concurrently, which functional_call's parameter swap would race.
-        if self._vector:
+        # concurrently, which functional_call's parameter swap would race
+        # (and the baseline's, in eval mode, writes no buffer).
+        if self._baseline:
+            self._tower = BaselineEncoder(cfg.model)
+        elif self._vector:
             self._tower = VggSafa(cfg.model, self._surface_hw, circ_padding=False)
         else:
             self._tower = FovDsm(cfg.model, circ_padding=False)
@@ -195,27 +210,27 @@ class GeolocateService:
             for t in self._workers:
                 t.start()
 
-    def _normalize(self, x: torch.Tensor) -> torch.Tensor:
+    def _tower_input(self, x: torch.Tensor) -> torch.Tensor:
+        """Photos on the device -> the surface tower's input: normalized, or
+        for the baseline family raw, its CVUSA rows repeated."""
+        if self._baseline:
+            return repeat_rows(x, 2) if self._repeat_rows else x
         d = self.cfg.data
         return normalize_images(x, d.img_mean, d.img_std)
 
     @torch.no_grad()
     def _embed(self, imgs: np.ndarray) -> np.ndarray:
-        """Photos [B, h, sw, 3] (0-255) -> surface embeddings: FOV maps
-        [B, h', sw', c], SAFA vectors [B, D]."""
-        x = self._normalize(torch.from_numpy(imgs).to(self.device))
+        """Photos [B, h, w, 3] (0-255) -> surface embeddings: FOV maps
+        [B, h', sw', c], SAFA or baseline vectors [B, D]."""
+        x = self._tower_input(torch.from_numpy(imgs).to(self.device))
         if not self._int8:
             emb = self._tower(x)
         else:
+            fold, forward, _ = int8_tower(self.cfg)
             with self._sq_lock:
                 if self._sq is None:
-                    fold = (quantize.quantize_safa_tower_static if self._vector
-                            else quantize.quantize_tower_static)
                     self._sq = fold(self._surface, [x], False)
-            if self._vector:
-                emb = quantize.quantized_safa_forward_static(*self._sq, x, False)
-            else:
-                emb = quantize.quantized_fov_forward_static(self._sq, x, False)
+            emb = forward(self._sq, x, False)
         return emb.cpu().numpy()
 
     def _decode(self, image_bytes: bytes) -> np.ndarray:
@@ -383,9 +398,11 @@ class GeolocateService:
 
     def _format(self, idx_row, dist_row, orient_row, k: int):
         """Results of one request: tile centres (meta x/y), distance, the
-        orientation in degrees (None for the vector family, ``orient_row``
-        None) and the score exp(10 (1 - d)) (d is in [0, 2]: chord distance,
-        or the Euclidean distance of unit vectors)."""
+        orientation in degrees (None for the vector families, ``orient_row``
+        None) and the score: exp(10 (1 - d)) where d is in [0, 2] (chord
+        distance, or the Euclidean distance of unit vectors), exp(-d) for
+        the baseline family's unbounded distances (comparable within one
+        gallery, not across families)."""
         xs = self.index.meta.get("x")
         ys = self.index.meta.get("y")
         results = []
@@ -398,7 +415,7 @@ class GeolocateService:
                 "orientation_deg": (None if orient_row is None else
                                     float(orient_row[j] * 360.0 / self.index.embeds.shape[2]
                                           - 180.0)),
-                "score": float(np.exp(10.0 * (1.0 - dd))),
+                "score": float(np.exp(-dd) if self._baseline else np.exp(10.0 * (1.0 - dd))),
             })
         return results
 
@@ -484,14 +501,16 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--index", required=True,
                         help="gallery index .npz (GalleryIndex for --family fov, VectorIndex for "
-                             "--family safa)")
+                             "--family safa and baseline)")
     parser.add_argument("--weights", default="./weights")
     parser.add_argument("--tag", default=None)
     parser.add_argument("--dataset", default="witw")
     parser.add_argument("--fov", type=int, default=70)
     parser.add_argument("--family", choices=FAMILIES, default="fov",
                         help="tower/index family: fov = FOV-DSM towers + orientation-aligned FFT "
-                             "index (default); safa = VGG16+SAFA towers + Euclidean vector index")
+                             "index (default); safa = VGG16+SAFA towers + Euclidean vector index; "
+                             "baseline = 7-conv GeM towers + Euclidean vector index (--fov "
+                             "ignored; score = exp(-d))")
     parser.add_argument("--port", type=int, default=8000)
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--int8", action="store_true")
@@ -516,7 +535,7 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     cfg = family_config(args.family, args.dataset, args.fov)
-    index = (VectorIndex if args.family == "safa" else GalleryIndex).load(args.index)
+    index = (VectorIndex if args.family in VECTOR_FAMILIES else GalleryIndex).load(args.index)
     tag = args.tag or f"{args.family}_{args.fov}_{args.dataset}"
     params = load_params(cfg, os.path.join(args.weights, tag), index.device)
     service = GeolocateService(index, cfg, params, int8=args.int8, fast=args.fast_eval,

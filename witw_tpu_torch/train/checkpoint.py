@@ -12,7 +12,8 @@ so on one device a resumed run continues bit for bit.
 
 ``restore`` also reads witw_tpu's own checkpoints, ``<name>.msgpack``
 (flax.serialization, witw_tpu/train/checkpoint.py:76-77,123-126), where no
-``.pt`` of that name exists: their step and params (through
+``.pt`` of that name exists: their step and params, with a baseline
+checkpoint's ``batch_stats`` merged in as the BatchNorm buffers (through
 ``models.convert_jax``), so that the port serves towers trained by
 witw_tpu. Their optax moments are not carried over; the optimizer keeps the
 state it has. So ``exists`` and the training resume (``restore_latest``)
@@ -73,12 +74,14 @@ class Checkpointer:
     def load(self, name: str) -> Dict[str, Any]:
         """The raw payload of ``name`` (tensors on the CPU). A witw_tpu
         ``.msgpack`` checkpoint gives its step and params in the port's
-        layout, and no optimizer state."""
+        layout (its ``batch_stats`` as the BatchNorm buffers), and no
+        optimizer state."""
         if not os.path.exists(self._path(name)) and os.path.exists(self._flax_path(name)):
             with open(self._flax_path(name), "rb") as f:
                 tree = restore_flax_state(f.read())
             return {"step": int(tree["step"]),
-                    "params": jax_params_to_state_dict(tree["params"])}
+                    "params": jax_params_to_state_dict(tree["params"],
+                                                       tree.get("batch_stats") or None)}
         return torch.load(self._path(name), map_location="cpu", weights_only=True)
 
     def restore(self, name: str, state: TrainState) -> TrainState:

@@ -12,10 +12,13 @@ generators seeded by (seed, epoch, phase), so a resumed run sees epoch k's
 draws. Loaders are iterables of dicts of numpy arrays ("surface",
 "overhead", optionally "valid"), which ``device_prefetch`` moves to the
 pipeline's device ahead of the step. A ``MetricWriter`` gets witw_tpu's
-scalars and texts. Each function takes either family's pipeline
-(``FovPipeline`` or ``SafaPipeline``); ``test`` ranks the FOV family's maps
-by the orientation-aligned chord distance and the SAFA family's vectors by
-Euclidean distance. Not ported: the mesh and multi-host branches.
+scalars and texts. Each function takes any family's pipeline
+(``FovPipeline``, ``SafaPipeline`` or ``BaselinePipeline``); ``test`` ranks
+the FOV family's maps by the orientation-aligned chord distance and the SAFA
+and baseline families' vectors by Euclidean distance, with the eval-time
+random draws (the FOV crop heading, the baseline's synced rotation) from a
+generator seeded ``cfg.train.seed + 1``. Not ported: the mesh and
+multi-host branches.
 """
 
 from __future__ import annotations
@@ -255,7 +258,8 @@ def embed_all(
     """Embed every batch of ``loader`` (dicts with numpy or tensor
     "surface" and "overhead"); returns (surface_embeds, overhead_embeds) on
     the pipeline's device, concatenated once. ``generator`` drives the
-    eval-time random crop heading when the config asks for one."""
+    eval-time random crop heading when the config asks for one, and the
+    baseline family's synced rotation."""
     surfaces, overheads = [], []
     for data, _ in device_prefetch(loader, pipeline.device):
         s_emb, o_emb = pipeline.embed_step(params, data, generator)
@@ -325,7 +329,9 @@ def test_ranks(
     (``cfg.train.checkpoint_dir`` when no checkpointer is given). FOV ranks
     come from the fused match kernel, or with ``cfg.eval.fast_matmul``
     (``--fast-eval``) from the FFT sweep with bf16 frequency products; SAFA
-    ranks from ``euclidean_ranks`` (f32, ``fast_matmul`` has no effect).
+    and baseline ranks from ``euclidean_ranks`` (f32, ``fast_matmul`` has no
+    effect). The eval-time draws come from a generator seeded
+    ``cfg.train.seed + 1``, as witw_tpu's (witw_tpu/train/loop.py:389-391).
     ``writer`` gets each metric as a text."""
     if params is None:
         if checkpointer is None:

@@ -1,5 +1,6 @@
-"""The FOV-DSM and SAFA pipelines: train, eval and embed steps (port of
-witw_tpu/train/pipeline.py: FovPipeline, SafaPipeline, make_pipeline).
+"""The FOV-DSM, SAFA and baseline pipelines: train, eval and embed steps
+(port of witw_tpu/train/pipeline.py: FovPipeline, SafaPipeline,
+BaselinePipeline, make_pipeline).
 
 Raw uint8-scale batches go in; FOV crop, normalization and the polar
 transform run on the pipeline's device, then the twin towers, then the
@@ -18,6 +19,14 @@ tower's three dropout masks, the overhead tower's.
 ``SafaPipeline`` shares the preprocessing and the steps; its towers
 (``models.safa.VggSafa``, no dropout) emit unit vectors, and its loss is the
 same soft-margin triplet loss on the in-batch squared Euclidean distances.
+
+``BaselinePipeline`` preprocesses otherwise: raw pixels, a synced random
+rotation drawn from the step's generator, CVUSA rows repeated, optional
+orientation-map channels, no polar transform and no normalization. Its
+towers (``models.baseline.BaselineEncoder``) hold BatchNorm running
+statistics as buffers in ``params[tower]`` beside the weights; a train step
+updates them in place, the eval and embed steps read them, and Adam leaves
+them out. Its loss is the exhaustive minibatch triplet loss.
 """
 
 from __future__ import annotations
@@ -31,12 +40,16 @@ from torch.func import functional_call
 from witw_tpu_torch.configs.base import ExperimentConfig
 from witw_tpu_torch.match.correlation import circular_correlation
 from witw_tpu_torch.match.distance import chord_distance
-from witw_tpu_torch.match.losses import dsm_triplet_loss, pairwise_sq_distances
+from witw_tpu_torch.match.losses import (dsm_triplet_loss, exhaustive_minibatch_triplet_loss,
+                                         pairwise_sq_distances)
+from witw_tpu_torch.models.baseline import BaselineEncoder, baseline_trainable_mask
 from witw_tpu_torch.models.fov_dsm import FovDsm, fov_dsm_trainable_mask
 from witw_tpu_torch.models.safa import VggSafa, safa_trainable_mask
 from witw_tpu_torch.ops.fov import fov_crop, random_fov_starts
 from witw_tpu_torch.ops.fused_match import fused_chord_distance_nhwc
-from witw_tpu_torch.ops.image import normalize_images, normalize_images_masked_bias
+from witw_tpu_torch.ops import rotation
+from witw_tpu_torch.ops.image import normalize_images, normalize_images_masked_bias, repeat_rows
+from witw_tpu_torch.ops.orientation_maps import append_orientation_maps
 from witw_tpu_torch.ops.polar import grid_tensors, polar_transform
 from witw_tpu_torch.utils.device import require_cuda
 
@@ -56,10 +69,10 @@ class TrainState:
 
 
 class _TwinPipeline:
-    """What the two families share: params, Adam on the trainable names,
-    the preprocessing (crop, normalization, polar transform) and the steps.
-    A family gives ``_tower(circ)``, ``trainable_names`` and
-    ``_forward_loss``."""
+    """What the families share: params, Adam on the trainable names, the
+    preprocessing (crop, normalization, polar transform; the baseline family
+    gives its own) and the steps. A family gives ``_tower(circ)``,
+    ``trainable_names`` and ``_forward_loss``."""
 
     kind = None
 
@@ -182,7 +195,7 @@ class _TwinPipeline:
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Embed a batch: (surface embeddings, overhead embeddings), float32:
         FOV maps [B, h, sw', 16] and [B, h, W', 16] NHWC, SAFA vectors
-        [B, M·512]."""
+        [B, M·512], baseline vectors [B, 1536]."""
         surface, polar = self.preprocess(batch, generator)
         return self._towers(params, surface, polar, False, None)
 
@@ -259,7 +272,73 @@ class SafaPipeline(_TwinPipeline):
         return loss, {"distance": d2}
 
 
-Pipeline = Union[FovPipeline, SafaPipeline]
+class BaselinePipeline(_TwinPipeline):
+    """cvig_baseline pipeline (reference cvig_baseline.py:318-402) on
+    ``device`` (the CUDA device when None): synced rotation, twin
+    ``BaselineEncoder`` towers with BatchNorm, the exhaustive minibatch
+    triplet loss; Euclidean retrieval eval (``euclidean_ranks``)."""
+
+    kind = "baseline"
+
+    def __init__(self, cfg: ExperimentConfig, device=None):
+        super().__init__(cfg, device)
+        # CVUSA surfaces get their rows repeated x2 on the device (reference
+        # cvig_baseline.py:216-218); WITW surfaces arrive 500 x 500.
+        self.repeat_surface_rows = cfg.data.dataset.name == "cvusa"
+
+    def _tower(self, circ: bool) -> BaselineEncoder:
+        return BaselineEncoder(self.cfg.model)
+
+    def trainable_names(self, tower_params: Dict[str, torch.Tensor]) -> List[str]:
+        return baseline_trainable_mask(tower_params)
+
+    def preprocess(
+        self, batch, generator: Optional[torch.Generator] = None
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Raw {"surface": [B, H, W, C], "overhead": [B, S, S, C]} -> the
+        towers' raw-pixel inputs: a synced rotation per sample drawn from
+        ``generator`` (a CPU generator seeded 0 when None; the reference
+        rotates at train and eval time, cvig_baseline.py:324-328,410-414),
+        then CVUSA rows repeated, then the orientation maps when the config
+        asks for them."""
+        surface = self._input(batch["surface"])
+        overhead = self._input(batch["overhead"])
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        surface, overhead = rotation.synced_rotation(
+            generator, surface, overhead, panorama=self.cfg.data.dataset.panorama)
+        if self.repeat_surface_rows:
+            surface = repeat_rows(surface, 2)
+        if self.cfg.model.orientation_maps:
+            surface, overhead = append_orientation_maps(surface, overhead)
+        return surface, overhead
+
+    def _towers(self, params: Params, surface, overhead, train: bool,
+                generator: Optional[torch.Generator], valid=None):
+        kwargs = {"train": train, "valid": valid}
+        s_emb = functional_call(self.surface_model, params["surface"], (surface,), kwargs,
+                                strict=True)
+        o_emb = functional_call(self.overhead_model, params["overhead"], (overhead,), kwargs,
+                                strict=True)
+        return s_emb, o_emb
+
+    def _forward_loss(self, params: Params, batch, generator: Optional[torch.Generator],
+                      train: bool) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Preprocess, both towers (train mode: BatchNorm on the batch's
+        statistics over ``batch["valid"]`` rows, the running buffers in
+        ``params`` updated), exhaustive minibatch triplet loss."""
+        surface, overhead = self.preprocess(batch, generator)
+        valid = batch.get("valid")
+        if valid is not None:
+            valid = torch.as_tensor(valid, device=self.device)
+        s_emb, o_emb = self._towers(params, surface, overhead, train, None, valid)
+        m = self.cfg.match
+        loss = exhaustive_minibatch_triplet_loss(s_emb, o_emb, soft_margin=m.soft_margin,
+                                                 alpha=m.alpha, margin=m.margin, valid=valid)
+        return loss, {"surface": s_emb, "overhead": o_emb}
+
+
+Pipeline = Union[FovPipeline, SafaPipeline, BaselinePipeline]
 
 
 def make_pipeline(cfg: ExperimentConfig, device=None) -> Pipeline:
@@ -271,6 +350,5 @@ def make_pipeline(cfg: ExperimentConfig, device=None) -> Pipeline:
     if kind == "vgg_safa":
         return SafaPipeline(cfg, device)
     if kind == "baseline":
-        raise NotImplementedError("the baseline family (BaselinePipeline) is not ported yet: it "
-                                  "comes with the baseline slice")
+        return BaselinePipeline(cfg, device)
     raise TypeError(f"unknown model config: {type(cfg.model)}")
