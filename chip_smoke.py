@@ -223,6 +223,26 @@ Phases, each of which passes or raises:
    run_train), --mode train --epochs 1 then --mode test (== loop.test on the
    restored best). Prints each step's rate.
 
+29. The single-device remainder at fov_experiment("cvusa", 360), random
+   weights from a seed: (a) both towers saved as .pth files in the
+   reference's wrapped layout (model.features.N.layer.*) and in
+   torchvision's (features.N.*, the head at 23 / 25 / 27), read back by
+   models.convert_torch and through its CLI's npz (every array equal to the
+   source), and the bf16 towers on them (conv3x3_bf16) bit-equal to the
+   source towers' embeddings at batch 128; (b) the four presets through
+   configs.serialize (the port's own YAML writer and reader; no PyYAML);
+   (c) the dynamic-int8 towers (quantize_pipeline, quantized_fov_forward)
+   at batch 128 -> the fused match: kernel A launched once per conv of both
+   towers (26) and the fused match once, nothing else, and in that same run
+   every conv's kernel A output bit-equal to conv3x3_int8_dequant_plain on
+   the same int8 input and device-computed dequant vector; cosine per
+   embedding against the f32 towers (cuDNN, TF32 off) > 0.99; embed+match pairs/s
+   beside bf16's (CUDA events, median of 5 runs of 4 steps), and the
+   towers' device time by torch.profiler into kernel A, the abs-max and
+   quantize passes, the pools, the ReLU passes and the rest; (d) an async
+   Checkpointer (keep 2) through 3 save_steps of the full-width train state
+   and a restore_latest, in .smoke_remainder/ (removed at the end).
+
 The launch counts are reset just before the path they count and read right
 after it: the fused match's and the conv kernel's before phase 4 and after
 test() in phase 5 (forward_distance at fov 360 and 90, and test(), must each
@@ -239,7 +259,10 @@ bf16 SAFA towers of phase 23 and kernels A, B and C's before its int8
 towers, and each kernel's before each build, daemon and sweep of phase 24
 and each CLI run of phase 25, read after each (the records'
 `safa_launches` sum them); every kernel's before each step of phases 26-28,
-which must launch none of them (the records' `baseline_launches`, 0). The
+which must launch none of them (the records' `baseline_launches`, 0); every
+kernel's before the dynamic-int8 embed+match of phase 29, read after it
+(the records' `dynamic_launches`: kernel A's and the fused match's), and the
+conv kernel's around the converted towers' runs (`convert_launches`). The
 second-to-last line is the
 kernels' JSON record; the last line is {"ok": true, "device": {...}}.
 Without a GPU, or without the repo beside it, the script exits non-zero and
@@ -253,6 +276,7 @@ import concurrent.futures
 import contextlib
 import csv
 import dataclasses
+import importlib.util
 import io
 import json
 import os
@@ -273,7 +297,8 @@ from torch.func import functional_call
 
 from witw_tpu_torch.cli import common as cli_common
 from witw_tpu_torch.cli import cvig_baseline, cvig_fov, cvig_safa
-from witw_tpu_torch.configs import baseline_experiment, fov_experiment, safa_experiment
+from witw_tpu_torch.configs import (baseline_experiment, fov_experiment, safa_experiment,
+                                    semantic_experiment, serialize)
 from witw_tpu_torch.data import loader, synthetic
 from witw_tpu_torch.data.csv_registry import read_pair_paths
 from witw_tpu_torch.evaluation import gallery
@@ -284,7 +309,7 @@ from witw_tpu_torch.exp import int8_isolate, int8_mm_probe, mosaic_caps
 from witw_tpu_torch.kernels.build import build_libraries, nvcc_path
 from witw_tpu_torch.match.correlation import circular_correlation
 from witw_tpu_torch.match.losses import pairwise_sq_distances
-from witw_tpu_torch.models import quantize
+from witw_tpu_torch.models import convert_torch, quantize
 from witw_tpu_torch.models.backbones import vgg16
 from witw_tpu_torch.models.baseline import BaselineEncoder
 from witw_tpu_torch.models.backbones.vgg16 import VGG16_BLOCKS
@@ -3118,6 +3143,296 @@ def phase_baseline_serving(card, device, csv_path):
         shutil.rmtree(BASE_DIR, ignore_errors=True)
 
 
+REMAINDER_DIR = Path(__file__).resolve().parent / ".smoke_remainder"
+DYN_BATCH = 128
+KERNEL_A = "conv3x3_int8_kernel"  # kernel A's __global__ function (its SASS and profiler name)
+
+
+def reference_layout(state, layout):
+    """A FovDsm state dict in a ``.pth`` layout: the reference's wrapped
+    ``model.features.N.layer.*`` or torchvision's ``features.N.*`` (extended
+    with the head convs at their feature indices 23 / 25 / 27)."""
+    out = {}
+    for k, v in state.items():
+        name, field = k.rsplit(".", 1)
+        idx = name.split("_")[-1]
+        key = f"model.features.{idx}.layer" if layout == "reference" else f"features.{idx}"
+        out[f"{key}.{field}"] = v.detach().cpu().clone()
+    return out
+
+
+def dynamic_distance(pipeline, q_s, q_o, batch):
+    """The dynamic-int8 serving forward: f32 preprocess, both dynamic-int8
+    towers, the fused match -> d [Bo, Bs]."""
+    surface, polar = pipeline.preprocess(batch)
+    s_emb = quantize.quantized_fov_forward(q_s, surface, False)
+    o_emb = quantize.quantized_fov_forward(q_o, polar, True)
+    return fused_match.fused_chord_distance_nhwc(o_emb, s_emb)[0]
+
+
+def device_split_us(run, steps, classify):
+    """torch.profiler over ``steps`` calls of ``run``: device microseconds by
+    ``classify(kernel name, the name of the kernel before it)``, the device
+    events' total, and the microseconds of each kernel name. By names and
+    order alone: kernels launched through ctypes have no PyTorch op to
+    attribute them to."""
+    run()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            run()
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    split = collections.defaultdict(float)
+    by_kernel = collections.defaultdict(float)
+    prev = ""
+    for e in kernels:
+        us = e.time_range.elapsed_us()
+        split[classify(e.name, prev)] += us
+        by_kernel[e.name] += us
+        prev = e.name
+    return dict(split), sum(split.values()), dict(by_kernel)
+
+
+def phase_remainder(card, device):
+    """[29] the single-device remainder at fov_experiment("cvusa", 360): the
+    .pth converter, the config YAML, the dynamic-int8 towers on kernel A's
+    dequant epilogue, async checkpoint saves. Returns (the dynamic path's
+    launches {module: n}, its pairs/s, the converted towers' conv3x3
+    launches)."""
+    cfg = fov_experiment("cvusa", 360)
+    d = cfg.data
+    log(f"[29] single-device remainder, fov_experiment('cvusa', 360): {d.surface_height} x "
+        f"{d.surface_width_max} surface and polar map, random weights from a seed; (a) the .pth "
+        f"converter, (b) the config YAML, (c) the dynamic-int8 towers at batch {DYN_BATCH}, every "
+        f"conv on kernel A's dequant epilogue with x_scale * w_scale from the device, (d) async "
+        f"checkpoint saves")
+    shutil.rmtree(REMAINDER_DIR, ignore_errors=True)
+    REMAINDER_DIR.mkdir()
+    pipeline = FovPipeline(cfg, device)
+    params = pipeline.init(torch.Generator().manual_seed(29))
+    batch = raw_batch(np.random.default_rng(29), cfg, DYN_BATCH)
+
+    # (a) the converter: both layouts through .pth files and the CLI's npz
+    reset_kernel_counts()
+    want_s, want_o = pipeline.embed_step(params, batch)
+    torch.cuda.synchronize()
+    from_source = conv3x3.launches
+    convert_launches = 0
+    for layout in ("reference", "torchvision"):
+        loaded = {}
+        for tower in ("surface", "overhead"):
+            src = REMAINDER_DIR / f"{layout}_{tower}.pth"
+            torch.save(reference_layout(params[tower], layout), src)
+            sd = convert_torch.convert_fov_dsm_state_dict(convert_torch.load_torch_file(str(src)))
+            npz = REMAINDER_DIR / f"{layout}_{tower}.npz"
+            convert_torch.main([str(src), str(npz)])
+            via_npz = convert_torch.load_converted(str(npz))
+            if sorted(sd) != sorted(params[tower]) or sorted(via_npz) != sorted(sd):
+                raise AssertionError(f"{layout} {tower}: converted names differ from the tower's")
+            for k, v in sd.items():
+                if not (torch.equal(v, params[tower][k].cpu()) and torch.equal(via_npz[k], v)):
+                    raise AssertionError(f"{layout} {tower}: {k} changed in the conversion")
+            loaded[tower] = {k: v.to(device) for k, v in sd.items()}
+        before = conv3x3.launches
+        got_s, got_o = pipeline.embed_step(loaded, batch)
+        torch.cuda.synchronize()
+        convert_launches += conv3x3.launches - before
+        if conv3x3.launches == before:
+            raise AssertionError("the converted towers did not launch conv3x3_bf16")
+        if not (torch.equal(got_s, want_s) and torch.equal(got_o, want_o)):
+            raise AssertionError(f"{layout}: the converted towers' embeddings differ: max |d| "
+                                 f"{float((got_s - want_s).abs().max()):.3e}, "
+                                 f"{float((got_o - want_o).abs().max()):.3e}")
+        log(f"    (a) {layout} layout (e.g. {next(iter(reference_layout(params['surface'], layout)))}"
+            f"): .pth -> convert_fov_dsm_state_dict and -> the CLI's npz -> load_converted: every "
+            f"array equal; bf16 towers (conv3x3_bf16, {conv3x3.launches - before} launches) on "
+            f"them == the source towers' embeddings {tuple(got_s.shape)}, {tuple(got_o.shape)}, "
+            f"bit for bit")
+    del loaded, got_s, got_o, want_s, want_o
+    if from_source < 1:
+        raise AssertionError("the source towers did not launch conv3x3_bf16")
+
+    # (b) the config YAML, the port's own writer and reader
+    for name, make in (("fov", lambda: fov_experiment("cvusa", 360)),
+                       ("semantic", lambda: semantic_experiment("witw", 90)),
+                       ("safa", lambda: safa_experiment("witw", 70)),
+                       ("baseline", lambda: baseline_experiment("witw"))):
+        path = REMAINDER_DIR / f"{name}.yaml"
+        serialize.save_config(make(), str(path))
+        if serialize.load_config(str(path)) != make():
+            raise AssertionError(f"{name}: the YAML round trip changed the config")
+    log(f"    (b) save_config / load_config: the fov, semantic, safa and baseline presets round "
+        f"trip equal ({path.stat().st_size} bytes for baseline; "
+        f"{'PyYAML is' if importlib.util.find_spec('yaml') else 'PyYAML is not'} installed here "
+        f"and not imported)")
+
+    # (c) the dynamic-int8 towers
+    t0 = time.perf_counter()
+    q_s, q_o = quantize.quantize_pipeline(params)
+    torch.cuda.synchronize()
+    log(f"    (c) quantize_pipeline (both towers, kernel A's tables packed): "
+        f"{time.perf_counter() - t0:.2f} s")
+    # the main path, each conv's kernel A output held against its plain
+    # version on the same int8 inputs and device-computed dequant vector
+    per_layer = []
+    real = quantize.conv3x3_int8_dequant
+
+    def checked(x, w, dequant, bias_f, stride_h=1, pad_w=1, w_wgmma=None):
+        y = real(x, w, dequant, bias_f, stride_h, pad_w, w_wgmma)
+        want = int8_conv.conv3x3_int8_dequant_plain(x, w, dequant, bias_f, stride_h, pad_w)
+        per_layer.append((tuple(x.shape), w.shape[0], stride_h, pad_w,
+                          float((y - want).abs().max()), torch.equal(y, want)))
+        return y
+
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    reset_kernel_counts()
+    quantize.conv3x3_int8_dequant = checked
+    try:
+        with torch.no_grad():
+            dist = dynamic_distance(pipeline, q_s, q_o, batch)
+        torch.cuda.synchronize()
+    finally:
+        quantize.conv3x3_int8_dequant = real
+    t_checked = time.perf_counter() - t0
+    launches = kernel_counts()
+    if (launches["int8_conv"] != 2 * len(quantize.CONV_ORDER) or launches["fused_match"] != 1
+            or any(launches[n] for n in launches if n not in ("int8_conv", "fused_match"))):
+        raise AssertionError(f"the dynamic path launched {launches}: expected kernel A once per "
+                             f"conv ({2 * len(quantize.CONV_ORDER)}) and the fused match once")
+    if dist.shape != (DYN_BATCH, DYN_BATCH) or not bool(torch.isfinite(dist).all()):
+        raise AssertionError(f"dynamic distances: {tuple(dist.shape)}, finite "
+                             f"{bool(torch.isfinite(dist).all())}")
+    dynamic = {n: c for n, c in launches.items() if c}
+    log(f"    dynamic int8 embed+match batch {DYN_BATCH}: d {tuple(dist.shape)} mean "
+        f"{float(dist.mean()):.6f}; launches {dynamic} (kernel A: {len(quantize.CONV_ORDER)} "
+        f"convs per tower, the stride-2 head convs included)")
+    for (shape, co, sh, pw, err, equal), name in zip(per_layer, 2 * quantize.CONV_ORDER):
+        log(f"      {name} x {shape} Co={co} stride_h={sh} pad_w={pw}: max |kernel - plain| "
+            f"{err:.3e}{'' if equal else ' (NOT bit-equal)'}")
+    if len(per_layer) != 2 * len(quantize.CONV_ORDER) or not all(e for *_, e in per_layer):
+        raise AssertionError("kernel A's dequant epilogue differs from its plain version")
+    log(f"    all {len(per_layer)} convs of both towers in that run (batch {DYN_BATCH}) bit-equal "
+        f"to conv3x3_int8_dequant_plain on the same int8 inputs and device-computed dequant "
+        f"vectors; the run with its checks {t_checked:.2f} s (host clock), peak device memory "
+        f"{torch.cuda.max_memory_allocated(device) / 1e9:.3f} GB ({card})")
+
+    # cosine per embedding against the f32 towers (cuDNN, TF32 off) on the same inputs
+    cfg32 = fov_experiment("cvusa", 360, model=dataclasses.replace(cfg.model,
+                                                                   compute_dtype="float32"))
+    pipe32 = FovPipeline(cfg32, device)
+    with torch.no_grad():
+        surface, polar = pipeline.preprocess(batch)
+        ref_s, ref_o = pipe32._towers(params, surface, polar, False, None)
+        dyn_s = quantize.quantized_fov_forward(q_s, surface, False)
+        dyn_o = quantize.quantized_fov_forward(q_o, polar, True)
+    for tower, got, ref in (("surface", dyn_s, ref_s), ("overhead", dyn_o, ref_o)):
+        a, b = got.reshape(DYN_BATCH, -1), ref.reshape(DYN_BATCH, -1)
+        cos = (a * b).sum(1) / (a.norm(dim=1) * b.norm(dim=1))
+        log(f"    {tower} tower {tuple(got.shape)}: cosine against the f32 tower per embedding "
+            f"min {float(cos.min()):.6f}, median {float(cos.median()):.6f} (> 0.99, witw_tpu's bar)")
+        if not bool((cos > 0.99).all()):
+            raise AssertionError(f"{tower}: {int((cos <= 0.99).sum())} embeddings at cosine <= 0.99")
+    del ref_s, ref_o, dyn_s, dyn_o, pipe32
+
+    # timing (CUDA events, median of 5 runs of 4 steps) and the device split
+    gen_in = torch.Generator(device=device).manual_seed(29)
+    staged = [{"surface": torch.rand(DYN_BATCH, d.surface_height, d.surface_width_max, 3,
+                                     generator=gen_in, device=device) * 255.0,
+               "overhead": torch.rand(DYN_BATCH, d.overhead_size, d.overhead_size, 3,
+                                      generator=gen_in, device=device) * 255.0}
+              for _ in range(2)]
+    step_of = iter(range(10 ** 9))
+
+    def stage(fn):
+        return lambda: fn(staged[next(step_of) % len(staged)])
+
+    with torch.no_grad():
+        t_dyn = cuda_ms(stage(lambda b: dynamic_distance(pipeline, q_s, q_o, b)), 4, 5)
+        t_bf16 = cuda_ms(stage(lambda b: pipeline.forward_distance(params, b)), 4, 5)
+        t_pre = cuda_ms(stage(pipeline.preprocess), 4, 5)
+        surface, polar = pipeline.preprocess(staged[0])
+        t_surface = cuda_ms(lambda: quantize.quantized_fov_forward(q_s, surface, False), 4, 5)
+        t_towers = cuda_ms(lambda: (quantize.quantized_fov_forward(q_s, surface, False),
+                                    quantize.quantized_fov_forward(q_o, polar, True)), 4, 5)
+    pairs_per_s = DYN_BATCH * 1000.0 / t_dyn
+    log(f"    embed+match batch {DYN_BATCH} (fov 360, varied inputs, CUDA events, median of 5 runs "
+        f"of 4): dynamic int8 {t_dyn:.3f} ms/step = {pairs_per_s:.2f} pairs/s; bf16 {t_bf16:.3f} "
+        f"ms/step = {DYN_BATCH * 1000.0 / t_bf16:.2f} pairs/s; preprocess {t_pre:.3f} ms; the "
+        f"dynamic surface tower alone {t_surface:.3f} ms, both towers {t_towers:.3f} ms ({card})")
+
+    def classify(kernel, prev):
+        """A kernel's stage, by the names CUDA PyTorch gives its kernels; a
+        clamp right after kernel A is the ReLU of its output (torch.relu and
+        the quantizer's clip both run PyTorch's clamp kernel)."""
+        if KERNEL_A in kernel:
+            return "kernel A"
+        if "max_pool" in kernel:
+            return "2x2 pools (f32)"
+        if "clamp" in kernel and KERNEL_A in prev:
+            return "ReLU passes"
+        if "CatArrayBatchedCopy" in kernel:
+            return "wrap-pad copies"
+        return "abs-max and quantize passes (abs, amax, divide, round, clip, cast, scales)"
+
+    with torch.no_grad():
+        split, device_us, by_kernel = device_split_us(lambda: (
+            quantize.quantized_fov_forward(q_s, surface, False),
+            quantize.quantized_fov_forward(q_o, polar, True)), PROFILE_STEPS, classify)
+    if device_us <= 0 or split.get("kernel A", 0.0) <= 0:
+        raise AssertionError(f"torch.profiler saw no device time or no kernel A: {split}")
+    total = device_us / PROFILE_STEPS / 1e3
+    log(f"    device profile (torch.profiler, {PROFILE_STEPS} steps) of both dynamic towers on "
+        f"preprocessed inputs: {total:.3f} ms of kernels per step, {100 * total / t_towers:.1f}% "
+        f"of the towers' {t_towers:.3f} ms (CUDA events) ({card}); "
+        + "; ".join(f"{k} {v / PROFILE_STEPS / 1e3:.3f} ms ({100 * v / device_us:.1f}%)"
+                    for k, v in sorted(split.items(), key=lambda kv: -kv[1])))
+    log("    top kernels (ms per step): " + "; ".join(
+        f"{k[:90]} {v / PROFILE_STEPS / 1e3:.3f}"
+        for k, v in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]))
+    del staged, surface, polar, q_s, q_o
+
+    # (d) async checkpoint saves of the full-width train state
+    state = pipeline.init_state(torch.Generator().manual_seed(30))
+    ck = Checkpointer(str(REMAINDER_DIR / "async"), keep=2, async_saves=True)
+    returns = []
+    try:
+        for step in (1, 2, 3):
+            with torch.no_grad():
+                for p in state.params.values():
+                    for v in p.values():
+                        v.add_(1.0)
+            state.step = step
+            t0 = time.perf_counter()
+            ck.save_step(state, step, {"epoch": 0})
+            returns.append(time.perf_counter() - t0)
+        want = {t: {k: v.detach().cpu().clone() for k, v in p.items()}
+                for t, p in state.params.items()}
+        t0 = time.perf_counter()
+        fresh = pipeline.init_state(torch.Generator().manual_seed(31))
+        ck.restore_latest(fresh)
+        t_restore = time.perf_counter() - t0
+    finally:
+        ck.close()
+    if fresh.step != 3 or any(not torch.equal(fresh.params[t][k].cpu(), v)
+                              for t, p in want.items() for k, v in p.items()):
+        raise AssertionError("restore_latest after async saves did not give the last saved state")
+    kept = sorted(f.name for f in (REMAINDER_DIR / "async").glob("step_*.pt"))
+    if kept != ["step_2.pt", "step_3.pt"]:
+        raise AssertionError(f"keep=2 left {kept}")
+    size = (REMAINDER_DIR / "async" / "latest.pt").stat().st_size
+    log(f"    (d) Checkpointer(async_saves=True, keep=2), 3 save_steps of the full-width state "
+        f"({size / 1e6:.1f} MB a file): save_step returned in "
+        f"{', '.join(f'{t:.3f}' for t in returns)} s (the host copy; the writes on the writer "
+        f"thread), restore_latest (waits for them) {t_restore:.3f} s: step 3, params equal; "
+        f"{kept} kept (host clock)")
+    shutil.rmtree(REMAINDER_DIR)
+    return dynamic, pairs_per_s, convert_launches
+
+
 def main() -> int:
     # 1. device
     device = require_cuda()
@@ -3362,6 +3677,7 @@ def main() -> int:
     shutil.rmtree(SERVE_DIR, ignore_errors=True)
     log(f"    baseline-path launches of the port's kernels ([26]-[28]): "
         f"{dict(BASELINE_LAUNCHES) or 'none'}")
+    dynamic, dynamic_pairs_per_s, convert_launches = phase_remainder(card, device)
     serving = {n: build_launches[p].get(n, 0) + daemon_launches[p].get(n, 0)
                + sweep_launches[p].get(n, 0)
                for p in ("bf16", "int8") for n in build_launches[p]}
@@ -3380,6 +3696,11 @@ def main() -> int:
         record["baseline_launches"] = BASELINE_LAUNCHES[mod]
     for record, rec in zip(probe_records, PROBE_KERNELS):
         record["baseline_launches"] = BASELINE_LAUNCHES[rec]
+    conv_record["convert_launches"] = convert_launches
+    for record, mod in zip(int8_records, INT8_KERNELS):
+        if mod == "int8_conv":
+            record["dynamic_launches"] = dynamic["int8_conv"]
+            record["dynamic_pairs_per_s"] = dynamic_pairs_per_s
 
     log(card)
     log(json.dumps({"kernels": [{
@@ -3399,6 +3720,7 @@ def main() -> int:
         "cli_launches": match_cli_launches,
         "safa_launches": safa["fused_match"],
         "baseline_launches": BASELINE_LAUNCHES["fused_match"],
+        "dynamic_launches": dynamic["fused_match"],
     }] + int8_records + [conv_record] + probe_records}))
     log(f"smoke total: {time.perf_counter() - T_START:.2f} s")
     log(json.dumps({"ok": True, "device": {

@@ -322,6 +322,70 @@ def test_static_int8_tower_on_gpu_matches_cpu(int8_cuda, circ):
     assert int8_conv.launches == 11 and maxpool.launches == 2 and fused_block2.launches == 1
 
 
+@pytest.mark.parametrize("b,h,w,cin,co,stride_h,pad_w", [
+    (2, 16, 64, 64, 128, 1, 1),    # stride 1, zero width padding
+    (2, 16, 70, 256, 512, 1, 0),   # stride 1, circular (width-VALID on a wrap halo)
+    (2, 16, 64, 512, 256, 2, 1),   # stride 2 head conv_23, zero padding
+    (2, 16, 70, 512, 256, 2, 0),   # stride 2, circular
+    (2, 8, 66, 256, 64, 2, 0),     # conv_25, circular
+    (2, 32, 99, 3, 64, 1, 1),      # the 128 x 99 serving crop's widths: conv1_1 at W 99
+    (2, 32, 49, 64, 128, 1, 1),    # conv2_1 at W 49
+    (2, 32, 24, 128, 256, 1, 1),   # conv3_1 at W 24
+    (2, 16, 12, 256, 512, 1, 1),   # conv4_1 at W 12
+    (2, 16, 12, 512, 256, 2, 1),   # conv_23 at W 12
+])
+def test_int8_dequant_with_device_scales_matches_plain(int8_cuda, b, h, w, cin, co, stride_h,
+                                                       pad_w):
+    """Kernel A's dequant epilogue as the dynamic-int8 towers drive it: an
+    f32 activation quantized on the card (``_quantize_act``: a 0-dim scale
+    tensor), per-channel int8 weights, dequant = x_scale * w_scale computed
+    on the card. Bit-equal (0 ULP) to the plain formula float(acc) *
+    dequant + bias; with dequant 1 and bias 0, equal to the plain int32
+    accumulator as f32."""
+    gen = torch.Generator(device=int8_cuda).manual_seed(15)
+    x = torch.relu(torch.randn((b, h, w, cin), generator=gen, device=int8_cuda))
+    x_q, x_scale = quantize._quantize_act(x)
+    kernel = torch.randn((3, 3, cin, co), generator=gen, device=int8_cuda) / (3 * cin ** 0.5)
+    w_scale = torch.clamp(kernel.abs().amax(dim=(0, 1, 2)) / 127.0, min=1e-12)
+    kq = torch.clamp(torch.round(kernel / w_scale), -127, 127).to(torch.int8).cpu().numpy()
+    packed = torch.from_numpy(int8_conv.pack_weights(kq)).to(int8_cuda)
+    w_wgmma = torch.from_numpy(int8_conv.pack_weights_wgmma(kq)).to(int8_cuda)
+    bias = torch.randn(co, generator=gen, device=int8_cuda)
+    dequant = x_scale * w_scale
+    assert x_scale.shape == () and x_scale.device == dequant.device == x.device
+    got = int8_conv.conv3x3_int8_dequant(x_q, packed, dequant, bias, stride_h, pad_w, w_wgmma)
+    want = int8_conv.conv3x3_int8_dequant_plain(x_q, packed, dequant, bias, stride_h, pad_w)
+    ones, zeros = torch.ones_like(dequant), torch.zeros_like(bias)
+    acc = int8_conv.conv3x3_int8_dequant(x_q, packed, ones, zeros, stride_h, pad_w, w_wgmma)
+    want_acc = int8_conv.conv3x3_int8_acc_plain(x_q, packed, stride_h, pad_w).to(torch.float32)
+    torch.cuda.synchronize()
+    ho, wo = int8_conv.output_hw(h, w, stride_h, pad_w)
+    assert got.shape == want.shape == (b, ho, wo, co)
+    assert torch.equal(got, want), float((got - want).abs().max())
+    assert torch.equal(acc, want_acc), float((acc - want_acc).abs().max())
+    assert int8_conv.launches == 2
+
+
+@pytest.mark.parametrize("circ", [False, True])
+def test_dynamic_int8_tower_on_gpu_matches_cpu(int8_cuda, circ):
+    """The dynamic-int8 tower (per-batch scales on the device, every conv
+    on kernel A's dequant epilogue, f32 pools) on the card against the CPU
+    plain path with the same weights: equal embeddings (atol 1e-6), kernel A
+    13 launches, no pool kernel or kernel C."""
+    model = FovDsm(FovDsmModelConfig(compute_dtype="float32"), circ_padding=circ)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    tables = quantize.quantize_fov_params(model.state_dict())
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal((2, 32, 99, 3))
+                         .astype(np.float32))
+    want = quantize.quantized_fov_forward(quantize.static_qparams_to_device(tables, "cpu"), x,
+                                          circ)
+    got = quantize.quantized_fov_forward(quantize.static_qparams_to_device(tables, int8_cuda),
+                                         x.to(int8_cuda), circ)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-6)
+    assert int8_conv.launches == 13 and maxpool.launches == fused_block2.launches == 0
+
+
 @pytest.mark.parametrize("circ", [False, True])
 def test_static_int8_safa_tower_on_gpu_matches_cpu(int8_cuda, circ):
     """A SAFA tower's int8 trunk, conv4_3 on the dequant epilogue, then the

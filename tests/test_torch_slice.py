@@ -146,11 +146,12 @@ def test_port_imports_no_jax():
     the data layer, the index, build_index, the daemon, the GeoTIFF binding,
     the heatmap sweep, the metric writer, the CLIs, the SAFA towers, the
     vector index and cvig_safa, and the baseline towers, the synced rotation,
-    the orientation maps and cvig_baseline),
+    the orientation maps and cvig_baseline, the config YAML and the .pth
+    converter),
     chip_smoke and the profile scripts import with JAX and every witw_tpu
     module made unimportable, and none pulls in flax, optax, the
-    pandas/PIL deps of witw_tpu.data, the root exp scripts, or (at import
-    time) the image decoders imageio and cv2."""
+    pandas/PIL deps of witw_tpu.data, the root exp scripts, PyYAML, or (at
+    import time) the image decoders imageio and cv2."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
@@ -164,13 +165,13 @@ def test_port_imports_no_jax():
             "tools.geotiff", "tools.cities", "tools.heatmap", "train.metrics", "cli.common",
             "cli.cvig_fov", "cli.cvig_semantic", "models.safa", "evaluation.vector_index",
             "cli.cvig_safa", "models.baseline", "ops.rotation", "ops.orientation_maps",
-            "cli.cvig_baseline")]
+            "cli.cvig_baseline", "configs.serialize", "models.convert_torch")]
         assert set(wanted) <= set(names), sorted(set(wanted) - set(names))
         for name in names + ["chip_smoke", "profile_int8", "profile_bf16", "profile_conv",
                              "profile_match", "profile_host"]:
             importlib.import_module(name)
         banned = ("jax", "jaxlib", "flax", "optax", "pandas", "PIL", "witw_tpu", "exp",
-                  "imageio", "cv2")
+                  "imageio", "cv2", "yaml")
         bad = sorted(m for m, mod in sys.modules.items()
                      if m.split(".")[0] in banned and mod is not None)
         assert not bad, bad

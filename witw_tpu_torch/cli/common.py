@@ -75,16 +75,20 @@ def run_train(
     train_loader = build_loader(cfg, train_pairs, shuffle=True, drop_last=True)
     val_loader = build_loader(cfg, val_pairs, shuffle=False, drop_last=False)
     pipeline = make_pipeline(cfg, device)
-    ckpt = Checkpointer(os.path.join(cfg.train.checkpoint_dir, tag), cfg.train.keep_checkpoints)
+    ckpt = Checkpointer(os.path.join(cfg.train.checkpoint_dir, tag), cfg.train.keep_checkpoints,
+                        async_saves=cfg.train.async_checkpoints)
     writer = MetricWriter(os.path.join(cfg.train.tensorboard_dir, tag, "train"))
     try:
         with trace_profile(profile_dir):
             return loop.train(cfg, pipeline, train_loader, val_loader, num_epochs=num_epochs,
                               checkpointer=ckpt, writer=writer, handle_signals=True)
     finally:
-        writer.close()
-        train_loader.close()
-        val_loader.close()
+        try:
+            ckpt.close()
+        finally:
+            writer.close()
+            train_loader.close()
+            val_loader.close()
 
 
 def run_test(cfg: ExperimentConfig, tag: str, device=None):

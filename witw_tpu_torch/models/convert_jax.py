@@ -26,6 +26,8 @@ TOWERS = ("surface", "overhead")
 BARE_LEAVES = ("fc1", "fc1_bias", "fc2", "fc2_bias")
 # flax batch_stats leaf -> torch buffer name (a BatchNorm node's).
 STATS = {"mean": "running_mean", "var": "running_var"}
+# Float dtypes a state dict's leaf keeps in the flax tree (numpy has them).
+NUMPY_FLOATS = (torch.float16, torch.float32, torch.float64)
 
 
 def _tensor(arr) -> torch.Tensor:
@@ -70,8 +72,9 @@ def tower_to_state_dict(tree: Dict[str, Any],
 
 
 def state_dict_to_tower(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-    """A state dict -> the flax tower's params tree (numpy HWIO kernels;
-    BatchNorm ``weight`` -> ``scale``). The running buffers are left out:
+    """A state dict -> the flax tower's params tree (numpy HWIO kernels in
+    the tensors' dtype, bfloat16 as float32; BatchNorm ``weight`` ->
+    ``scale``). The running buffers are left out:
     they are :func:`state_dict_to_tower_stats`'s."""
     return _to_tree(state)[0]
 
@@ -88,7 +91,8 @@ def _to_tree(state: Dict[str, torch.Tensor]) -> Tuple[Dict[str, Any], Dict[str, 
     buffers = {v: k for k, v in STATS.items()}
     for name, value in state.items():
         *path, leaf = name.split(".")
-        arr = value.detach().to("cpu", torch.float32).numpy()
+        arr = value.detach().cpu()
+        arr = (arr if arr.dtype in NUMPY_FLOATS else arr.float()).numpy()
         node = params if leaf not in buffers else stats
         for key in path:
             node = node.setdefault(key, {})

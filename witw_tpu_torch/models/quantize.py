@@ -1,5 +1,6 @@
-"""Static-int8 serving path of the FOV-DSM, SAFA and baseline towers (port
-of the static part of witw_tpu/models/quantize.py).
+"""Int8 serving paths of the FOV-DSM, SAFA and baseline towers (port of
+witw_tpu/models/quantize.py): static scales, and the FOV towers' dynamic
+scales.
 
 Activation scales are calibrated offline on the f32 tower; each conv then
 runs as one int8 conv with an int32 accumulator and one fused per-channel
@@ -29,7 +30,15 @@ im2col of the int8 NHWC input (strided views) and ``torch._int_mm`` (exact
 int32 accumulation; cuBLASLt on the card), then one f32 epilogue
 (dequant, conv bias, LeakyReLU, the eval-mode BatchNorm affine, requant)
 in torch ops (``quantized_baseline_forward_static``).
-Not ported here: the dynamic-scale path and the TPU lowering variants (``first_conv_bf16``, ``first_conv_w2d``,
+The dynamic-scale FOV path (``quantize_fov_params``,
+``quantized_fov_forward``, ``quantize_pipeline``) quantizes each conv's
+input per batch with a per-tensor scale abs-max / 127 computed on the
+device (no host sync) and runs every conv, the stride-2 head convs
+included, on kernel A's dequant epilogue with the per-batch vector
+x_scale * w_scale; ReLU and the 2x2 pools after blocks 1-3 run in f32, as
+witw_tpu runs them. Kernel C cannot serve it: conv2_1's output abs-max must
+be known before conv2_2's input is quantized.
+Not ported here: the TPU lowering variants (``first_conv_bf16``, ``first_conv_w2d``,
 ``first_conv_im2col``, ``split_block1``, ``block2_w2d``, ``pool_slices``,
 ``corner_major="p"``).
 """
@@ -227,6 +236,102 @@ def quantize_input(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     by a Python number into a multiply by its reciprocal)."""
     scale = torch.as_tensor(scale, dtype=torch.float32, device=x.device)
     return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+
+
+# ---------------------------------------------------------------------------
+# Dynamic-scale variant (witw_tpu/models/quantize.py:42-135): int8 weights
+# with per-output-channel scales, and per-batch per-tensor activation scales.
+# ---------------------------------------------------------------------------
+
+
+def quantize_fov_params(state_dict: StateDict) -> Dict[str, Any]:
+    """A FovDsm state dict -> per conv, in numpy: ``kernel_q`` (HWIO int8,
+    per output channel scale = max|w| / 127, floored at 1e-12), ``scale``
+    f32 [Co], ``bias`` f32 [Co] (witw_tpu's three), and kernel A's tables
+    ``kernel_packed`` and ``kernel_wgmma``; VGG convs under ``vgg``."""
+    params = state_dict_to_tower(state_dict)
+
+    def quant(kv):
+        k = np.asarray(kv["kernel"], np.float32)
+        scale = np.max(np.abs(k), axis=(0, 1, 2)) / 127.0  # per out-channel
+        scale = np.maximum(scale, 1e-12)
+        q = np.clip(np.round(k / scale), -127, 127).astype(np.int8)
+        return {"kernel_q": q, "scale": scale.astype(np.float32),
+                "bias": np.asarray(kv["bias"], np.float32),
+                "kernel_packed": pack_weights(q), "kernel_wgmma": pack_weights_wgmma(q)}
+
+    out: Dict[str, Any] = {"vgg": {name: quant(params["vgg"][name]) for name in TRUNK_ORDER}}
+    for name, _, _, _ in HEAD_CONVS:
+        out[name] = quant(params[name])
+    return out
+
+
+def quantize_pipeline(params: Dict[str, StateDict]) -> Tuple[Dict, Dict]:
+    """Quantize both towers of a FovPipeline's ``{"surface": sd,
+    "overhead": sd}`` params; returns (q_surface, q_overhead) as tensors on
+    each state dict's device, for :func:`quantized_fov_forward`."""
+    return tuple(static_qparams_to_device(quantize_fov_params(params[t]),
+                                          params[t]["vgg.conv_0.weight"].device)
+                 for t in ("surface", "overhead"))
+
+
+def _quantize_act(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dynamic symmetric per-tensor quantization: scale = max(amax|x| /
+    127, 1e-12), a 0-dim tensor on x's device (both divisions true ones:
+    the card turns division by a host number into a reciprocal product),
+    and clip(round(x / scale), -127, 127) as int8."""
+    amax = x.abs().amax()
+    scale = torch.clamp(amax / torch.full((), 127.0, device=x.device), min=1e-12)
+    return quantize_input(x, scale), scale
+
+
+def _qconv(x_q: torch.Tensor, x_scale: torch.Tensor, qkv: Dict[str, torch.Tensor],
+           stride_h: int = 1, pad_w: int = 1) -> torch.Tensor:
+    """int8 x int8 -> f32 conv = float(acc) * (x_scale * scale) + bias, on
+    kernel A's dequant epilogue (its plain version on the CPU)."""
+    dequant = x_scale * qkv["scale"]
+    return conv3x3_int8_dequant(x_q, qkv["kernel_packed"], dequant, qkv["bias"], stride_h,
+                                pad_w, qkv["kernel_wgmma"])
+
+
+def _maxpool2x2_f32(h: torch.Tensor) -> torch.Tensor:
+    """2 x 2 max pool of f32 NHWC (VALID: an odd last row or column is
+    dropped); the result is NHWC and contiguous."""
+    return F.max_pool2d(h.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1).contiguous()
+
+
+def quantized_fov_forward(qparams: Dict[str, Any], x: torch.Tensor,
+                          circ_padding: bool = False) -> torch.Tensor:
+    """Dynamic-scale int8 forward of one FOV-DSM tower (inference only).
+
+    x: normalized NHWC floats. Returns the f32 [B, h, w, 16] embedding map,
+    as ``FovDsm`` in eval mode. Each block's input (wrap-haloed by
+    ``len(block)`` columns in the circular tower, whose convs run
+    width-VALID) and each conv output that feeds a conv is quantized with
+    its own per-batch scale; the pools after blocks 1-3 run on f32."""
+    pad_w = 0 if circ_padding else 1
+    h = x.to(torch.float32)
+    for block_i, block in enumerate(VGG16_BLOCKS):
+        if circ_padding:
+            h = wrap_pad_width(h, len(block), dim=2)
+        h_q, h_scale = _quantize_act(h)
+        for j, (torch_idx, _) in enumerate(block):
+            y = torch.relu(_qconv(h_q, h_scale, qparams["vgg"][f"conv_{torch_idx}"], 1, pad_w))
+            if j + 1 < len(block):
+                h_q, h_scale = _quantize_act(y)
+        h = y
+        if block_i < 3:
+            h = _maxpool2x2_f32(h)
+    if circ_padding:
+        h = wrap_pad_width(h, len(HEAD_CONVS), dim=2)
+    h_q, h_scale = _quantize_act(h)
+    for i, (name, _, strides, relu_after) in enumerate(HEAD_CONVS):
+        y = _qconv(h_q, h_scale, qparams[name], strides[0], pad_w)
+        if relu_after:
+            y = torch.relu(y)
+        if i + 1 < len(HEAD_CONVS):
+            h_q, h_scale = _quantize_act(y)
+    return y
 
 
 def quantized_fov_forward_static(sq: Dict[str, Any], x: torch.Tensor,

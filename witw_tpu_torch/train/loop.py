@@ -222,7 +222,7 @@ def train(
                 checkpointer.save_step(state, state.step, {"epoch": epoch})
                 if verbose:
                     print("interrupted: state checkpointed (epoch incomplete)")
-                return state
+                break
             _, val_loss, _ = run_phase(
                 pipeline, state, val_loader, phase_generator(cfg.train.seed, epoch, "val"),
                 False, epoch, cfg.train.log_every_steps, verbose, writer=writer,
@@ -239,14 +239,15 @@ def train(
                 if writer is not None:
                     writer.text("best_loss", f"new best loss: {best_loss}, epoch: {epoch + 1}")
             if interrupted["flag"]:
-                return state
-        return state
+                break
     finally:
         if handle_signals:
             import signal
 
             for sig, handler in old_handlers.items():
                 signal.signal(sig, handler)
+    checkpointer.wait()  # the last save is on disk when train returns
+    return state
 
 
 def embed_all(
