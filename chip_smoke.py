@@ -242,6 +242,30 @@ Phases, each of which passes or raises:
    quantize passes, the pools, the ReLU passes and the rest; (d) an async
    Checkpointer (keep 2) through 3 save_steps of the full-width train state
    and a restore_latest, in .smoke_remainder/ (removed at the end).
+30. Gallery and query sharding over make_mesh(devices=[cuda:0, cuda:0]) (the
+   one card named twice: two shards on it, no speed-up claimed), each
+   result against its single-device call in the same run: (a)
+   loop.test_ranks(mesh=) at fov_experiment("cvusa", 360), random weights
+   from a seed: 1001 planted pairs with the towers tied, in batches of 128
+   (a straggler of 105, padded over the data axis), then 1024 random pairs
+   in whole batches (ranks spread over the gallery), the query-axis and the
+   gallery-resident sweep through the fused match: equal ranks, and
+   embed_all(mesh=)'s embeddings against one device's (the whole batches'
+   rows, the straggler's beside one device's own batch-53 against
+   batch-105 difference); (b) [6]'s 8832-pair planted sweep,
+   both shardings, fused and FFT: equal ranks, the shards' placement; (c)
+   euclidean_ranks(mesh=) over 8832^2 lattice pairs at D 4096 and 1536;
+   (d) GalleryIndex at 100,000 tiles: search_sharded and score_all_sharded
+   against search and score_all (top-10 indices and orientations equal,
+   distances within rtol 1e-5, atol 1e-6); (e) VectorIndex at 100,000 x
+   4096 and x 1536 lattice vectors, bit for bit; (f) GeolocateService(mesh=)
+   on [18]'s indexes in bf16 and --int8, 16 photos answered as the
+   unsharded service answers them, sharded_devices 2, its embeddings
+   against the plain kernels; (g) [21]'s strip swept warm with
+   heatmap.sweep(mesh=) on its --int8 cache: the CSV of [21]'s warm sweep
+   (photo, x, y and orientations equal, distances within rtol 1e-5, atol
+   1e-6). Every check runs and is logged, the phase failing at the end if
+   any failed; host-clock times beside the card's name and power limit.
 
 The launch counts are reset just before the path they count and read right
 after it: the fused match's and the conv kernel's before phase 4 and after
@@ -261,8 +285,12 @@ and each CLI run of phase 25, read after each (the records'
 `safa_launches` sum them); every kernel's before each step of phases 26-28,
 which must launch none of them (the records' `baseline_launches`, 0); every
 kernel's before the dynamic-int8 embed+match of phase 29, read after it
-(the records' `dynamic_launches`: kernel A's and the fused match's), and the
-conv kernel's around the converted towers' runs (`convert_launches`). The
+(the records' `dynamic_launches`: kernel A's and the fused match's), the
+conv kernel's around the converted towers' runs (`convert_launches`), and
+every kernel's before each sharded run of phase 30 (embed_all, both
+loop.test sweeps, the four 8832-pair sweeps, each daemon's 16 requests, the
+sweep), read after each, which must raise the kernels that path runs (the
+records' `sharded_launches` sum them). The
 second-to-last line is the
 kernels' JSON record; the last line is {"ok": true, "device": {...}}.
 Without a GPU, or without the repo beside it, the script exits non-zero and
@@ -318,6 +346,7 @@ from witw_tpu_torch.models.safa import VggSafa
 from witw_tpu_torch.ops import conv3x3, fused_block2, fused_match, int8_conv, maxpool, rotation
 from witw_tpu_torch.ops.image import normalize_images
 from witw_tpu_torch.ops.polar import polar_transform
+from witw_tpu_torch.parallel import make_mesh
 from witw_tpu_torch.tools import build_index, geotiff, heatmap
 from witw_tpu_torch.tools import serve as serve_tool
 from witw_tpu_torch.train import loop
@@ -1672,13 +1701,21 @@ CSV_HEADER = ["photo", "x", "y", "orientation", "dissimilarity", "score"]
 CLI_PAIRS, CLI_VAL = 640, 128  # 8 train steps and 2 val steps at batch 64; 10 test batches
 
 
+def sweep_bounds(tiles_per_side: int):
+    """The UTM bounds of a sweep of ``tiles_per_side``^2 tiles at the CLI's
+    offset 56.25 m from SWEEP_ORIGIN."""
+    e0, n0 = SWEEP_ORIGIN
+    span = tiles_per_side * 56.25 - 1.0
+    return (e0, n0 - span, e0 + span, n0)
+
+
 def write_strip(directory: Path, tiles_per_side: int = SWEEP_SIDE):
     """A synthetic 3-band uint8 strip at GSD around the bounds of a sweep of
     ``tiles_per_side``^2 tiles, written uncompressed as 03_paris.tif (the
     CLI's default AOI). Returns (the bounds, the strip's side in pixels)."""
     e0, n0 = SWEEP_ORIGIN
     span = tiles_per_side * 56.25 - 1.0
-    bounds = (e0, n0 - span, e0 + span, n0)
+    bounds = sweep_bounds(tiles_per_side)
     margin = 150.0  # the windows reach 112.5 m past the bounds' low edges
     side = int(np.ceil((span + 2 * margin) / GSD))
     rng = np.random.default_rng(21)
@@ -1697,7 +1734,9 @@ def read_sweep_csv(path: Path):
 
 def phase_heatmap(card, device):
     """[21] tools.heatmap.main on a 10,000-tile grid, bf16 and --int8, cold
-    and warm; returns launches per kernel (summed over the four runs)."""
+    and warm; returns launches per kernel (summed over the four runs). The
+    strip, the --int8 index cache and the warm CSVs stay in HEATMAP_DIR for
+    [30], which removes it."""
     cfg = fov_experiment("witw", 70)
     log(f"[21] tools.heatmap.main: a {SWEEP_SIDE} x {SWEEP_SIDE} grid ({SWEEP_SIDE ** 2} tiles of "
         f"225 m = 750^2 px resampled to 256^2), 2 photos, fov_experiment('witw', 70), random "
@@ -1803,7 +1842,6 @@ def phase_heatmap(card, device):
     finally:
         quantize.calibrate_overhead_span = real_span
         GalleryIndex.score_all = real_score
-        shutil.rmtree(HEATMAP_DIR, ignore_errors=True)
     return launches
 
 
@@ -3433,6 +3471,324 @@ def phase_remainder(card, device):
     return dynamic, pairs_per_s, convert_launches
 
 
+# --- gallery and query sharding over a device mesh (30) ----------------------
+
+SHARD_PAIRS = 1001  # 7 batches of 128 and a straggler of 105, which a mesh of 2 does not divide
+SHARD_REQUESTS = 16
+
+
+def planted_batches(cfg, n, batch, seed, device, noise=0.1):
+    """n planted pairs on the card in batches of ``batch``, the last one
+    short: blocky overhead tiles (4 x 4 blocks) and surfaces that are their
+    own tile's polar panorama under noise growing to ``noise`` x 128
+    (tests/test_torch_slice.py's pairs at full width). With tied towers each
+    query's true match stands apart, so ranks do not sit on the bf16
+    rounding that another batch size moves (ROADMAP's ground rule: ranks
+    only on planted data)."""
+    d = cfg.data
+    gen = torch.Generator(device=device).manual_seed(seed)
+    coarse = torch.rand(n, 4, 4, 3, generator=gen, device=device) * 255.0
+    block = d.overhead_size // 4
+    over = coarse.repeat_interleave(block, dim=1).repeat_interleave(block, dim=2)
+    pol = polar_transform(over, d.surface_height, d.surface_width_max)
+    scale = torch.linspace(0.0, noise, n, device=device)[:, None, None, None] * 128.0
+    surf = (pol + scale * torch.randn(pol.shape, generator=gen, device=device)).clamp(0, 255)
+    return [{"surface": surf[a:a + batch], "overhead": over[a:a + batch]}
+            for a in range(0, n, batch)]
+
+
+def timed(fn):
+    """(fn's result, host seconds around it, ended by a synchronize)."""
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_sharded(card, device, indexes, serve_params):
+    """[30] Gallery and query sharding over a mesh that names the card twice:
+    loop.test at full width, the planted 8832-pair sweeps, euclidean_ranks,
+    GalleryIndex / VectorIndex at 100,000 items, the daemon in bf16 and
+    --int8 and [21]'s strip swept warm, each against its single-device call
+    in this run. Every check runs and is logged; the phase raises at the end
+    if any failed. Returns the kernels' launches on the sharded paths."""
+    mesh = make_mesh(devices=[device, device])
+    log(f"[30] sharding over make_mesh(devices=[{device}, {device}]): {mesh} (one card named "
+        f"twice: two shards on it; placement, the merge and equal results, no speed-up "
+        f"claimed; times are host clock, ended by a synchronize) ({card})")
+    failures = []
+
+    def check(ok, what):
+        if not ok:
+            failures.append(what)
+            log(f"    FAILED: {what}")
+
+    counted = dict(INT8_MODULES, conv3x3=conv3x3, fused_match=fused_match)
+    launches = {n: 0 for n in counted}
+
+    def count(fn):
+        """fn()'s result and the launches it made, added to the phase's."""
+        for mod in counted.values():
+            mod.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        made = {n: mod.launches for n, mod in counted.items()}
+        for n, c in made.items():
+            launches[n] += c
+        return out, made
+
+    # (a) loop.test at full width, batch 128: planted pairs with a straggler,
+    # then random pairs in whole batches
+    cfg = fov_experiment("cvusa", 360)
+    cfg = cfg.replace(eval=dataclasses.replace(cfg.eval, batch_size=128))
+    pipeline = FovPipeline(cfg, device)
+    tower = pipeline.init(torch.Generator().manual_seed(0))["overhead"]
+    tied = {"surface": tower, "overhead": tower}  # as the planted pairs need
+    seed = lambda: torch.Generator().manual_seed(cfg.train.seed + 1)  # noqa: E731
+    d = cfg.data
+    gen = torch.Generator(device=device).manual_seed(31)
+    randoms = [{"surface": torch.randint(0, 256, (128, d.surface_height, d.surface_width_max, 3),
+                                         generator=gen, device=device, dtype=torch.uint8),
+                "overhead": torch.randint(0, 256, (128, d.overhead_size, d.overhead_size, 3),
+                                          generator=gen, device=device, dtype=torch.uint8)}
+               for _ in range(8)]
+    for name, batches, params in (
+            (f"{SHARD_PAIRS} planted pairs (towers tied) in batches of 128, the last 105 padded "
+             f"to 106 over the data axis", planted_batches(cfg, SHARD_PAIRS, 128, 30, device), tied),
+            ("1024 random pairs in 8 batches of 128", randoms,
+             pipeline.init(torch.Generator().manual_seed(1)))):
+        n = sum(len(b["surface"]) for b in batches)
+        (_, ranks_one), t_one = timed(lambda: loop.test_ranks(cfg, pipeline, batches, params,
+                                                              verbose=False))
+        s_one, o_one = loop.embed_all(pipeline, params, batches, seed())
+        emb, made = count(lambda: loop.embed_all(pipeline, params, batches, seed(), mesh=mesh))
+        check(made["conv3x3"] > 0, f"embed_all(mesh=) launched no conv3x3_bf16: {made}")
+        check(emb[0].shape == s_one.shape and emb[1].shape == o_one.shape,
+              f"embed_all(mesh=) shapes {emb[0].shape}, {emb[1].shape}")
+        size = len(batches[0]["surface"])
+        full = size * (n // size)
+        d_full = max(float((a[:full] - b[:full]).abs().max()) for a, b in zip(emb, (s_one, o_one)))
+        note = ""
+        if n > full:
+            d_last = max(float((a[full:] - b[full:]).abs().max()) for a, b in zip(emb, (s_one, o_one)))  # one device alone: the straggler's first 53 pairs at 53 beside 105
+            last, rows = batches[-1], (n - full + 1) // 2
+            alone = pipeline.embed_step(params, {k: v[:rows] for k, v in last.items()})
+            whole = pipeline.embed_step(params, last)
+            moved = sum((a[:rows] - b).flatten(1).abs().amax(1) > 0 for a, b in zip(whole, alone))
+            note = (f", the straggler's {d_last:.3e}; one device alone, the straggler's first "
+                    f"{rows} pairs embedded at batch {rows} beside {n - full}: max |d emb| "
+                    f"{max(float((a[:rows] - b).abs().max()) for a, b in zip(whole, alone)):.3e},"
+                    f" {int((moved > 0).sum())} of {rows} rows moved")
+        log(f"    fov_experiment('cvusa', 360), random weights from a seed, {name}: "
+            f"embed_all(mesh=) vs one device max |d emb| over the whole batches' rows "
+            f"{d_full:.3e}{note}; conv3x3_bf16 launches {made['conv3x3']}; one device's ranks "
+            f"{len(np.unique(ranks_one))} distinct, mean {ranks_one.mean():.4f}")
+        for shard_gallery in (False, True):
+            c = cfg.replace(eval=dataclasses.replace(cfg.eval, shard_gallery=shard_gallery))
+            ((_, ranks), dt), made = count(lambda c=c: timed(lambda: loop.test_ranks(
+                c, pipeline, batches, params, verbose=False, mesh=mesh)))
+            what = "gallery-resident" if shard_gallery else "query-axis"
+            check(made["fused_match"] > 0 and made["conv3x3"] > 0,
+                  f"loop.test(mesh=) {what}: launches {made}")
+            check(np.array_equal(ranks, ranks_one), f"loop.test(mesh=) {what} ranks differ from "
+                  f"one device's on {int((ranks != ranks_one).sum())} of {n} queries")
+            log(f"    loop.test(mesh=), {what} sweep through the fused match: {dt:.3f} s (one "
+                f"device {t_one:.3f} s) ({card}); ranks == one device's "
+                f"{np.array_equal(ranks, ranks_one)}; launches fused match "
+                f"{made['fused_match']}, conv3x3_bf16 {made['conv3x3']}")
+        del batches, params, emb, s_one, o_one
+    del pipeline, tied, randoms
+
+    # (b) the 8832-pair planted sweep of [6], fused and FFT, both shardings
+    o_pl, s_pl = (torch.from_numpy(x).to(device) for x in
+                  planted_embeddings(np.random.default_rng(4), 8832, 4, 64, 16, 64))
+    one = {fused: timed(lambda fused=fused: FovGalleryEvaluator(
+        use_fused=fused, device=device).ranks(o_pl, s_pl)) for fused in (True, False)}
+    for shard_gallery in (False, True):
+        for fused in (True, False):
+            ev = FovGalleryEvaluator(use_fused=fused, mesh=mesh, shard_gallery=shard_gallery)
+            (ranks, dt), made = count(lambda ev=ev: timed(lambda: ev.ranks(o_pl, s_pl)))
+            what = (f"{'gallery-resident' if shard_gallery else 'query-axis'} "
+                    f"{'fused' if fused else 'FFT'}")
+            check((made["fused_match"] > 0) == fused, f"8832 {what}: launches {made}")
+            check(np.array_equal(ranks, one[fused][0]),
+                  f"8832 {what}: ranks differ on {int((ranks != one[fused][0]).sum())} queries")
+            where = ""
+            if shard_gallery:
+                where = "; shards " + ", ".join(
+                    f"{p['device']} rows {p['start']}..{p['start'] + p['valid'] - 1} "
+                    f"(+{p['rows'] - p['valid']} padded)" for p in ev.last_gallery_placement)
+            log(f"    8832 planted pairs [8832, 4, 64, 16], {what}: {dt:.4f} s (one device "
+                f"{one[fused][1]:.4f} s) ({card}); ranks == one device's "
+                f"{np.array_equal(ranks, one[fused][0])}; fused match launches "
+                f"{made['fused_match']}{where}")
+    del o_pl, s_pl
+
+    # (c) euclidean_ranks over 8832^2 at the SAFA and baseline widths
+    gen = torch.Generator(device=device).manual_seed(35)
+    for dim in (RANK_D, BASE_D):
+        g = lattice(gen, (RANK_PAIRS, dim), device)
+        q = planted_queries(gen, g, torch.arange(RANK_PAIRS, device=device),
+                            torch.linspace(0.0, 1.0, RANK_PAIRS, device=device))
+        want, t_w = timed(lambda: gallery.euclidean_ranks(g, q))
+        got, t_g = timed(lambda: gallery.euclidean_ranks(g, q, mesh=mesh))
+        check(np.array_equal(got, want), f"euclidean_ranks(mesh=) at D {dim} differs on "
+              f"{int((got != want).sum())} queries")
+        log(f"    euclidean_ranks(mesh=), {RANK_PAIRS} planted integer-lattice pairs at D = "
+            f"{dim}: == one device's {np.array_equal(got, want)} ({len(np.unique(got))} "
+            f"distinct ranks); {t_g:.4f} s, one device {t_w:.4f} s ({card})")
+    del g, q
+
+    # (d) GalleryIndex at 100,000 tiles
+    rng = np.random.default_rng(36)
+    gen = torch.Generator(device=device).manual_seed(36)
+    embeds = torch.randn(INDEX_TILES, 4, 64, 16, generator=gen, device=device).cpu().numpy()
+    planted = rng.choice(INDEX_TILES, 8, replace=False)
+    starts = rng.integers(0, 64, 8)
+    index = GalleryIndex(embeds, device=device)
+    _, t_place = timed(lambda: index.place_sharded(mesh))
+    shards = ", ".join(f"{p['device']} rows {p['start']}..{p['start'] + p['valid'] - 1} "
+                       f"(+{p['rows'] - p['valid']} padded)" for p in index.last_gallery_placement)
+    log(f"    GalleryIndex {INDEX_TILES} x [4, 64, 16]: place_sharded {t_place:.3f} s; {shards}; "
+        f"chunk {index._sharded['chunk']}, max_k {index._sharded['max_k']}")
+    for sw in (64, 12):
+        cols = (starts[:, None] + np.arange(sw)[None]) % 64
+        q = np.stack([embeds[t][:, c] for t, c in zip(planted, cols)])
+        q = (q + 0.1 * rng.standard_normal(q.shape, dtype=np.float32)).astype(np.float32)
+        index.search(q, k=10)  # the first calls build each path's tables
+        index.search_sharded(q, k=10)
+        (i1, d1, o1), t1 = timed(lambda: index.search(q, k=10))
+        (i2, d2, o2), t2 = timed(lambda: index.search_sharded(q, k=10))
+        (s1, so1), t3 = timed(lambda: index.score_all(q))
+        (s2, so2), t4 = timed(lambda: index.score_all_sharded(q))
+        top = np.zeros(s1.shape, bool)
+        np.put_along_axis(top, i1.T, True, axis=0)
+        flips = so1 != so2
+        err = max(float(np.abs(d1 - d2).max()), float(np.abs(s1 - s2).max()))
+        ok = (np.array_equal(i1, i2) and np.array_equal(o1, o2) and np.array_equal(i2[:, 0], planted)
+              and np.allclose(d2, d1, rtol=1e-5, atol=1e-6)
+              and np.allclose(s2, s1, rtol=1e-5, atol=1e-6) and not (flips & top).any())
+        check(ok, f"GalleryIndex sw {sw}: sharded top-10 or scores differ (max |dd| {err:.3e}, "
+              f"{int(flips.sum())} orientation flips, {int((flips & top).sum())} in the top-10)")
+        log(f"    sw {sw}, Q 8: search_sharded(k=10) == search (indices, orientations; distances "
+            f"max |dd| {err:.3e}, rtol 1e-5 atol 1e-6 with score_all too), top-1 == planted; "
+            f"score_all_sharded: {int(flips.sum())} of {flips.size} orientations differ from "
+            f"score_all, {int((flips & top).sum())} in the top-10; search {t1 * 1e3:.3f} ms, "
+            f"search_sharded {t2 * 1e3:.3f} ms, score_all {t3 * 1e3:.3f} ms, score_all_sharded "
+            f"{t4 * 1e3:.3f} ms ({card})")
+    del index, embeds
+    torch.cuda.empty_cache()
+
+    # (e) VectorIndex at 100,000 x 4096 and x 1536
+    gen = torch.Generator(device=device).manual_seed(37)
+    for dim in (RANK_D, BASE_D):
+        gal = lattice(gen, (INDEX_TILES, dim), device)
+        planted_v = torch.randperm(INDEX_TILES, generator=gen, device=device)[:8]
+        q = planted_queries(gen, gal, planted_v, torch.full((8,), 0.125, device=device))
+        q, embeds, planted_v = q.cpu().numpy(), gal.cpu().numpy(), planted_v.cpu().numpy()
+        del gal
+        vindex = VectorIndex(embeds, device=device)
+        vindex.place_sharded(mesh)
+        vindex.search(q, k=10)  # the first call uploads the gallery
+        (i1, d1), t1 = timed(lambda: vindex.search(q, k=10))
+        (i2, d2), t2 = timed(lambda: vindex.search_sharded(q, k=10))
+        s1, t3 = timed(lambda: vindex.score_all(q))
+        s2, t4 = timed(lambda: vindex.score_all_sharded(q))
+        ok = (np.array_equal(i1, i2) and np.array_equal(d1, d2) and np.array_equal(s1, s2)
+              and np.array_equal(i2[:, 0], planted_v))
+        check(ok, f"VectorIndex D {dim}: sharded results differ")
+        log(f"    VectorIndex {INDEX_TILES} x {dim} lattice vectors: search_sharded(k=10) == "
+            f"search, score_all_sharded == score_all, bit for bit: {ok}; top-1 == planted; "
+            f"search {t1 * 1e3:.3f} ms, search_sharded {t2 * 1e3:.3f} ms, score_all "
+            f"{t3 * 1e3:.3f} ms, score_all_sharded {t4 * 1e3:.3f} ms ({card})")
+        del vindex, embeds
+        torch.cuda.empty_cache()
+
+    # (f) the daemon at fov_experiment("witw", 70), bf16 and --int8, in process
+    cfg_witw = fov_experiment("witw", 70)
+    rng = np.random.default_rng(38)
+    photos = [png_bytes(rng.integers(0, 256, (300, 400, 3), dtype=np.uint8))
+              for _ in range(SHARD_REQUESTS)]
+    for precision, int8, mods in (("bf16", False, ["conv3x3"]), ("int8", True, list(INT8_MODULES))):
+        base = indexes[precision]
+        plain = serve_tool.GeolocateService(base, cfg_witw, serve_params, int8=int8)
+        want = [plain.geolocate(p, k=5) for p in photos]
+        sharded = serve_tool.GeolocateService(GalleryIndex(base.embeds, base.meta, device),
+                                              cfg_witw, serve_params, int8=int8, mesh=mesh)
+        seen = []
+        real_embed = sharded._embed
+
+        def recording_embed(imgs, real_embed=real_embed, seen=seen):
+            out = real_embed(imgs)
+            seen.append((imgs, out))
+            return out
+
+        sharded._embed = recording_embed
+        (got, dt), made = count(lambda: timed(lambda: [sharded.geolocate(p, k=5)
+                                                       for p in photos]))
+        check(all(made[n] > 0 for n in mods), f"{precision} daemon(mesh=) launches {made}")
+        same = all([r["tile"] for r in g] == [r["tile"] for r in w]
+                   and [r["orientation_deg"] for r in g] == [r["orientation_deg"] for r in w]
+                   and np.allclose([r["distance"] for r in g], [r["distance"] for r in w],
+                                   rtol=1e-5, atol=1e-6) for g, w in zip(got, want))
+        check(same, f"{precision} daemon(mesh=) answers differ from the unsharded daemon's")
+        health = sharded.health()
+        check(health["sharded_devices"] == 2 and plain.health()["sharded_devices"] == 1,
+              f"{precision} health {health}")
+        batches_seen, worst = check_daemon_embeds(sharded, seen, int8)
+        log(f"    daemon {precision}, GeolocateService(mesh=) on [18]'s {len(base)}-tile index: "
+            f"{SHARD_REQUESTS} requests (k=5, one at a time) in {dt:.3f} s ({card}); answers == "
+            f"the unsharded daemon's {same}; sharded_devices {health['sharded_devices']}; "
+            f"launches { {n: made[n] for n in mods} }; its embeddings vs the plain kernels: "
+            f"{'max |d emb|' if int8 else 'cosine min'} {worst:.6g}")
+        plain.close()
+        sharded.close()
+
+    # (g) [21]'s strip swept warm on the mesh (its --int8 index cache)
+    try:
+        photos = [str(HEATMAP_DIR / f"photo{k}.png") for k in range(2)]
+        out_csv = HEATMAP_DIR / "int8_mesh.csv"
+        scored = []
+        real_score = GalleryIndex.score_all_sharded
+
+        def record_score(index, *args, **kwargs):
+            scored.append(len(index))
+            return real_score(index, *args, **kwargs)
+
+        GalleryIndex.score_all_sharded = record_score
+        try:
+            (_, dt), made = count(lambda: timed(lambda: heatmap.sweep(
+                str(HEATMAP_DIR / "03_paris.tif"), photos, str(out_csv),
+                sweep_bounds(SWEEP_SIDE), 225.0, 56.25, 70,
+                checkpoint_dir=str(HEATMAP_DIR / "weights"),
+                index_cache=str(HEATMAP_DIR / "tiles.npz"), int8=True, verbose=False,
+                device=device, mesh=mesh)))
+        finally:
+            GalleryIndex.score_all_sharded = real_score
+        header, rows = read_sweep_csv(out_csv)
+        _, warm = read_sweep_csv(HEATMAP_DIR / "int8_warm.csv")
+        got_d, want_d = (np.asarray([r[4] for r in x], np.float32) for x in (rows, warm))
+        flips = sum(a[3] != b[3] for a, b in zip(rows, warm))
+        ok = (header == CSV_HEADER and len(rows) == len(warm) and scored == [SWEEP_SIDE ** 2]
+              and [r[:3] for r in rows] == [r[:3] for r in warm] and flips == 0
+              and np.allclose(got_d, want_d, rtol=1e-5, atol=1e-6))
+        check(ok, f"sweep(mesh=) CSV differs from [21]'s warm int8 CSV: {flips} orientations, "
+              f"max |dd| {float(np.abs(got_d - want_d).max()):.3e}, scored {scored}")
+        check(all(made[n] > 0 for n in INT8_MODULES), f"sweep(mesh=) launches {made}")
+        log(f"    heatmap.sweep(mesh=), [21]'s {SWEEP_SIDE ** 2}-tile strip warm with its --int8 "
+            f"cache: {dt:.3f} s ({card}); score_all_sharded over {scored} tiles; "
+            f"{len(rows)} rows: photo, x, y equal to the warm single-device CSV's, "
+            f"{flips} orientations differ, dissimilarity max |dd| "
+            f"{float(np.abs(got_d - want_d).max()):.3e} (rtol 1e-5, atol 1e-6); launches "
+            f"{ {n: made[n] for n in INT8_MODULES} }")
+    finally:
+        shutil.rmtree(HEATMAP_DIR, ignore_errors=True)
+    log(f"    sharded-path launches ([30]): {launches}")
+    if failures:
+        raise AssertionError(f"[30] {len(failures)} check(s) failed: {failures}")
+    return launches
+
+
 def main() -> int:
     # 1. device
     device = require_cuda()
@@ -3678,6 +4034,7 @@ def main() -> int:
     log(f"    baseline-path launches of the port's kernels ([26]-[28]): "
         f"{dict(BASELINE_LAUNCHES) or 'none'}")
     dynamic, dynamic_pairs_per_s, convert_launches = phase_remainder(card, device)
+    sharded = phase_sharded(card, device, indexes, serve_params)
     serving = {n: build_launches[p].get(n, 0) + daemon_launches[p].get(n, 0)
                + sweep_launches[p].get(n, 0)
                for p in ("bf16", "int8") for n in build_launches[p]}
@@ -3701,6 +4058,8 @@ def main() -> int:
         if mod == "int8_conv":
             record["dynamic_launches"] = dynamic["int8_conv"]
             record["dynamic_pairs_per_s"] = dynamic_pairs_per_s
+        record["sharded_launches"] = sharded[mod]
+    conv_record["sharded_launches"] = sharded["conv3x3"]
 
     log(card)
     log(json.dumps({"kernels": [{
@@ -3721,6 +4080,7 @@ def main() -> int:
         "safa_launches": safa["fused_match"],
         "baseline_launches": BASELINE_LAUNCHES["fused_match"],
         "dynamic_launches": dynamic["fused_match"],
+        "sharded_launches": sharded["fused_match"],
     }] + int8_records + [conv_record] + probe_records}))
     log(f"smoke total: {time.perf_counter() - T_START:.2f} s")
     log(json.dumps({"ok": True, "device": {

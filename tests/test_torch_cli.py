@@ -280,12 +280,11 @@ def _options(parser):
 @pytest.mark.parametrize("with_fov", [True, False])
 def test_base_parser_options_match_jax(with_fov):
     want = _options(jcommon.base_parser(with_fov))
-    del want["shard_gallery"]
     assert _options(common.base_parser(with_fov)) == want
 
 
 def test_cli_overrides_plumb_through():
-    """tests/test_cli.py:11, less --shard-gallery."""
+    """tests/test_cli.py:11."""
     parser = common.base_parser(with_fov=True)
     args = parser.parse_args(["--fov", "90", "--batch-size", "16", "--fast-eval",
                               "--train-csv", "a.csv"])
@@ -298,8 +297,10 @@ def test_cli_overrides_plumb_through():
                                    parser.parse_args(["--fov", "90"]))
     assert plain == fov_experiment(dataset="cvusa", fov=90)
     assert plain.eval.fast_matmul is False
-    with pytest.raises(SystemExit):
-        parser.parse_args(["--shard-gallery"])
+    assert plain.eval.shard_gallery is False
+    sharded = common.apply_overrides(fov_experiment(dataset="cvusa", fov=90),
+                                     parser.parse_args(["--shard-gallery"]))
+    assert sharded.eval.shard_gallery is True
     assert common.host_geometry(fov_experiment("cvusa", 90)) == ((128, 512), (256, 256))
     assert common.host_geometry(fov_experiment("witw", 70)) == ((128, 99), (256, 256))
 

@@ -1,7 +1,8 @@
 """Card tests of the port's CUDA kernels (the fused match, the three
 static-int8 kernels, the bf16 conv + bias + ReLU and the int8 profiling
-harness's three) and of the baseline family's int8 convs on
-``torch._int_mm``; each skips without a CUDA device. This file imports no JAX, so it also runs where JAX is absent:
+harness's three), of the baseline family's int8 convs on
+``torch._int_mm`` and of the sharded paths on a mesh of the card; each
+skips without a CUDA device (the two-card mesh without two cards). This file imports no JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -670,3 +671,142 @@ def test_probe_kernels_reject_bad_inputs(probe_cuda):
         mosaic_caps.t1(_s8(gen, probe_cuda, 4, 48))
     assert not any(int8_isolate.launches.values()) and not any(int8_mm_probe.launches.values())
     assert not any(mosaic_caps.launches.values())
+
+
+# The sharded paths (witw_tpu_torch.parallel) on a mesh of the card: each
+# against its single-device call on cuda:0. "cuda:0,cuda:0" is two shards on
+# one card (placement, the merge, equal results); "cuda:0,cuda:1" skips
+# unless the host has two cards, where it checks real cross-device placement.
+# Planted maps and lattice vectors, so no rank sits on a roundoff tie.
+
+
+@pytest.fixture(params=["cuda:0,cuda:0", "cuda:0,cuda:1"])
+def card_mesh(request, cuda, monkeypatch):
+    from witw_tpu_torch.parallel import make_mesh
+
+    names = request.param.split(",")
+    if torch.cuda.device_count() < len(set(names)):
+        pytest.skip(f"needs {len(set(names))} CUDA devices")
+    monkeypatch.setattr(conv3x3, "launches", 0)
+    return make_mesh(devices=names)
+
+
+def _planted_card_maps(n, h=2, w=32, c=4, sw=16, seed=30):
+    """Each query a window of its own gallery map under noise 2: ranks spread
+    over about ten values at these widths, none on a roundoff tie."""
+    rng = np.random.default_rng(seed)
+    o = rng.standard_normal((n, h, w, c)).astype(np.float32)
+    shifts = rng.integers(0, w, n)
+    s = np.stack([o[i][:, (shifts[i] + np.arange(sw)) % w] for i in range(n)])
+    return o, (s + 2.0 * rng.standard_normal(s.shape)).astype(np.float32)
+
+
+@pytest.mark.parametrize("shard_gallery", [False, True], ids=["query_axis", "gallery_resident"])
+@pytest.mark.parametrize("use_fused", [True, False], ids=["fused", "fft"])
+def test_sharded_rank_sweeps_match_one_device(card_mesh, shard_gallery, use_fused):
+    from witw_tpu_torch.evaluation.gallery import FovGalleryEvaluator
+
+    o, s = _planted_card_maps(301)
+    kw = dict(query_block=64, gallery_chunk=128, use_fused=use_fused)
+    want = FovGalleryEvaluator(device=torch.device("cuda", 0), **kw).ranks(o, s)
+    before = fused_match.launches
+    ev = FovGalleryEvaluator(mesh=card_mesh, shard_gallery=shard_gallery, **kw)
+    got = ev.ranks(o, s)
+    assert len(set(want.tolist())) > 3
+    np.testing.assert_array_equal(got, want)
+    assert (fused_match.launches > before) == use_fused
+    if shard_gallery:
+        assert [p["device"] for p in ev.last_gallery_placement] == list(card_mesh.devices)
+        assert [p["valid"] for p in ev.last_gallery_placement] == [256, 45]  # chunks of 128
+
+
+def test_sharded_euclidean_ranks_match_one_device(card_mesh):
+    from witw_tpu_torch.evaluation.gallery import euclidean_ranks
+
+    rng = np.random.default_rng(31)
+    g = rng.integers(-3, 4, (901, 8)).astype(np.float32)
+    q = g[:600] + rng.integers(-3, 4, (600, 8)).astype(np.float32)
+    tm = np.arange(600)
+    want = euclidean_ranks(g, q, block=256, true_match=tm, device=torch.device("cuda", 0))
+    got = euclidean_ranks(g, q, block=256, true_match=tm, mesh=card_mesh)
+    assert len(set(want.tolist())) > 3
+    np.testing.assert_array_equal(got, want)
+
+
+def test_sharded_indexes_match_one_device(card_mesh):
+    from witw_tpu_torch.evaluation.index import GalleryIndex
+    from witw_tpu_torch.evaluation.vector_index import VectorIndex
+
+    o, s = _planted_card_maps(1001, h=4, w=64, c=16, sw=64)
+    index = GalleryIndex(o, device=torch.device("cuda", 0))
+    index.place_sharded(card_mesh, gallery_chunk=256)
+    i1, d1, o1 = index.search(s[:16], k=10)
+    i2, d2, o2 = index.search_sharded(s[:16], k=10)
+    np.testing.assert_array_equal(i2, i1)
+    np.testing.assert_array_equal(o2, o1)
+    np.testing.assert_allclose(d2, d1, rtol=1e-5, atol=1e-6)
+    d_all, o_all = index.score_all_sharded(s[:4])
+    d_one, o_one = index.score_all(s[:4])
+    np.testing.assert_allclose(d_all, d_one, rtol=1e-5, atol=1e-6)
+    assert float(np.mean(o_all == o_one)) > 0.999  # off-planted pairs: near ties may flip
+
+    rng = np.random.default_rng(32)
+    g = rng.integers(-3, 4, (1001, 256)).astype(np.float32)
+    q = g[:16] + rng.integers(-3, 4, (16, 256)).astype(np.float32)
+    vindex = VectorIndex(g, device=torch.device("cuda", 0))
+    vindex.place_sharded(card_mesh, gallery_chunk=256)
+    i1, d1 = vindex.search(q, k=10)
+    i2, d2 = vindex.search_sharded(q, k=10)
+    np.testing.assert_array_equal(i2, i1)
+    np.testing.assert_allclose(d2, d1, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(vindex.score_all_sharded(q), vindex.score_all(q), rtol=1e-5,
+                               atol=1e-6)
+
+
+def _planted_pairs(rng, sizes, h, w, side):
+    """Blocky overhead tiles [b, side, side, 3] and surfaces that are their
+    own tile's polar panorama [b, h, w, 3] under noise growing to 0.3 x
+    128: with tied towers each query's true match is planted apart from the
+    rest (tests/test_torch_slice.py's pairs)."""
+    from witw_tpu_torch.ops.polar import polar_transform
+
+    n = sum(sizes)
+    coarse = rng.uniform(0, 255, (n, 4, 4, 3))
+    over = np.repeat(np.repeat(coarse, side // 4, axis=1), side // 4, axis=2).astype(np.float32)
+    pol = polar_transform(torch.from_numpy(over), h, w).numpy()
+    noise = np.linspace(0.0, 0.3, n)[:, None, None, None] * 128.0
+    surf = np.clip(pol + noise * rng.standard_normal(pol.shape), 0, 255).astype(np.float32)
+    starts = np.cumsum((0,) + tuple(sizes))
+    return [{"surface": surf[a:b], "overhead": over[a:b]} for a, b in zip(starts, starts[1:])]
+
+
+def test_embed_all_and_test_on_a_card_mesh(card_mesh):
+    """bf16 FOV towers (the conv kernel) on planted pairs in batches of 8, 8
+    and a straggler of 5 that the mesh does not divide: embed_all(mesh=)
+    within bf16 rounding of one device's (cuDNN's stride-2 head convs may
+    pick another algorithm at another batch size), and loop.test on the
+    mesh, both sweeps through the fused match, ranks equal to one device's."""
+    from witw_tpu_torch.train import loop
+
+    ds = DatasetConfig(name="cvusa", train_csv="", test_csv="", panorama=True)
+    data = DataConfig(dataset=ds, surface_height=32, surface_width_max=64, overhead_size=32)
+    cfg = ExperimentConfig(data=data, model=FovDsmModelConfig())
+    pipeline = FovPipeline(cfg, torch.device("cuda", 0))
+    tower = pipeline.init(torch.Generator().manual_seed(0))["overhead"]
+    params = {"surface": tower, "overhead": tower}
+    batches = _planted_pairs(np.random.default_rng(33), (8, 8, 5), 32, 64, 32)
+    s_one, o_one = loop.embed_all(pipeline, params, batches)
+    conv_before = conv3x3.launches
+    s_m, o_m = loop.embed_all(pipeline, params, batches, mesh=card_mesh)
+    assert conv3x3.launches > conv_before
+    assert s_m.shape == s_one.shape and s_m.device == card_mesh.devices[0]
+    torch.testing.assert_close(s_m, s_one, rtol=1e-2, atol=1e-2)  # bf16 towers
+    torch.testing.assert_close(o_m, o_one, rtol=1e-2, atol=1e-2)
+    _, want = loop.test_ranks(cfg, pipeline, batches, params, verbose=False)
+    assert len(set(want.tolist())) > 1
+    for shard_gallery in (False, True):
+        c = cfg.replace(eval=dataclasses.replace(cfg.eval, shard_gallery=shard_gallery))
+        before = fused_match.launches
+        _, got = loop.test_ranks(c, pipeline, batches, params, verbose=False, mesh=card_mesh)
+        assert fused_match.launches > before
+        np.testing.assert_array_equal(got, want)

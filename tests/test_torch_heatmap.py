@@ -395,3 +395,55 @@ def test_baseline_sweep_matches_jax(scene, monkeypatch):
     cos = np.sum(f32_q * int8_q, 1) / (np.linalg.norm(f32_q, axis=1) * np.linalg.norm(int8_q, axis=1))
     assert np.all(cos > 0.99), cos
     assert np.all(np.isfinite(int8["dissimilarity"]))
+
+
+@pytest.mark.parametrize("family", ["fov", "safa"])
+def test_sharded_sweep_writes_the_same_csv(scene, states, f32_sweeps, family, monkeypatch):
+    """sweep(mesh=) on a mesh of 3 CPU entries (4 tiles: shards of 2, 2 and
+    none) scores the gallery through score_all_sharded and writes the CSV
+    of sweep(): the same columns, x and y, orientations equal, distances
+    within rtol 1e-5, atol 1e-6. FOV beside the f32 sweep of the fixture;
+    SAFA with the fixture's VGG weights and a seeded head."""
+    from witw_tpu_torch.configs import safa_experiment
+    from witw_tpu_torch.evaluation.vector_index import VectorIndex
+    from witw_tpu_torch.parallel import make_mesh
+
+    (_, params), _ = states
+    mesh = make_mesh(devices=["cpu"] * 3)
+    calls = []
+    for cls in (GalleryIndex, VectorIndex):
+        real = cls.score_all_sharded
+
+        def record(index, *args, real=real, **kwargs):
+            calls.append(type(index).__name__)
+            return real(index, *args, **kwargs)
+
+        monkeypatch.setattr(cls, "score_all_sharded", record)
+    if family == "fov":
+        _, tcfg = _cfgs("float32")
+        want, want_csv = f32_sweeps[2:]
+        got, got_csv = _port_sweep(scene, params, "t32_mesh", tcfg, mesh=mesh)
+    else:
+        tcfg = safa_experiment("witw", 70)
+        tcfg = tcfg.replace(data=dataclasses.replace(tcfg.data, **GEOMETRY),
+                            model=dataclasses.replace(tcfg.model, compute_dtype="float32"))
+        rng = np.random.default_rng(12)
+        safa = {}
+        for tower, hw in (("surface", 24), ("overhead", 128)):
+            sd = {k: v for k, v in params[tower].items() if k.startswith("vgg.")}
+            for name, shape in (("fc1", (hw, hw // 2, 8)), ("fc1_bias", (hw // 2, 8)),
+                                ("fc2", (hw // 2, hw, 8)), ("fc2_bias", (hw, 8))):
+                scale = 0.005 if name in ("fc1", "fc2") else 0.1
+                sd[f"safa.{name}"] = torch.from_numpy(
+                    (scale * rng.standard_normal(shape)).astype(np.float32))
+            safa[tower] = sd
+        want, want_csv = _port_sweep(scene, safa, "tsafa_one", tcfg, family="safa")
+        got, got_csv = _port_sweep(scene, safa, "tsafa_mesh", tcfg, family="safa", mesh=mesh)
+    assert calls == (["GalleryIndex"] if family == "fov" else ["VectorIndex"])
+    assert list(got) == list(want) and _rows(got_csv)[0] == _rows(want_csv)[0]
+    assert [r[:2] for r in _rows(got_csv)[1:]] == [r[:2] for r in _rows(want_csv)[1:]]
+    if family == "fov":
+        np.testing.assert_array_equal(got["orientation"], want["orientation"])
+    for key in ("dissimilarity", "score"):
+        np.testing.assert_allclose(got[key], want[key], rtol=1e-5, atol=1e-6, err_msg=key)
+

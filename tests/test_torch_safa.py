@@ -30,6 +30,7 @@ from witw_tpu_torch.match.losses import pairwise_sq_distances
 from witw_tpu_torch.models.convert_jax import (jax_params_to_state_dict,
                                                state_dict_to_jax_params)
 from witw_tpu_torch.models.safa import VggSafa, safa_trainable_mask
+from witw_tpu_torch.parallel import make_mesh
 from witw_tpu_torch.train import loop
 from witw_tpu_torch.train.checkpoint import Checkpointer
 from witw_tpu_torch.train.pipeline import (BaselinePipeline, FovPipeline, SafaPipeline,
@@ -240,8 +241,10 @@ def test_euclidean_ranks_match_jax(rng, case):
     if case == "ties":
         assert got[4] == got[16] == got[29] == 2  # the duplicate ties the match and counts
         assert got[9] == 1
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        euclidean_ranks(g, q, mesh=object(), device="cpu")
+    for n_dev in (2, 3):  # the gallery resident in shards: the same ranks
+        mesh = make_mesh(devices=["cpu"] * n_dev)
+        np.testing.assert_array_equal(
+            euclidean_ranks(g, q, block=7, true_match=tm, mesh=mesh), got)
 
 
 def test_make_pipeline_and_the_loop_take_safa(rng, params0):

@@ -732,3 +732,72 @@ def test_baseline_serving_checks_family_and_calibrates_int8_on_the_first_photo(
         assert first[0]["score"] == pytest.approx(np.exp(-first[0]["distance"]), rel=1e-6)
     finally:
         service.close()
+
+
+# --- the sharded daemon (GeolocateService(mesh=)) ------------------------------
+
+
+VECTOR_NOISE = (0.2, 0.3, 0.4, 0.5, 0.6)
+
+
+def _planted_for(family, service, photo, rng):
+    """The family's planted gallery. The vector families' planted rows sit
+    at least 0.2 noise away: a distance near 0 from the expansion q² + g² −
+    2 q·g keeps only ~eps |q|² / d² of relative precision, so two GEMMs
+    blocked differently (a shard's and the whole gallery's) would disagree
+    there by more than the f32 tolerance without either being wrong."""
+    if family == "fov":
+        return _planted_index(service, photo, rng)
+    if family == "safa":
+        return _planted_vectors(service, photo, rng, noise=VECTOR_NOISE)
+    emb = service._embed(service._decode(photo)[None])[0]  # baseline: non-unit vectors
+    gal = (rng.standard_normal((12, emb.size)) * float(np.linalg.norm(emb)) / np.sqrt(emb.size))
+    for j, eps in enumerate(VECTOR_NOISE):
+        gal[2 + 2 * j] = emb + eps * gal[2 + 2 * j]
+    return gal.astype(np.float32)
+
+
+@pytest.mark.parametrize("family", ["fov", "safa", "baseline"])
+def test_sharded_service_answers_as_the_unsharded(family, request, rng):
+    """test_pipeline_e2e.py:616 and :705 in each family: a service on a mesh
+    of 3 CPU entries places the gallery in 3 shards and answers exact
+    requests as the unsharded service does (tiles and orientations equal,
+    distances within rtol 1e-5, atol 1e-6); /healthz's sharded_devices is
+    the mesh's size (1 for a one-entry mesh, which counts as none); k is
+    clamped to the placed width on the sharded path, while an FOV request
+    with candidates keeps its k on the one-device two-stage search."""
+    from witw_tpu_torch.evaluation.vector_index import VectorIndex
+    from witw_tpu_torch.parallel import make_mesh
+
+    fixture = {"fov": "towers", "safa": "safa_towers", "baseline": "baseline_towers"}[family]
+    _, _, tcfg, params = request.getfixturevalue(fixture)
+    index_cls = GalleryIndex if family == "fov" else VectorIndex
+    photo = _photo(rng)
+    probe_embeds = (np.zeros((1, 2, 16, 16), np.float32) if family == "fov"
+                    else np.zeros((1, 4096 if family == "safa" else 1536), np.float32))
+    probe = GeolocateService(index_cls(probe_embeds, device="cpu"), tcfg, params, family=family)
+    gal = _planted_for(family, probe, photo, rng)
+    meta = {"x": np.arange(12.0) * 10, "y": np.arange(12.0) * -5}
+    plain = GeolocateService(index_cls(gal, meta=meta, device="cpu"), tcfg, params,
+                             family=family)
+    mesh = make_mesh(devices=["cpu"] * 3)
+    sharded = GeolocateService(index_cls(gal, meta=meta, device="cpu"), tcfg, params,
+                               family=family, mesh=mesh)
+    assert sharded.health()["sharded_devices"] == 3 and plain.health()["sharded_devices"] == 1
+    assert [p["valid"] for p in sharded.index.last_gallery_placement] == [4, 4, 4]
+    want = plain.geolocate(photo, k=5)
+    got = sharded.geolocate(photo, k=5)
+    assert [r["tile"] for r in got] == [r["tile"] for r in want] == [2, 4, 6, 8, 10]
+    assert [r["orientation_deg"] for r in got] == [r["orientation_deg"] for r in want]
+    np.testing.assert_allclose([r["distance"] for r in got], [r["distance"] for r in want],
+                               rtol=1e-5, atol=1e-6)
+    assert [r["x"] for r in got] == [r["x"] for r in want]
+    sharded.index._sharded["max_k"] = 2  # a narrow placed width makes the clamp visible
+    assert [r["tile"] for r in sharded.geolocate(photo, k=6)] == [2, 4]
+    approx = sharded.geolocate(photo, k=6, candidates=8)
+    assert len(approx) == (6 if family == "fov" else 2)  # the vector families search exactly
+    assert sharded.stats["exact_searches"] == (2 if family == "fov" else 3)
+    one = GeolocateService(index_cls(gal, device="cpu"), tcfg, params, family=family,
+                           mesh=make_mesh(devices=["cpu"]))
+    assert one._mesh is None and one.health()["sharded_devices"] == 1
+    assert one.index.last_gallery_placement is None

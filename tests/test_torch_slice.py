@@ -147,7 +147,7 @@ def test_port_imports_no_jax():
     the heatmap sweep, the metric writer, the CLIs, the SAFA towers, the
     vector index and cvig_safa, and the baseline towers, the synced rotation,
     the orientation maps and cvig_baseline, the config YAML and the .pth
-    converter),
+    converter, the device mesh),
     chip_smoke and the profile scripts import with JAX and every witw_tpu
     module made unimportable, and none pulls in flax, optax, the
     pandas/PIL deps of witw_tpu.data, the root exp scripts, PyYAML, or (at
@@ -165,7 +165,8 @@ def test_port_imports_no_jax():
             "tools.geotiff", "tools.cities", "tools.heatmap", "train.metrics", "cli.common",
             "cli.cvig_fov", "cli.cvig_semantic", "models.safa", "evaluation.vector_index",
             "cli.cvig_safa", "models.baseline", "ops.rotation", "ops.orientation_maps",
-            "cli.cvig_baseline", "configs.serialize", "models.convert_torch")]
+            "cli.cvig_baseline", "configs.serialize", "models.convert_torch", "parallel",
+            "parallel.mesh")]
         assert set(wanted) <= set(names), sorted(set(wanted) - set(names))
         for name in names + ["chip_smoke", "profile_int8", "profile_bf16", "profile_conv",
                              "profile_match", "profile_host"]:

@@ -1,5 +1,6 @@
 """Shared CLI runner: dataset loaders and the train / test drivers (port of
-witw_tpu/cli/common.py, one device).
+witw_tpu/cli/common.py; test mode runs on a mesh of every GPU when the
+host has more than one, training on one device).
 
 Reproduces the reference entry points' behaviour (reference
 model/cvig_fov.py:580-601): ``--mode {train,test} --dataset {cvusa,witw}``
@@ -15,11 +16,15 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import warnings
 from typing import Optional, Tuple
+
+import torch
 
 from witw_tpu_torch.configs.base import ExperimentConfig
 from witw_tpu_torch.data.csv_registry import read_pair_paths
 from witw_tpu_torch.data.loader import PairLoader, split_train_val
+from witw_tpu_torch.parallel.mesh import Mesh, make_mesh
 from witw_tpu_torch.train import loop
 from witw_tpu_torch.train.checkpoint import Checkpointer
 from witw_tpu_torch.train.metrics import MetricWriter
@@ -60,6 +65,16 @@ def build_loader(cfg: ExperimentConfig, pairs, shuffle, drop_last, batch_size=No
     )
 
 
+def _auto_mesh(batch_size: int) -> Optional[Mesh]:
+    """A data mesh over every GPU when there is more than one and the batch
+    divides over them; None otherwise (one GPU, no GPU, or an awkward
+    batch size), as witw_tpu's."""
+    n = torch.cuda.device_count()
+    if n > 1 and batch_size % n == 0:
+        return make_mesh(n_data=n)
+    return None
+
+
 def run_train(
     cfg: ExperimentConfig,
     tag: str,
@@ -69,7 +84,12 @@ def run_train(
 ):
     """Split the train CSV (``cfg.train.val_quantity`` pairs to val), train
     (resuming from ``latest``), checkpoint and log; ``profile_dir`` records
-    a torch.profiler trace of the run. Returns the final TrainState."""
+    a torch.profiler trace of the run. Returns the final TrainState.
+    Training runs on one device: on a host with more than one GPU it warns
+    that data-parallel training is not ported yet."""
+    if device is None and torch.cuda.device_count() > 1:
+        warnings.warn(f"{torch.cuda.device_count()} GPUs visible, but data-parallel training is "
+                      "not ported yet: training on one device", stacklevel=2)
     pairs = read_pair_paths(cfg.data.dataset, cfg.data.dataset.train_csv)
     train_pairs, val_pairs = split_train_val(pairs, cfg.train.val_quantity, cfg.train.seed)
     train_loader = build_loader(cfg, train_pairs, shuffle=True, drop_last=True)
@@ -93,7 +113,9 @@ def run_train(
 
 def run_test(cfg: ExperimentConfig, tag: str, device=None):
     """Full-gallery retrieval eval of the test CSV with ``best``; returns
-    the metrics."""
+    the metrics. Without a ``device`` it runs on a mesh of every GPU where
+    there is more than one and ``cfg.eval.batch_size`` divides over them
+    (``_auto_mesh``), the gallery sharded with ``--shard-gallery``."""
     pairs = read_pair_paths(cfg.data.dataset, cfg.data.dataset.test_csv)
     test_loader = build_loader(cfg, pairs, shuffle=False, drop_last=False,
                                batch_size=cfg.eval.batch_size)
@@ -101,7 +123,8 @@ def run_test(cfg: ExperimentConfig, tag: str, device=None):
     ckpt = Checkpointer(os.path.join(cfg.train.checkpoint_dir, tag))
     writer = MetricWriter(os.path.join(cfg.train.tensorboard_dir, tag, "test"))
     try:
-        return loop.test(cfg, pipeline, test_loader, checkpointer=ckpt, writer=writer)
+        mesh = _auto_mesh(cfg.eval.batch_size) if device is None else None
+        return loop.test(cfg, pipeline, test_loader, checkpointer=ckpt, writer=writer, mesh=mesh)
     finally:
         writer.close()
         test_loader.close()
@@ -131,6 +154,11 @@ def base_parser(with_fov: bool) -> argparse.ArgumentParser:
         help="Write a torch.profiler trace of the run (TensorBoard-compatible)",
     )
     parser.add_argument(
+        "--shard-gallery", action="store_true",
+        help="Retrieval eval keeps the gallery resident, sharded over every mesh device "
+             "(100k+-tile mode); default shards the query axis",
+    )
+    parser.add_argument(
         "--fast-eval", action="store_true",
         help="Rank sweep through the FFT path with bf16 frequency products (f32 "
              "accumulation) — approximate (near-tie ranks can flip); default is the "
@@ -155,6 +183,8 @@ def apply_overrides(cfg: ExperimentConfig, args) -> ExperimentConfig:
             train=dataclasses.replace(cfg.train, batch_size=args.batch_size),
             eval=dataclasses.replace(cfg.eval, batch_size=args.batch_size),
         )
+    if getattr(args, "shard_gallery", False):
+        cfg = cfg.replace(eval=dataclasses.replace(cfg.eval, shard_gallery=True))
     if getattr(args, "fast_eval", False):
         cfg = cfg.replace(eval=dataclasses.replace(cfg.eval, fast_matmul=True))
     return cfg

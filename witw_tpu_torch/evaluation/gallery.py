@@ -1,7 +1,7 @@
-"""Full-gallery retrieval evaluation on one device (port of the single-device
-path of witw_tpu/evaluation/gallery.py: ``FovGalleryEvaluator`` for the
-FOV family's feature maps and ``euclidean_ranks`` for the SAFA family's
-embedding vectors).
+"""Full-gallery retrieval evaluation, on one device or sharded over a device
+mesh (port of witw_tpu/evaluation/gallery.py: ``FovGalleryEvaluator`` for
+the FOV family's feature maps and ``euclidean_ranks`` for the SAFA and
+baseline families' embedding vectors).
 
 - One paired O(N) pass gives every query's true-match distance (the rank
   threshold), through the FFT matcher's arithmetic.
@@ -29,6 +29,7 @@ from witw_tpu_torch.match.fft_matcher import (
     query_fft,
 )
 from witw_tpu_torch.ops.fused_match import fused_chord_distance_nhwc
+from witw_tpu_torch.parallel.mesh import Mesh, Shard, gallery_shards, placement, replicate
 from witw_tpu_torch.utils.device import require_cuda
 
 
@@ -58,6 +59,20 @@ class FovGalleryEvaluator:
     flip. ``device`` is where the sweep runs; None keeps tensors where they
     are and puts numpy on the CUDA device (RuntimeError without one): the
     CPU only when asked for.
+
+    ``mesh`` (a ``parallel.Mesh``) deals the query blocks over its devices,
+    block b on ``mesh.devices[b % mesh.size]``, with the gallery replicated
+    to each. ``shard_gallery`` (requires ``mesh``) keeps the gallery
+    resident instead, split into ``mesh.size`` shards (witw_tpu's chunk
+    arithmetic: ``chunk = min(gallery_chunk, ceil(N / size))``, each shard
+    a whole number of chunks): each device transforms and sweeps only its
+    own shard against every query block, and the per-shard integer counts
+    are summed once at the end, so the ranks equal one device's. Either way
+    the per-device work is the single-device block loop (the fused kernel
+    under ``use_fused``), every shard's work is issued before any count is
+    gathered, and the true-match threshold comes from one paired pass on
+    the first mesh device (or ``device``). ``last_gallery_placement``
+    records the resident shards (``parallel.placement``).
     """
 
     def __init__(
@@ -67,21 +82,63 @@ class FovGalleryEvaluator:
         use_fused: bool = False,
         device: Optional[torch.device] = None,
         fast_matmul: bool = False,
+        mesh: Optional[Mesh] = None,
+        shard_gallery: bool = False,
     ):
         if use_fused and fast_matmul:
             raise ValueError("fast_matmul applies to the FFT sweep only; the fused match kernel "
                              "has no bf16 frequency-product variant")
+        if shard_gallery and mesh is None:
+            raise ValueError("shard_gallery requires a mesh")
         self.query_block = query_block
         self.gallery_chunk = gallery_chunk
         self.use_fused = use_fused
         self.device = device
         self.fast_matmul = fast_matmul
+        self.mesh = mesh
+        self.shard_gallery = shard_gallery
+        self.last_gallery_placement = None
 
     def _tensor(self, x) -> torch.Tensor:
+        device = self.device
+        if device is None and self.mesh is not None:
+            device = self.mesh.devices[0]
         if isinstance(x, torch.Tensor):
-            return x.to(self.device or x.device, torch.float32)
-        device = self.device if self.device is not None else require_cuda()
+            return x.to(device or x.device, torch.float32)
+        device = device if device is not None else require_cuda()
         return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=device)
+
+    def _tables(self, gal: torch.Tensor, sw: int):
+        """What a device sweeps: the maps (fused) or their rFFT and window
+        norms (FFT)."""
+        if self.use_fused:
+            return gal, None, None
+        return gal, torch.fft.rfft(gal, dim=2), window_sq_norms(gal, sw)
+
+    def _block_counts(self, tables, idx: torch.Tensor, mask: Optional[torch.Tensor],
+                      chunk: int, s_block: torch.Tensor, d_true: torch.Tensor,
+                      tm: torch.Tensor) -> torch.Tensor:
+        """Gallery items other than the true match at or under each query's
+        threshold: one query block against one device's gallery (``idx``:
+        its global indices; ``mask``: its real rows, None = all), chunk by
+        chunk. Returns int64 [Qb] on that device."""
+        gal, fo, wsq = tables
+        w = gal.shape[2]
+        if not self.use_fused:
+            fs, s_norm = query_fft(s_block, w)
+        counts = torch.zeros(s_block.shape[0], dtype=torch.int64, device=gal.device)
+        for c0 in range(0, gal.shape[0], chunk):
+            c1 = min(c0 + chunk, gal.shape[0])
+            if self.use_fused:
+                d, _ = fused_chord_distance_nhwc(gal[c0:c1], s_block)
+            else:
+                d, _ = gallery_vs_queries(fo[c0:c1], wsq[c0:c1], fs, s_norm, w,
+                                          fast=self.fast_matmul)
+            le = (d <= d_true[None, :]) & (idx[c0:c1, None] != tm[None, :])
+            if mask is not None:  # padded rows: finite distances, never counted
+                le &= mask[c0:c1, None]
+            counts += le.sum(dim=0)
+        return counts
 
     @torch.no_grad()
     def ranks(self, overhead_embeds, surface_embeds,
@@ -102,29 +159,63 @@ class FovGalleryEvaluator:
             tm = torch.as_tensor(np.asarray(true_match), dtype=torch.int64, device=gal.device)
             tm_rows = gal[tm]
         d_true = _paired_distance_batched(tm_rows, s_all, self.fast_matmul)
-
-        w = gal.shape[2]
         sw = s_all.shape[2]
-        if not self.use_fused:
-            fo = torch.fft.rfft(gal, dim=2)  # [Ng, h, wf, c]
-            wsq = window_sq_norms(gal, sw)  # [Ng, w]
-        gal_idx = torch.arange(n_gal, device=gal.device)
-        counts = torch.zeros(n, dtype=torch.int64, device=gal.device)
-        for q0 in range(0, n, self.query_block):
-            q1 = min(q0 + self.query_block, n)
-            s_block = s_all[q0:q1]
-            if not self.use_fused:
-                fs, s_norm = query_fft(s_block, w)
-            for c0 in range(0, n_gal, self.gallery_chunk):
-                c1 = min(c0 + self.gallery_chunk, n_gal)
-                if self.use_fused:
-                    d, _ = fused_chord_distance_nhwc(gal[c0:c1], s_block)
-                else:
-                    d, _ = gallery_vs_queries(fo[c0:c1], wsq[c0:c1], fs, s_norm, w,
-                                              fast=self.fast_matmul)
-                le = (d <= d_true[None, q0:q1]) & (gal_idx[c0:c1, None] != tm[None, q0:q1])
-                counts[q0:q1] += le.sum(dim=0)
+        blocks = [(q0, min(q0 + self.query_block, n)) for q0 in range(0, n, self.query_block)]
+
+        if self.mesh is None:
+            tables = self._tables(gal, sw)
+            idx = torch.arange(n_gal, device=gal.device)
+            counts = torch.cat([
+                self._block_counts(tables, idx, None, self.gallery_chunk, s_all[q0:q1],
+                                   d_true[q0:q1], tm[q0:q1]) for q0, q1 in blocks])
+        elif not self.shard_gallery:
+            counts = self._query_sharded(gal, sw, blocks, s_all, d_true, tm)
+        else:
+            counts = self._gallery_sharded(gal, sw, blocks, s_all, d_true, tm)
         return (counts + 1).cpu().numpy().astype(np.int32)
+
+    def _query_sharded(self, gal, sw, blocks, s_all, d_true, tm) -> torch.Tensor:
+        """Query blocks dealt over the mesh devices, the gallery tables
+        replicated to each (one copy per distinct device)."""
+        mesh = self.mesh
+        home = gal.device
+        tables = self._tables(gal, sw)
+        on_device = {}
+        for device in mesh.devices:
+            if device not in on_device:
+                on_device[device] = (tuple(None if t is None else t.to(device) for t in tables),
+                                     torch.arange(gal.shape[0], device=device))
+        parts = []
+        for b, (q0, q1) in enumerate(blocks):
+            device = mesh.devices[b % mesh.size]
+            dev_tables, idx = on_device[device]
+            parts.append(self._block_counts(
+                dev_tables, idx, None, self.gallery_chunk, s_all[q0:q1].to(device),
+                d_true[q0:q1].to(device), tm[q0:q1].to(device)))
+        return torch.cat([p.to(home) for p in parts])
+
+    def _gallery_sharded(self, gal, sw, blocks, s_all, d_true, tm) -> torch.Tensor:
+        """The gallery resident in mesh.size shards, each transformed and
+        swept on its own device against every (replicated) query block; the
+        per-shard counts summed once, at the end."""
+        mesh = self.mesh
+        home = gal.device
+        n_gal = gal.shape[0]
+        chunk = min(self.gallery_chunk, -(-n_gal // mesh.size))
+        per_dev_chunks = -(-n_gal // (mesh.size * chunk))
+        shards = gallery_shards(gal, mesh, rows=per_dev_chunks * chunk)
+        self.last_gallery_placement = placement(shards)
+        queries = [replicate(t, mesh) for t in (s_all, d_true, tm)]
+        parts = []
+        for d, shard in enumerate(shards):
+            tables = self._tables(shard.data, sw)
+            idx = torch.arange(shard.start, shard.start + shard.data.shape[0],
+                               device=shard.device)
+            s_rep, dt_rep, tm_rep = (q[d] for q in queries)
+            parts.append(torch.cat([
+                self._block_counts(tables, idx, shard.mask, chunk, s_rep[q0:q1], dt_rep[q0:q1],
+                                   tm_rep[q0:q1]) for q0, q1 in blocks]))
+        return sum(p.to(home) for p in parts)
 
 
 @contextlib.contextmanager
@@ -148,23 +239,22 @@ def sq_distances(g: torch.Tensor, q: torch.Tensor, g_sq: torch.Tensor) -> torch.
 
 @torch.no_grad()
 def euclidean_ranks(gallery_embeds, query_embeds, block: int = 1024,
-                    true_match: Optional[np.ndarray] = None, mesh=None,
+                    true_match: Optional[np.ndarray] = None, mesh: Optional[Mesh] = None,
                     device: Optional[torch.device] = None) -> np.ndarray:
     """Ranks under plain Euclidean distance on embedding vectors, the SAFA
-    family's eval (reference cvig_baseline.py:456-460); squared distances
-    rank as the reference's sqrt distances do. Rank(q) = 1 + #{g != tm(q) :
-    d(g, q) <= d(tm(q), q)}, the true match's distance read off the same
-    matrix, so its own tie is exact.
+    and baseline families' eval (reference cvig_baseline.py:456-460);
+    squared distances rank as the reference's sqrt distances do. Rank(q) =
+    1 + #{g != tm(q) : d(g, q) <= d(tm(q), q)}, the true match's distance
+    read off the same matrix, so its own tie is exact.
 
     Gallery [G, D] and queries [Q, D]: numpy (put on ``device``, the card
     when None) or tensors (kept where they are unless ``device`` says).
     ``true_match``: the gallery index of each query's match [Q]; None =
-    arange (Q == G). The products run in f32 with TF32 off. ``mesh`` (the
-    gallery sharded over devices) waits for the multi-GPU port. Returns int32
-    [Q]."""
-    if mesh is not None:
-        raise NotImplementedError("euclidean_ranks(mesh=...) shards the gallery over devices, "
-                                  "which comes with the multi-GPU port")
+    arange (Q == G). The products run in f32 with TF32 off. ``mesh`` keeps
+    the gallery resident in mesh.size shards: each device computes its
+    shard's GEMM against the replicated query block, the true match's
+    distance is read off the shard that holds it, and the per-shard counts
+    are summed, so the ranks equal one device's. Returns int32 [Q]."""
 
     def tensor(x):
         if isinstance(x, torch.Tensor):
@@ -172,6 +262,8 @@ def euclidean_ranks(gallery_embeds, query_embeds, block: int = 1024,
         return torch.as_tensor(np.asarray(x), dtype=torch.float32,
                                device=device if device is not None else require_cuda())
 
+    if mesh is not None and device is None:
+        device = mesh.devices[0]
     g = tensor(gallery_embeds)
     q_all = tensor(query_embeds).to(g.device)
     nq, ng = q_all.shape[0], g.shape[0]
@@ -183,17 +275,35 @@ def euclidean_ranks(gallery_embeds, query_embeds, block: int = 1024,
         tm = torch.as_tensor(np.asarray(true_match), dtype=torch.int64, device=g.device)
         if tm.shape != (nq,):
             raise ValueError(f"true_match has shape {tuple(tm.shape)}, expected ({nq},)")
-    idx = torch.arange(ng, device=g.device)
-    g_sq = (g * g).sum(dim=1)
-    counts = torch.empty(nq, dtype=torch.int64, device=g.device)
+    if mesh is None:
+        shards = [Shard(g, None, 0, ng)]
+        queries, tms = [q_all], [tm]
+    else:
+        shards = gallery_shards(g, mesh)
+        queries, tms = replicate(q_all, mesh), replicate(tm, mesh)
+    tables = [(torch.arange(s.start, s.start + s.data.shape[0], device=s.device),
+               (s.data * s.data).sum(dim=1)) for s in shards]
+    counts = []
     with full_precision_matmul():
         for q0 in range(0, nq, block):
             q1 = min(q0 + block, nq)
-            d2 = sq_distances(g, q_all[q0:q1], g_sq)  # [G, Qb]
-            is_tm = idx[:, None] == tm[None, q0:q1]
-            d_true = torch.where(is_tm, d2, torch.zeros((), device=g.device)).sum(dim=0)
-            counts[q0:q1] = ((d2 <= d_true[None, :]) & ~is_tm).sum(dim=0)
-    return (counts + 1).cpu().numpy().astype(np.int32)
+            d2s, is_tms, d_true = [], [], 0
+            for shard, (idx, g_sq), q, t in zip(shards, tables, queries, tms):
+                d2 = sq_distances(shard.data, q[q0:q1], g_sq)  # [G(shard), Qb]
+                is_tm = idx[:, None] == t[None, q0:q1]
+                d2s.append(d2)
+                is_tms.append(is_tm)
+                # exactly one shard holds each true match; the others add 0
+                d_true = d_true + torch.where(is_tm, d2, torch.zeros((), device=d2.device)
+                                              ).sum(dim=0).to(g.device)
+            count = 0
+            for shard, d2, is_tm in zip(shards, d2s, is_tms):
+                le = (d2 <= d_true.to(d2.device)[None, :]) & ~is_tm
+                if shard.mask is not None:
+                    le &= shard.mask[:, None]
+                count = count + le.sum(dim=0).to(g.device)
+            counts.append(count)
+    return (torch.cat(counts) + 1).cpu().numpy().astype(np.int32)
 
 
 def metrics_from_ranks(ranks: np.ndarray) -> Dict[str, float]:

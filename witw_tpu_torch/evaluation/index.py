@@ -1,5 +1,6 @@
-"""Gallery embedding index: persistence and top-k retrieval on one device
-(port of the single-device part of witw_tpu/evaluation/index.py).
+"""Gallery embedding index: persistence and top-k retrieval, on one device
+or resident-sharded over a device mesh (port of
+witw_tpu/evaluation/index.py).
 
 An index holds the embedded overhead gallery [N, h, W, c] on the host and,
 once searched, its rFFT and window norms on its device. Searches score
@@ -9,7 +10,10 @@ through the FFT matcher (``match.fft_matcher``), chunk by chunk:
 - ``score_all``: every item's distance and orientation (the heatmap's
   need), from the resident tables or streamed from the host;
 - ``search_approx``: a pooled-cosine prefilter, then the exact rerank of
-  its candidates.
+  its candidates;
+- ``place_sharded``, ``search_sharded``, ``score_all_sharded``: the
+  gallery split over a ``parallel.Mesh``, each device scoring only its
+  own shard; the per-shard top-k lists are merged at the end.
 
 The npz layout is witw_tpu's (``embeds`` and ``meta_<key>``), so either
 package loads the other's index.
@@ -24,6 +28,7 @@ import torch
 
 from witw_tpu_torch.match.distance import window_sq_norms
 from witw_tpu_torch.match.fft_matcher import candidates_vs_queries, gallery_vs_queries, query_fft
+from witw_tpu_torch.parallel.mesh import Mesh, gallery_shards, placement, replicate
 from witw_tpu_torch.utils.device import require_cuda
 
 
@@ -33,6 +38,40 @@ def _smallest_k(d: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     rule, which torch.topk does not promise on the card)."""
     vals, idx = torch.sort(d, dim=1, stable=True)
     return vals[:, :k], idx[:, :k]
+
+
+def shard_layout(n: int, mesh: Mesh, gallery_chunk: int, max_k: int) -> Dict[str, int]:
+    """witw_tpu's placement arithmetic: ``n_local`` rows per device, a
+    whole number ``per_dev_chunks`` of chunks of ``chunk`` rows, the chunk
+    at least ``max_k`` (or the shard) wide, since each chunk keeps its own
+    top k."""
+    n_local = -(-n // mesh.size)
+    chunk = min(gallery_chunk, n_local)
+    chunk = max(chunk, min(max_k, n_local))
+    per_dev_chunks = -(-n_local // chunk)
+    return {"chunk": chunk, "per_dev_chunks": per_dev_chunks,
+            "n_local": per_dev_chunks * chunk, "max_k": max_k}
+
+
+def merge_shard_topk(lists, k: int, home: torch.device):
+    """The k best of per-shard candidate lists, each (distances [Q, k_l],
+    global indices [Q, k_l], extras...) ordered by (distance, index):
+    concatenated in mesh order (shards hold ascending index ranges) before a
+    stable sort, so that equal distances keep ascending global index.
+    Returns the merged tensors on ``home``."""
+    cols = [torch.cat([part[j].to(home) for part in lists], dim=1) for j in range(len(lists[0]))]
+    top_d, sel = _smallest_k(cols[0], k)
+    return (top_d,) + tuple(torch.gather(c, 1, sel) for c in cols[1:])
+
+
+def placed(index, mesh: Optional[Mesh], gallery_chunk: int) -> Dict:
+    """An index's sharded placement: the current one, or a new one on
+    ``mesh`` when it names another mesh (ValueError when there is none)."""
+    if index._sharded is None or (mesh is not None and index._sharded["mesh"] != mesh):
+        if mesh is None:
+            raise ValueError("call place_sharded(mesh) first or pass mesh=")
+        index.place_sharded(mesh, gallery_chunk)
+    return index._sharded
 
 
 class GalleryIndex:
@@ -61,6 +100,8 @@ class GalleryIndex:
         self._fo: Optional[torch.Tensor] = None
         self._wsq: Dict[int, torch.Tensor] = {}
         self._pool: Dict[Tuple[int, int], torch.Tensor] = {}
+        self._sharded: Optional[Dict] = None
+        self.last_gallery_placement = None
 
     def __len__(self) -> int:
         return len(self.embeds)
@@ -281,3 +322,95 @@ class GalleryIndex:
             top_d.cpu().numpy().astype(np.float32),
             torch.gather(torch.cat(os_, dim=1), 1, sel).cpu().numpy().astype(np.int32),
         )
+
+    # ---- mesh-resident sharded retrieval ----
+
+    def place_sharded(self, mesh: Mesh, gallery_chunk: int = 2048, max_k: int = 128) -> None:
+        """Keep the gallery resident in mesh.size shards, shard d on
+        ``mesh.devices[d]`` (the rank evaluator's gallery-resident
+        placement), each a whole number of chunks; its rFFT and window norms
+        are built on its device at the first sharded search. ``max_k``
+        bounds the per-shard top-k width, so a sharded search takes
+        k <= max_k. ``last_gallery_placement`` records the shards."""
+        layout = shard_layout(len(self.embeds), mesh, gallery_chunk, max_k)
+        shards = gallery_shards(self.embeds, mesh, rows=layout["n_local"])
+        self._sharded = dict(layout, mesh=mesh, shards=shards, fo=[None] * len(shards), wsq={})
+        self.last_gallery_placement = placement(shards)
+
+    def _shard_tables(self, st: Dict, d: int, sw: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Shard d's rFFT and its window norms at query width sw, built on
+        the shard's device on first use."""
+        gal = st["shards"][d].data
+        if st["fo"][d] is None:
+            st["fo"][d] = torch.fft.rfft(gal, dim=2)
+        key = (d, sw)
+        if key not in st["wsq"]:
+            st["wsq"][key] = window_sq_norms(gal, sw)
+        return st["fo"][d], st["wsq"][key]
+
+    def _shard_chunks(self, st: Dict, surface_embeds: np.ndarray, fast: bool):
+        """Per shard, per chunk: (chunk's first local row, its distances
+        [G, Q] and orientations [G, Q]) against the queries replicated to
+        the shard's device; every shard's work is issued before any result
+        is read."""
+        sw = surface_embeds.shape[2]
+        w = self.embeds.shape[2]
+        queries = replicate(np.asarray(surface_embeds, np.float32), st["mesh"])
+        ffts = {}
+        out = []
+        for d, (shard, q) in enumerate(zip(st["shards"], queries)):
+            if shard.device not in ffts:
+                ffts[shard.device] = query_fft(q, w)
+            fs, s_norm = ffts[shard.device]
+            fo, wsq = self._shard_tables(st, d, sw)
+            chunk = st["chunk"]
+            out.append([(a,) + gallery_vs_queries(fo[a:a + chunk], wsq[a:a + chunk], fs, s_norm,
+                                                  w, fast)
+                        for a in range(0, shard.data.shape[0], chunk)])
+        return out
+
+    @torch.no_grad()
+    def search_sharded(
+        self, surface_embeds: np.ndarray, k: int = 10, mesh: Optional[Mesh] = None,
+        gallery_chunk: int = 2048, fast: bool = False,
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """:meth:`search` with the gallery resident-sharded (call
+        :meth:`place_sharded` first, or pass ``mesh``): each device keeps
+        the k best of each of its chunks, then of its shard (padded rows at
+        +inf), and only those [Q, k] lists meet, merged by (distance,
+        global index) as :meth:`search` orders them. Same contract as
+        :meth:`search`; k must not exceed the placement's ``max_k``."""
+        st = placed(self, mesh, gallery_chunk)
+        k = min(k, len(self.embeds))
+        if k > st["max_k"]:
+            raise ValueError(f"k={k} exceeds place_sharded max_k={st['max_k']}; re-place the "
+                             "index with a larger max_k")
+        k_local = min(k, st["n_local"])
+        lists = []
+        for shard, chunks in zip(st["shards"], self._shard_chunks(st, surface_embeds, fast)):
+            parts = []
+            for a, d, o in chunks:
+                d = torch.where(shard.mask[a:a + d.shape[0], None], d, torch.inf)
+                top_d, top_i = _smallest_k(d.T, k_local)
+                parts.append((top_d, top_i + (shard.start + a), torch.gather(o.T, 1, top_i)))
+            lists.append(merge_shard_topk(parts, k_local, shard.device))
+        top_d, top_i, top_o = merge_shard_topk(lists, k, st["shards"][0].device)
+        return (top_i.cpu().numpy().astype(np.int64), top_d.cpu().numpy().astype(np.float32),
+                top_o.cpu().numpy().astype(np.int32))
+
+    @torch.no_grad()
+    def score_all_sharded(
+        self, surface_embeds: np.ndarray, mesh: Optional[Mesh] = None,
+        gallery_chunk: int = 2048, fast: bool = False,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """:meth:`score_all` with the gallery resident-sharded (call
+        :meth:`place_sharded` first, or pass ``mesh``): each device scores
+        only its own shard. ([N, Q] float32, [N, Q] int32); distances agree
+        with :meth:`score_all` to f32 roundoff (the chunks batch the
+        products differently)."""
+        st = placed(self, mesh, gallery_chunk)
+        parts = [(torch.cat([d for _, d, _ in chunks])[:shard.valid],
+                  torch.cat([o for _, _, o in chunks])[:shard.valid])
+                 for shard, chunks in zip(st["shards"], self._shard_chunks(st, surface_embeds, fast))]
+        return (np.concatenate([d.cpu().numpy() for d, _ in parts]).astype(np.float32),
+                np.concatenate([o.cpu().numpy() for _, o in parts]).astype(np.int32))

@@ -1,5 +1,5 @@
-"""Flat-vector gallery index: persistence and top-k Euclidean retrieval on one
-device (port of the single-device part of
+"""Flat-vector gallery index: persistence and top-k Euclidean retrieval, on one
+device or resident-sharded over a device mesh (port of
 witw_tpu/evaluation/vector_index.py).
 
 The SAFA towers emit flat unit vectors matched with plain Euclidean
@@ -12,7 +12,9 @@ once searched:
 - ``search``: top-k per query in one pass, the [Q, N] distances one GEMM;
   equal distances keep the lower index first, as ``jax.lax.top_k`` does;
 - ``score_all``: every item's distance to every query (the heatmap's need),
-  from the resident gallery or streamed from the host in chunks.
+  from the resident gallery or streamed from the host in chunks;
+- ``place_sharded``, ``search_sharded``, ``score_all_sharded``: the gallery
+  split over a ``parallel.Mesh`` (GalleryIndex's placement and merge).
 
 The npz layout is witw_tpu's (``embeds`` and ``meta_<key>``), so either
 package loads the other's index.
@@ -25,7 +27,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from witw_tpu_torch.evaluation.index import _smallest_k
+from witw_tpu_torch.evaluation.index import _smallest_k, merge_shard_topk, placed, shard_layout
+from witw_tpu_torch.parallel.mesh import Mesh, gallery_shards, placement, replicate
 from witw_tpu_torch.utils.device import require_cuda
 
 
@@ -65,6 +68,8 @@ class VectorIndex:
         self.device = torch.device(device) if device is not None else require_cuda()
         self._gal: Optional[torch.Tensor] = None
         self._g2: Optional[torch.Tensor] = None
+        self._sharded: Optional[Dict] = None
+        self.last_gallery_placement = None
 
     def __len__(self) -> int:
         return len(self.embeds)
@@ -133,3 +138,65 @@ class VectorIndex:
             gal = torch.from_numpy(self.embeds[a:a + gallery_chunk]).to(self.device)
             out[a:a + len(gal)] = _chunk_dists(gal, (gal * gal).sum(dim=1), q, q2).T.cpu().numpy()
         return out
+
+    # ---- mesh-resident sharded retrieval ----
+
+    def place_sharded(self, mesh: Mesh, gallery_chunk: int = 8192, max_k: int = 128) -> None:
+        """Keep the gallery and its squared norms resident in mesh.size
+        shards, shard d on ``mesh.devices[d]``; GalleryIndex.place_sharded's
+        layout (``evaluation.index.shard_layout``) and ``max_k`` bound."""
+        layout = shard_layout(len(self.embeds), mesh, gallery_chunk, max_k)
+        shards = gallery_shards(self.embeds, mesh, rows=layout["n_local"])
+        norms = [torch.cat([(c * c).sum(dim=1) for c in s.data.split(self.NORM_CHUNK)])
+                 for s in shards]
+        self._sharded = dict(layout, mesh=mesh, shards=shards, g2=norms)
+        self.last_gallery_placement = placement(shards)
+
+    def _shard_chunks(self, st: Dict, query_embeds: np.ndarray):
+        """Per shard, per chunk: (chunk's first local row, its distances
+        [Q, chunk]) against the queries replicated to the shard's device;
+        every shard's work is issued before any result is read."""
+        queries = replicate(np.asarray(query_embeds, np.float32), st["mesh"])
+        chunk = st["chunk"]
+        out = []
+        for shard, g2, q in zip(st["shards"], st["g2"], queries):
+            q2 = (q * q).sum(dim=1)
+            out.append([(a, _chunk_dists(shard.data[a:a + chunk], g2[a:a + chunk], q, q2))
+                        for a in range(0, shard.data.shape[0], chunk)])
+        return out
+
+    @torch.no_grad()
+    def search_sharded(self, query_embeds: np.ndarray, k: int = 10, mesh: Optional[Mesh] = None,
+                       gallery_chunk: int = 8192) -> Tuple[np.ndarray, np.ndarray]:
+        """:meth:`search` with the gallery resident-sharded (call
+        :meth:`place_sharded` first, or pass ``mesh``): each device keeps
+        the k best of each chunk, then of its shard (padded rows at +inf),
+        and the [Q, k] lists are merged by (distance, global index), as
+        :meth:`search` orders them. k must not exceed ``max_k``."""
+        st = placed(self, mesh, gallery_chunk)
+        k = min(k, len(self.embeds))
+        if k > st["max_k"]:
+            raise ValueError(f"k={k} exceeds place_sharded max_k={st['max_k']}; re-place the "
+                             "index with a larger max_k")
+        k_local = min(k, st["n_local"])
+        lists = []
+        for shard, chunks in zip(st["shards"], self._shard_chunks(st, query_embeds)):
+            parts = []
+            for a, d in chunks:
+                d = torch.where(shard.mask[None, a:a + d.shape[1]], d, torch.inf)
+                top_d, top_i = _smallest_k(d, k_local)
+                parts.append((top_d, top_i + (shard.start + a)))
+            lists.append(merge_shard_topk(parts, k_local, shard.device))
+        top_d, top_i = merge_shard_topk(lists, k, st["shards"][0].device)
+        return top_i.cpu().numpy().astype(np.int64), top_d.cpu().numpy().astype(np.float32)
+
+    @torch.no_grad()
+    def score_all_sharded(self, query_embeds: np.ndarray, mesh: Optional[Mesh] = None,
+                          gallery_chunk: int = 8192) -> np.ndarray:
+        """:meth:`score_all` with the gallery resident-sharded (call
+        :meth:`place_sharded` first, or pass ``mesh``): each device scores
+        only its own shard. Returns [N, Q] float32."""
+        st = placed(self, mesh, gallery_chunk)
+        parts = [torch.cat([d for _, d in chunks], dim=1)[:, :shard.valid].T
+                 for shard, chunks in zip(st["shards"], self._shard_chunks(st, query_embeds))]
+        return np.concatenate([p.cpu().numpy() for p in parts]).astype(np.float32)

@@ -12,7 +12,7 @@ in :func:`rotation_degrees`, the one place that draws.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -109,17 +109,20 @@ def rotate_nearest(img: torch.Tensor, degrees) -> torch.Tensor:
 
 
 def synced_rotation(generator: torch.Generator, surface: torch.Tensor, overhead: torch.Tensor,
-                    panorama: bool, quantized: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """A random rotation per sample (:func:`rotation_degrees`): the overhead
-    [B, S, S, C] rotated, a panorama surface [B, H, W, C] rolled to match
-    (reference cvig_baseline.py:130-160). Returns (surface, overhead).
+                    panorama: bool, quantized: bool = False,
+                    draw: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A random rotation per sample (:func:`rotation_degrees`, or ``draw``
+    when the caller made it): the overhead [B, S, S, C] rotated, a panorama
+    surface [B, H, W, C] rolled to match (reference
+    cvig_baseline.py:130-160). Returns (surface, overhead).
 
     The quantized mode pairs the continuous mode's horizontal shift with
     :func:`quantized_rotation`'s clockwise compositions, so for factors 1
     and 3 the relative orientation differs from the continuous mode's: the
     reference's behaviour, reproduced bit for bit."""
-    b = surface.shape[0]
-    draw = rotation_degrees(generator, b, quantized).to(overhead.device)
+    if draw is None:
+        draw = rotation_degrees(generator, surface.shape[0], quantized)
+    draw = draw.to(overhead.device)
     if quantized:
         degrees = draw.to(torch.float32) * 90.0
         overhead = torch.stack([quantized_rotation(overhead[i], int(f))

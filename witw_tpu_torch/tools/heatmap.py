@@ -27,7 +27,8 @@ arrays. Orientation is in degrees from the embedding's actual width.
 Run: ``python -m witw_tpu_torch.tools.heatmap -a 3 -b LEFT BOTTOM RIGHT TOP
 -s SATDIR -p photo.jpg [more.jpg ...] -c out.csv --weights ./weights
 [--family safa|baseline] [--index-cache tiles.npz] [--int8] [--fast-eval]
-[-i -l layer.tiff]``. The towers come from ``--weights``/``<family>_<fov>_witw``'s
+[--shard-gallery] [-i -l layer.tiff]``; ``--shard-gallery`` scores the tiles
+sharded over every GPU of a multi-GPU host (``score_all_sharded``). The towers come from ``--weights``/``<family>_<fov>_witw``'s
 ``best`` checkpoint (the port's ``best.pt`` or witw_tpu's ``best.msgpack``).
 """
 
@@ -50,6 +51,7 @@ from witw_tpu_torch.evaluation.index import GalleryIndex
 from witw_tpu_torch.evaluation.vector_index import VectorIndex
 from witw_tpu_torch.models.quantize import SATURATION_WARN_FRACTION  # noqa: F401 (witw_tpu's name)
 from witw_tpu_torch.ops.image import normalize_images, repeat_rows
+from witw_tpu_torch.parallel.mesh import make_mesh
 from witw_tpu_torch.tools.build_index import (FAMILIES, VECTOR_FAMILIES, check_family,
                                               embed_tiles, family_config, int8_tower,
                                               load_params, tile_size)
@@ -158,6 +160,7 @@ def sweep(
     prefetch_tiles: int = 2,
     device=None,
     family: str = "fov",
+    mesh=None,
 ) -> Dict[str, np.ndarray]:
     """Sweep the photo(s) over the tile grid of ``bounds`` on ``device``
     (the card when None; the CPU only when asked for); writes ``csv_path``
@@ -186,7 +189,10 @@ def sweep(
     ``prefetch_tiles``: the tile reader's queue depth (0: batches read in
     the caller's thread; the same output either way). Each batch's tiles are
     read by ``build_index.READERS`` threads, each with its own handle on the
-    strip."""
+    strip. ``mesh`` (a ``parallel.Mesh`` of more than one entry): the tile
+    gallery is scored resident-sharded over it (``score_all_sharded``, each
+    device scoring its own shard; the same CSV up to f32 roundoff), the
+    towers run on ``device`` (default: the mesh's first device)."""
     if tile_dtype not in TILE_DTYPES:
         raise ValueError(f"tile_dtype must be one of {TILE_DTYPES}, got {tile_dtype!r}")
     vector = family in VECTOR_FAMILIES
@@ -195,6 +201,9 @@ def sweep(
         cfg = family_config(family, "witw", fov)
     d = cfg.data
     check_family(family, cfg)
+    sharded = mesh is not None and mesh.size > 1
+    if device is None and mesh is not None:
+        device = mesh.devices[0]
     pipeline = make_pipeline(cfg, device)
     device = pipeline.device
     if state is None:
@@ -254,7 +263,11 @@ def sweep(
             index.save(index_cache)
 
     if vector:
-        distances, orientations = index.score_all(s_emb), None
+        distances = index.score_all_sharded(s_emb, mesh) if sharded else index.score_all(s_emb)
+        orientations = None
+    elif sharded:
+        distances, orientations = index.score_all_sharded(s_emb, mesh, gallery_chunk=2048,
+                                                          fast=fast)
     else:
         distances, orientations = index.score_all(s_emb, gallery_chunk=2048, fast=fast)
     parts = []
@@ -319,12 +332,16 @@ def main(argv=None):
     parser.add_argument("--fast-eval", action="store_true",
                         help="bf16 frequency product in the tile scoring sweep "
                              "(opt-in approximation; exact is the default)")
+    parser.add_argument("--shard-gallery", action="store_true",
+                        help="score with the tile gallery resident-sharded across every local "
+                             "GPU (multi-GPU hosts); same CSV (f32 roundoff)")
     args = parser.parse_args(argv)
     name = [c.name for c in CITIES.values() if c.index == args.aoi][0]
     sat_path = os.path.join(args.satdir, strip_filename(name))
     columns = sweep(sat_path, args.photopath, args.csvpath, args.bounds, args.edge, args.offset,
                     args.fov, checkpoint_dir=args.weights, index_cache=args.index_cache,
-                    int8=args.int8, fast=args.fast_eval, family=args.family)
+                    int8=args.int8, fast=args.fast_eval, family=args.family,
+                    mesh=make_mesh() if args.shard_gallery else None)
     if args.image:
         layer(sat_path, args.bounds, args.layerpath)
     return columns

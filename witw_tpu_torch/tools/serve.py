@@ -1,6 +1,6 @@
 """Geolocalization serving daemon: an HTTP endpoint over a prebuilt tile
 index (port of witw_tpu/tools/serve.py, FOV, SAFA and baseline families,
-one device).
+on one device or with the gallery sharded over a device mesh).
 
 The daemon loads the towers once, loads an index (built by
 ``tools.build_index``, by either package) and answers:
@@ -11,13 +11,20 @@ The daemon loads the towers once, loads an index (built by
         distance; ``candidates`` switches to the two-stage approximate
         search: a pooled-cosine prefilter, then the exact rerank of that
         many tiles)
-    GET  /healthz            -> {"status": "ok", "gallery_size": N, ...}
+    GET  /healthz            -> {"status": "ok", "gallery_size": N,
+        "sharded_devices": the mesh's size (1 without a mesh), ...}
     GET  /stats              -> request/dispatch/error counters, uptime and
         mean requests per device dispatch (micro-batching occupancy)
 
 Run: ``python -m witw_tpu_torch.tools.serve --index tiles.npz --weights
 ./weights --tag fov_70_witw --fov 70 [--family safa|baseline] [--int8]
-[--max-batch 8] [--port 8000]``
+[--max-batch 8] [--shard-gallery] [--port 8000]``
+
+``--shard-gallery`` (a host with more than one GPU) keeps the gallery
+resident in one shard per GPU (``place_sharded``): exact searches take
+``search_sharded``, with k clamped to its ``max_k``; approximate requests
+stay on the one-device two-stage search. The photo is embedded on the
+index's device.
 
 ``--family safa`` serves VGG16+SAFA towers against a VectorIndex (plain
 Euclidean distance on unit embeddings): results carry ``orientation_deg:
@@ -65,6 +72,7 @@ from witw_tpu_torch.models.baseline import BaselineEncoder
 from witw_tpu_torch.models.fov_dsm import FovDsm
 from witw_tpu_torch.models.safa import VggSafa
 from witw_tpu_torch.ops.image import normalize_images, repeat_rows
+from witw_tpu_torch.parallel.mesh import make_mesh
 from witw_tpu_torch.tools.build_index import (FAMILIES, VECTOR_FAMILIES, check_family,
                                               family_config, int8_tower, load_params)
 from witw_tpu_torch.utils.hashing import params_fingerprint
@@ -138,12 +146,18 @@ class GeolocateService:
     group's largest (never smaller than any request asked for). ``fast``:
     the bf16 frequency product in the searches (an opt-in approximation).
     ``int8``: the static-int8 surface tower, calibrated on the first real
-    photo."""
+    photo.
+
+    ``mesh`` (a ``parallel.Mesh`` of more than one entry; one entry counts
+    as none) keeps the gallery resident-sharded over it
+    (``index.place_sharded``): exact searches take ``search_sharded``, k
+    clamped to the placement's ``max_k``, while approximate requests
+    (``candidates`` > 0) stay on the one-device search and keep their k."""
 
     def __init__(self, index, cfg, params, int8: bool = False,
                  fast: bool = False, max_batch: int = 0, batch_window_ms: float = 3.0,
                  allow_mismatch: bool = False, batch_workers: int = 2,
-                 max_candidates: int = 65536, family: str = "fov"):
+                 max_candidates: int = 65536, family: str = "fov", mesh=None):
         check_family(family, cfg)
         self._vector = family in VECTOR_FAMILIES
         self._baseline = family == "baseline"
@@ -168,6 +182,9 @@ class GeolocateService:
         self._int8 = int8
         self._fast = fast
         self.device = index.device
+        self._mesh = mesh if (mesh is not None and mesh.size > 1) else None
+        if self._mesh is not None:
+            index.place_sharded(self._mesh)
         # the baseline's photo geometry is the dataset's (WITW 500 x 500, CVUSA
         # 224 x 1232, rows repeated on the device)
         self._surface_hw = (host_geometry(cfg)[0] if self._baseline
@@ -242,7 +259,12 @@ class GeolocateService:
         # device work goes through the batcher.
         img = self._decode(image_bytes)
         k = max(1, min(int(k), len(self.index)))
-        req = _Pending(img, k, int(candidates))
+        candidates = int(candidates)
+        if self._mesh is not None and (candidates <= 0 or self._vector):
+            # a sharded search answers from per-shard top-k lists of the
+            # placed width; approximate requests never take it
+            k = min(k, self.index._sharded["max_k"])
+        req = _Pending(img, k, candidates)
         # inline when batching is off or the batcher was closed; the
         # lifecycle lock closes the check-then-put race against close()
         with self._lifecycle:
@@ -280,10 +302,13 @@ class GeolocateService:
                 self._run_group([req])
 
     def _k_bucket(self, k_max: int) -> int:
-        """The k a search runs at: clamped to the gallery and rounded up to
-        a power of two, so that client k values map onto few search shapes.
-        Shared by _run_group and warmup."""
+        """The k a search runs at: clamped to the gallery (and to the
+        sharded placement's width) and rounded up to a power of two, so that
+        client k values map onto few search shapes. Shared by _run_group and
+        warmup."""
         cap = len(self.index)
+        if self._mesh is not None:
+            cap = min(cap, self.index._sharded["max_k"])
         kb = max(1, min(int(k_max), cap))
         return min(1 << (kb - 1).bit_length(), cap)
 
@@ -307,11 +332,10 @@ class GeolocateService:
                     if self._int8 and self._sq is None:
                         if self._vector:
                             emb = np.zeros((b, self.index.embeds.shape[1]), np.float32)
-                            self.index.search(emb, k=kb)
-                            continue
-                        _, h, _, c = self.index.embeds.shape
-                        emb = np.zeros((b, h, self._surface_hw[1] // 8, c), np.float32)
-                        self.index.search(emb, k=kb, fast=self._fast)
+                        else:
+                            _, h, _, c = self.index.embeds.shape
+                            emb = np.zeros((b, h, self._surface_hw[1] // 8, c), np.float32)
+                        self._search(emb, kb)
                         continue
                     group = [_Pending(img, kb, 0) for _ in range(b)]
                     self._run_group(group)
@@ -377,12 +401,8 @@ class GeolocateService:
                     cand = min(1 << (cand - 1).bit_length(), len(self.index), self.max_candidates)
                     idx, dist, orient = self.index.search_approx(
                         embs, k=min(k_max, cand), candidates=cand, fast=self._fast)
-                elif self._vector:
-                    idx, dist = self.index.search(embs, k=self._k_bucket(k_max))
-                    orient = None
                 else:
-                    idx, dist, orient = self.index.search(embs, k=self._k_bucket(k_max),
-                                                          fast=self._fast)
+                    idx, dist, orient = self._search(embs, self._k_bucket(k_max))
                 for out_row, i in enumerate(rows):
                     r = group[i]
                     r.result = self._format(idx[out_row], dist[out_row],
@@ -395,6 +415,26 @@ class GeolocateService:
         finally:
             for r in group:
                 r.done.set()
+
+    def _search(self, embs: np.ndarray, k: int):
+        """Exact top-k: (indices, distances, orientations or None for the
+        vector families), sharded over the mesh when there is one."""
+        search = self.index.search_sharded if self._mesh is not None else self.index.search
+        if self._vector:
+            idx, dist = search(embs, k=k)
+            return idx, dist, None
+        return search(embs, k=k, fast=self._fast)
+
+    def health(self) -> dict:
+        """What GET /healthz answers."""
+        return {
+            "status": "ok",
+            "gallery_size": len(self.index),
+            "family": self.family,
+            "int8": self._int8,
+            "max_batch": self.max_batch,
+            "sharded_devices": self._mesh.size if self._mesh is not None else 1,
+        }
 
     def _format(self, idx_row, dist_row, orient_row, k: int):
         """Results of one request: tile centres (meta x/y), distance, the
@@ -435,14 +475,7 @@ def make_handler(service: GeolocateService):
 
         def do_GET(self):
             if self.path.startswith("/healthz"):
-                self._json(200, {
-                    "status": "ok",
-                    "gallery_size": len(service.index),
-                    "family": service.family,
-                    "int8": service._int8,
-                    "max_batch": service.max_batch,
-                    "sharded_devices": 1,
-                })
+                self._json(200, service.health())
             elif self.path.startswith("/stats"):
                 with service._stats_lock:
                     s = dict(service.stats)
@@ -520,6 +553,9 @@ def main(argv=None):
     parser.add_argument("--max-batch", type=int, default=0,
                         help=">=2 enables request micro-batching: concurrent requests share one "
                              "embed+search dispatch")
+    parser.add_argument("--shard-gallery", action="store_true",
+                        help="keep the gallery resident-sharded across every local GPU "
+                             "(multi-GPU hosts): exact searches take the sharded top-k path")
     parser.add_argument("--batch-window-ms", type=float, default=3.0,
                         help="max wait after the first queued request before dispatching a "
                              "partial batch")
@@ -542,7 +578,8 @@ def main(argv=None):
                                max_batch=args.max_batch, batch_window_ms=args.batch_window_ms,
                                allow_mismatch=args.allow_mismatch,
                                batch_workers=args.batch_workers,
-                               max_candidates=args.max_candidates, family=args.family)
+                               max_candidates=args.max_candidates, family=args.family,
+                               mesh=make_mesh() if args.shard_gallery else None)
     # Bind first, so that a port in use fails fast; connections made during
     # the warm-up wait in the listen backlog.
     server = serve(service, args.port, args.host)

@@ -17,14 +17,18 @@ scalars and texts. Each function takes any family's pipeline
 the FOV family's maps by the orientation-aligned chord distance and the SAFA
 and baseline families' vectors by Euclidean distance, with the eval-time
 random draws (the FOV crop heading, the baseline's synced rotation) from a
-generator seeded ``cfg.train.seed + 1``. Not ported: the mesh and
-multi-host branches.
+generator seeded ``cfg.train.seed + 1``. ``embed_all`` and ``test`` take a
+``parallel.Mesh`` of devices in this process: each batch is split over the
+mesh's data axis and each rank sweep sharded over its devices. Not ported:
+``train``'s mesh branch (data-parallel training) and the multi-host
+branches.
 """
 
 from __future__ import annotations
 
 import collections
 import time
+import warnings
 from typing import Dict, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
@@ -35,6 +39,7 @@ from witw_tpu_torch.evaluation.gallery import (FovGalleryEvaluator, euclidean_ra
                                                metrics_from_ranks)
 from witw_tpu_torch.match.distance import paired_chord_distance
 from witw_tpu_torch.ops.image import denormalize_images
+from witw_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, shard_batch
 from witw_tpu_torch.train.checkpoint import Checkpointer
 from witw_tpu_torch.train.metrics import MetricWriter
 from witw_tpu_torch.train.pipeline import FovPipeline, Params, Pipeline, TrainState
@@ -57,13 +62,25 @@ def _count(batch) -> int:
     return len(batch["surface"])
 
 
-def device_prefetch(loader: Iterable, device, depth: int = 2) -> Iterator[Tuple[Dict, int]]:
+def device_prefetch(loader: Iterable, device, depth: int = 2,
+                    mesh: Optional[Mesh] = None) -> Iterator[Tuple[Dict, int]]:
     """Move each batch's "surface", "overhead" (and "valid") to ``device``
     ``depth`` batches ahead of the step that consumes it. Yields (the
     batch's tensors, its count of real rows). On a CUDA device each batch is
     copied from pinned host memory on a side stream, and the step's stream
     waits on an event recorded after the copy, so the upload of batch k + 1
-    overlaps step k; elsewhere the arrays become tensors in place."""
+    overlaps step k; elsewhere the arrays become tensors in place.
+
+    With a ``mesh`` each batch is split over its data axis
+    (``parallel.shard_batch``) and the tensors yielded are a list of data
+    shards' dicts, shard i on ``mesh.data_devices[i]``; a straggler batch
+    that the data axis does not divide is zero-padded to the next multiple,
+    every shard carries the bool "valid" mask of its real rows (the
+    batch's own "valid", if any, and-ed in), and the count is the batch's
+    length before the padding, as witw_tpu's."""
+    if mesh is not None:
+        yield from _mesh_prefetch(loader, mesh, depth)
+        return
     device = torch.device(device)
     cuda = device.type == "cuda"
     copy_stream = torch.cuda.Stream(device) if cuda else None
@@ -95,6 +112,26 @@ def device_prefetch(loader: Iterable, device, depth: int = 2) -> Iterator[Tuple[
             yield ready(buf.popleft())
     while buf:
         yield ready(buf.popleft())
+
+
+def _mesh_prefetch(loader: Iterable, mesh: Mesh, depth: int):
+    n_data = mesh.shape[DATA_AXIS]
+    buf = collections.deque()
+    for batch in loader:
+        host = {k: torch.as_tensor(batch[k]) for k in BATCH_KEYS if k in batch}
+        n = len(host["surface"])
+        valid = host.pop("valid", torch.ones(n, dtype=torch.bool)).to(torch.bool)
+        pad = -n % n_data
+        if pad:
+            host = {k: torch.cat([v, v.new_zeros((pad,) + tuple(v.shape[1:]))])
+                    for k, v in host.items()}
+            valid = torch.cat([valid, valid.new_zeros(pad)])
+        host["valid"] = valid
+        buf.append((shard_batch(host, mesh), n))
+        if len(buf) >= depth:
+            yield buf.popleft()
+    while buf:
+        yield buf.popleft()
 
 
 def run_phase(
@@ -255,17 +292,48 @@ def embed_all(
     params: Params,
     loader: Iterable,
     generator: Optional[torch.Generator] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Embed every batch of ``loader`` (dicts with numpy or tensor
     "surface" and "overhead"); returns (surface_embeds, overhead_embeds) on
     the pipeline's device, concatenated once. ``generator`` drives the
     eval-time random crop heading when the config asks for one, and the
-    baseline family's synced rotation."""
+    baseline family's synced rotation.
+
+    ``mesh``: each batch is split over the mesh's data axis
+    (:func:`device_prefetch`), and each data shard embedded on its device
+    with a replica of ``params`` copied there once per call; the results
+    come back to ``mesh.devices[0]`` with the padded rows dropped. The
+    random draws are made for each batch's real rows from ``generator``,
+    as without a mesh, then padded and split, so the embeddings do not
+    depend on the mesh."""
+    if mesh is None:
+        surfaces, overheads = [], []
+        for data, _ in device_prefetch(loader, pipeline.device):
+            s_emb, o_emb = pipeline.embed_step(params, data, generator)
+            surfaces.append(s_emb)
+            overheads.append(o_emb)
+        return torch.cat(surfaces), torch.cat(overheads)
+    home = mesh.devices[0]
+    replicas = {}
+    for device in mesh.data_devices:
+        if device not in replicas:
+            replicas[device] = (pipeline.on_device(device),
+                                {tower: {k: v.to(device) for k, v in p.items()}
+                                 for tower, p in params.items()})
     surfaces, overheads = [], []
-    for data, _ in device_prefetch(loader, pipeline.device):
-        s_emb, o_emb = pipeline.embed_step(params, data, generator)
-        surfaces.append(s_emb)
-        overheads.append(o_emb)
+    for shards, n in device_prefetch(loader, None, mesh=mesh):
+        per = len(shards[0]["surface"])
+        draws = pipeline.draw(generator, n)
+        if draws is not None:
+            draws = torch.cat([draws, draws.new_zeros(per * len(shards) - n)])
+        outs = []
+        for i, shard in enumerate(shards):
+            replica, replica_params = replicas[shard["surface"].device]
+            outs.append(replica.embed_step(replica_params, shard, None,
+                                           None if draws is None else draws[i * per:(i + 1) * per]))
+        surfaces.append(torch.cat([s.to(home) for s, _ in outs])[:n])
+        overheads.append(torch.cat([o.to(home) for _, o in outs])[:n])
     return torch.cat(surfaces), torch.cat(overheads)
 
 
@@ -323,6 +391,7 @@ def test_ranks(
     verbose: bool = True,
     checkpointer: Optional[Checkpointer] = None,
     writer: Optional[MetricWriter] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[Dict[str, float], np.ndarray]:
     """Full-gallery retrieval eval: embed, rank, and report the reference
     metric suite. Returns the metrics and the per-query ranks they were
@@ -333,24 +402,35 @@ def test_ranks(
     and baseline ranks from ``euclidean_ranks`` (f32, ``fast_matmul`` has no
     effect). The eval-time draws come from a generator seeded
     ``cfg.train.seed + 1``, as witw_tpu's (witw_tpu/train/loop.py:389-391).
-    ``writer`` gets each metric as a text."""
+    ``writer`` gets each metric as a text. ``mesh``: the embeds split over
+    its data axis (:func:`embed_all`) and the rank sweep sharded over its
+    devices: the query axis, or with ``cfg.eval.shard_gallery`` the
+    gallery, resident (``FovGalleryEvaluator``); the SAFA and baseline
+    galleries always resident (``euclidean_ranks``). ``shard_gallery``
+    without a mesh warns and sweeps on one device, as witw_tpu's."""
     if params is None:
         if checkpointer is None:
             checkpointer = Checkpointer(cfg.train.checkpoint_dir)
         target = pipeline.init_state(torch.Generator().manual_seed(0))
         params = checkpointer.restore("best", target).params
     generator = torch.Generator().manual_seed(cfg.train.seed + 1)
-    s_emb, o_emb = embed_all(pipeline, params, test_loader, generator)
+    s_emb, o_emb = embed_all(pipeline, params, test_loader, generator, mesh)
     if isinstance(pipeline, FovPipeline):
+        if cfg.eval.shard_gallery and mesh is None:
+            warnings.warn("shard_gallery requested but no device mesh is available (one "
+                          "device, or the eval batch size does not divide the device count): "
+                          "sweeping the gallery on one device", stacklevel=2)
         evaluator = FovGalleryEvaluator(
             query_block=cfg.eval.query_block,
             gallery_chunk=cfg.eval.gallery_chunk,
             use_fused=not cfg.eval.fast_matmul,
             fast_matmul=cfg.eval.fast_matmul,
+            mesh=mesh,
+            shard_gallery=cfg.eval.shard_gallery and mesh is not None,
         )
         ranks = evaluator.ranks(o_emb, s_emb)
     else:
-        ranks = euclidean_ranks(o_emb, s_emb)
+        ranks = euclidean_ranks(o_emb, s_emb, mesh=mesh)
     results = metrics_from_ranks(ranks)
     if verbose:
         print("Top  1: {:.2f}%".format(results["top_1"]))
@@ -374,6 +454,8 @@ def test(
     verbose: bool = True,
     checkpointer: Optional[Checkpointer] = None,
     writer: Optional[MetricWriter] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Dict[str, float]:
     """Full-gallery retrieval eval (:func:`test_ranks` without the ranks)."""
-    return test_ranks(cfg, pipeline, test_loader, params, verbose, checkpointer, writer)[0]
+    return test_ranks(cfg, pipeline, test_loader, params, verbose, checkpointer, writer,
+                      mesh)[0]

@@ -31,6 +31,7 @@ them out. Its loss is the exhaustive minibatch triplet loss.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Dict, List, Optional, Tuple, Union
 
@@ -125,24 +126,48 @@ class _TwinPipeline:
     def _input(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.float32).to(self.device)
 
+    def on_device(self, device) -> "_TwinPipeline":
+        """This pipeline on ``device`` (itself when already there): the same
+        config and towers, for a data shard's embeds there. The towers run
+        through ``functional_call`` on params the caller puts on
+        ``device``."""
+        device = torch.device(device)
+        if device == self.device:
+            return self
+        other = copy.copy(self)
+        other.device = device
+        return other
+
+    def draw(self, generator: Optional[torch.Generator], b: int) -> Optional[torch.Tensor]:
+        """The per-sample random draw :meth:`preprocess` makes for a batch of
+        ``b`` (on the generator's device), or None when it makes none: the
+        FOV crop origins with ``random_orientation`` on a panorama dataset,
+        from ``generator`` (a CPU generator seeded 0 when None)."""
+        d = self.cfg.data
+        if not (d.dataset.panorama and d.random_orientation):
+            return None
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        return random_fov_starts(generator, b, d.surface_width_max)
+
     def preprocess(
-        self, batch, generator: Optional[torch.Generator] = None
+        self, batch, generator: Optional[torch.Generator] = None,
+        draws: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Raw {"surface": [B, H, W_max, C], "overhead": [B, S, S, C]} ->
         (normalized surface crop [B, H, sw, C], normalized polar
-        [B, H, W_max, C]). With ``random_orientation`` the crop origins come
-        from ``generator`` (a CPU generator seeded 0 when None)."""
+        [B, H, W_max, C]). With ``random_orientation`` the crop origins are
+        ``draws`` when the caller made them, else :meth:`draw`'s from
+        ``generator``."""
         d = self.cfg.data
         surface = self._input(batch["surface"])
         overhead = self._input(batch["overhead"])
         if d.dataset.panorama:
             sw = d.surface_width
             if d.random_orientation:
-                if generator is None:
-                    generator = torch.Generator().manual_seed(0)
-                starts = random_fov_starts(
-                    generator, surface.shape[0], d.surface_width_max, self.device
-                )
+                if draws is None:
+                    draws = self.draw(generator, surface.shape[0])
+                starts = draws.to(self.device)
             else:
                 starts = torch.zeros(surface.shape[0], dtype=torch.int64, device=self.device)
             if sw < d.surface_width_max:
@@ -191,12 +216,15 @@ class _TwinPipeline:
 
     @torch.no_grad()
     def embed_step(
-        self, params: Params, batch, generator: Optional[torch.Generator] = None
+        self, params: Params, batch, generator: Optional[torch.Generator] = None,
+        draws: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Embed a batch: (surface embeddings, overhead embeddings), float32:
         FOV maps [B, h, sw', 16] and [B, h, W', 16] NHWC, SAFA vectors
-        [B, M·512], baseline vectors [B, 1536]."""
-        surface, polar = self.preprocess(batch, generator)
+        [B, M·512], baseline vectors [B, 1536]. ``draws``: the batch's
+        random draw (:meth:`draw`), made by the caller, in place of one from
+        ``generator``."""
+        surface, polar = self.preprocess(batch, generator, draws)
         return self._towers(params, surface, polar, False, None)
 
 
@@ -292,21 +320,30 @@ class BaselinePipeline(_TwinPipeline):
     def trainable_names(self, tower_params: Dict[str, torch.Tensor]) -> List[str]:
         return baseline_trainable_mask(tower_params)
 
-    def preprocess(
-        self, batch, generator: Optional[torch.Generator] = None
-    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Raw {"surface": [B, H, W, C], "overhead": [B, S, S, C]} -> the
-        towers' raw-pixel inputs: a synced rotation per sample drawn from
-        ``generator`` (a CPU generator seeded 0 when None; the reference
-        rotates at train and eval time, cvig_baseline.py:324-328,410-414),
-        then CVUSA rows repeated, then the orientation maps when the config
-        asks for them."""
-        surface = self._input(batch["surface"])
-        overhead = self._input(batch["overhead"])
+    def draw(self, generator: Optional[torch.Generator], b: int) -> torch.Tensor:
+        """The synced rotation's angles for a batch of ``b``
+        (``rotation.rotation_degrees``), from ``generator`` (a CPU generator
+        seeded 0 when None)."""
         if generator is None:
             generator = torch.Generator().manual_seed(0)
+        return rotation.rotation_degrees(generator, b)
+
+    def preprocess(
+        self, batch, generator: Optional[torch.Generator] = None,
+        draws: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Raw {"surface": [B, H, W, C], "overhead": [B, S, S, C]} -> the
+        towers' raw-pixel inputs: a synced rotation per sample (``draws``
+        when the caller made them, else :meth:`draw`'s from ``generator``;
+        the reference rotates at train and eval time,
+        cvig_baseline.py:324-328,410-414), then CVUSA rows repeated, then the
+        orientation maps when the config asks for them."""
+        surface = self._input(batch["surface"])
+        overhead = self._input(batch["overhead"])
+        if draws is None:
+            draws = self.draw(generator, surface.shape[0])
         surface, overhead = rotation.synced_rotation(
-            generator, surface, overhead, panorama=self.cfg.data.dataset.panorama)
+            None, surface, overhead, panorama=self.cfg.data.dataset.panorama, draw=draws)
         if self.repeat_surface_rows:
             surface = repeat_rows(surface, 2)
         if self.cfg.model.orientation_maps:
