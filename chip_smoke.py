@@ -266,6 +266,34 @@ Phases, each of which passes or raises:
    (photo, x, y and orientations equal, distances within rtol 1e-5, atol
    1e-6). Every check runs and is logged, the phase failing at the end if
    any failed; host-clock times beside the card's name and power limit.
+31. Data-parallel training and the multi-process runtime at
+   fov_experiment("cvusa", 360), bf16, random weights from a seed, on
+   make_mesh(devices=[cuda:0, cuda:0]) (the card named twice): (a) in one
+   process, the DP train step (pipeline.train_step on the GlobalBatch of
+   loop.device_prefetch(mesh=)) at batch 64 and on a straggler of 63 against
+   one device's step from the same state and generator (loss within rtol
+   1e-3; each tower's first-step gradient at cosine >= 0.999, norm ratio
+   within 1e-2 of 1, a planted fault (per-shard losses, plain DDP's)
+   failing the same check), the staged step's ms on both (CUDA events),
+   loop.train(mesh=) for one epoch (4 train steps of 64, 1 val step)
+   against loop.train on one device (params within rtol 1e-3 + 2.5 lr a
+   step, the best val loss within rtol 1e-3), then loop.test(mesh=) on the
+   DP-trained towers (tied) over 1001 planted pairs (ranks equal); (b) two
+   processes of this script (--dp-worker, Gloo, both on cuda:0, a port from
+   the OS, a timeout of their own), each passing its 32 rows of the
+   batch-64 step to global_batch_from_local: the step against (a)'s one
+   device (same tolerances), params and Adam moments identical on both,
+   the gallery-resident and query-split fused-match ranks on 1024 planted
+   pairs and GalleryIndex.search_sharded against one device's, a checkpoint
+   round trip and a restore_latest broadcast from per-process directories
+   (max |diff| 0.0), and (c)'s f32 steps over the two processes; (c) the
+   baseline's DP step (baseline_experiment("cvusa"), a straggler of 15:
+   global BatchNorm) and SAFA's (batch 32) against one device's, in f32
+   (TF32 off; held as (a)) and bf16 (DP_BF16_LIMIT's cosine), each with the
+   planted fault failing, and SAFA's f32 gradient split into its shards'
+   shares, rounded to bf16 before and after their sum. Work files in
+   .smoke_dp/, removed. Every check runs and is
+   logged, the phase failing at the end if any failed.
 
 The launch counts are reset just before the path they count and read right
 after it: the fused match's and the conv kernel's before phase 4 and after
@@ -290,7 +318,10 @@ conv kernel's around the converted towers' runs (`convert_launches`), and
 every kernel's before each sharded run of phase 30 (embed_all, both
 loop.test sweeps, the four 8832-pair sweeps, each daemon's 16 requests, the
 sweep), read after each, which must raise the kernels that path runs (the
-records' `sharded_launches` sum them). The
+records' `sharded_launches` sum them); the fused match's and the conv
+kernel's before each DP step, train(mesh=) and loop.test(mesh=) of phase 31,
+read after each, plus the counts its two worker processes report (the
+records' `dp_launches` sum them). The
 second-to-last line is the
 kernels' JSON record; the last line is {"ok": true, "device": {...}}.
 Without a GPU, or without the repo beside it, the script exits non-zero and
@@ -3789,6 +3820,502 @@ def phase_sharded(card, device, indexes, serve_params):
     return launches
 
 
+DP_DIR = Path(__file__).resolve().parent / ".smoke_dp"
+DP_TIMEOUT = 420  # seconds for the two worker processes of [31] (b)
+DP_SEED = 40  # the batches of [31] (a) and (b)
+DP_STEP_SEED = 7  # the train step's generator in (a) and (b)
+
+
+def dp_grads(state):
+    """A state's gradients, {tower: {name: tensor}}, after a train step."""
+    return {t: {k: p.grad.detach().clone() for k, p in state.params[t].items()
+                if p.grad is not None} for t in state.params}
+
+
+def grad_agreement(got, want):
+    """(least cosine, largest |norm ratio - 1|) over the towers' whole
+    gradients, and (least cosine, its tensor) over single tensors."""
+    cos, ratio, worst = 1.0, 0.0, (2.0, "")
+    for t in want:
+        g = torch.cat([got[t][k].flatten().double() for k in sorted(want[t])])
+        w = torch.cat([want[t][k].flatten().double() for k in sorted(want[t])])
+        cos = min(cos, float(g @ w / (g.norm() * w.norm())))
+        ratio = max(ratio, abs(float(g.norm() / w.norm()) - 1.0))
+        for k in want[t]:
+            a, b = got[t][k].flatten().double(), want[t][k].flatten().double()
+            worst = min(worst, (float(a @ b / (a.norm() * b.norm()).clamp_min(1e-300)),
+                                f"{t}/{k}"))
+    return cos, ratio, worst
+
+
+# The least per-tower cosine of a bf16 DP gradient to one device's bf16 one
+# in [31] (c) (FOV's, in (a), is held at 0.999). It sits between the readings
+# of sound steps on [31]'s data on an H100 (SAFA 0.995613 in five runs, where
+# each shard's bf16 weight gradient is rounded before the shards' sum and the
+# shards' shares cancel about 100-fold; the baseline 0.999760 in five runs
+# with f64 sums and 0.998298 with per-row moments) and those of the planted
+# fault of per-shard losses (SAFA 0.982044, baseline 0.954349).
+DP_BF16_LIMIT = 0.99
+
+
+@contextlib.contextmanager
+def per_shard_losses(pipe, shards: int = 2):
+    """A planted fault: ``pipe``'s data-parallel loss replaced by the mean of
+    each shard's own in-batch loss (plain DDP's), not the global batch's."""
+    global_loss = pipe._loss
+
+    def loss(s_emb, o_emb, valid):
+        parts = zip(s_emb.chunk(shards), o_emb.chunk(shards), valid.chunk(shards))
+        return sum(global_loss(s, o, v)[0] for s, o, v in parts) / shards, {}
+
+    pipe._loss = loss
+    try:
+        yield
+    finally:
+        del pipe._loss
+
+
+@contextlib.contextmanager
+def one_shard_only(pipe, keep: int):
+    """``pipe``'s data-parallel step with every shard's embeddings but
+    shard ``keep``'s detached: its gradient is that shard's share of the
+    global loss's."""
+    embed = pipe._embed_shards
+
+    def shards(*args):
+        return tuple([x if i == keep else x.detach() for i, x in enumerate(parts)]
+                     for parts in embed(*args))
+
+    pipe._embed_shards = shards
+    try:
+        yield
+    finally:
+        del pipe._embed_shards
+
+
+def state_digest(state) -> str:
+    """A hash of a state's params and Adam moments."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in sorted(state.params):
+        for k in sorted(state.params[t]):
+            h.update(state.params[t][k].detach().cpu().numpy().tobytes())
+    for st in state.optimizer.state.values():
+        for k in sorted(st):
+            h.update(st[k].detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_batches(cfg, n: int):
+    rng = np.random.default_rng(DP_SEED)
+    return [raw_batch(rng, cfg, 64) for _ in range(n)]
+
+
+def dp_families():
+    """[31] (c)'s steps, (family, pipeline class, config, batch): the
+    baseline on a straggler of 15 (BatchNorm's global statistics) and SAFA
+    at batch 32."""
+    rng = np.random.default_rng(42)
+    base, safa = baseline_experiment("cvusa"), safa_experiment("cvusa", 360)
+    return [("baseline", BaselinePipeline, base, baseline_batch(rng, base, 15)),
+            ("SAFA", SafaPipeline, safa, raw_batch(rng, safa, 32))]
+
+
+def f32_config(cfg):
+    """``cfg`` with f32 towers."""
+    return cfg.replace(model=dataclasses.replace(cfg.model, compute_dtype="float32"))
+
+
+def dp_worker(rank: int, count: int, port: int, workdir: str) -> int:
+    """[31] (b): one of ``count`` processes over Gloo, each on cuda:0,
+    running tests/mp_worker.py's contract at full width; rank 0 writes
+    ``dp_worker.json`` into ``workdir``."""
+    from witw_tpu_torch.parallel import (global_batch_from_local, initialize_distributed,
+                                         process_count)
+    import torch.distributed as dist
+
+    device = require_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed(f"127.0.0.1:{port}", count, rank, backend="gloo", timeout=DP_TIMEOUT)
+    mesh = make_mesh(devices=[device])
+    out = {"process_count": process_count(), "mesh": repr(mesh)}
+    fused_match.launches = conv3x3.launches = 0
+    cfg = fov_experiment("cvusa", 360)
+    pipeline = FovPipeline(cfg, device)
+    batch = dp_batches(cfg, 1)[0]
+    rows = 64 // count
+    gb = global_batch_from_local({k: v[rank * rows:(rank + 1) * rows] for k, v in batch.items()},
+                                 mesh)
+    out["layout"] = [gb.start, gb.rows, gb.count, len(gb)]
+    state = pipeline.init_state(torch.Generator().manual_seed(cfg.train.seed))
+    state, metrics = pipeline.train_step(state, gb, torch.Generator().manual_seed(DP_STEP_SEED))
+    out["loss"] = float(metrics["loss"])
+    if rank == 0:
+        torch.save({t: {k: g.cpu() for k, g in gs.items()} for t, gs in dp_grads(state).items()},
+                   os.path.join(workdir, "grads.pt"))
+    steps = [global_batch_from_local({k: v[rank * rows:(rank + 1) * rows]
+                                      for k, v in b.items()}, mesh) for b in dp_batches(cfg, 3)]
+    step_of = iter(range(10**9))
+    out["step_ms"] = cuda_ms(lambda: pipeline.train_step(
+        state, steps[next(step_of) % 3], torch.Generator().manual_seed(1)), 3, 3)
+    out["digest"] = [None] * count
+    mine = state_digest(state)
+
+    # the baseline (BatchNorm's statistics over both processes' rows: 8 and 7
+    # of the straggler of 15) and SAFA (16 and 16), f32 towers, held in (c)
+    families = {}
+    for family, make, family_cfg, fbatch in dp_families():
+        fpipe = make(f32_config(family_cfg), device)
+        lo, hi = np.array_split(np.arange(len(fbatch["surface"])), count)[rank][[0, -1]]
+        fgb = global_batch_from_local({k: v[lo:hi + 1] for k, v in fbatch.items()}, mesh)
+        fstate, fm = fpipe.train_step(
+            fpipe.init_state(torch.Generator().manual_seed(family_cfg.train.seed)), fgb,
+            torch.Generator().manual_seed(DP_STEP_SEED))
+        families[family] = {"loss": float(fm["loss"]), "layout": [fgb.start, fgb.rows, fgb.count],
+                            "digest": state_digest(fstate)}
+        if rank == 0:
+            torch.save({t: {k: g.cpu() for k, g in gs.items()} for t, gs in
+                        dp_grads(fstate).items()}, os.path.join(workdir, f"{family}.pt"))
+        del fpipe, fstate
+    torch.cuda.empty_cache()
+
+    o, s = planted_embeddings(np.random.default_rng(41), 1024, 4, 64, 16, 64)
+    out["ranks"] = FovGalleryEvaluator(mesh=mesh, use_fused=True, query_block=128,
+                                       shard_gallery=True).ranks(o, s).tolist()
+    out["ranks_split"] = FovGalleryEvaluator(mesh=mesh, use_fused=True,
+                                             query_block=128).ranks(o, s).tolist()
+    index = GalleryIndex(o, device=device)
+    index.place_sharded(mesh, gallery_chunk=256, max_k=16)
+    top_i, top_d, top_o = index.search_sharded(s[:64, :, :12], k=10)
+    out.update(search_i=top_i.tolist(), search_d=top_d.tolist(), search_o=top_o.tolist())
+
+    best = Checkpointer(os.path.join(workdir, "ckpt"))
+    written = best.save("best", state, {"val_loss": out["loss"], "step": state.step})
+    if (written is None) != (rank != 0):
+        raise AssertionError(f"rank {rank}: save returned {written}")
+    own = Checkpointer(os.path.join(workdir, f"ckpt_local_{rank}"))
+    own.save_step(state, state.step, {"epoch": 1})
+    own.wait()
+    if os.path.isdir(own.directory) != (rank == 0):
+        raise AssertionError(f"rank {rank} created {own.directory}")
+    fresh = pipeline.init_state(torch.Generator().manual_seed(99))
+    restored = own.restore_latest(fresh)
+    diff = max(float((restored.params[t][k] - state.params[t][k]).abs().max())
+               for t in state.params for k in state.params[t])
+    if rank == 0:
+        back = best.restore("best", pipeline.init_state(torch.Generator().manual_seed(98)))
+        out["ckpt_roundtrip_max"] = max(float((back.params[t][k] - state.params[t][k]).abs().max())
+                                        for t in state.params for k in state.params[t])
+    views = [None] * count
+    dist.all_gather_object(views, {"digest": mine, "restore_latest_max": diff,
+                                   "families": families,
+                                   "loss": out["loss"], "ranks": out["ranks"],
+                                   "launches": {"fused_match": fused_match.launches,
+                                                "conv3x3": conv3x3.launches}})
+    if rank == 0:
+        out["digest"] = [v["digest"] for v in views]
+        out["restore_latest_max"] = [v["restore_latest_max"] for v in views]
+        out["same_loss_and_ranks"] = all(v["loss"] == views[0]["loss"]
+                                         and v["ranks"] == views[0]["ranks"] for v in views)
+        out["launches"] = [v["launches"] for v in views]
+        out["families"] = [v["families"] for v in views]
+        with open(os.path.join(workdir, "dp_worker.json"), "w") as f:
+            json.dump(out, f)
+    dist.destroy_process_group()
+    print(f"DP_WORKER_{rank}_OK", flush=True)
+    return 0
+
+
+def run_dp_workers(count: int = 2):
+    """Start ``count`` dp_worker processes (this script, a port from the
+    OS), wait for both within DP_TIMEOUT, kill both if either overruns;
+    returns rank 0's JSON. Raises if a worker fails or times out."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    script = Path(__file__).resolve()
+    procs = [subprocess.Popen([sys.executable, str(script), "--dp-worker", str(r), str(count),
+                               str(port), str(DP_DIR)], cwd=str(script.parent),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(count)]
+    outs = []
+    try:
+        deadline = time.monotonic() + DP_TIMEOUT
+        for p in procs:
+            outs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0 or f"DP_WORKER_{r}_OK" not in out:
+            raise AssertionError(f"[31] worker {r} exited {p.returncode}:\n{out[-6000:]}")
+    with open(DP_DIR / "dp_worker.json") as f:
+        return json.load(f)
+
+
+def phase_dp(card, device):
+    """[31] Data-parallel training and the multi-process runtime at full
+    CVUSA width on a mesh naming the card twice: (a) one process, the DP
+    train step (a batch of 64 and a straggler of 63) and train(mesh=)
+    against one device, then loop.test(mesh=) on the trained towers; (b)
+    two processes over Gloo, both on the card, with (c)'s f32 steps; (c)
+    the baseline and SAFA DP steps in f32 and bf16, each with a planted
+    fault that must fail. Every check runs and is logged; the phase raises at the end
+    if any failed. Returns the launches of the fused match and the conv
+    kernel on its paths."""
+    t_phase = time.perf_counter()
+    mesh = make_mesh(devices=[device, device])
+    log(f"[31] data-parallel training over make_mesh(devices=[{device}, {device}]): {mesh} "
+        f"(one card named twice; Gloo for the two processes: NCCL refuses two ranks on one "
+        f"GPU) ({card})")
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    DP_DIR.mkdir()
+    failures = []
+
+    def check(ok, what):
+        if not ok:
+            failures.append(what)
+            log(f"    FAILED: {what}")
+
+    launches = {"fused_match": 0, "conv3x3": 0}
+
+    def count(fn):
+        fused_match.launches = conv3x3.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        made = {"fused_match": fused_match.launches, "conv3x3": conv3x3.launches}
+        for n, c in made.items():
+            launches[n] += c
+        return out, made
+
+    def fresh(pipe):
+        return pipe.init_state(torch.Generator().manual_seed(pipe.cfg.train.seed))
+
+    def step(pipe, batch):
+        return pipe.train_step(fresh(pipe), batch, torch.Generator().manual_seed(DP_STEP_SEED))
+
+    def shard_rounding(pipe, batch, g_sum):
+        """Why bf16 DP gradients depart from one device's: the f32 DP
+        step's gradient ``g_sum`` split into each shard's share, each share
+        rounded to bf16 before their sum (as a shard's bf16 weight gradient
+        is) against the sum rounded once (as one device's is); and how much
+        the shares cancel, (|g_1| + |g_2|) / |g_1 + g_2|, at the tensor
+        the rounding moves most."""
+        gb = next(iter(loop.device_prefetch([batch], None, mesh=mesh)))[0]
+        shares = []
+        for keep in range(len(gb)):
+            with one_shard_only(pipe, keep):
+                shares.append(dp_grads(step(pipe, gb)[0]))
+        bf16 = lambda g: g.to(torch.bfloat16).to(torch.float32)  # noqa: E731
+        twice = {t: {n: sum(bf16(sh[t][n]) for sh in shares) for n in g_sum[t]} for t in g_sum}
+        once = {t: {n: bf16(g_sum[t][n]) for n in g_sum[t]} for t in g_sum}
+        cos, _, (t_cos, name) = grad_agreement(twice, once)
+        t, n = name.split("/", 1)
+        cancel = sum(float(sh[t][n].norm()) for sh in shares) / float(g_sum[t][n].norm())
+        median = statistics.median(
+            sum(float(sh[t][n].norm()) for sh in shares) / max(float(g_sum[t][n].norm()), 1e-30)
+            for t in g_sum for n in g_sum[t])
+        whole, _, _ = grad_agreement({t: {n: sum(sh[t][n] for sh in shares) for n in g_sum[t]}
+                                      for t in g_sum}, g_sum)
+        log(f"    SAFA's f32 DP gradient as the sum of its two shards' shares (their sum at "
+            f"cosine {whole:.6f} to the step's): each share rounded to bf16 before the sum, "
+            f"against the sum rounded once, per tower least cosine {cos:.6f}, least tensor "
+            f"{t_cos:.6f} ({name}), where the shares cancel {cancel:.1f}-fold "
+            f"((|g_1| + |g_2|) / |g_1 + g_2|; median over tensors {median:.1f})")
+
+    def one_vs_dp(name, pipe, batch, limit=0.999, fault=False):
+        """The DP step and one device's on ``batch`` from the same state and
+        generator: the loss within rtol 1e-3 and each tower's gradient at
+        cosine >= ``limit`` and a norm ratio within 1e-2 of 1. With
+        ``fault``, the planted fault of plain DDP (each shard's own
+        in-batch loss, averaged) must fail the same gradient check. Returns
+        (one device's gradients, its loss, the DP step's gradients,
+        launches)."""
+        one, l_one = step(pipe, batch)
+        g_one = dp_grads(one)
+        gb = next(iter(loop.device_prefetch([batch], None, mesh=mesh)))[0]
+        (dp, l_dp), made = count(lambda: step(pipe, gb))
+        g_dp = dp_grads(dp)
+        l_one, l_dp = float(l_one["loss"]), float(l_dp["loss"])
+        cos, ratio, (t_cos, t_name) = grad_agreement(g_dp, g_one)
+        check(abs(l_dp / l_one - 1.0) <= 1e-3, f"{name}: loss {l_dp} vs one device {l_one}")
+        check(cos >= limit and ratio <= 1e-2, f"{name}: gradients cos {cos} (>= {limit}), "
+              f"|norm ratio - 1| {ratio}")
+        note = ""
+        if fault:
+            with per_shard_losses(pipe):
+                g_fault = dp_grads(step(pipe, gb)[0])
+            f_cos, f_ratio, _ = grad_agreement(g_fault, g_one)
+            check(f_cos < limit or f_ratio > 1e-2, f"{name}: the planted fault passed the check: "
+                  f"cos {f_cos}, |norm ratio - 1| {f_ratio}")
+            note = (f"; planted fault (per-shard losses): cosine {f_cos:.6f}, |norm ratio - 1| "
+                    f"{f_ratio:.2e} (fails)")
+        log(f"    {name}: loss {l_dp:.6f} vs one device {l_one:.6f} (rel {abs(l_dp / l_one - 1):.2e},"
+            f" rtol 1e-3); first-step gradients against one device's, per tower, least cosine "
+            f"{cos:.6f} (>= {limit}), largest |norm ratio - 1| {ratio:.2e} (<= 1e-2); least tensor "
+            f"cosine {t_cos:.6f} ({t_name}){note}; launches {made}")
+        return g_one, l_one, g_dp, made
+
+    # (a) one process, full width, batch 64
+    cfg = fov_experiment("cvusa", 360)
+    pipeline = FovPipeline(cfg, device)
+    batches = dp_batches(cfg, 5)
+    g_one, l_one, _, made = one_vs_dp("FOV DP step, batch 64 (two shards of 32)", pipeline,
+                                      batches[0], fault=True)
+    check(made["conv3x3"] > 0, f"the FOV DP step launched no conv3x3_bf16: {made}")
+    one_vs_dp("FOV DP step, a straggler of 63 (padded to 64)", pipeline,
+              {k: v[:63] for k, v in batches[1].items()})
+    staged = [{k: torch.from_numpy(v).to(device) for k, v in b.items()} for b in batches[:3]]
+    sharded = [next(iter(loop.device_prefetch([b], None, mesh=mesh)))[0] for b in batches[:3]]
+    state_one, state_dp = fresh(pipeline), fresh(pipeline)
+    step_of = iter(range(10**9))
+    gen = torch.Generator().manual_seed(1)
+    ms_one = cuda_ms(lambda: pipeline.train_step(state_one, staged[next(step_of) % 3], gen), 4, 5)
+    ms_dp = cuda_ms(lambda: pipeline.train_step(state_dp, sharded[next(step_of) % 3], gen), 4, 5)
+    log(f"    train step, batch 64, staged batches (CUDA events, median of 5 runs of 4 steps): "
+        f"one device {ms_one:.3f} ms ({64e3 / ms_one:.2f} pairs/s), DP on the card twice "
+        f"{ms_dp:.3f} ms ({64e3 / ms_dp:.2f} pairs/s) ({card})")
+    del state_one, state_dp, staged, sharded
+
+    epoch_cfg = cfg.replace(train=dataclasses.replace(cfg.train, num_epochs=1))
+    runs = {}
+    for name, m in (("one", None), ("mesh", mesh)):
+        ckpt = Checkpointer(str(DP_DIR / f"train_{name}"))
+        run = lambda m=m, ckpt=ckpt: timed(lambda: loop.train(  # noqa: E731
+            epoch_cfg, pipeline, batches[:4], batches[4:], checkpointer=ckpt, verbose=False,
+            mesh=m))
+        runs[name] = (count(run) if m is not None else (run(), None)) + (ckpt,)
+    ((s_one, dt_one), _, c_one), ((s_dp, dt_dp), made, c_dp) = runs["one"], runs["mesh"]
+    lr = cfg.train.optim.learning_rate
+    worst = max(float(((s_dp.params[t][k] - s_one.params[t][k]).abs()
+                       - 1e-3 * s_one.params[t][k].abs()).max().detach())
+                for t in s_one.params for k in s_one.params[t])
+    check(s_dp.step == s_one.step == 4 and worst <= 2.5 * lr * 4,
+          f"train(mesh=) params after the epoch: step {s_dp.step}, excess over rtol 1e-3 "
+          f"{worst:.3e} (bound {2.5 * lr * 4:.1e})")
+    check(made["conv3x3"] > 0, f"train(mesh=) launched no conv3x3_bf16: {made}")
+    check(abs(c_dp.best_val_loss() / c_one.best_val_loss() - 1.0) <= 1e-3,
+          f"best val loss {c_dp.best_val_loss()} vs {c_one.best_val_loss()}")
+    log(f"    train(mesh=) one epoch (4 train steps of 64, 1 val step): {dt_dp:.3f} s, one device "
+        f"{dt_one:.3f} s ({card}); params after the epoch beyond rtol 1e-3 by at most "
+        f"{worst:.3e} ({worst / lr:.2f} lr); best val loss {c_dp.best_val_loss():.6f} vs "
+        f"{c_one.best_val_loss():.6f}; launches {made}")
+
+    tower = s_dp.params["overhead"]
+    tied = {"surface": tower, "overhead": tower}
+    eval_cfg = cfg.replace(eval=dataclasses.replace(cfg.eval, batch_size=128))
+    planted = planted_batches(eval_cfg, SHARD_PAIRS, 128, 32, device)
+    (_, ranks_one), t_one = timed(lambda: loop.test_ranks(eval_cfg, pipeline, planted, tied,
+                                                          verbose=False))
+    ((_, ranks_dp), t_dp), made = count(lambda: timed(lambda: loop.test_ranks(
+        eval_cfg, pipeline, planted, tied, verbose=False, mesh=mesh)))
+    check(np.array_equal(ranks_dp, ranks_one) and made["fused_match"] > 0,
+          f"loop.test(mesh=) on the trained towers: ranks differ on "
+          f"{int((ranks_dp != ranks_one).sum())}; launches {made}")
+    log(f"    loop.test(mesh=) on the DP-trained towers (tied), {SHARD_PAIRS} planted pairs: ranks "
+        f"== one device's {np.array_equal(ranks_dp, ranks_one)} (mean {ranks_dp.mean():.4f}); "
+        f"{t_dp:.3f} s, one device {t_one:.3f} s ({card}); launches {made}")
+    del runs, s_one, s_dp, tied, planted
+
+    # (b) two processes over Gloo, both on the card
+    o_pl, s_pl = planted_embeddings(np.random.default_rng(41), 1024, 4, 64, 16, 64)
+    ranks_ref = FovGalleryEvaluator(use_fused=True, query_block=128, device=device).ranks(o_pl, s_pl)
+    ref_i, ref_d, ref_o = GalleryIndex(o_pl, device=device).search(s_pl[:64, :, :12], k=10)
+    torch.cuda.empty_cache()
+    got, dt = timed(run_dp_workers)
+    grads = torch.load(DP_DIR / "grads.pt")
+    cos, ratio, _ = grad_agreement({t: {k: g.to(device) for k, g in gs.items()}
+                                    for t, gs in grads.items()}, g_one)
+    check(got["process_count"] == 2 and got["layout"] == [0, 64, 64, 1],
+          f"workers: {got['process_count']} processes, layout {got['layout']}")
+    check(abs(got["loss"] / l_one - 1.0) <= 1e-3 and cos >= 0.999 and ratio <= 1e-2,
+          f"two processes: loss {got['loss']} vs {l_one}, gradients cos {cos}, ratio {ratio}")
+    check(len(set(got["digest"])) == 1 and got["same_loss_and_ranks"],
+          "the processes' params, moments, losses or ranks differ")
+    check(got["ranks"] == ranks_ref.tolist() and got["ranks_split"] == ranks_ref.tolist(),
+          "two-process ranks differ from one device's")
+    check(got["search_i"] == ref_i.tolist() and got["search_o"] == ref_o.tolist()
+          and np.allclose(got["search_d"], ref_d, rtol=1e-5, atol=1e-6),
+          "two-process search_sharded differs from one device's search")
+    check(got["ckpt_roundtrip_max"] == 0.0 and got["restore_latest_max"] == [0.0, 0.0],
+          f"checkpoints: round trip {got['ckpt_roundtrip_max']}, restore_latest broadcast "
+          f"{got['restore_latest_max']}")
+    worker_launches = {n: sum(v[n] for v in got["launches"]) for n in launches}
+    check(all(worker_launches.values()), f"the workers launched {worker_launches}")
+    for n, c in worker_launches.items():
+        launches[n] += c
+    log(f"    two processes over Gloo ({got['mesh']}), 32 rows each: loss {got['loss']:.6f} vs one "
+        f"device {l_one:.6f}; gradients least cosine {cos:.6f}, |norm ratio - 1| {ratio:.2e}; "
+        f"params and moments identical on both {len(set(got['digest'])) == 1}; ranks "
+        f"(gallery-resident and query-split, 1024 planted) == one device's "
+        f"{got['ranks'] == ranks_ref.tolist()}; search_sharded == search "
+        f"{got['search_i'] == ref_i.tolist()}; checkpoint round trip {got['ckpt_roundtrip_max']}, "
+        f"restore_latest broadcast {got['restore_latest_max']}; DP step {got['step_ms']:.3f} ms "
+        f"per process (CUDA events); workers {dt:.1f} s in all; launches {got['launches']} "
+        f"({card})")
+
+    # (c) the baseline (a straggler: global BatchNorm) and SAFA, f32 towers
+    # (TF32 off) and bf16, each against one device's; (b)'s two processes on
+    # the f32 steps
+    for k, (family, make, family_cfg, batch) in enumerate(dp_families()):
+        what = f"{len(batch['surface'])}" + (" (padded to 16)" if family == "baseline" else "")
+        f32 = make(f32_config(family_cfg), device)
+        g32, l32, g32_dp, _ = one_vs_dp(f"{family} DP step, f32 towers, batch {what}", f32, batch,
+                                        fault=True)
+        views = [v[family] for v in got["families"]]
+        w_grads = {t: {n: g.to(device) for n, g in gs.items()}
+                   for t, gs in torch.load(DP_DIR / f"{family}.pt").items()}
+        w_cos, w_ratio, _ = grad_agreement(w_grads, g32)
+        n = len(batch["surface"])
+        layouts = [[int(r[0]), n, n] for r in np.array_split(np.arange(n), len(views))]
+        check(abs(views[0]["loss"] / l32 - 1.0) <= 1e-3 and w_cos >= 0.999 and w_ratio <= 1e-2
+              and len({v["digest"] for v in views}) == 1
+              and [v["layout"] for v in views] == layouts,
+              f"{family} over two processes: loss {views[0]['loss']} vs {l32}, gradients cos "
+              f"{w_cos}, ratio {w_ratio}, layouts {[v['layout'] for v in views]}")
+        log(f"    {family} DP step, f32 towers, over (b)'s two processes (rows from "
+            f"{[v['layout'][0] for v in views]} of {n}): loss {views[0]['loss']:.6f} vs one "
+            f"device {l32:.6f}; gradients least cosine {w_cos:.6f}, |norm ratio - 1| "
+            f"{w_ratio:.2e}; params and moments identical on both "
+            f"{len({v['digest'] for v in views}) == 1}")
+        if family == "SAFA":
+            shard_rounding(f32, batch, g32_dp)
+        bf16 = make(family_cfg, device)
+        g16, _, g16_dp, made = one_vs_dp(f"{family} DP step, bf16 towers, batch {what}", bf16,
+                                         batch, DP_BF16_LIMIT, fault=True)
+        # a sound step that differs only in batch size: one device on the
+        # batch with an all-padding row added
+        padded = {k: np.concatenate([v, np.zeros_like(v[:1])]) for k, v in batch.items()}
+        padded["valid"] = np.arange(n + 1) < n
+        p_cos, p_ratio, (p_t, p_name) = grad_agreement(dp_grads(step(bf16, padded)[0]), g16)
+        log(f"    {family} bf16, one device on the batch with a padding row ({n + 1} rows) "
+            f"against one device's step: per tower least cosine {p_cos:.6f}, |norm ratio - 1| "
+            f"{p_ratio:.2e}; least tensor {p_t:.6f} ({p_name})")
+        del bf16
+        c_one, _, (t_one, n_one) = grad_agreement(g16, g32)
+        c_dp, _, (t_dp, n_dp) = grad_agreement(g16_dp, g32)
+        log(f"    {family} bf16 gradients against the f32 towers' one-device step, per tower "
+            f"least cosine: one device {c_one:.6f}, DP {c_dp:.6f}; least tensor: one device "
+            f"{t_one:.6f} ({n_one}), DP {t_dp:.6f} ({n_dp})")
+        if family == "baseline":
+            check(not any(made.values()), f"the baseline DP step launched a port kernel: {made}")
+        else:
+            check(made["conv3x3"] > 0, f"the SAFA DP step launched no conv3x3_bf16: {made}")
+        del f32
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"    [31] {time.perf_counter() - t_phase:.2f} s; launches on its paths {launches} ({card})")
+    if failures:
+        raise AssertionError(f"[31] {len(failures)} checks failed: {failures}")
+    return launches
+
+
 def main() -> int:
     # 1. device
     device = require_cuda()
@@ -4035,6 +4562,7 @@ def main() -> int:
         f"{dict(BASELINE_LAUNCHES) or 'none'}")
     dynamic, dynamic_pairs_per_s, convert_launches = phase_remainder(card, device)
     sharded = phase_sharded(card, device, indexes, serve_params)
+    dp_launches = phase_dp(card, device)
     serving = {n: build_launches[p].get(n, 0) + daemon_launches[p].get(n, 0)
                + sweep_launches[p].get(n, 0)
                for p in ("bf16", "int8") for n in build_launches[p]}
@@ -4060,6 +4588,7 @@ def main() -> int:
             record["dynamic_pairs_per_s"] = dynamic_pairs_per_s
         record["sharded_launches"] = sharded[mod]
     conv_record["sharded_launches"] = sharded["conv3x3"]
+    conv_record["dp_launches"] = dp_launches["conv3x3"]
 
     log(card)
     log(json.dumps({"kernels": [{
@@ -4081,6 +4610,7 @@ def main() -> int:
         "baseline_launches": BASELINE_LAUNCHES["fused_match"],
         "dynamic_launches": dynamic["fused_match"],
         "sharded_launches": sharded["fused_match"],
+        "dp_launches": dp_launches["fused_match"],
     }] + int8_records + [conv_record] + probe_records}))
     log(f"smoke total: {time.perf_counter() - T_START:.2f} s")
     log(json.dumps({"ok": True, "device": {
@@ -4092,4 +4622,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 6 and sys.argv[1] == "--dp-worker":
+        sys.exit(dp_worker(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]))
     sys.exit(main())

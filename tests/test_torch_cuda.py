@@ -810,3 +810,80 @@ def test_embed_all_and_test_on_a_card_mesh(card_mesh):
         _, got = loop.test_ranks(c, pipeline, batches, params, verbose=False, mesh=card_mesh)
         assert fused_match.launches > before
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("b", [8, 7], ids=["full", "straggler"])
+def test_dp_train_step_on_a_card_mesh(card_mesh, b):
+    """The data-parallel bf16 FOV train step (dropout on, crops drawn, the
+    conv kernel in each shard's forward) on the card mesh against one
+    device's step on the same batch, seed and params, with chip_smoke.py
+    [31]'s tolerances: the loss within rtol 1e-3, every gradient tensor at
+    cosine >= 0.999 and a norm ratio within 1e-2 of 1 (bf16 towers round
+    otherwise at another batch size)."""
+    from witw_tpu_torch.train import loop
+
+    ds = DatasetConfig(name="cvusa", train_csv="", test_csv="", panorama=True)
+    data = DataConfig(dataset=ds, surface_height=32, surface_width_max=64, overhead_size=32)
+    cfg = ExperimentConfig(data=data, model=FovDsmModelConfig())
+    pipeline = FovPipeline(cfg, torch.device("cuda", 0))
+    rng = np.random.default_rng(5)
+    batch = {"surface": rng.integers(0, 256, (b, 32, 64, 3), np.uint8),
+             "overhead": rng.integers(0, 256, (b, 32, 32, 3), np.uint8)}
+    (gb, count), = list(loop.device_prefetch([batch], None, mesh=card_mesh))
+    assert count == b and gb.rows == 8
+    runs = []
+    for data_in in (batch, gb):
+        state = pipeline.init_state(torch.Generator().manual_seed(0))
+        before = conv3x3.launches
+        state, metrics = pipeline.train_step(state, data_in, torch.Generator().manual_seed(3))
+        assert conv3x3.launches > before
+        grads = {f"{t}/{k}": p.grad.double() for t in state.params
+                 for k, p in state.params[t].items() if p.grad is not None}
+        runs.append((float(metrics["loss"]), grads))
+    (l_one, g_one), (l_dp, g_dp) = runs
+    np.testing.assert_allclose(l_dp, l_one, rtol=1e-3)
+    for name, w in g_one.items():
+        g = g_dp[name]
+        assert float(g.flatten() @ w.flatten() / (g.norm() * w.norm())) >= 0.999, name
+        assert abs(float(g.norm() / w.norm()) - 1.0) <= 1e-2, name
+
+
+def test_nccl_collectives_take_host_tensors(cuda, monkeypatch):
+    """A one-process NCCL group on the card: NCCL refuses a host tensor,
+    and the collectives' staged copies of host counts, masks, rows and
+    bf16 values (on the current CUDA device) go through it and come back
+    to the host unchanged."""
+    import socket
+
+    import torch.distributed as dist
+
+    from witw_tpu_torch.parallel import collectives, initialize_distributed
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    monkeypatch.setenv("LOCAL_RANK", "0")
+    initialize_distributed(f"127.0.0.1:{port}", 1, 0, backend="nccl", timeout=60)
+    try:
+        assert dist.get_backend() == "nccl"
+        assert collectives.stage_device() == torch.device("cuda", 0)
+        with pytest.raises(Exception):
+            dist.all_reduce(torch.ones(3))
+            torch.cuda.synchronize()
+        for t in (torch.tensor([5, 7]), torch.tensor([1, 0, 1], dtype=torch.uint8),
+                  torch.arange(12.0).view(3, 4), torch.arange(6.0).to(torch.bfloat16)):
+            staged = collectives._staged(t)
+            assert staged.device == torch.device("cuda", 0)
+            dist.all_reduce(staged)
+            out = [torch.empty_like(staged)]
+            dist.all_gather(out, staged)
+            assert torch.equal(out[0].to("cpu", t.dtype), t)
+            assert torch.equal(staged.to("cpu", t.dtype), t)
+        views = [None]
+        dist.all_gather_object(views, {"rows": 3})
+        assert views == [{"rows": 3}]
+        box = [("epoch", 2)]
+        dist.broadcast_object_list(box, src=0)
+        assert box == [("epoch", 2)]
+    finally:
+        dist.destroy_process_group()

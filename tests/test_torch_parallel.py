@@ -98,7 +98,7 @@ def test_make_mesh_needs_a_card_unless_given_devices(monkeypatch):
 def test_mesh_grid_counts_positions_not_devices():
     mesh = make_mesh(n_data=4, n_gallery=2, devices=["cpu"] * 8)
     assert mesh.size == 8 and mesh.shape == {pmesh.DATA_AXIS: 4, pmesh.GALLERY_AXIS: 2}
-    assert mesh.devices == (CPU,) * 8 and len(mesh.data_devices) == 4
+    assert mesh.devices == (CPU,) * 8 and len(mesh.local_data_devices) == 4
     assert make_mesh(devices=["cpu"] * 3) == cpu_mesh(3) != cpu_mesh(2)
     assert hash(cpu_mesh(3)) == hash(make_mesh(devices=[CPU] * 3))
     assert make_mesh(n_gallery=2, devices=["cpu"] * 5).shape == {"data": 2, "gallery": 2}
@@ -369,8 +369,9 @@ def test_shard_gallery_without_a_mesh_warns_and_sweeps_one_device():
 
 def test_auto_mesh_and_run_train_on_several_cards(monkeypatch, tmp_path):
     """cli.common._auto_mesh: a data mesh over every card when there are
-    several and the batch divides over them, else None; run_train warns on
-    such a host that it trains on one device."""
+    several and the batch divides over them, else None; run_train trains
+    data-parallel on it (witw_tpu/cli/common.py:90), and on one device when
+    a device is given."""
     from witw_tpu_torch.cli import common
 
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
@@ -380,12 +381,16 @@ def test_auto_mesh_and_run_train_on_several_cards(monkeypatch, tmp_path):
     assert mesh.shape == {"data": 2, "gallery": 1} and mesh.size == 2
     assert common._auto_mesh(63) is None
     cfg = fov_experiment("cvusa", 360)
-    missing = str(tmp_path / "no_such.csv")
-    cfg = cfg.replace(data=dataclasses.replace(
-        cfg.data, dataset=dataclasses.replace(cfg.data.dataset, train_csv=missing)))
-    with pytest.warns(UserWarning, match="data-parallel training"), \
-            pytest.raises(FileNotFoundError):
-        common.run_train(cfg, "tag")
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, checkpoint_dir=str(tmp_path / "ck"),
+                                                tensorboard_dir=str(tmp_path / "tb")))
+    seen = []
+    monkeypatch.setattr(common, "read_pair_paths", lambda *args: [("s", "o")] * 8)
+    monkeypatch.setattr(common, "make_pipeline", lambda *args: None)
+    monkeypatch.setattr(common.loop, "train", lambda *args, mesh=None, **kw: seen.append(mesh))
+    monkeypatch.setattr(common, "_auto_mesh", lambda b: ("every card", b))
+    common.run_train(cfg, "tag")
+    common.run_train(cfg, "tag", device="cpu")
+    assert seen == [("every card", cfg.train.batch_size), None]
 
 
 def test_tools_take_shard_gallery(monkeypatch, tmp_path):

@@ -1,6 +1,6 @@
 """Shared CLI runner: dataset loaders and the train / test drivers (port of
-witw_tpu/cli/common.py; test mode runs on a mesh of every GPU when the
-host has more than one, training on one device).
+witw_tpu/cli/common.py; train and test modes run on a mesh of every GPU
+when the host has more than one).
 
 Reproduces the reference entry points' behaviour (reference
 model/cvig_fov.py:580-601): ``--mode {train,test} --dataset {cvusa,witw}``
@@ -16,7 +16,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
-import warnings
 from typing import Optional, Tuple
 
 import torch
@@ -85,11 +84,9 @@ def run_train(
     """Split the train CSV (``cfg.train.val_quantity`` pairs to val), train
     (resuming from ``latest``), checkpoint and log; ``profile_dir`` records
     a torch.profiler trace of the run. Returns the final TrainState.
-    Training runs on one device: on a host with more than one GPU it warns
-    that data-parallel training is not ported yet."""
-    if device is None and torch.cuda.device_count() > 1:
-        warnings.warn(f"{torch.cuda.device_count()} GPUs visible, but data-parallel training is "
-                      "not ported yet: training on one device", stacklevel=2)
+    Without a ``device`` it trains data-parallel on a mesh of every GPU
+    where there is more than one and ``cfg.train.batch_size`` divides over
+    them (``_auto_mesh``), as witw_tpu does."""
     pairs = read_pair_paths(cfg.data.dataset, cfg.data.dataset.train_csv)
     train_pairs, val_pairs = split_train_val(pairs, cfg.train.val_quantity, cfg.train.seed)
     train_loader = build_loader(cfg, train_pairs, shuffle=True, drop_last=True)
@@ -101,7 +98,8 @@ def run_train(
     try:
         with trace_profile(profile_dir):
             return loop.train(cfg, pipeline, train_loader, val_loader, num_epochs=num_epochs,
-                              checkpointer=ckpt, writer=writer, handle_signals=True)
+                              checkpointer=ckpt, writer=writer, handle_signals=True,
+                              mesh=_auto_mesh(cfg.train.batch_size) if device is None else None)
     finally:
         try:
             ckpt.close()

@@ -285,10 +285,15 @@ class PairLoader:
         except Exception:
             pass
 
-    def _batches(self) -> List[List[int]]:
+    def order(self, epoch: int) -> np.ndarray:
+        """The pair indices of ``epoch``, in reading order."""
         order = np.arange(len(self.pairs))
         if self.shuffle:
-            np.random.default_rng(self.seed + self.epoch).shuffle(order)
+            np.random.default_rng(self.seed + epoch).shuffle(order)
+        return order
+
+    def _batches(self) -> List[List[int]]:
+        order = self.order(self.epoch)
         self.epoch += 1
         batches = []
         for start in range(0, len(order), self.batch_size):

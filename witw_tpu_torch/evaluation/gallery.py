@@ -29,6 +29,7 @@ from witw_tpu_torch.match.fft_matcher import (
     query_fft,
 )
 from witw_tpu_torch.ops.fused_match import fused_chord_distance_nhwc
+from witw_tpu_torch.parallel.collectives import all_reduce_sum
 from witw_tpu_torch.parallel.mesh import Mesh, Shard, gallery_shards, placement, replicate
 from witw_tpu_torch.utils.device import require_cuda
 
@@ -72,7 +73,10 @@ class FovGalleryEvaluator:
     under ``use_fused``), every shard's work is issued before any count is
     gathered, and the true-match threshold comes from one paired pass on
     the first mesh device (or ``device``). ``last_gallery_placement``
-    records the resident shards (``parallel.placement``).
+    records the resident shards (``parallel.placement``). Across processes
+    every process passes the whole gallery and query set, sweeps only the
+    blocks or shards of its own mesh positions, and the integer counts are
+    summed over the processes once: every process returns the same ranks.
     """
 
     def __init__(
@@ -102,7 +106,7 @@ class FovGalleryEvaluator:
     def _tensor(self, x) -> torch.Tensor:
         device = self.device
         if device is None and self.mesh is not None:
-            device = self.mesh.devices[0]
+            device = self.mesh.home
         if isinstance(x, torch.Tensor):
             return x.to(device or x.device, torch.float32)
         device = device if device is not None else require_cuda()
@@ -175,29 +179,36 @@ class FovGalleryEvaluator:
         return (counts + 1).cpu().numpy().astype(np.int32)
 
     def _query_sharded(self, gal, sw, blocks, s_all, d_true, tm) -> torch.Tensor:
-        """Query blocks dealt over the mesh devices, the gallery tables
-        replicated to each (one copy per distinct device)."""
+        """Query blocks dealt over the mesh positions, the gallery tables
+        replicated to each of this process's devices (one copy per distinct
+        device); each process's blocks' counts, summed over the processes."""
         mesh = self.mesh
         home = gal.device
         tables = self._tables(gal, sw)
         on_device = {}
-        for device in mesh.devices:
+        for device in mesh.local_devices:
             if device not in on_device:
                 on_device[device] = (tuple(None if t is None else t.to(device) for t in tables),
                                      torch.arange(gal.shape[0], device=device))
         parts = []
         for b, (q0, q1) in enumerate(blocks):
+            if b % mesh.size not in mesh.local_positions:
+                continue
             device = mesh.devices[b % mesh.size]
             dev_tables, idx = on_device[device]
-            parts.append(self._block_counts(
+            parts.append((q0, q1, self._block_counts(
                 dev_tables, idx, None, self.gallery_chunk, s_all[q0:q1].to(device),
-                d_true[q0:q1].to(device), tm[q0:q1].to(device)))
-        return torch.cat([p.to(home) for p in parts])
+                d_true[q0:q1].to(device), tm[q0:q1].to(device))))
+        counts = torch.zeros(s_all.shape[0], dtype=torch.int64, device=home)
+        for q0, q1, part in parts:
+            counts[q0:q1] = part.to(home)
+        return all_reduce_sum(counts)
 
     def _gallery_sharded(self, gal, sw, blocks, s_all, d_true, tm) -> torch.Tensor:
         """The gallery resident in mesh.size shards, each transformed and
         swept on its own device against every (replicated) query block; the
-        per-shard counts summed once, at the end."""
+        per-shard counts summed once, at the end, over the shards and the
+        processes."""
         mesh = self.mesh
         home = gal.device
         n_gal = gal.shape[0]
@@ -215,7 +226,7 @@ class FovGalleryEvaluator:
             parts.append(torch.cat([
                 self._block_counts(tables, idx, shard.mask, chunk, s_rep[q0:q1], dt_rep[q0:q1],
                                    tm_rep[q0:q1]) for q0, q1 in blocks]))
-        return sum(p.to(home) for p in parts)
+        return all_reduce_sum(sum(p.to(home) for p in parts))
 
 
 @contextlib.contextmanager
@@ -263,7 +274,7 @@ def euclidean_ranks(gallery_embeds, query_embeds, block: int = 1024,
                                device=device if device is not None else require_cuda())
 
     if mesh is not None and device is None:
-        device = mesh.devices[0]
+        device = mesh.home
     g = tensor(gallery_embeds)
     q_all = tensor(query_embeds).to(g.device)
     nq, ng = q_all.shape[0], g.shape[0]
@@ -296,13 +307,15 @@ def euclidean_ranks(gallery_embeds, query_embeds, block: int = 1024,
                 # exactly one shard holds each true match; the others add 0
                 d_true = d_true + torch.where(is_tm, d2, torch.zeros((), device=d2.device)
                                               ).sum(dim=0).to(g.device)
+            if mesh is not None:
+                d_true = all_reduce_sum(d_true)
             count = 0
             for shard, d2, is_tm in zip(shards, d2s, is_tms):
                 le = (d2 <= d_true.to(d2.device)[None, :]) & ~is_tm
                 if shard.mask is not None:
                     le &= shard.mask[:, None]
                 count = count + le.sum(dim=0).to(g.device)
-            counts.append(count)
+            counts.append(count if mesh is None else all_reduce_sum(count))
     return (torch.cat(counts) + 1).cpu().numpy().astype(np.int32)
 
 

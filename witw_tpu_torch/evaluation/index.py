@@ -13,7 +13,10 @@ through the FFT matcher (``match.fft_matcher``), chunk by chunk:
   its candidates;
 - ``place_sharded``, ``search_sharded``, ``score_all_sharded``: the
   gallery split over a ``parallel.Mesh``, each device scoring only its
-  own shard; the per-shard top-k lists are merged at the end.
+  own shard; the per-shard top-k lists are merged at the end. Across
+  processes each process holds and scores the shards of its own mesh
+  positions, and the lists (or the scores) are gathered over the
+  processes, so every process returns one process's answer.
 
 The npz layout is witw_tpu's (``embeds`` and ``meta_<key>``), so either
 package loads the other's index.
@@ -28,6 +31,7 @@ import torch
 
 from witw_tpu_torch.match.distance import window_sq_norms
 from witw_tpu_torch.match.fft_matcher import candidates_vs_queries, gallery_vs_queries, query_fft
+from witw_tpu_torch.parallel.collectives import allgather_rows, process_allgather
 from witw_tpu_torch.parallel.mesh import Mesh, gallery_shards, placement, replicate
 from witw_tpu_torch.utils.device import require_cuda
 
@@ -62,6 +66,17 @@ def merge_shard_topk(lists, k: int, home: torch.device):
     cols = [torch.cat([part[j].to(home) for part in lists], dim=1) for j in range(len(lists[0]))]
     top_d, sel = _smallest_k(cols[0], k)
     return (top_d,) + tuple(torch.gather(c, 1, sel) for c in cols[1:])
+
+
+def merge_process_topk(merged, k: int, home: torch.device):
+    """Every process's merged list (:func:`merge_shard_topk`) merged again
+    in process order, which is mesh order; the list itself in one
+    process."""
+    every = [process_allgather(t) for t in merged]
+    if every[0].shape[0] == 1:
+        return merged
+    return merge_shard_topk([tuple(t[r] for t in every) for r in range(every[0].shape[0])],
+                            k, home)
 
 
 def placed(index, mesh: Optional[Mesh], gallery_chunk: int) -> Dict:
@@ -394,7 +409,8 @@ class GalleryIndex:
                 top_d, top_i = _smallest_k(d.T, k_local)
                 parts.append((top_d, top_i + (shard.start + a), torch.gather(o.T, 1, top_i)))
             lists.append(merge_shard_topk(parts, k_local, shard.device))
-        top_d, top_i, top_o = merge_shard_topk(lists, k, st["shards"][0].device)
+        home = st["shards"][0].device
+        top_d, top_i, top_o = merge_process_topk(merge_shard_topk(lists, k, home), k, home)
         return (top_i.cpu().numpy().astype(np.int64), top_d.cpu().numpy().astype(np.float32),
                 top_o.cpu().numpy().astype(np.int32))
 
@@ -409,8 +425,8 @@ class GalleryIndex:
         with :meth:`score_all` to f32 roundoff (the chunks batch the
         products differently)."""
         st = placed(self, mesh, gallery_chunk)
-        parts = [(torch.cat([d for _, d, _ in chunks])[:shard.valid],
-                  torch.cat([o for _, _, o in chunks])[:shard.valid])
+        parts = [(torch.cat([d for _, d, _ in chunks])[:shard.valid].cpu(),
+                  torch.cat([o for _, _, o in chunks])[:shard.valid].cpu())
                  for shard, chunks in zip(st["shards"], self._shard_chunks(st, surface_embeds, fast))]
-        return (np.concatenate([d.cpu().numpy() for d, _ in parts]).astype(np.float32),
-                np.concatenate([o.cpu().numpy() for _, o in parts]).astype(np.int32))
+        return (allgather_rows(torch.cat([d for d, _ in parts])).numpy().astype(np.float32),
+                allgather_rows(torch.cat([o for _, o in parts])).numpy().astype(np.int32))

@@ -27,7 +27,9 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from witw_tpu_torch.evaluation.index import _smallest_k, merge_shard_topk, placed, shard_layout
+from witw_tpu_torch.evaluation.index import (_smallest_k, merge_process_topk, merge_shard_topk,
+                                            placed, shard_layout)
+from witw_tpu_torch.parallel.collectives import allgather_rows
 from witw_tpu_torch.parallel.mesh import Mesh, gallery_shards, placement, replicate
 from witw_tpu_torch.utils.device import require_cuda
 
@@ -187,7 +189,8 @@ class VectorIndex:
                 top_d, top_i = _smallest_k(d, k_local)
                 parts.append((top_d, top_i + (shard.start + a)))
             lists.append(merge_shard_topk(parts, k_local, shard.device))
-        top_d, top_i = merge_shard_topk(lists, k, st["shards"][0].device)
+        home = st["shards"][0].device
+        top_d, top_i = merge_process_topk(merge_shard_topk(lists, k, home), k, home)
         return top_i.cpu().numpy().astype(np.int64), top_d.cpu().numpy().astype(np.float32)
 
     @torch.no_grad()
@@ -197,6 +200,6 @@ class VectorIndex:
         :meth:`place_sharded` first, or pass ``mesh``): each device scores
         only its own shard. Returns [N, Q] float32."""
         st = placed(self, mesh, gallery_chunk)
-        parts = [torch.cat([d for _, d in chunks], dim=1)[:, :shard.valid].T
+        parts = [torch.cat([d for _, d in chunks], dim=1)[:, :shard.valid].T.cpu()
                  for shard, chunks in zip(st["shards"], self._shard_chunks(st, query_embeds))]
-        return np.concatenate([p.cpu().numpy() for p in parts]).astype(np.float32)
+        return allgather_rows(torch.cat(parts)).numpy().astype(np.float32)

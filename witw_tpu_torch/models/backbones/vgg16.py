@@ -15,7 +15,9 @@ so flax params and torchvision weights map 1:1.
   the block's convs run width-VALID, each consuming one halo column; height
   is zero-padded by 1.
 - Dropout2d after conv4_1/4_2/4_3, only with ``train=True``, its channel
-  mask drawn from an explicit ``torch.Generator``. The reference order is
+  mask drawn from an explicit ``torch.Generator``, or taken from
+  ``DropoutMasks`` drawn beforehand (``draw_masks``): a data-parallel step
+  draws the global batch's masks and gives each shard its rows. The reference order is
   conv -> dropout -> relu (cvig_fov.py:234-245); the bf16 towers apply it
   after the fused conv + ReLU, which is exact: the mask scales each channel
   by 0 or 1/(1-p) >= 0, and ReLU commutes with that.
@@ -28,7 +30,7 @@ so flax params and torchvision weights map 1:1.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -104,16 +106,46 @@ class Conv3x3(nn.Module):
         return y.permute(0, 3, 1, 2)
 
 
-def dropout2d(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+def draw_keep_mask(generator: torch.Generator, b: int, channels: int, rate: float) -> torch.Tensor:
+    """A whole-channel dropout keep mask, bool [b, channels, 1, 1], each
+    element kept with probability 1 - rate, drawn on ``generator``'s
+    device."""
+    return torch.bernoulli(
+        torch.full((b, channels, 1, 1), 1.0 - rate, device=generator.device),
+        generator=generator).to(torch.bool)
+
+
+class DropoutMasks:
+    """Keep masks drawn before the towers run, handed to ``dropout2d`` in
+    place of a generator, one per dropout layer in draw order: a data
+    shard's rows of the masks drawn for the global batch."""
+
+    def __init__(self, masks: Sequence[torch.Tensor]):
+        self._masks = list(masks)
+
+    def next(self, x: torch.Tensor) -> torch.Tensor:
+        if not self._masks:
+            raise ValueError("more dropout layers than masks drawn")
+        keep = self._masks.pop(0)
+        if keep.shape != (x.shape[0], x.shape[1], 1, 1):
+            raise ValueError(f"a keep mask of {tuple(keep.shape)} for an input of "
+                             f"{tuple(x.shape)}")
+        return keep.to(x.device)
+
+
+def dropout2d(x: torch.Tensor, rate: float,
+              generator: Union[torch.Generator, DropoutMasks]) -> torch.Tensor:
     """Whole-channel dropout of an NCHW tensor, as flax ``nn.Dropout`` with
     ``broadcast_dims=(1, 2)`` on NHWC: keep each (image, channel) with
     probability 1 - rate and scale the kept ones by 1 / (1 - rate). The mask
-    is drawn on ``generator``'s device."""
+    is drawn on ``generator``'s device (:func:`draw_keep_mask`), or is the
+    next of the ``DropoutMasks`` given."""
     if generator is None:
         raise ValueError("train-mode dropout needs a torch.Generator")
-    keep = torch.bernoulli(
-        torch.full((x.shape[0], x.shape[1], 1, 1), 1.0 - rate, device=generator.device),
-        generator=generator).to(x.device, torch.bool)
+    if isinstance(generator, DropoutMasks):
+        keep = generator.next(x)
+    else:
+        keep = draw_keep_mask(generator, x.shape[0], x.shape[1], rate).to(x.device)
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -144,8 +176,17 @@ class Vgg16Features(nn.Module):
                 lecun_normal_(conv.weight, generator)
                 conv.bias.zero_()
 
+    def draw_masks(self, generator: torch.Generator, b: int) -> List[torch.Tensor]:
+        """The keep masks a train-mode forward of a batch of ``b`` draws,
+        in its order (none without dropout): the same draws as the forward's
+        own from the same generator state."""
+        if self.dropout_rate <= 0:
+            return []
+        return [draw_keep_mask(generator, b, out_ch, self.dropout_rate)
+                for torch_idx, out_ch in VGG16_CONVS if torch_idx in DROPOUT_CONVS]
+
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Union[torch.Generator, DropoutMasks, None] = None) -> torch.Tensor:
         x = x.to(self.dtype)
         fused = self.dtype == torch.bfloat16
         for block_i, block in enumerate(VGG16_BLOCKS):

@@ -10,6 +10,10 @@ generalized-mean (p = 3) pooled ReLU features of conv5, conv6 and conv7
 The convs run in ``cfg.compute_dtype`` (cuDNN on the card); BatchNorm, GeM
 and the pseudo-normalization run in f32, as flax's dtype handling does.
 
+``forward_sharded`` runs the towers on one global batch's data shards in
+lockstep, layer by layer, with the global batch's BatchNorm statistics (the
+data-parallel train step, as witw_tpu's statistics under GSPMD).
+
 Parameter names are ``conv{i}.weight`` (OIHW), ``conv{i}.bias``,
 ``bn{i}.weight``, ``bn{i}.bias`` and the buffers ``bn{i}.running_mean``,
 ``bn{i}.running_var`` (``nn.BatchNorm2d``'s names).
@@ -17,7 +21,7 @@ Parameter names are ``conv{i}.weight`` (OIHW), ``conv{i}.bias``,
 
 from __future__ import annotations
 
-from typing import Iterable, List, Optional
+from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -37,12 +41,37 @@ def scale_input(x: torch.Tensor) -> torch.Tensor:
     return -1.0 + 2.0 * (x.to(torch.float32) / torch.tensor(255.0, device=x.device))
 
 
+def row_moments(x32: torch.Tensor) -> torch.Tensor:
+    """[B, 2, C]: per row and channel of an NCHW f32 tensor, the mean and
+    the sum of squared deviations from it (M2), in one ``var_mean`` pass
+    (no E[x²] - E[x]², which cancels in f32 where a channel's values nearly
+    agree)."""
+    var, mean = torch.var_mean(x32, dim=(2, 3), correction=0)
+    return torch.stack([mean, var * (x32.shape[2] * x32.shape[3])], dim=1)
+
+
+def batch_stats(rows: torch.Tensor, keep: Optional[torch.Tensor], n_rows: int, hw: int):
+    """The f32 mean and biased variance [C] of the ``n_rows`` rows of
+    ``rows`` [B, 2, C] (:func:`row_moments` of ``hw`` values each) that
+    ``keep`` (bool [B], optional) selects: Chan's combination of the rows
+    in f64, in row order, mean = sum mean_r / n_rows and M2 = sum M2_r +
+    hw sum (mean_r - mean)². Given the same rows, a data-parallel step gets
+    one device's statistics, however its shards split the rows."""
+    r = rows.to(torch.float64)
+    w = 1.0 if keep is None else keep.to(r.device, torch.float64)[:, None]
+    mean, m2 = r[:, 0], r[:, 1]
+    total = (w * mean).sum(dim=0) / n_rows
+    m2 = (w * (m2 + hw * (mean - total).square())).sum(dim=0)
+    return total.to(torch.float32), (m2 / (n_rows * hw)).to(torch.float32)
+
+
 class BatchNorm(nn.Module):
     """BatchNorm over the channels of an NCHW tensor with torch's
     ``nn.BatchNorm2d`` semantics as witw_tpu's ``TorchBatchNorm`` computes
-    them: train mode normalizes with the biased batch variance (the fast
-    form E[x²] - E[x]² in f32, clamped at 0) and updates the running buffers
-    in place with the unbiased one (n / (n - 1)), momentum torch-style
+    them: train mode normalizes with the biased batch variance (per-row
+    moments combined in f64, :func:`batch_stats`, where witw_tpu's is the
+    fast form E[x²] - E[x]² in f32) and updates the running buffers in
+    place with the unbiased one (n / (n - 1)), momentum torch-style
     (running = (1 - m) running + m batch); eval mode uses the buffers.
     ``mask`` (bool [B], optional) leaves padded rows out of the statistics.
     Output f32."""
@@ -64,28 +93,32 @@ class BatchNorm(nn.Module):
         if not train:
             mean, var = self.running_mean, self.running_var
         else:
-            per_ch = x32.shape[2] * x32.shape[3]
-            if mask is None:
-                n = x32.shape[0] * per_ch
-                mean = x32.mean(dim=(0, 2, 3))
-                m2 = x32.square().mean(dim=(0, 2, 3))
-            else:
-                w = mask.to(torch.float32)[:, None, None, None]
-                n = n_valid * per_ch
-                n_t = w.sum() * per_ch
-                mean = (x32 * w).sum(dim=(0, 2, 3)) / n_t
-                m2 = (x32.square() * w).sum(dim=(0, 2, 3)) / n_t
-            if n <= 1:
-                raise ValueError(f"BatchNorm in train mode needs more than one value per channel, "
-                                 f"got {n} (torch raises here; witw_tpu would store inf)")
-            var = torch.clamp(m2 - mean.square(), min=0.0)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.copy_((1.0 - m) * self.running_mean + m * mean)
-                self.running_var.copy_((1.0 - m) * self.running_var + m * var * (n / (n - 1.0)))
+            rows = x32.shape[0] if mask is None else n_valid
+            hw = x32.shape[2] * x32.shape[3]
+            mean, var = self.update_running(*batch_stats(row_moments(x32), mask, rows, hw),
+                                            rows * hw, self.running_mean, self.running_var)
+        return self.normalize(x32, mean, var, self.weight, self.bias)
+
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor, n: int,
+                       running_mean: torch.Tensor, running_var: torch.Tensor):
+        """Updates the running buffers in place, torch-style, from the batch
+        ``mean`` and biased ``var`` of ``n`` values per channel (the buffer
+        takes the unbiased variance) and returns (mean, var). Raises for
+        n <= 1."""
+        if n <= 1:
+            raise ValueError(f"BatchNorm in train mode needs more than one value per channel, "
+                             f"got {n} (torch raises here; witw_tpu would store inf)")
+        with torch.no_grad():
+            m = self.momentum
+            running_mean.copy_((1.0 - m) * running_mean + m * mean)
+            running_var.copy_((1.0 - m) * running_var + m * var * (n / (n - 1.0)))
+        return mean, var
+
+    def normalize(self, x32: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+                  weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
         inv = torch.rsqrt(var + self.eps)
-        return ((x32 - mean[:, None, None]) * (inv * self.weight)[:, None, None]
-                + self.bias[:, None, None])
+        return ((x32 - mean[:, None, None]) * (inv * weight)[:, None, None]
+                + bias[:, None, None])
 
 
 class StridedConv(nn.Module):
@@ -97,9 +130,13 @@ class StridedConv(nn.Module):
         self.weight = nn.Parameter(torch.zeros(cout, cin, 4, 4))
         self.bias = nn.Parameter(torch.zeros(cout))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), self.bias.to(self.dtype),
-                        stride=2)
+    def forward(self, x: torch.Tensor, weight: Optional[torch.Tensor] = None,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The conv with its own parameters, or with ``weight`` and
+        ``bias`` when given."""
+        weight = self.weight if weight is None else weight
+        bias = self.bias if bias is None else bias
+        return F.conv2d(x.to(self.dtype), weight.to(self.dtype), bias.to(self.dtype), stride=2)
 
 
 class BaselineEncoder(nn.Module):
@@ -150,6 +187,61 @@ class BaselineEncoder(nn.Module):
                 feats.append(F.relu(x).pow(p).mean(dim=(2, 3)).pow(1.0 / p))
         f = torch.cat(feats, dim=1)
         return f / f.norm(dim=1, keepdim=True).sqrt()
+
+
+def forward_sharded(towers: Sequence[BaselineEncoder],
+                    shard_params: Sequence[Sequence[Dict[str, torch.Tensor]]],
+                    xs: Sequence[Sequence[torch.Tensor]], train: bool,
+                    valid: torch.Tensor, n_valid: int,
+                    gather: Callable[[List[torch.Tensor]], torch.Tensor],
+                    running: Sequence[Dict[str, torch.Tensor]]) -> List[List[torch.Tensor]]:
+    """Towers on the data shards of one global batch, layer by layer in
+    lockstep: tower t on shard i's input ``xs[t][i]`` (raw NHWC) with its
+    parameters there ``shard_params[t][i]`` (the tower's state dict on the
+    shard's device). In train mode each BatchNorm normalizes every shard
+    with the global batch's statistics: each shard's :func:`row_moments`,
+    every tower's stacked [b, T, 2, C], go through one ``gather`` per layer
+    (the global batch's rows [B, T, 2, C] in row order on every process,
+    with autograd), and :func:`batch_stats` combines the ``n_valid`` rows
+    that ``valid`` (bool [B]) keeps; each tower's running buffers
+    ``running[t]`` (the home state dict) are updated once with them, alike
+    on every process. One collective per layer for all towers keeps the
+    backward's collectives in one order on every process. Eval mode reads
+    each shard's buffers. Returns [t][i], each shard's embeddings on its
+    device."""
+    cfg = towers[0].cfg
+    xs = [[scale_input(x).permute(0, 3, 1, 2) for x in tower_xs] for tower_xs in xs]
+    feats = [[[] for _ in tower_xs] for tower_xs in xs]
+    for i in range(1, len(CHANNELS) + 1):
+        xs = [[F.leaky_relu(getattr(tower, f"conv{i}")(x, sp[f"conv{i}.weight"],
+                                                      sp[f"conv{i}.bias"]),
+                            cfg.leaky_slope).to(torch.float32)
+               for x, sp in zip(tower_xs, sps)]
+              for tower, tower_xs, sps in zip(towers, xs, shard_params)]
+        if train:
+            rows = gather([torch.stack([row_moments(tower_xs[k]) for tower_xs in xs], dim=1)
+                           for k in range(len(xs[0]))])
+            stats = []
+            for t, tower in enumerate(towers):
+                hw = xs[t][0].shape[2] * xs[t][0].shape[3]
+                mean, var = getattr(tower, f"bn{i}").update_running(
+                    *batch_stats(rows[:, t], valid, n_valid, hw), n_valid * hw,
+                    running[t][f"bn{i}.running_mean"], running[t][f"bn{i}.running_var"])
+                stats.append([(mean.to(x.device), var.to(x.device)) for x in xs[t]])
+        else:
+            stats = [[(sp[f"bn{i}.running_mean"], sp[f"bn{i}.running_var"]) for sp in sps]
+                     for sps in shard_params]
+        xs = [[getattr(tower, f"bn{i}").normalize(x, mean, var, sp[f"bn{i}.weight"],
+                                                  sp[f"bn{i}.bias"])
+               for x, (mean, var), sp in zip(tower_xs, tower_stats, sps)]
+              for tower, tower_xs, tower_stats, sps in zip(towers, xs, stats, shard_params)]
+        if i >= GEM_FROM:
+            p = cfg.gem_power
+            for tower_feats, tower_xs in zip(feats, xs):
+                for f, x in zip(tower_feats, tower_xs):
+                    f.append(F.relu(x).pow(p).mean(dim=(2, 3)).pow(1.0 / p))
+    feats = [[torch.cat(f, dim=1) for f in tower_feats] for tower_feats in feats]
+    return [[f / f.norm(dim=1, keepdim=True).sqrt() for f in tower_feats] for tower_feats in feats]
 
 
 def baseline_trainable_mask(names: Iterable[str]) -> List[str]:

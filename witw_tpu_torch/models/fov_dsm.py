@@ -67,7 +67,8 @@ class FovDsm(nn.Module):
     def forward(self, x_nhwc: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """[B, H, W, C] -> [B, h, w, 16] float32. ``train`` turns on the
-        block-4 dropout, whose masks come from ``generator``."""
+        block-4 dropout, whose masks come from ``generator`` (a
+        ``torch.Generator`` or the ``vgg16.DropoutMasks`` drawn for it)."""
         x = self.vgg(x_nhwc.permute(0, 3, 1, 2), train, generator)
         if self.circ_padding and not self.fused:
             x = wrap_pad_width(x, len(HEAD_CONVS))

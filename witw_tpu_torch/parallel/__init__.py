@@ -1,14 +1,22 @@
-from witw_tpu_torch.parallel.mesh import (DATA_AXIS, GALLERY_AXIS, Mesh, Shard, gallery_shards,
-                                          make_mesh, placement, replicate, shard_batch)
+from witw_tpu_torch.parallel.collectives import process_count, process_index
+from witw_tpu_torch.parallel.mesh import (DATA_AXIS, GALLERY_AXIS, GlobalBatch, Mesh, Shard,
+                                          gallery_shards, global_batch_from_local,
+                                          initialize_distributed, make_mesh, placement, replicate,
+                                          shard_batch)
 
 __all__ = [
     "DATA_AXIS",
     "GALLERY_AXIS",
+    "GlobalBatch",
     "Mesh",
     "Shard",
     "gallery_shards",
+    "global_batch_from_local",
+    "initialize_distributed",
     "make_mesh",
     "placement",
+    "process_count",
+    "process_index",
     "replicate",
     "shard_batch",
 ]

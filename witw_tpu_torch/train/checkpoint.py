@@ -1,5 +1,5 @@
 """Checkpoint save/restore with best-pointer and resume (port of
-witw_tpu/train/checkpoint.py, single process).
+witw_tpu/train/checkpoint.py).
 
 The layout is witw_tpu's: ``step_<N>`` periodic checkpoints (the newest
 ``keep`` kept), ``latest`` (the resume point) and ``best`` (the best
@@ -29,6 +29,15 @@ failed write (a failed future stays queued until then); ``restore``,
 ``load``, ``exists`` and ``meta`` wait first, ``save_best`` and ``save``
 block, and ``train.loop.train`` waits before it returns, so its last save
 is on disk. ``close()`` waits and stops the thread.
+
+Across processes (``parallel.initialize_distributed``) every process runs
+this code and only process 0 writes: the others create no directory and
+write nothing. The port's train state is replicated (every process takes
+the same data-parallel step), so a save gathers nothing: process 0 writes
+its own copy, and the writer thread never issues a collective.
+``restore_latest`` reads on process 0 and broadcasts whether a ``latest``
+exists and its payload, so every process resumes from process 0's state
+even where each has its own directory.
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from witw_tpu_torch.models.convert_jax import jax_params_to_state_dict
+from witw_tpu_torch.parallel.collectives import broadcast_one_to_all, process_count, process_index
 from witw_tpu_torch.train.pipeline import TrainState
 from witw_tpu_torch.utils.msgpack import restore_flax_state
 
@@ -70,7 +80,8 @@ class Checkpointer:
         self.async_saves = async_saves
         self._executor: Optional[concurrent.futures.ThreadPoolExecutor] = None
         self._pending: List[concurrent.futures.Future] = []
-        os.makedirs(directory, exist_ok=True)
+        if process_index() == 0:
+            os.makedirs(directory, exist_ok=True)
 
     def _path(self, name: str) -> str:
         return os.path.join(self.directory, f"{name}.pt")
@@ -101,9 +112,12 @@ class Checkpointer:
                 self._executor = None
 
     def save(self, name: str, state: TrainState, meta: Optional[dict] = None,
-             generators: Optional[Dict[str, torch.Generator]] = None) -> str:
+             generators: Optional[Dict[str, torch.Generator]] = None) -> Optional[str]:
         """Write ``name`` (the step, params, optimizer state and
-        ``generators``' states) before returning."""
+        ``generators``' states) before returning; only process 0 writes
+        (None elsewhere)."""
+        if process_index() != 0:
+            return None
         return self._write(name, self._snapshot(state, generators), meta)
 
     @staticmethod
@@ -147,7 +161,10 @@ class Checkpointer:
         """Copy ``name``'s step, params and optimizer state (a witw_tpu
         checkpoint has none) into ``state`` (which keeps its devices) and
         return it."""
-        payload = self.load(name)
+        return self._apply(name, self.load(name), state)
+
+    @staticmethod
+    def _apply(name: str, payload: Dict[str, Any], state: TrainState) -> TrainState:
         with torch.no_grad():
             for tower, saved in payload["params"].items():
                 own = state.params[tower]
@@ -176,6 +193,10 @@ class Checkpointer:
     # ---- training protocol ----
 
     def save_step(self, state: TrainState, step: int, meta: Optional[dict] = None) -> None:
+        """``step_<step>`` and ``latest``, then the retention; only process
+        0 writes."""
+        if process_index() != 0:
+            return
         meta = dict(meta or {}, step=step)
         payload = self._snapshot(state)  # one host copy for both files
         jobs = [lambda n=n: self._write(n, payload, meta) for n in (f"step_{step}", "latest")]
@@ -194,10 +215,17 @@ class Checkpointer:
         return None if m is None else m.get("val_loss")
 
     def restore_latest(self, state: TrainState) -> Optional[TrainState]:
-        """The resume point, or None when there is no ``latest``."""
-        if not self.exists("latest"):
+        """The resume point, or None when there is no ``latest``. Across
+        processes every process must call it: process 0 alone looks for the
+        file and reads it, and broadcasts whether it exists and its payload,
+        so every process returns process 0's state (or None)."""
+        if process_count() == 1:
+            return self.restore("latest", state) if self.exists("latest") else None
+        found = broadcast_one_to_all(process_index() == 0 and self.exists("latest"))
+        if not found:
             return None
-        return self.restore("latest", state)
+        payload = broadcast_one_to_all(self.load("latest") if process_index() == 0 else None)
+        return self._apply("latest", payload, state)
 
     def _gc(self) -> None:
         steps = sorted(

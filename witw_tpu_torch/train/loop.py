@@ -17,11 +17,18 @@ scalars and texts. Each function takes any family's pipeline
 the FOV family's maps by the orientation-aligned chord distance and the SAFA
 and baseline families' vectors by Euclidean distance, with the eval-time
 random draws (the FOV crop heading, the baseline's synced rotation) from a
-generator seeded ``cfg.train.seed + 1``. ``embed_all`` and ``test`` take a
-``parallel.Mesh`` of devices in this process: each batch is split over the
-mesh's data axis and each rank sweep sharded over its devices. Not ported:
-``train``'s mesh branch (data-parallel training) and the multi-host
-branches.
+generator seeded ``cfg.train.seed + 1``.
+
+Every function takes a ``parallel.Mesh``: each batch is split over the
+mesh's data axis (``device_prefetch``), ``train`` and ``run_phase`` take the
+pipelines' data-parallel steps on the global batch, and ``embed_all`` and
+``test`` shard each rank sweep over the mesh's devices. Across processes
+(``parallel.initialize_distributed``) each process passes its own loader's
+batches, the rows of the global batch, and every process must run the same
+calls: a process whose loader ends first joins the remaining steps with
+all-padding batches, ``train`` takes process 0's resume epoch and best loss
+and stops every process at an interrupt on any, ``embed_all`` returns the
+full embeddings on every process and ``test`` the same metrics.
 """
 
 from __future__ import annotations
@@ -39,10 +46,12 @@ from witw_tpu_torch.evaluation.gallery import (FovGalleryEvaluator, euclidean_ra
                                                metrics_from_ranks)
 from witw_tpu_torch.match.distance import paired_chord_distance
 from witw_tpu_torch.ops.image import denormalize_images
-from witw_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, shard_batch
+from witw_tpu_torch.parallel.collectives import any_process, broadcast_one_to_all, gather_rows
+from witw_tpu_torch.parallel.mesh import Mesh, global_batch_from_local
 from witw_tpu_torch.train.checkpoint import Checkpointer
 from witw_tpu_torch.train.metrics import MetricWriter
-from witw_tpu_torch.train.pipeline import FovPipeline, Params, Pipeline, TrainState
+from witw_tpu_torch.train.pipeline import (FovPipeline, Params, Pipeline, TrainState,
+                                           spread_draws)
 from witw_tpu_torch.utils.profiling import StepTimer
 
 PHASES = {"train": 0, "val": 1, "dump": 2}
@@ -71,13 +80,16 @@ def device_prefetch(loader: Iterable, device, depth: int = 2,
     waits on an event recorded after the copy, so the upload of batch k + 1
     overlaps step k; elsewhere the arrays become tensors in place.
 
-    With a ``mesh`` each batch is split over its data axis
-    (``parallel.shard_batch``) and the tensors yielded are a list of data
-    shards' dicts, shard i on ``mesh.data_devices[i]``; a straggler batch
-    that the data axis does not divide is zero-padded to the next multiple,
+    With a ``mesh`` each batch (this process's rows of the global batch)
+    becomes a ``parallel.GlobalBatch`` (``global_batch_from_local``): the
+    list of this process's data shards' dicts, shard i on
+    ``mesh.local_data_devices[i]``, with the global layout. A straggler
+    that the data shards do not divide is zero-padded to the next multiple,
     every shard carries the bool "valid" mask of its real rows (the
-    batch's own "valid", if any, and-ed in), and the count is the batch's
-    length before the padding, as witw_tpu's."""
+    batch's own "valid", if any, and-ed in), and the count is the global
+    batch's real rows. Across processes the steps go on while any
+    process's loader has a batch; one whose loader has ended passes an
+    all-padding batch of one row per data shard."""
     if mesh is not None:
         yield from _mesh_prefetch(loader, mesh, depth)
         return
@@ -115,19 +127,26 @@ def device_prefetch(loader: Iterable, device, depth: int = 2,
 
 
 def _mesh_prefetch(loader: Iterable, mesh: Mesh, depth: int):
-    n_data = mesh.shape[DATA_AXIS]
+    n_data = len(mesh.local_data_devices)
     buf = collections.deque()
-    for batch in loader:
-        host = {k: torch.as_tensor(batch[k]) for k in BATCH_KEYS if k in batch}
-        n = len(host["surface"])
-        valid = host.pop("valid", torch.ones(n, dtype=torch.bool)).to(torch.bool)
-        pad = -n % n_data
-        if pad:
-            host = {k: torch.cat([v, v.new_zeros((pad,) + tuple(v.shape[1:]))])
-                    for k, v in host.items()}
-            valid = torch.cat([valid, valid.new_zeros(pad)])
-        host["valid"] = valid
-        buf.append((shard_batch(host, mesh), n))
+    batches = iter(loader)
+    while True:
+        batch = next(batches, None)
+        host = None
+        if batch is not None:
+            host = {k: torch.as_tensor(batch[k]) for k in BATCH_KEYS if k in batch}
+            n = len(host["surface"])
+            valid = host.pop("valid", torch.ones(n, dtype=torch.bool)).to(torch.bool)
+            pad = -n % n_data
+            if pad:
+                host = {k: torch.cat([v, v.new_zeros((pad,) + tuple(v.shape[1:]))])
+                        for k, v in host.items()}
+                valid = torch.cat([valid, valid.new_zeros(pad)])
+            host["valid"] = valid
+        batch = global_batch_from_local(host, mesh)
+        if batch is None:
+            break
+        buf.append((batch, batch.count))
         if len(buf) >= depth:
             yield buf.popleft()
     while buf:
@@ -146,13 +165,16 @@ def run_phase(
     checkpointer: Optional[Checkpointer] = None,
     save_every_steps: int = 0,
     writer: Optional[MetricWriter] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[TrainState, float, int]:
     """One pass over a loader; returns (state, avg_loss, count). Each loss is
     read one step late, so the host enqueues the next step first.
     ``save_every_steps`` > 0 writes mid-epoch step checkpoints (train).
     ``writer`` gets the running loss at each global step (epoch x
     len(loader) + batch, the reference's axis) and the phase's pairs/s and
-    median step time at the epoch."""
+    median step time at the epoch. ``mesh``: the data-parallel steps on
+    the global batches (:func:`device_prefetch`); the losses and counts are
+    the global batches', the same on every process."""
     phase = "train" if train else "val"
     running_loss = 0.0
     running_count = 0
@@ -174,7 +196,8 @@ def run_phase(
         if writer is not None:
             writer.scalar(f"{phase} loss", running_loss / running_count, step_base + batch_i)
 
-    for batch_i, (batch, count) in enumerate(device_prefetch(loader, pipeline.device)):
+    for batch_i, (batch, count) in enumerate(device_prefetch(loader, pipeline.device,
+                                                             mesh=mesh)):
         if timer is None:
             timer = StepTimer(items_per_step=count)
         timer.tick()
@@ -214,13 +237,18 @@ def train(
     verbose: bool = True,
     handle_signals: bool = False,
     writer: Optional[MetricWriter] = None,
+    mesh: Optional[Mesh] = None,
 ) -> TrainState:
     """Train from fresh params (``cfg.train.seed``), or resume from the
     checkpointer's ``latest``, up to ``num_epochs`` (default
     ``cfg.train.num_epochs``). ``handle_signals=True`` installs a
     SIGTERM/SIGINT handler that finishes the current phase, checkpoints, and
     returns. ``writer`` gets both phases' losses and rates, each epoch's
-    embedding dump and the new-best texts."""
+    embedding dump and the new-best texts. ``mesh``: data-parallel training
+    over its data axis (:func:`run_phase`). Across processes only process 0
+    is sure to see the checkpoints (it alone writes them): its resume epoch
+    and best loss are broadcast, so the epoch loops and the new-best
+    decisions stay in step, and an interrupt on any process stops all."""
     interrupted = {"flag": False}
     old_handlers = {}
     if handle_signals:
@@ -245,6 +273,7 @@ def train(
 
     try:
         best_loss = checkpointer.best_val_loss()
+        start_epoch, best_loss = broadcast_one_to_all((start_epoch, best_loss))
         epochs = num_epochs if num_epochs is not None else cfg.train.num_epochs
         for epoch in range(start_epoch, epochs):
             if verbose:
@@ -253,16 +282,16 @@ def train(
                 pipeline, state, train_loader, phase_generator(cfg.train.seed, epoch, "train"),
                 True, epoch, cfg.train.log_every_steps, verbose,
                 checkpointer=checkpointer, save_every_steps=cfg.train.save_every_steps,
-                writer=writer,
+                writer=writer, mesh=mesh,
             )
-            if interrupted["flag"]:
+            if any_process(interrupted["flag"]):
                 checkpointer.save_step(state, state.step, {"epoch": epoch})
                 if verbose:
                     print("interrupted: state checkpointed (epoch incomplete)")
                 break
             _, val_loss, _ = run_phase(
                 pipeline, state, val_loader, phase_generator(cfg.train.seed, epoch, "val"),
-                False, epoch, cfg.train.log_every_steps, verbose, writer=writer,
+                False, epoch, cfg.train.log_every_steps, verbose, writer=writer, mesh=mesh,
             )
             if writer is not None:
                 dump_val_embeddings(pipeline, state.params, val_loader, writer, epoch,
@@ -275,7 +304,7 @@ def train(
                 checkpointer.save_best(state, val_loss, state.step)
                 if writer is not None:
                     writer.text("best_loss", f"new best loss: {best_loss}, epoch: {epoch + 1}")
-            if interrupted["flag"]:
+            if any_process(interrupted["flag"]):
                 break
     finally:
         if handle_signals:
@@ -303,10 +332,11 @@ def embed_all(
     ``mesh``: each batch is split over the mesh's data axis
     (:func:`device_prefetch`), and each data shard embedded on its device
     with a replica of ``params`` copied there once per call; the results
-    come back to ``mesh.devices[0]`` with the padded rows dropped. The
-    random draws are made for each batch's real rows from ``generator``,
-    as without a mesh, then padded and split, so the embeddings do not
-    depend on the mesh."""
+    come back to ``mesh.home``, gathered over the processes (every process
+    gets every embedding), with the padded rows dropped. The random draws
+    are made for each global batch's real rows from ``generator``, as
+    without a mesh, then spread over the rows and split, so the embeddings
+    do not depend on the mesh or the process count."""
     if mesh is None:
         surfaces, overheads = [], []
         for data, _ in device_prefetch(loader, pipeline.device):
@@ -314,26 +344,29 @@ def embed_all(
             surfaces.append(s_emb)
             overheads.append(o_emb)
         return torch.cat(surfaces), torch.cat(overheads)
-    home = mesh.devices[0]
+    home = mesh.home
     replicas = {}
-    for device in mesh.data_devices:
+    for device in mesh.local_data_devices:
         if device not in replicas:
             replicas[device] = (pipeline.on_device(device),
                                 {tower: {k: v.to(device) for k, v in p.items()}
                                  for tower, p in params.items()})
     surfaces, overheads = [], []
-    for shards, n in device_prefetch(loader, None, mesh=mesh):
-        per = len(shards[0]["surface"])
+    for batch, n in device_prefetch(loader, None, mesh=mesh):
+        per = len(batch[0]["surface"])
         draws = pipeline.draw(generator, n)
         if draws is not None:
-            draws = torch.cat([draws, draws.new_zeros(per * len(shards) - n)])
+            draws = spread_draws(draws, batch.valid, 0)
         outs = []
-        for i, shard in enumerate(shards):
+        for i, shard in enumerate(batch):
             replica, replica_params = replicas[shard["surface"].device]
+            rows = slice(batch.start + i * per, batch.start + (i + 1) * per)
             outs.append(replica.embed_step(replica_params, shard, None,
-                                           None if draws is None else draws[i * per:(i + 1) * per]))
-        surfaces.append(torch.cat([s.to(home) for s, _ in outs])[:n])
-        overheads.append(torch.cat([o.to(home) for _, o in outs])[:n])
+                                           None if draws is None else draws[rows]))
+        keep = batch.valid.to(home)
+        for out, k in ((surfaces, 0), (overheads, 1)):
+            local = torch.cat([o[k].to(home) for o in outs])
+            out.append(gather_rows(local, batch.start, batch.rows)[keep])
     return torch.cat(surfaces), torch.cat(overheads)
 
 

@@ -27,6 +27,15 @@ towers (``models.baseline.BaselineEncoder``) hold BatchNorm running
 statistics as buffers in ``params[tower]`` beside the weights; a train step
 updates them in place, the eval and embed steps read them, and Adam leaves
 them out. Its loss is the exhaustive minibatch triplet loss.
+
+A ``parallel.GlobalBatch`` (``train.loop.device_prefetch`` with a mesh)
+takes the data-parallel step of any family: the draws made for the global
+batch, the towers per data shard on its device, the embeddings gathered
+with autograd into the global batch, whose in-batch loss is the one a
+single device computes (not a mean of per-shard losses), and across
+processes one sum of the gradients before the Adam step. The baseline's
+shards run in lockstep so that BatchNorm normalizes with the global
+batch's statistics.
 """
 
 from __future__ import annotations
@@ -43,7 +52,9 @@ from witw_tpu_torch.match.correlation import circular_correlation
 from witw_tpu_torch.match.distance import chord_distance
 from witw_tpu_torch.match.losses import (dsm_triplet_loss, exhaustive_minibatch_triplet_loss,
                                          pairwise_sq_distances)
-from witw_tpu_torch.models.baseline import BaselineEncoder, baseline_trainable_mask
+from witw_tpu_torch.models.backbones.vgg16 import DropoutMasks
+from witw_tpu_torch.models.baseline import (BaselineEncoder, baseline_trainable_mask,
+                                            forward_sharded)
 from witw_tpu_torch.models.fov_dsm import FovDsm, fov_dsm_trainable_mask
 from witw_tpu_torch.models.safa import VggSafa, safa_trainable_mask
 from witw_tpu_torch.ops.fov import fov_crop, random_fov_starts
@@ -52,6 +63,9 @@ from witw_tpu_torch.ops import rotation
 from witw_tpu_torch.ops.image import normalize_images, normalize_images_masked_bias, repeat_rows
 from witw_tpu_torch.ops.orientation_maps import append_orientation_maps
 from witw_tpu_torch.ops.polar import grid_tensors, polar_transform
+from witw_tpu_torch.parallel.collectives import (all_reduce_sum, gather_rows, process_count,
+                                                 sum_across_processes)
+from witw_tpu_torch.parallel.mesh import GlobalBatch
 from witw_tpu_torch.utils.device import require_cuda
 
 Params = Dict[str, Dict[str, torch.Tensor]]
@@ -72,8 +86,9 @@ class TrainState:
 class _TwinPipeline:
     """What the families share: params, Adam on the trainable names, the
     preprocessing (crop, normalization, polar transform; the baseline family
-    gives its own) and the steps. A family gives ``_tower(circ)``,
-    ``trainable_names`` and ``_forward_loss``."""
+    gives its own) and the steps, on one device or data-parallel over a
+    mesh's shards. A family gives ``_tower(circ)``, ``trainable_names`` and
+    ``_loss``."""
 
     kind = None
 
@@ -200,10 +215,18 @@ class _TwinPipeline:
     def train_step(self, state: TrainState, batch,
                    generator: torch.Generator) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One Adam step on ``batch`` (train-mode dropout); updates ``state``
-        in place and returns it with {"loss": the step's loss}."""
+        in place and returns it with {"loss": the step's loss}.
+
+        ``batch`` may be a ``parallel.GlobalBatch`` (``loop.device_prefetch``
+        with a mesh): the data-parallel step (:meth:`sharded_forward_loss`),
+        its loss the global batch's, its gradients summed once over the
+        processes before the one Adam step, so every process steps alike and
+        the step equals one device's on the whole batch."""
         state.optimizer.zero_grad(set_to_none=True)
-        loss, _ = self._forward_loss(state.params, batch, generator, train=True)
+        loss = self._batch_loss(state.params, batch, generator, train=True)
         loss.backward()
+        if isinstance(batch, GlobalBatch):
+            _sum_grads_across_processes(state.optimizer)
         state.optimizer.step()
         state.step += 1
         return state, {"loss": loss.detach()}
@@ -211,8 +234,91 @@ class _TwinPipeline:
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch,
                   generator: torch.Generator) -> Dict[str, torch.Tensor]:
-        loss, _ = self._forward_loss(state.params, batch, generator, train=False)
-        return {"loss": loss}
+        """The loss of ``batch`` in eval mode (a ``GlobalBatch`` too)."""
+        return {"loss": self._batch_loss(state.params, batch, generator, train=False)}
+
+    def _batch_loss(self, params: Params, batch, generator, train: bool) -> torch.Tensor:
+        if isinstance(batch, GlobalBatch):
+            return self.sharded_forward_loss(params, batch, generator, train)[0]
+        return self._forward_loss(params, batch, generator, train)[0]
+
+    def _valid(self, batch) -> Optional[torch.Tensor]:
+        valid = batch.get("valid")
+        return None if valid is None else torch.as_tensor(valid, device=self.device)
+
+    def _forward_loss(self, params: Params, batch, generator: Optional[torch.Generator],
+                      train: bool) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """One device: the batch's embeddings (:meth:`_embed`), then the
+        family's loss over ``batch["valid"]``'s rows (all when absent)."""
+        s_emb, o_emb = self._embed(params, batch, generator, train)
+        return self._loss(s_emb, o_emb, self._valid(batch))
+
+    def _embed(self, params: Params, batch, generator: Optional[torch.Generator],
+               train: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+        surface, polar = self.preprocess(batch, generator)
+        return self._towers(params, surface, polar, train, generator)
+
+    def _draw_masks(self, generator: torch.Generator, b: int) -> List[torch.Tensor]:
+        """Both towers' train-mode dropout masks for a batch of ``b``, in
+        the order a train step draws them (surface tower first)."""
+        return (self.surface_model.vgg.draw_masks(generator, b)
+                + self.overhead_model.vgg.draw_masks(generator, b))
+
+    def sharded_forward_loss(self, params: Params, batch: GlobalBatch,
+                             generator: Optional[torch.Generator],
+                             train: bool) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The data-parallel forward: the global batch's random draws (crop
+        origins or rotations, then the dropout masks) made on ``generator``
+        for its real rows, in a one-device step's order, and spread over the
+        rows (padded rows get zeros, all-kept masks); each data shard's
+        towers on its device, on a differentiable copy of ``params`` there;
+        the embeddings gathered over the shards and processes with autograd
+        (``collectives.gather_rows``) into the global batch on the
+        pipeline's device; the family's loss over the global valid rows.
+        The loss equals one device's on the real rows, whatever the mesh."""
+        valid = batch.valid
+        n_real = int(valid.sum())
+        draws = self.draw(generator, n_real)
+        if draws is not None:
+            draws = spread_draws(draws, valid, 0)
+        masks = [spread_draws(m, valid, True) for m in self._draw_masks(generator, n_real)] \
+            if train else []
+        per = len(batch[0]["surface"])
+        rows = [slice(batch.start + i * per, batch.start + (i + 1) * per)
+                for i in range(len(batch))]
+        s_parts, o_parts = self._embed_shards(
+            self._replicas(params, [shard["surface"].device for shard in batch]), batch,
+            [None if draws is None else draws[r] for r in rows],
+            [DropoutMasks([m[r] for m in masks]) if train else None for r in rows],
+            train, params, n_real)
+        home = self.device
+        s_emb = gather_rows(torch.cat([x.to(home) for x in s_parts]), batch.start, batch.rows)
+        o_emb = gather_rows(torch.cat([x.to(home) for x in o_parts]), batch.start, batch.rows)
+        return self._loss(s_emb, o_emb, valid.to(home))
+
+    def _replicas(self, params: Params, devices) -> Dict[torch.device, Tuple]:
+        """(this pipeline on the device, ``params`` copied there with
+        autograd: one backward sums every shard's gradient into ``params``)
+        for each distinct device; the pipeline's own device keeps
+        ``params`` itself."""
+        out = {}
+        for device in devices:
+            if device not in out:
+                out[device] = (self.on_device(device),
+                               {tower: {k: v.to(device) for k, v in p.items()}
+                                for tower, p in params.items()})
+        return out
+
+    def _embed_shards(self, replicas, shards, draws, masks, train, params, n_real):
+        """Each shard's (surface, overhead) embeddings on its device."""
+        s_parts, o_parts = [], []
+        for shard, shard_draws, shard_masks in zip(shards, draws, masks):
+            replica, replica_params = replicas[shard["surface"].device]
+            surface, polar = replica.preprocess(shard, None, shard_draws)
+            s_emb, o_emb = replica._towers(replica_params, surface, polar, train, shard_masks)
+            s_parts.append(s_emb)
+            o_parts.append(o_emb)
+        return s_parts, o_parts
 
     @torch.no_grad()
     def embed_step(
@@ -241,18 +347,12 @@ class FovPipeline(_TwinPipeline):
     def trainable_names(self, tower_params: Dict[str, torch.Tensor]) -> List[str]:
         return fov_dsm_trainable_mask(tower_params, self.cfg.model)
 
-    def _forward_loss(self, params: Params, batch, generator: Optional[torch.Generator],
-                      train: bool) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Preprocess, both towers, matmul correlation, chord distance, DSM
-        triplet loss (with ``batch["valid"]``, when given, masking padded
-        rows)."""
-        surface, polar = self.preprocess(batch, generator)
-        s_emb, o_emb = self._towers(params, surface, polar, train, generator)
+    def _loss(self, s_emb: torch.Tensor, o_emb: torch.Tensor,
+              valid: Optional[torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Matmul correlation, chord distance, DSM triplet loss (``valid``
+        masking padded rows)."""
         corr = circular_correlation(o_emb, s_emb, method="matmul")
         distance, orientation = chord_distance(o_emb, s_emb, corr)
-        valid = batch.get("valid")
-        if valid is not None:
-            valid = torch.as_tensor(valid, device=self.device)
         loss = dsm_triplet_loss(distance, alpha=self.cfg.match.alpha, valid=valid)
         return loss, {"distance": distance, "orientation": orientation}
 
@@ -286,16 +386,11 @@ class SafaPipeline(_TwinPipeline):
     def trainable_names(self, tower_params: Dict[str, torch.Tensor]) -> List[str]:
         return safa_trainable_mask(tower_params, self.cfg.model)
 
-    def _forward_loss(self, params: Params, batch, generator: Optional[torch.Generator],
-                      train: bool) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Preprocess, both towers, squared Euclidean distances [B_o, B_s],
-        DSM triplet loss (``batch["valid"]`` masking padded rows)."""
-        surface, polar = self.preprocess(batch, generator)
-        s_emb, o_emb = self._towers(params, surface, polar, train, generator)
+    def _loss(self, s_emb: torch.Tensor, o_emb: torch.Tensor,
+              valid: Optional[torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Squared Euclidean distances [B_o, B_s], DSM triplet loss
+        (``valid`` masking padded rows)."""
         d2 = pairwise_sq_distances(o_emb, s_emb)
-        valid = batch.get("valid")
-        if valid is not None:
-            valid = torch.as_tensor(valid, device=self.device)
         loss = dsm_triplet_loss(d2, alpha=self.cfg.match.alpha, valid=valid)
         return loss, {"distance": d2}
 
@@ -359,16 +454,50 @@ class BaselinePipeline(_TwinPipeline):
                                 strict=True)
         return s_emb, o_emb
 
-    def _forward_loss(self, params: Params, batch, generator: Optional[torch.Generator],
-                      train: bool) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def _embed(self, params: Params, batch, generator: Optional[torch.Generator],
+               train: bool) -> Tuple[torch.Tensor, torch.Tensor]:
         """Preprocess, both towers (train mode: BatchNorm on the batch's
         statistics over ``batch["valid"]`` rows, the running buffers in
-        ``params`` updated), exhaustive minibatch triplet loss."""
+        ``params`` updated)."""
         surface, overhead = self.preprocess(batch, generator)
-        valid = batch.get("valid")
-        if valid is not None:
-            valid = torch.as_tensor(valid, device=self.device)
-        s_emb, o_emb = self._towers(params, surface, overhead, train, None, valid)
+        return self._towers(params, surface, overhead, train, None, self._valid(batch))
+
+    def _draw_masks(self, generator: torch.Generator, b: int) -> List[torch.Tensor]:
+        return []  # no dropout
+
+    def _embed_shards(self, replicas, shards, draws, masks, train, params, n_real):
+        """Both towers on every shard in lockstep (``forward_sharded``):
+        train-mode BatchNorm takes the global batch's statistics from every
+        row's moments, gathered on the pipeline's device in row order and,
+        across processes, in one sum of a zero buffer holding this
+        process's rows at their global place (``sum_across_processes``:
+        its backward sums the statistics' gradient over the processes), and
+        updates ``params``' running buffers once."""
+        home = self.device
+        inputs, tower_params = [], []
+        for shard, shard_draws in zip(shards, draws):
+            replica, replica_params = replicas[shard["surface"].device]
+            inputs.append(replica.preprocess(shard, None, shard_draws))
+            tower_params.append(replica_params)
+
+        def gather(parts):
+            own = torch.cat([p.to(home) for p in parts])
+            if process_count() == 1:
+                return own
+            after = shards.rows - shards.start - len(own)
+            return sum_across_processes(torch.cat([own.new_zeros((shards.start,) + own.shape[1:]),
+                                                   own, own.new_zeros((after,) + own.shape[1:])]))
+
+        towers = (self.surface_model, self.overhead_model)
+        embs = forward_sharded(towers, [[p[t] for p in tower_params] for t in TOWERS],
+                               [[x[k] for x in inputs] for k in range(len(TOWERS))], train,
+                               shards.valid, n_real, gather, [params[t] for t in TOWERS])
+        return tuple(embs)
+
+    def _loss(self, s_emb: torch.Tensor, o_emb: torch.Tensor,
+              valid: Optional[torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The exhaustive minibatch triplet loss (``valid`` masking padded
+        rows)."""
         m = self.cfg.match
         loss = exhaustive_minibatch_triplet_loss(s_emb, o_emb, soft_margin=m.soft_margin,
                                                  alpha=m.alpha, margin=m.margin, valid=valid)
@@ -389,3 +518,26 @@ def make_pipeline(cfg: ExperimentConfig, device=None) -> Pipeline:
     if kind == "baseline":
         return BaselinePipeline(cfg, device)
     raise TypeError(f"unknown model config: {type(cfg.model)}")
+
+
+def spread_draws(draws: torch.Tensor, valid: torch.Tensor, fill) -> torch.Tensor:
+    """Draws made for a batch's real rows, in row order, placed on the rows
+    of ``valid`` (bool [rows], host) with ``fill`` on the others."""
+    out = torch.full((valid.shape[0],) + tuple(draws.shape[1:]), fill, dtype=draws.dtype,
+                     device=draws.device)
+    out[valid.to(draws.device)] = draws
+    return out
+
+
+def _sum_grads_across_processes(optimizer: torch.optim.Optimizer) -> None:
+    """Sum the trainable params' gradients over the processes in one
+    collective (a missing gradient as zeros), so that every process takes
+    the same Adam step: the global loss's gradient, not a mean."""
+    if process_count() == 1:
+        return
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    flat = torch.cat([(torch.zeros_like(p) if p.grad is None else p.grad).reshape(-1)
+                      for p in params])
+    flat = all_reduce_sum(flat)
+    for p, g in zip(params, flat.split([p.numel() for p in params])):
+        p.grad = g.view_as(p).clone()
