@@ -294,6 +294,29 @@ Phases, each of which passes or raises:
    shares, rounded to bf16 before and after their sum. Work files in
    .smoke_dp/, removed. Every check runs and is
    logged, the phase failing at the end if any failed.
+32. Dataset construction and the parity harness (the dataset tools run on
+   the card): (a) a synthetic 8-band uint16 strip of 8192 x 8192 (1 GiB) in
+   EPSG:4326 near Paris at ~0.3 m, its top 1000 rows nodata, written by
+   write_tiff_u16 (uncompressed, struct-packed); (b) convert_8bit on the
+   card with the wv3_psms bands (5, 3, 2), Mpx/s; (c) reproject_to_utm to
+   EPSG:32631 at 0.3 m on the card, output Mpx/s; (d) (b) on a 1024^2 crop
+   and (c)'s warp on one 512^2 output block on the CPU: (lo, hi) and the
+   converted uint8 equal, the reprojected uint8 within 1 on at most 1e-4
+   of the pixels; (e) build_dataset.build on 512 planted photos (paris and
+   rotterdam on the reprojected strip: grey, dark ones a Linear indoor
+   classifier saved as a full module drops, preset ids, geotags off the
+   strip, tiles over the nodata rows, and 235 a city that stay): the row
+   counts of each stage, tiles/s for clipping, each stage's wall time; (f)
+   precompute_masks on the clipped 750^2 tiles with the heuristic and a
+   Conv2d(3, 1) checkpoint, tiles/s, the heuristic on 8 tiles within atol
+   2e-4 of its CPU path; (g) the built train.csv through PairLoader at
+   fov_experiment("witw", 70) and one batch embedded by FovPipeline; (h)
+   tools.parity.run_parity at fov_experiment("cvusa", 360), bf16, on 256
+   synthetic pairs with reference-layout .pth towers: its metrics equal
+   loop.test's on the converted towers, the recall@1 gate PASS against
+   its own metrics and FAIL against top_1 + 1 pt. Work files in
+   .smoke_dataset/, removed. Every check runs and is logged, the phase
+   failing at the end if any failed.
 
 The launch counts are reset just before the path they count and read right
 after it: the fused match's and the conv kernel's before phase 4 and after
@@ -321,7 +344,9 @@ sweep), read after each, which must raise the kernels that path runs (the
 records' `sharded_launches` sum them); the fused match's and the conv
 kernel's before each DP step, train(mesh=) and loop.test(mesh=) of phase 31,
 read after each, plus the counts its two worker processes report (the
-records' `dp_launches` sum them). The
+records' `dp_launches` sum them); every kernel's before the first
+run_parity of phase 32, read after it, which must raise the conv kernel's
+and the fused match's (the records' `parity_launches`). The
 second-to-last line is the
 kernels' JSON record; the last line is {"ok": true, "device": {...}}.
 Without a GPU, or without the repo beside it, the script exits non-zero and
@@ -337,11 +362,13 @@ import csv
 import dataclasses
 import importlib.util
 import io
+import itertools
 import json
 import os
 import re
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import threading
@@ -378,7 +405,9 @@ from witw_tpu_torch.ops import conv3x3, fused_block2, fused_match, int8_conv, ma
 from witw_tpu_torch.ops.image import normalize_images
 from witw_tpu_torch.ops.polar import polar_transform
 from witw_tpu_torch.parallel import make_mesh
-from witw_tpu_torch.tools import build_index, geotiff, heatmap
+from witw_tpu_torch.tools import (build_dataset, build_index, convert_8bit, geotiff, heatmap, parity,
+                                  reproject, semantic_masks)
+from witw_tpu_torch.tools.cities import strip_filename
 from witw_tpu_torch.tools import serve as serve_tool
 from witw_tpu_torch.train import loop
 from witw_tpu_torch.train.checkpoint import Checkpointer
@@ -4316,6 +4345,358 @@ def phase_dp(card, device):
     return launches
 
 
+DATASET_DIR = Path(__file__).resolve().parent / ".smoke_dataset"
+STRIP_SIDE = 8192  # pixels a side of [32]'s 8-band uint16 strip (1 GiB raw)
+STRIP_BANDS = 8
+STRIP_CORNER = (48.875, 2.300)  # (lat, lon) of its upper-left corner, near Paris
+STRIP_BLANK_ROWS = 1000  # its top rows are nodata (zero)
+DATASET_CITIES = ("paris", "rotterdam")  # both UTM 31N; paris is the held-out test city
+# Photos planted per city, by the stage that must drop them: grey (2), dark
+# ones the indoor classifier flags (3), preset ids (4), geotags off the strip
+# (5), tiles over the nodata rows (6), and the ones that stay.
+PLANTED = {"grey": 2, "indoor": 8, "removed": 4, "off_strip": 3, "blank": 4, "kept": 235}
+PARITY_PAIRS = 256
+
+
+def _tiff_entry(code: int, values, kind: str) -> tuple:
+    """(code, type, count, packed values) of one classic-TIFF IFD entry."""
+    fmt, ttype = {"H": ("H", 3), "I": ("I", 4), "d": ("d", 12)}[kind]
+    return code, ttype, len(values), struct.pack(f"<{len(values)}{fmt}", *values)
+
+
+def write_tiff_u16(path, blocks, height: int, width: int, bands: int, geotransform, epsg: int,
+                   rows_per_strip: int = 64) -> None:
+    """An uncompressed, chunky, little-endian uint16 GeoTIFF of height x width x
+    bands, its pixels streamed from ``blocks`` (uint16 [rows, width, bands]
+    arrays, top to bottom, each a whole number of strips but the last).
+    ``epsg`` 4326: geographic; else a projected EPSG code."""
+    nstrips = -(-height // rows_per_strip)
+    strip_bytes = [min(rows_per_strip, height - s * rows_per_strip) * width * bands * 2
+                   for s in range(nstrips)]
+    model = (1024, 0, 1, 2, 2048, 0, 1, 4326) if epsg == 4326 else (1024, 0, 1, 1, 3072, 0, 1, epsg)
+    geokeys = (1, 1, 0, 3) + model[:4] + (1025, 0, 1, 1) + model[4:]
+    entries = [
+        _tiff_entry(256, [width], "I"), _tiff_entry(257, [height], "I"),
+        _tiff_entry(258, [16] * bands, "H"), _tiff_entry(259, [1], "H"),
+        _tiff_entry(262, [1], "H"), _tiff_entry(273, [0] * nstrips, "I"),
+        _tiff_entry(277, [bands], "H"),
+        _tiff_entry(278, [rows_per_strip], "I"), _tiff_entry(279, strip_bytes, "I"),
+        _tiff_entry(284, [1], "H"),
+        _tiff_entry(33550, [geotransform[1], -geotransform[5], 0.0], "d"),
+        _tiff_entry(33922, [0.0, 0.0, 0.0, geotransform[0], geotransform[3], 0.0], "d"),
+        _tiff_entry(34735, list(geokeys), "H"),
+    ]
+    ifd_size = 2 + 12 * len(entries) + 4
+    external = sum(len(e[3]) for e in entries if len(e[3]) > 4)
+    data_at = 8 + ifd_size + external
+    offsets = list(itertools.accumulate([data_at] + strip_bytes[:-1]))
+    if offsets[-1] + strip_bytes[-1] >= 2 ** 32:
+        raise ValueError("a classic TIFF holds less than 4 GiB")
+    entries[5] = _tiff_entry(273, offsets, "I")  # the one value the layout sets
+    ifd, tail = [struct.pack("<H", len(entries))], []
+    at = 8 + ifd_size
+    for code, ttype, count, packed in entries:
+        if len(packed) <= 4:
+            ifd.append(struct.pack("<HHI", code, ttype, count) + packed.ljust(4, b"\0"))
+        else:
+            ifd.append(struct.pack("<HHII", code, ttype, count, at))
+            tail.append(packed)
+            at += len(packed)
+    ifd.append(struct.pack("<I", 0))
+    with open(path, "wb") as f:
+        f.write(b"II" + struct.pack("<HI", 42, 8) + b"".join(ifd) + b"".join(tail))
+        written = 0
+        for block in blocks:
+            block = np.ascontiguousarray(block, np.uint16)
+            block.tofile(f)
+            written += block.shape[0]
+        if written != height or f.tell() != offsets[-1] + strip_bytes[-1]:
+            raise AssertionError(f"{path}: wrote {written} of {height} rows")
+
+
+def strip_geotransform(side: int = STRIP_SIDE):
+    """EPSG:4326 geotransform of [32]'s strip: ~0.3 m pixels at its latitude."""
+    lat, lon = STRIP_CORNER
+    dlat = GSD / 111132.0
+    dlon = GSD / (111320.0 * np.cos(np.radians(lat)))
+    return np.array([lon, dlon, 0.0, lat, 0.0, -dlat])
+
+
+def strip_blocks(device, rows: int = 1024):
+    """[32]'s strip, drawn on the card a block of rows at a time: per band an
+    offset of 150 * band plus noise below 1800, zero on the top rows."""
+    gen = torch.Generator(device=device).manual_seed(32)
+    offsets = torch.arange(STRIP_BANDS, device=device, dtype=torch.int16) * 150
+    for y0 in range(0, STRIP_SIDE, rows):
+        block = torch.randint(1, 1800, (rows, STRIP_SIDE, STRIP_BANDS), generator=gen,
+                              device=device, dtype=torch.int16) + offsets
+        block[:max(0, min(rows, STRIP_BLANK_ROWS - y0))] = 0
+        yield block.cpu().numpy().view(np.uint16)
+
+
+def dataset_photos(grid, rng):
+    """(metadata records per city, photo files {relative path: array}, the
+    preset ids to remove): [32]'s planted photos on the reprojected strip's
+    grid, each city's sorted by northing (tiles in row order share the
+    strip's decoded chunks)."""
+    records, files, removed = {}, {}, []
+    margin = 600  # pixels: a 750-pixel tile stays on the strip
+    ident = 0
+    for city in DATASET_CITIES:
+        rows = []
+        for kind, count in PLANTED.items():
+            for _ in range(count):
+                ident += 1
+                row = (STRIP_BLANK_ROWS if kind == "blank"
+                       else int(rng.integers(STRIP_BLANK_ROWS + 1000, grid.height - margin)))
+                col = int(rng.integers(margin, grid.width - margin))
+                lat, lon = geotiff.utm_to_wgs84(grid.e_min + (col + 0.5) * GSD,
+                                                grid.n_max - (row + 0.5) * GSD, grid.epsg)
+                if kind == "off_strip":
+                    lat += 0.5
+                if kind == "grey":
+                    img = rng.integers(0, 256, (64, 96), dtype=np.uint8)
+                elif kind == "indoor":
+                    img = rng.integers(0, 40, (64, 96, 3), dtype=np.uint8)
+                else:
+                    img = rng.integers(120, 256, (64, 96, 3), dtype=np.uint8)
+                if kind == "removed":
+                    removed.append(str(ident))
+                url = f"https://farm.example/{ident}_s3cr3t_m.jpg"
+                # half the photos under {id}.jpg, half under the URL's basename
+                name = f"{ident}.jpg" if ident % 2 else url.rsplit("/", 1)[-1]
+                files[f"{city}/{name}"] = img
+                rows.append((row, {"id": str(ident), "owner": f"o{ident}", "title": f"t {ident}",
+                                   "datetaken": "2020-05-01 10:00:00", "latitude": f"{lat:.7f}",
+                                   "longitude": f"{lon:.7f}", "accuracy": "16", "license": "4",
+                                   "url_m": url}))
+        records[city] = [r for _, r in sorted(rows, key=lambda t: t[0])]
+    return records, files, removed
+
+
+def phase_dataset(card, device):
+    """[32] Dataset construction and the parity harness: (a) write a synthetic
+    8-band uint16 strip near Paris in EPSG:4326; (b) convert it to 8 bits on
+    the card (wv3_psms bands); (c) reproject it to EPSG:32631 at 0.3 m on the
+    card; (d) both against their CPU paths on a crop and a block; (e)
+    build_dataset.build on 512 planted photos with an indoor classifier; (f)
+    road masks on the clipped tiles, heuristic and checkpoint; (g) the built
+    train.csv through PairLoader into FovPipeline; (h) run_parity at full
+    width. Returns the parity path's launches {counter: n}."""
+    from PIL import Image
+
+    t_phase = time.perf_counter()
+    log(f"[32] dataset construction and the parity harness (work files in {DATASET_DIR.name}/)")
+    shutil.rmtree(DATASET_DIR, ignore_errors=True)
+    DATASET_DIR.mkdir()
+    failures = []
+
+    def check(ok: bool, what: str) -> None:
+        log(f"    {'ok' if ok else 'FAILED'}: {what}")
+        if not ok:
+            failures.append(what)
+
+    # (a) the 16-bit strip
+    strip16, strip8 = DATASET_DIR / "strip16.tif", DATASET_DIR / "strip8.tif"
+    t0 = time.perf_counter()
+    write_tiff_u16(strip16, strip_blocks(device), STRIP_SIDE, STRIP_SIDE, STRIP_BANDS,
+                   strip_geotransform(), 4326)
+    mpx = STRIP_SIDE * STRIP_SIDE / 1e6
+    log(f"    (a) {STRIP_SIDE} x {STRIP_SIDE} x {STRIP_BANDS} uint16 strip, EPSG:4326 at ~{GSD} m, "
+        f"{strip16.stat().st_size / 2**30:.3f} GiB, written in {time.perf_counter() - t0:.2f} s")
+
+    # (b) 16 -> 8 bits on the card
+    bands = convert_8bit.BAND_ORDERS["wv3_psms"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    check(convert_8bit.convert_to_8bit(str(strip16), str(strip8), bands=bands, device=device),
+          "convert_to_8bit converted the strip (zero fraction under 0.3)")
+    t_convert = time.perf_counter() - t0
+    with geotiff.GeoTiff(str(strip16)) as tif:
+        sel = convert_8bit.as_tensor(tif.read(), device)[..., [b - 1 for b in bands]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scaled = convert_8bit.rescale_to_u8(sel)
+    t_rescale = time.perf_counter() - t0
+    ranges = [convert_8bit.band_percentiles(sel[..., i]) for i in range(3)]
+    del sel
+    with geotiff.GeoTiff(str(strip8)) as tif:
+        check(bool(np.array_equal(tif.read(), scaled)), "the written 8-bit strip is rescale_to_u8's")
+    del scaled
+    log(f"    (b) convert_to_8bit bands {bands}: {t_convert:.3f} s for {mpx:.2f} Mpx, "
+        f"{mpx / t_convert:.2f} Mpx/s (read, card, deflate write); rescale_to_u8 on the card "
+        f"(upload done; percentiles, scale, download) {t_rescale:.3f} s, {mpx / t_rescale:.2f} "
+        f"Mpx/s; (lo, hi) per band {ranges} ({card})")
+
+    # (c) reprojection on the card
+    utm = DATASET_DIR / "strip_utm.tif"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grid = reproject.reproject_to_utm(str(strip8), str(utm), 32631, GSD, device=device)
+    t_warp = time.perf_counter() - t0
+    out_mpx = grid.width * grid.height / 1e6
+    log(f"    (c) reproject_to_utm -> EPSG:32631 at {GSD} m: {grid.width} x {grid.height} in "
+        f"{t_warp:.3f} s, {out_mpx / t_warp:.2f} output Mpx/s (Lanczos-3, f64, blocks of 2048; "
+        f"windowed reads and the deflate write included) ({card})")
+
+    # (d) the card against the CPU path
+    crop = DATASET_DIR / "crop16.tif"
+    y0, x0 = STRIP_BLANK_ROWS - 200, STRIP_SIDE // 2 - 512
+    with geotiff.GeoTiff(str(strip16)) as tif:
+        window = tif.read_window(x0, y0, 1024, 1024)
+        gt = tif.geotransform
+    crop_gt = np.array([gt[0] + x0 * gt[1], gt[1], 0.0, gt[3] + y0 * gt[5], 0.0, gt[5]])
+    write_tiff_u16(crop, [window], 1024, 1024, STRIP_BANDS, crop_gt, 4326)
+    outs = {}
+    for dev in (device, "cpu"):
+        outs[str(dev)] = DATASET_DIR / f"crop8_{torch.device(dev).type}.tif"
+        convert_8bit.convert_to_8bit(str(crop), str(outs[str(dev)]), bands=bands, device=dev)
+    ranges_card = [convert_8bit.band_percentiles(window[..., b - 1], device=device) for b in bands]
+    ranges_cpu = [convert_8bit.band_percentiles(window[..., b - 1], device="cpu") for b in bands]
+    with geotiff.GeoTiff(str(outs[str(device)])) as a, geotiff.GeoTiff(str(outs["cpu"])) as b:
+        crop_equal = bool(np.array_equal(a.read(), b.read()))
+    check(ranges_card == ranges_cpu, f"1024^2 crop: (lo, hi) card == CPU {ranges_card}")
+    check(crop_equal, "1024^2 crop: converted uint8 card == CPU")
+    bx, by = grid.width // 2 - 256, grid.height // 2 - 256
+    with geotiff.GeoTiff(str(strip8)) as src:
+        t0 = time.perf_counter()
+        cpu_block = reproject.warp_block(src, grid, bx, by, 512, 512, device="cpu")
+        t_cpu_block = time.perf_counter() - t0
+    with geotiff.GeoTiff(str(utm)) as out:
+        card_block = out.read_window(bx, by, 512, 512)
+        check(out.width == grid.width and out.height == grid.height
+              and np.array_equal(out.geotransform, grid.geotransform), "the UTM file's grid")
+    diff = np.abs(card_block.astype(np.int16) - cpu_block.astype(np.int16))
+    off = float((diff > 0).mean())
+    check(int(diff.max()) <= 1 and off <= 1e-4,
+          f"512^2 block at ({by}, {bx}): card vs CPU max |d| {int(diff.max())}, "
+          f"share off {off:.2e} (<= 1 on <= 1e-4; CPU block {t_cpu_block:.2f} s)")
+
+    # (e) build_dataset on planted photos
+    sat, meta, photos, built = (DATASET_DIR / n for n in ("sat", "meta", "photos", "built"))
+    sat.mkdir()
+    for city in DATASET_CITIES:
+        os.link(utm, sat / strip_filename(city))
+    records, files, removed = dataset_photos(grid, np.random.default_rng(32))
+    for city, recs in records.items():
+        (meta / city).mkdir(parents=True)
+        (meta / city / "metadata.json").write_text(json.dumps(recs))
+        (photos / city).mkdir(parents=True)
+    for rel, img in files.items():
+        Image.fromarray(img).save(photos / rel, format="PNG")
+    classifier = torch.nn.Sequential(torch.nn.AdaptiveAvgPool2d(1), torch.nn.Flatten(),
+                                     torch.nn.Linear(3, 2))
+    with torch.no_grad():
+        classifier[2].weight.copy_(torch.tensor([[-1.0] * 3, [1.0] * 3]))  # dark -> class 0
+        classifier[2].bias.zero_()
+    torch.save(classifier, DATASET_DIR / "places.pth")
+    (DATASET_DIR / "io_places.txt").write_text("indoor 1\noutdoor 2\n")
+    indoor = build_dataset.torch_indoor_classifier(str(DATASET_DIR / "places.pth"),
+                                                   str(DATASET_DIR / "io_places.txt"), device=device)
+    seconds = {}
+    t0 = time.perf_counter()
+    table = build_dataset.build(str(meta), str(photos), str(sat), str(built), remove_ids=removed,
+                                indoor_classifier=indoor, verbose=False, device=device,
+                                stage_seconds=seconds)
+    t_build = time.perf_counter() - t0
+    n_cities = len(DATASET_CITIES)
+    kept = PLANTED["kept"] * n_cities
+    clipped = kept + PLANTED["blank"] * n_cities
+    train = read_pair_paths(fov_experiment("witw", 70).data.dataset, str(built / "train.csv"))
+    test_rows = read_pair_paths(fov_experiment("witw", 70).data.dataset, str(built / "test.csv"))
+    check(len(table["id"]) == kept and len(train) == len(test_rows) == PLANTED["kept"],
+          f"rows: dataset {len(table['id'])}, train {len(train)}, test {len(test_rows)} (planted "
+          f"{kept}, {PLANTED['kept']} a city)")
+    tiles_written = sorted((built / "overhead").iterdir())
+    check(len(tiles_written) == clipped, f"{len(tiles_written)} tiles clipped (planted {clipped})")
+    log(f"    (e) build_dataset.build, {sum(PLANTED.values()) * n_cities} photos: {t_build:.3f} s; "
+        f"stage seconds {json.dumps({k: round(v, 4) for k, v in seconds.items()})}; clipping "
+        f"{clipped / seconds['5']:.2f} tiles/s (750^2 from the deflated UTM strip) ({card})")
+
+    # (f) road masks on the clipped tiles
+    rates = {}
+    for name, kw in (("heuristic", {}),
+                     ("checkpoint", {"segmenter": None, "minmax": True})):
+        if name == "checkpoint":
+            torch.manual_seed(32)
+            torch.save(torch.nn.Conv2d(3, 1, 3, padding=1), DATASET_DIR / "roads.pth")
+            kw["segmenter"] = semantic_masks.torch_segmenter(str(DATASET_DIR / "roads.pth"), device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = semantic_masks.precompute_masks(str(built / "overhead"), str(DATASET_DIR / name),
+                                            verbose=False, device=device, **kw)
+        rates[name] = n / (time.perf_counter() - t0)
+        check(n == clipped, f"{name} masks: {n} tiles")
+    worst = 0.0
+    for path in tiles_written[:8]:
+        with geotiff.GeoTiff(str(path)) as tif:
+            rgb = tif.read()[..., :3].astype(np.float32)
+        a = semantic_masks.heuristic_road_mask(rgb, device=device)
+        b = semantic_masks.heuristic_road_mask(rgb, device="cpu")
+        worst = max(worst, float(np.abs(a - b).max()))
+    check(worst <= 2e-4, f"heuristic mask on 8 tiles: card vs CPU max |d| {worst:.3e} (atol 2e-4)")
+    log(f"    (f) precompute_masks: heuristic {rates['heuristic']:.2f} tiles/s, Conv2d(3, 1) "
+        f"checkpoint {rates['checkpoint']:.2f} tiles/s (tile read and write included) ({card})")
+
+    # (g) the built train.csv feeds a trainer
+    cfg_witw = fov_experiment("witw", 70)
+    rows = min(16, len(train))
+    batch = next(iter(cli_common.build_loader(cfg_witw, train, shuffle=False, drop_last=False,
+                                              batch_size=rows)))
+    pipe = FovPipeline(cfg_witw, device)
+    s_emb, o_emb = pipe.embed_step(pipe.init(torch.Generator().manual_seed(32)),
+                                   {k: torch.as_tensor(batch[k]).to(device)
+                                    for k in ("surface", "overhead")})
+    torch.cuda.synchronize()
+    check(s_emb.shape[0] == o_emb.shape[0] == rows and bool(torch.isfinite(s_emb).all())
+          and bool(torch.isfinite(o_emb).all()),
+          f"train.csv -> PairLoader -> FovPipeline.embed_step (witw, fov 70): surface "
+          f"{tuple(s_emb.shape)}, overhead {tuple(o_emb.shape)}, finite")
+
+    # (h) the parity harness at full width
+    cfg = fov_experiment("cvusa", 360)
+    csv_path = synthetic.write_synthetic_dataset(str(DATASET_DIR / "cvusa"), n=PARITY_PAIRS)
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data, dataset=dataclasses.replace(
+        cfg.data.dataset, test_csv=csv_path)), eval=dataclasses.replace(cfg.eval, batch_size=64))
+    towers = FovPipeline(cfg, device).init(torch.Generator().manual_seed(33))
+    pths = []
+    for tower in ("surface", "overhead"):
+        pths.append(str(DATASET_DIR / f"fov_360_{tower}_best.pth"))
+        torch.save(reference_layout(towers[tower], "reference"), pths[-1])
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    report = parity.run_parity(cfg, *pths, verbose=False, device=device)
+    torch.cuda.synchronize()
+    t_parity = time.perf_counter() - t0
+    launches = {"conv3x3": conv3x3.launches, "fused_match": fused_match.launches}
+    check(launches["conv3x3"] > 0 and launches["fused_match"] > 0,
+          f"run_parity launched the conv kernel {launches['conv3x3']} and the fused match "
+          f"{launches['fused_match']} times")
+    pipe, params = parity.load_reference_towers(cfg, *pths, device=device)
+    check(all(torch.equal(params[t][k], towers[t][k]) for t in towers for k in towers[t]),
+          "load_reference_towers gives back the saved towers")
+    loader_ = cli_common.build_loader(cfg, read_pair_paths(cfg.data.dataset, csv_path), False,
+                                      False, 64)
+    direct = loop.test(cfg, pipe, loader_, params=params, verbose=False)
+    check(direct == report["witw_tpu"], f"run_parity metrics == loop.test's: {json.dumps(direct)}")
+    ref = dict(report["witw_tpu"])
+    same = parity.run_parity(cfg, *pths, reference_metrics=ref, verbose=False, device=device)
+    off_by_one = parity.run_parity(cfg, *pths, reference_metrics=dict(ref, top_1=ref["top_1"] + 1.0),
+                                   verbose=False, device=device)
+    check(same["gate_pass"] is True and off_by_one["gate_pass"] is False,
+          f"gate: PASS against its own metrics, FAIL against top_1 + 1 pt "
+          f"(|delta| {same['recall1_delta_pt']}, {off_by_one['recall1_delta_pt']})")
+    log(f"    (h) run_parity fov 360, {PARITY_PAIRS} pairs, bf16 towers at batch 64: "
+        f"{t_parity:.3f} s; launches conv3x3_bf16 {launches['conv3x3']}, fused match "
+        f"{launches['fused_match']} ({card})")
+
+    shutil.rmtree(DATASET_DIR, ignore_errors=True)
+    log(f"    [32] {time.perf_counter() - t_phase:.2f} s ({card})")
+    if failures:
+        raise AssertionError(f"[32] {len(failures)} check(s) failed: {failures}")
+    return launches
+
+
 def main() -> int:
     # 1. device
     device = require_cuda()
@@ -4563,6 +4944,7 @@ def main() -> int:
     dynamic, dynamic_pairs_per_s, convert_launches = phase_remainder(card, device)
     sharded = phase_sharded(card, device, indexes, serve_params)
     dp_launches = phase_dp(card, device)
+    parity_launches = phase_dataset(card, device)
     serving = {n: build_launches[p].get(n, 0) + daemon_launches[p].get(n, 0)
                + sweep_launches[p].get(n, 0)
                for p in ("bf16", "int8") for n in build_launches[p]}
@@ -4589,6 +4971,7 @@ def main() -> int:
         record["sharded_launches"] = sharded[mod]
     conv_record["sharded_launches"] = sharded["conv3x3"]
     conv_record["dp_launches"] = dp_launches["conv3x3"]
+    conv_record["parity_launches"] = parity_launches["conv3x3"]
 
     log(card)
     log(json.dumps({"kernels": [{
@@ -4611,6 +4994,7 @@ def main() -> int:
         "dynamic_launches": dynamic["fused_match"],
         "sharded_launches": sharded["fused_match"],
         "dp_launches": dp_launches["fused_match"],
+        "parity_launches": parity_launches["fused_match"],
     }] + int8_records + [conv_record] + probe_records}))
     log(f"smoke total: {time.perf_counter() - T_START:.2f} s")
     log(json.dumps({"ok": True, "device": {

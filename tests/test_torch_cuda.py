@@ -887,3 +887,105 @@ def test_nccl_collectives_take_host_tensors(cuda, monkeypatch):
         assert box == [("epoch", 2)]
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------- dataset tools
+
+
+def _u16_raster(seed, shape):
+    rng = np.random.default_rng(seed)
+    img = rng.integers(0, 4000, shape).astype(np.uint16)
+    img[: shape[0] // 8] = 0
+    return img
+
+
+def test_convert_8bit_on_the_card_matches_cpu(cuda):
+    from witw_tpu_torch.tools import convert_8bit
+
+    img = _u16_raster(0, (700, 500, 3))
+    for b in range(3):
+        assert convert_8bit.band_percentiles(img[..., b], device=cuda) == \
+            convert_8bit.band_percentiles(img[..., b], device="cpu")
+        f = img[..., b].astype(np.float32)
+        assert convert_8bit.band_percentiles(f, device=cuda) == \
+            convert_8bit.band_percentiles(f, device="cpu")
+    for kw in ({}, {"rescale": "clip"}):
+        np.testing.assert_array_equal(convert_8bit.rescale_to_u8(img, device=cuda, **kw),
+                                      convert_8bit.rescale_to_u8(img, device="cpu", **kw))
+    got = convert_8bit.rescale_to_u8(img, gamma=2.2, device=cuda).astype(int)
+    want = convert_8bit.rescale_to_u8(img, gamma=2.2, device="cpu").astype(int)
+    assert np.abs(got - want).max() <= 1 and (got != want).mean() <= 1e-4
+    assert convert_8bit.zero_fraction(img, device=cuda) == convert_8bit.zero_fraction(img, device="cpu")
+
+
+def test_reproject_on_the_card_matches_cpu(cuda, tmp_path):
+    from witw_tpu_torch.tools import geotiff, reproject
+
+    rng = np.random.default_rng(1)
+    lat, lon = 48.8566, 2.3522
+    gt = np.array([lon, 0.3 / (111320 * np.cos(np.radians(lat))), 0, lat, 0, -0.3 / 111132])
+    src = str(tmp_path / "src.tif")
+    geotiff.write_geotiff_u8(src, rng.integers(0, 256, (300, 280, 3), dtype=np.uint8), gt, 4326)
+    outs = {}
+    for dev in (cuda, "cpu"):
+        path = str(tmp_path / f"{torch.device(dev).type}.tif")
+        reproject.reproject_to_utm(src, path, 32631, block=128, device=dev)
+        with geotiff.GeoTiff(path) as tif:
+            outs[torch.device(dev).type] = (tif.read().astype(int), list(tif.geotransform))
+    assert outs["cuda"][1] == outs["cpu"][1]
+    diff = np.abs(outs["cuda"][0] - outs["cpu"][0])
+    assert diff.max() <= 1 and (diff > 0).mean() <= 1e-4
+    e = torch.tensor(rng.uniform(4.4e5, 4.6e5, 1000), dtype=torch.float64)
+    n = torch.tensor(rng.uniform(5.40e6, 5.42e6, 1000), dtype=torch.float64)
+    la_g, lo_g = reproject._utm_to_wgs84_vec(e.to(cuda), n.to(cuda), 32631)
+    la_c, lo_c = reproject._utm_to_wgs84_vec(e, n, 32631)
+    assert (la_g.cpu() - la_c).abs().max() <= 1e-10 and (lo_g.cpu() - lo_c).abs().max() <= 1e-10
+    e_g, n_g = reproject._wgs84_to_utm_vec(la_c.to(cuda), lo_c.to(cuda), 32631)
+    e_c, n_c = reproject._wgs84_to_utm_vec(la_c, lo_c, 32631)
+    assert (e_g.cpu() - e_c).abs().max() <= 1e-6 and (n_g.cpu() - n_c).abs().max() <= 1e-6
+
+
+def test_road_masks_and_classifiers_on_the_card_match_cpu(cuda, tmp_path):
+    from PIL import Image
+
+    from witw_tpu_torch.tools import build_dataset, semantic_masks
+
+    rng = np.random.default_rng(2)
+    tile = rng.integers(0, 256, (750, 750, 3)).astype(np.float32)
+    tile[300:400] = 120.0
+    got = semantic_masks.heuristic_road_mask(tile, device=cuda)
+    want = semantic_masks.heuristic_road_mask(tile, device="cpu")
+    assert np.abs(got - want).max() <= 2e-4
+    torch.manual_seed(0)
+    torch.save(torch.nn.Conv2d(3, 1, 3, padding=1), tmp_path / "seg.pth")
+    masks = [semantic_masks.minmax_normalize(semantic_masks.torch_segmenter(
+        str(tmp_path / "seg.pth"), dev)(torch.from_numpy(tile[:64, :64]))).cpu()
+        for dev in (cuda, "cpu")]
+    assert masks[0].shape == (64, 64) and (masks[0] - masks[1]).abs().max() <= 1e-5
+    model = torch.nn.Sequential(torch.nn.AdaptiveAvgPool2d(1), torch.nn.Flatten(),
+                                torch.nn.Linear(3, 2))
+    with torch.no_grad():
+        model[2].weight.copy_(torch.tensor([[-1.0] * 3, [1.0] * 3]))
+        model[2].bias.zero_()
+    torch.save(model, tmp_path / "places.pth")
+    (tmp_path / "io.txt").write_text("indoor 1\noutdoor 2\n")
+    for i, level in enumerate((10, 240)):
+        Image.fromarray(np.full((40, 60, 3), level, np.uint8)).save(tmp_path / f"{i}.jpg")
+    on_card, on_cpu = (build_dataset.torch_indoor_classifier(
+        str(tmp_path / "places.pth"), str(tmp_path / "io.txt"), device=dev) for dev in (cuda, "cpu"))
+    assert [on_card(str(tmp_path / f"{i}.jpg")) for i in range(2)] == \
+        [on_cpu(str(tmp_path / f"{i}.jpg")) for i in range(2)] == [True, False]
+
+
+def test_density_on_the_card_matches_cpu(cuda):
+    from witw_tpu_torch.tools import density
+
+    rng = np.random.default_rng(3)
+    n = 1500
+    aoi = np.empty(n, object)
+    aoi[:] = list(rng.choice(["paris", "vegas"], n))
+    table = {"aoi": aoi, "id": np.arange(n), "latitude": 48.85 + rng.uniform(0, 2e-3, n),
+             "longitude": 2.35 + rng.uniform(0, 2e-3, n)}
+    got = density.limit_density(table, 12.0, seed=4, device=cuda)
+    want = density.limit_density(table, 12.0, seed=4, device="cpu")
+    assert list(got["id"]) == list(want["id"])

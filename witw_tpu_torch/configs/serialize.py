@@ -234,8 +234,59 @@ def _unescape(body: str) -> str:
     return "".join(out)
 
 
-def _scalar(text: str) -> Any:
-    """A value written on one line after ``key: `` or ``- ``."""
+_FLOW_QUOTED = re.compile(r"'(?:[^']|'')*'|\"(?:[^\"\\]|\\.)*\"")
+_FLOW_PLAIN = re.compile(r"[^,\[\]{}#]*")
+
+
+def _flow_sequence(text: str) -> list:
+    """A flow sequence on one line (``[1, 2.5, [3, 'x']]``): nested flow
+    sequences of scalars, then nothing but a comment."""
+    pos = 0
+
+    def skip() -> None:
+        nonlocal pos
+        while pos < len(text) and text[pos] == " ":
+            pos += 1
+
+    def seq() -> list:
+        nonlocal pos
+        pos += 1  # the "["
+        out: list = []
+        skip()
+        if text[pos:pos + 1] == "]":
+            pos += 1
+            return out
+        while True:
+            skip()
+            if text[pos:pos + 1] == "[":
+                out.append(seq())
+            else:
+                m = _FLOW_QUOTED.match(text, pos) or _FLOW_PLAIN.match(text, pos)
+                token = m.group().strip()
+                if not token:
+                    raise ValueError(f"unsupported flow sequence: {text!r}")
+                out.append(_scalar(token))
+                pos = m.end()
+            skip()
+            if text[pos:pos + 1] == ",":
+                pos += 1
+            elif text[pos:pos + 1] == "]":
+                pos += 1
+                return out
+            else:
+                raise ValueError(f"unsupported flow sequence: {text!r}")
+
+    out = seq()
+    if re.fullmatch(r"(?: +#.*)?", text[pos:]) is None:
+        raise ValueError(f"unexpected text after a flow sequence: {text!r}")
+    return out
+
+
+def _scalar(text: str, nested: bool = False) -> Any:
+    """A value written on one line after ``key: `` or ``- `` (with
+    ``nested``, also a flow sequence)."""
+    if nested and text[0] == "[":
+        return _flow_sequence(text)
     if text[0] in "'\"":
         m = (_SINGLE if text[0] == "'" else _DOUBLE).fullmatch(text)
         if m is None:
@@ -258,6 +309,18 @@ def load_yaml(text: str) -> dict:
     scalars, and ``#`` comments. Raises ValueError on anything else, a
     scalar folded over several lines included (PyYAML folds a string past
     80 columns: write it on one line)."""
+    return _load_block_yaml(text, nested=False)
+
+
+def load_scraper_yaml(text: str) -> dict:
+    """:func:`load_yaml`'s subset plus block lists of mappings (``- name:
+    x`` with the item's further keys below it) and one-line flow sequences
+    of scalars (``[[2.11, 48.44]]``): the shapes of the reference scraper's
+    config.yaml, which no experiment config has."""
+    return _load_block_yaml(text, nested=True)
+
+
+def _load_block_yaml(text: str, nested: bool) -> dict:
     lines: List[Tuple[int, str]] = []
     for raw in text.splitlines():
         body = raw.lstrip(" ")
@@ -297,7 +360,7 @@ def load_yaml(text: str) -> dict:
                 raise ValueError(f"duplicate key {m.group(1)!r}")
             pos += 1
             rest = m.group(2) if m.group(2) and m.group(2)[0] != "#" else None
-            out[m.group(1)] = _scalar(rest) if rest else value(indent)
+            out[m.group(1)] = _scalar(rest, nested) if rest else value(indent)
         return out
 
     def sequence(indent: int) -> list:
@@ -306,8 +369,13 @@ def load_yaml(text: str) -> dict:
         while pos < len(lines) and lines[pos][0] == indent and item(pos):
             body = lines[pos][1][2:].lstrip(" ")
             if _KEY.fullmatch(body):
-                raise ValueError(f"only lists of scalars are read, got {lines[pos][1]!r}")
-            out.append(_scalar(body))
+                if not nested:
+                    raise ValueError(f"only lists of scalars are read, got {lines[pos][1]!r}")
+                # the item's mapping: its first key sits after the dash
+                lines[pos] = (indent + len(lines[pos][1]) - len(body), body)
+                out.append(mapping(lines[pos][0]))
+                continue
+            out.append(_scalar(body, nested))
             pos += 1
         end_of_block(indent)
         return out

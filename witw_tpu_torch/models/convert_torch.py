@@ -127,6 +127,22 @@ def load_torch_file(path: str) -> Mapping[str, Any]:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
+def load_full_module(checkpoint_path: str, device) -> torch.nn.Module:
+    """A checkpoint pickled as a whole ``nn.Module`` (the reference's
+    Places365 and CRESI checkpoints are), in eval mode on ``device``.
+    ``weights_only=False``: unpickling runs code from the file, so load only
+    checkpoints you trust. ValueError for a bare state_dict, which cannot
+    run without its architecture."""
+    model = torch.load(checkpoint_path, map_location=device, weights_only=False)
+    if not isinstance(model, torch.nn.Module):
+        raise ValueError(
+            f"{checkpoint_path} does not contain a full nn.Module (got "
+            f"{type(model).__name__}); a bare state_dict cannot be run without "
+            "its architecture"
+        )
+    return model.eval()
+
+
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
     out: Dict[str, np.ndarray] = {}
     for k, v in tree.items():

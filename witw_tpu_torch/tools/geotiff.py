@@ -1,17 +1,19 @@
 """Python binding for the native GeoTIFF reader and writer (port of
-witw_tpu/tools/geotiff.py: ``native_lib``, ``GeoTiff``, ``write_geotiff_u8``
-and ``resample``).
+witw_tpu/tools/geotiff.py: ``native_lib``, ``GeoTiff``, ``write_geotiff_u8``,
+``resample`` and the UTM transforms ``wgs84_to_utm`` / ``utm_to_wgs84``).
 
 The library is the port's copy of witw_tpu's C++ source
 (``witw_tpu_torch/native/geotiff_io.cpp``), compiled by g++ at first use
 into ``witw_tpu_torch/_build/`` under a name that carries a hash of the
 source and the flags, and loaded with ctypes. There is no fallback: a
 failed build raises with the compiler's output, a file the reader cannot
-open raises, and every read, write and resample runs through the library.
+open raises, and every read, write, resample and UTM transform runs through the library.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -19,8 +21,9 @@ import os
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Callable, Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -83,6 +86,14 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.gt_resample.restype = c_int
     lib.gt_resample.argtypes = [ctypes.POINTER(ctypes.c_float), c_long, c_long, c_int,
                                 ctypes.POINTER(ctypes.c_float), c_long, c_long, c_int]
+    for fn in ("geo_wgs84_to_utm", "geo_utm_to_wgs84"):
+        getattr(lib, fn).restype = None
+        getattr(lib, fn).argtypes = [c_double, c_double, c_int, c_int,
+                                     ctypes.POINTER(c_double), ctypes.POINTER(c_double)]
+    lib.geo_utm_zone.restype = c_int
+    lib.geo_utm_zone.argtypes = [c_double]
+    lib.geo_utm_epsg.restype = c_int
+    lib.geo_utm_epsg.argtypes = [c_double, c_double]
     return lib
 
 
@@ -207,6 +218,28 @@ def write_geotiff_u8(
         raise IOError(f"gt_write_u8 failed ({rc}) for {path}")
 
 
+WRITE_THREADS = 8
+
+
+@contextlib.contextmanager
+def background_writes() -> Iterator[Callable[..., None]]:
+    """``write(path, data, ...)``: :func:`write_geotiff_u8` on one of
+    ``WRITE_THREADS`` threads (the native writer's deflate runs outside the
+    GIL), at most 2 x ``WRITE_THREADS`` files in flight. Every write has
+    ended when the block exits, and the first that failed raises there."""
+    threads = WRITE_THREADS
+    pending = collections.deque()
+    with ThreadPoolExecutor(threads) as pool:
+        def write(*args, **kw) -> None:
+            while len(pending) >= 2 * threads:
+                pending.popleft().result()
+            pending.append(pool.submit(write_geotiff_u8, *args, **kw))
+
+        yield write
+    for done in pending:
+        done.result()
+
+
 def resample(src: np.ndarray, out_h: int, out_w: int, method: str = "bilinear") -> np.ndarray:
     """Native separable resample (bilinear | lanczos), HWC float32."""
     if method not in ("bilinear", "lanczos"):
@@ -225,3 +258,39 @@ def resample(src: np.ndarray, out_h: int, out_w: int, method: str = "bilinear") 
         # return the untouched all-zero dst as valid pixels
         raise MemoryError(f"gt_resample failed (rc={rc}) at {h}x{w}x{bands} -> {out_h}x{out_w}")
     return dst
+
+
+def wgs84_to_utm(lat: float, lon: float, zone: Optional[int] = None,
+                 epsg: Optional[int] = None) -> Tuple[float, float, int]:
+    """(lat, lon) -> (easting, northing, epsg). Replaces
+    osr.CoordinateTransformation (reference sitetiles.py:147-151).
+
+    ``epsg`` pins BOTH the zone and the hemisphere (false northing) of the
+    target grid: projecting into an existing raster's grid, a photo just
+    across a 6-degree zone boundary (or the equator) from its city's strip
+    would otherwise land in the adjacent grid, hundreds of km (or 10,000 km
+    of false northing) off."""
+    lib = native_lib()
+    if epsg is not None:
+        zone = epsg % 100
+        north = (epsg // 100) == 326
+    else:
+        if zone is None:
+            zone = int((lon + 180.0) / 6.0) + 1
+        north = lat >= 0
+        epsg = (32600 if north else 32700) + zone
+    e, n = ctypes.c_double(), ctypes.c_double()
+    lib.geo_wgs84_to_utm(lat, lon, zone, 1 if north else 0, ctypes.byref(e), ctypes.byref(n))
+    return e.value, n.value, epsg
+
+
+def utm_to_wgs84(easting: float, northing: float, epsg: int) -> Tuple[float, float]:
+    """(easting, northing) in UTM ``epsg`` (326zz north, 327zz south) ->
+    (lat, lon)."""
+    lib = native_lib()
+    north = 32600 <= epsg < 32700
+    zone = epsg - (32600 if north else 32700)
+    lat, lon = ctypes.c_double(), ctypes.c_double()
+    lib.geo_utm_to_wgs84(easting, northing, zone, 1 if north else 0,
+                         ctypes.byref(lat), ctypes.byref(lon))
+    return lat.value, lon.value

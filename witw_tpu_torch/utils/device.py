@@ -13,3 +13,9 @@ def require_cuda() -> torch.device:
             "no CUDA device is available (torch.cuda.is_available() is False)"
         )
     return torch.device("cuda")
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a torch.device; None means the card
+    (:func:`require_cuda`)."""
+    return torch.device(device) if device is not None else require_cuda()
