@@ -82,13 +82,16 @@ Phases, each of which passes or raises:
    towers at batch 128 the kernel's ms and TFLOP/s beside its plain
    version's, the library call's (torch.cudnn_convolution_relu, or F.conv2d
    without ReLU) and the bound max(FLOP / 989 TFLOP/s, bytes / 3.35 TB/s).
-15. The int8 profiling harness's kernels (conv_like, the mma.sync rate
-   probe, the layout probes; built in phase 2): print ptxas' lines and the
-   IDP.4A count of each conv_like mode's SASS (cuobjdump), failing where a
-   stripped mode issues fewer than full.
+15. The int8 profiling harness's kernels (conv_like and the rate probe on
+   s8 / bf16 wgmma, the layout probes; built in phase 2): print ptxas'
+   lines, failing on any spill of conv_like or mm_probe, where a conv_like
+   function's SASS (cuobjdump) holds no IGMMA or any IDP.4A, where a
+   mm_probe kernel holds no IGMMA (s8) or HGMMA (bf16) or any IMMA or HMMA,
+   and where a stripped conv_like mode issues fewer IGMMA than full.
 16. Hold each against its plain PyTorch version: conv_like full bit-equal at
-   the probe shape [32, 64, 256] x 128 -> 128 and at a ragged one, its
-   stripped modes all zero; mm bit-equal at N 128 and 512, reps 1 and 2048
+   the probe shape [32, 64, 256] x 128 -> 128 and at two ragged ones (one
+   whose H and W are not multiples of its 16 x 16 tile), its stripped modes
+   all zero; mm bit-equal at N 128 and 512, reps 1 and 2048
    (the int32 sum wraps); mmf bit-equal at reps 1 and within
    1024 * 2^-24 * max|y| at reps 1024 (the kernel sums each rep's dot in
    another order), and bit-equal at reps 1 without its whole-dot pass;
@@ -99,7 +102,10 @@ Phases, each of which passes or raises:
    version, the library call (cuBLAS: one product's device time, from a
    CUDA graph, x reps for the rate probes; sum, roll and clone for t1, t2,
    t4) and its bound. The layout probes are launch-bound: their kernel,
-   plain and library times are all device times from CUDA graphs.
+   plain and library times are all device times from CUDA graphs. Kernel
+   A's decomposition: full - nodma (the input's copies), full - nopatch
+   (the shifted operand over a resident one) and full at C 128 - full at C
+   512 on equal operations (what a tile costs beyond its ring steps).
 18. FOV serving, building an index: tools.build_index.main on a WITW-schema
    dataset of 512 synthetic 256 x 256 tiles (fov_experiment("witw", 70),
    random weights from a seed saved by the Checkpointer as `best`), in bf16
@@ -982,7 +988,10 @@ def library_conv(x, w, bias, relu):
 def check_wgmma_build(name, built, mma, opcodes, forbidden=None):
     """Fail on any register spill in ``name``'s ptxas lines, and where a
     kernel function of its SASS holds no ``mma`` instruction (the warpgroup
-    MMA: HGMMA for bf16, IGMMA for int8) or any ``forbidden`` one."""
+    MMA: HGMMA for bf16, IGMMA for int8) or any ``forbidden`` one (or any
+    of several). ``mma`` may be a dict {fragment of a function's name:
+    opcode} for a library whose kernels differ; a function that matches no
+    fragment (a plain reduction) needs none."""
     lines = built[name][1].splitlines()
     if not any("ptxas info" in line for line in lines):
         raise AssertionError(f"{name} has no ptxas report to check (its build log is gone)")
@@ -995,10 +1004,14 @@ def check_wgmma_build(name, built, mma, opcodes, forbidden=None):
     counts = sass_counts(built[name][0], opcodes)
     for fn, c in counts.items():
         log(f"    SASS {fn}: {c}")
-    if not counts or not all(c[mma] > 0 for c in counts.values()):
-        raise AssertionError(f"{name} has a kernel without {mma} (wgmma): {counts}")
-    if forbidden and any(c[forbidden] for c in counts.values()):
+    need = {fn: next((op for frag, op in mma.items() if frag in fn), None) if isinstance(mma, dict)
+            else mma for fn in counts}
+    if not any(need.values()) or not all(c[need[fn]] > 0 for fn, c in counts.items() if need[fn]):
+        raise AssertionError(f"{name} has a kernel without its wgmma ({mma}): {counts}")
+    banned = (forbidden,) if isinstance(forbidden, str) else forbidden or ()
+    if any(c[op] for c in counts.values() for op in banned):
         raise AssertionError(f"{name} still issues {forbidden}: {counts}")
+    return counts
 
 
 def conv_phases(card, device, cfg, built):
@@ -1236,20 +1249,24 @@ def conv_like_case(gen, device, b, h, w, c, n):
 
 def probe_phases(card, device, built):
     """Phases 15-17; returns the four records of the probes' kernels."""
-    # 15. the three libraries, built in phase 2; dp4a in each conv_like mode
+    # 15. the three libraries, built in phase 2; wgmma in each kernel, and as
+    # many IGMMA in each conv_like mode as in full
     int8_isolate._lib()
     int8_mm_probe._lib()
     mosaic_caps._lib()
     log(f"[15] {', '.join(built[n][0].name for n in PROBE_LIBRARIES)} (built in phase 2)")
     for name in PROBE_LIBRARIES:
         print_ptxas(built[name][1])
-    counts = sass_counts(built["conv_like"][0], ("IDP.4A", "LDG", "LDS"))
-    per_mode = {mode: next(c for f, c in counts.items() if f"conv_like_kernelILi{i}E" in f)
-                for i, mode in enumerate(int8_isolate.MODES)}
-    log(f"    SASS instructions per conv_like mode: {per_mode}")
-    fewer = [m for m, c in per_mode.items() if c["IDP.4A"] < per_mode["full"]["IDP.4A"]]
+    counts = check_wgmma_build("conv_like", built, "IGMMA", ("IGMMA", "IDP.4A"), forbidden="IDP.4A")
+    check_wgmma_build("mm_probe", built, {"S8": "IGMMA", "Bf16": "HGMMA"},
+                      ("IGMMA", "HGMMA", "IMMA", "HMMA"), forbidden=("IMMA", "HMMA"))
+    per_mode = {(n, mode): next(c["IGMMA"] for f, c in counts.items()
+                                if f"conv_like_kernelILi{n}ELi{i}E" in f)
+                for n in (64, 128) for i, mode in enumerate(int8_isolate.MODES)}
+    log(f"    IGMMA per conv_like (channel tile, mode): {per_mode}")
+    fewer = [k for k, c in per_mode.items() if c < per_mode[(k[0], "full")]]
     if fewer:
-        raise AssertionError(f"conv_like modes {fewer} issue fewer IDP.4A than full: the "
+        raise AssertionError(f"conv_like modes {fewer} issue fewer IGMMA than full: the "
                              f"compiler removed work")
 
     # 16. each kernel against its plain version
@@ -1259,7 +1276,7 @@ def probe_phases(card, device, built):
     gen = torch.Generator(device=device).manual_seed(16)
     err = dict.fromkeys(PROBE_KERNELS, 0.0)
     iso = int8_isolate
-    for shape in ((iso.B, iso.H, iso.W, iso.C, iso.N), (3, 16, 40, 32, 64)):
+    for shape in ((iso.B, iso.H, iso.W, iso.C, iso.N), (3, 16, 40, 32, 64), (2, 21, 45, 64, 96)):
         xp, wmat, m = conv_like_case(gen, device, *shape)
         want = int8_isolate.conv_like_plain(xp, wmat, m, "full", shape[2])
         if len(want.unique()) <= 20:
@@ -1333,17 +1350,25 @@ def probe_phases(card, device, built):
                 "mm_s8": int8_mm_probe.launches["mm"], "mm_bf16": int8_mm_probe.launches["mmf"],
                 "caps": sum(mosaic_caps.launches.values())}
     iso_ms = results["int8_isolate"]
-    log(f"    launches {launches}; kernel A decomposed: input copies (full - nodma) "
-        f"{iso_ms['full'] - iso_ms['nodma']:.4f} ms, shifted operand reads (full - nopatch) "
-        f"{iso_ms['full'] - iso_ms['nopatch']:.4f} ms of {iso_ms['full']:.4f} ms ({card})")
+    # The same operations at C = 512 (16 ring steps a tile, not 4): what a
+    # tile costs beyond its steps (its epilogue, the ring's fill and drain).
+    xq, wq, mq = conv_like_case(gen, device, iso.B * iso.C // 512, iso.H, iso.W, 512, iso.N)
+    wq = int8_isolate.pack_wmat_wgmma(wq)
+    c512_ms = cuda_ms(lambda: int8_isolate.conv_like_kernel(xq, wq, mq, "full", iso.W), 2, 5)
+    del xq
+    log(f"    launches {launches}; kernel A decomposed ({card}): of full's {iso_ms['full']:.4f} ms, "
+        f"the input's copies (full - nodma) {iso_ms['full'] - iso_ms['nodma']:.4f} ms, the "
+        f"shifted operand over a resident one (full - nopatch) "
+        f"{iso_ms['full'] - iso_ms['nopatch']:.4f} ms, the tiles' fixed cost (full at C 128 - "
+        f"full at C 512, {c512_ms:.4f} ms, equal operations) {iso_ms['full'] - c512_ms:.4f} ms")
 
     # Timing for the records, outside the counted path (CUDA events, median of 5)
     log(f"    probe kernels beside their plain versions and the library on {card}")
     xp, wmat, m = conv_like_case(gen, device, iso.B, iso.H, iso.W, iso.C, iso.N)
-    w_packed = int8_isolate.pack_wmat(wmat)
+    w_wgmma = int8_isolate.pack_wmat_wgmma(wmat)
     times = {"conv_like": interleaved_ms(
         lambda: int8_isolate.conv_like_plain(xp, wmat, m, "full", iso.W),
-        lambda: int8_isolate.conv_like_kernel(xp, w_packed, m, "full", iso.W), calls=2, reps=5)
+        lambda: int8_isolate.conv_like_kernel(xp, w_wgmma, m, "full", iso.W), calls=2, reps=5)
         + (None,)}
     ops = 2.0 * 9 * iso.C * iso.N * iso.B * iso.H * iso.W
     bounds = {"conv_like": bound(ops, xp.numel() + wmat.numel() + 4 * iso.N

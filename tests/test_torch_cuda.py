@@ -578,7 +578,8 @@ def _s8(gen, device, *shape, lo=-127, hi=128):
     return torch.randint(lo, hi, shape, generator=gen, device=device, dtype=torch.int8)
 
 
-@pytest.mark.parametrize("b,h,w,c,n", [(32, 64, 256, 128, 128), (3, 16, 40, 32, 64)])
+@pytest.mark.parametrize("b,h,w,c,n", [(32, 64, 256, 128, 128), (3, 16, 40, 32, 64),
+                                       (2, 21, 45, 64, 96)])  # H, W past the 16 x 16 tile
 def test_conv_like_matches_plain(probe_cuda, b, h, w, c, n):
     gen = torch.Generator(device=probe_cuda).manual_seed(0)
     xp = _s8(gen, probe_cuda, b, h + 2, -(-(w + 2) // 32) * 32, c)
@@ -597,10 +598,11 @@ def test_conv_like_matches_plain(probe_cuda, b, h, w, c, n):
     assert int8_isolate.launches == {mode: 1 for mode in int8_isolate.MODES}
 
 
-@pytest.mark.parametrize("n", [128, 512])
-def test_mm_matches_plain(probe_cuda, n):
+@pytest.mark.parametrize("m,k,n", [(2048, 1152, 128), (2048, 1152, 512), (256, 128, 64),
+                                   (128, 4096, 128)], ids=["128", "512", "t3", "long-k"])
+def test_mm_matches_plain(probe_cuda, m, k, n):
     gen = torch.Generator(device=probe_cuda).manual_seed(1)
-    a, b = _s8(gen, probe_cuda, 2048, 1152), _s8(gen, probe_cuda, 1152, n)
+    a, b = _s8(gen, probe_cuda, m, k), _s8(gen, probe_cuda, k, n)
     for reps in (1, 2048):  # 2048 wraps the int32 sum
         got = int8_mm_probe.mm(a, b, reps)
         torch.cuda.synchronize()
@@ -659,14 +661,21 @@ def test_probe_kernels_reject_bad_inputs(probe_cuda):
                              ((64, 48), (48, 64))):   # K not a multiple of 32
         with pytest.raises(ValueError):
             int8_mm_probe.mm(_s8(gen, probe_cuda, *a_shape), _s8(gen, probe_cuda, *b_shape), 1)
-    with pytest.raises(ValueError):  # K too long for shared memory
-        int8_mm_probe.mm(_s8(gen, probe_cuda, 64, 4096), _s8(gen, probe_cuda, 4096, 64), 1)
+    with pytest.raises(ValueError):  # one int8 and one bf16 operand
+        int8_mm_probe.mm_kernel(_s8(gen, probe_cuda, 64, 64),
+                                _s8(gen, probe_cuda, 64, 64).to(torch.bfloat16), 1)
     xp = _s8(gen, probe_cuda, 2, 10, 64, 32)
     m = torch.full((1, 64), 0.001, device=probe_cuda)
     with pytest.raises(ValueError):  # wmat [9C, N] for another C
         int8_isolate.conv_like(xp, _s8(gen, probe_cuda, 9 * 16, 64), m, "full", 32)
     with pytest.raises(ValueError):  # the width does not fit in xp's padded columns
         int8_isolate.conv_like(xp, _s8(gen, probe_cuda, 9 * 32, 64), m, "full", 63)
+    with pytest.raises(ValueError):  # C not a multiple of 32
+        int8_isolate.conv_like(_s8(gen, probe_cuda, 2, 10, 64, 16), _s8(gen, probe_cuda, 9 * 16, 64),
+                               m, "full", 32)
+    with pytest.raises(ValueError):  # N not a multiple of 32
+        int8_isolate.conv_like(xp, _s8(gen, probe_cuda, 9 * 32, 48),
+                               torch.full((1, 48), 0.001, device=probe_cuda), "full", 32)
     with pytest.raises(ValueError):  # rows of t1 must be a multiple of 32 bytes
         mosaic_caps.t1(_s8(gen, probe_cuda, 4, 48))
     assert not any(int8_isolate.launches.values()) and not any(int8_mm_probe.launches.values())

@@ -168,3 +168,124 @@ def test_run_raises_without_a_gpu(module):
         module.run()
     with pytest.raises(ValueError, match="card"):
         module.run(torch.device("cpu"))
+
+
+# The redesigned kernels' host-side layout and limits. The wrappers check
+# shapes before the device, so their ValueErrors show on CPU tensors.
+
+
+@pytest.mark.parametrize("c,n", [(32, 64), (128, 128), (64, 96), (32, 32), (96, 256)])
+def test_pack_wmat_wgmma_is_kernel_a_table(c, n):
+    """conv_like's weight table is ops/int8_conv.pack_weights_wgmma of the
+    same weights (kernel A's), and unpacks to them."""
+    from witw_tpu_torch.ops import int8_conv
+
+    wmat = _s8(np.random.default_rng(c + n), (9 * c, n))
+    got = int8_isolate.pack_wmat_wgmma(torch.from_numpy(wmat)).numpy()
+    hwio = int8_isolate.pack_wmat(torch.from_numpy(wmat)).permute(1, 2, 3, 0).numpy()
+    np.testing.assert_array_equal(got, int8_conv.pack_weights_wgmma(hwio))
+    np.testing.assert_array_equal(int8_conv.unpack_weights_wgmma(got, c, n), hwio)
+    assert got.shape == (-(-n // int8_conv.tile_n(n)), 9 * c * int8_conv.tile_n(n))
+
+
+def _conv_like_args(b=2, h=16, w=32, c=32, n=64, wp=64):
+    xp = torch.zeros((b, h + 2, wp, c), dtype=torch.int8)
+    wmat = torch.zeros((9 * c, n), dtype=torch.int8)
+    return xp, int8_isolate.pack_wmat_wgmma(wmat), torch.full((1, n), 0.001), "full", w
+
+
+@pytest.mark.parametrize("change,match", [
+    ({"mode": "dense"}, "mode"),
+    ({"xp": torch.zeros((2, 18, 64, 32), dtype=torch.uint8)}, "int8"),
+    ({"m": torch.full((1, 64), 0.001, dtype=torch.float64)}, "float32"),
+    ({"xp": torch.zeros((18, 64, 32), dtype=torch.int8)}, "WP, C"),
+    ({"xp": torch.zeros((2, 18, 64, 16), dtype=torch.int8)}, "multiples of 32"),
+    ({"m": torch.full((1, 48), 0.001)}, "multiples of 32"),
+    ({"m": torch.full((1, 8192), 0.001)}, "multiples of 32"),
+    ({"w_wgmma": torch.zeros((1, 9 * 32 * 128), dtype=torch.int8)}, "pack_wmat_wgmma"),
+    ({"width": 63}, "padded"),
+    ({"xp": torch.zeros((2, 2, 64, 32), dtype=torch.int8)}, "padded"),
+], ids=["mode", "xp-dtype", "m-dtype", "xp-rank", "c", "n", "n-max", "table", "width", "rows"])
+def test_conv_like_kernel_rejects_on_shape(change, match):
+    xp, w_wgmma, m, mode, width = _conv_like_args()
+    args = {"xp": xp, "w_wgmma": w_wgmma, "m": m, "mode": mode, "width": width, **change}
+    with pytest.raises(ValueError, match=match):
+        int8_isolate.conv_like_kernel(**args)
+    # a valid call reaches the device check
+    with pytest.raises(ValueError, match="CUDA"):
+        int8_isolate.conv_like_kernel(xp, w_wgmma, m, mode, width)
+
+
+def test_pack_wmat_wgmma_rejects_unaligned_channels():
+    with pytest.raises(ValueError, match="multiples of 32"):
+        int8_isolate.pack_wmat_wgmma(torch.zeros((9 * 16, 64), dtype=torch.int8))
+
+
+@pytest.mark.parametrize("m,n,k_bytes,s8,tile_n,slices", [
+    (2048, 128, 1152, True, 64, 4),     # mm at N 128
+    (2048, 512, 1152, True, 256, 4),    # mm at N 512
+    (2048, 128, 2304, False, 64, 8),    # mmf (bf16 K 1152)
+    (256, 64, 128, True, 32, 1),        # t3
+    (64, 256, 4096, True, 128, 15),     # a long K: more slices
+    (128, 512, 64, False, 128, 1),      # bf16 stays at 128 columns a warpgroup
+], ids=["mm-n128", "mm-n512", "mmf", "t3", "long-k", "bf16-wide"])
+def test_mm_geometry(m, n, k_bytes, s8, tile_n, slices):
+    plan = int8_mm_probe.geometry(m, n, k_bytes, s8)
+    assert (plan["tile_n"], plan["slices"]) == (tile_n, slices)
+    assert plan["grid"] == (m // 64, n // (2 * tile_n), slices)
+    assert (slices - 1) * int8_mm_probe.STEPS * int8_mm_probe.STEP_BYTES < k_bytes
+    assert slices * int8_mm_probe.STEPS * int8_mm_probe.STEP_BYTES >= k_bytes
+
+
+@pytest.mark.parametrize("m,n,k_bytes", [
+    (96, 64, 64), (64, 96, 64), (64, 64, 48), (0, 64, 64),
+    (64, 2 ** 27, 32),  # more column tiles than the grid takes
+    (64, 64, 65536 * 288),  # more slices than the grid takes
+], ids=["m", "n", "k", "empty", "grid-n", "grid-k"])
+def test_mm_geometry_rejects(m, n, k_bytes):
+    with pytest.raises(ValueError):
+        int8_mm_probe.geometry(m, n, k_bytes)
+
+
+@pytest.mark.parametrize("a,bt,reps,match", [
+    (torch.zeros((96, 64), dtype=torch.int8), torch.zeros((64, 64), dtype=torch.int8), 1, "multiples"),
+    (torch.zeros((64, 48), dtype=torch.int8), torch.zeros((64, 48), dtype=torch.int8), 1, "multiples"),
+    (torch.zeros((64, 64), dtype=torch.int8), torch.zeros((64, 64), dtype=torch.bfloat16), 1, "both"),
+    (torch.zeros((64, 64), dtype=torch.float32), torch.zeros((64, 64), dtype=torch.float32), 1, "both"),
+    (torch.zeros((64, 64), dtype=torch.int8), torch.zeros((64, 32), dtype=torch.int8), 1, r"\[N, K\]"),
+    (torch.zeros((64, 64), dtype=torch.int8), torch.zeros((64, 64), dtype=torch.int8), 0, "reps"),
+    (torch.zeros((64, 64), dtype=torch.int8), torch.zeros((64, 64), dtype=torch.int8), 1, "CUDA"),
+], ids=["m", "k", "mixed", "f32", "k-mismatch", "reps", "cpu"])
+def test_mm_kernel_rejects_on_cpu(a, bt, reps, match):
+    with pytest.raises(ValueError, match=match):
+        int8_mm_probe.mm_kernel(a, bt, reps)
+
+
+@pytest.mark.parametrize("reps", [1, 1024])
+def test_mmf_kernel_order_within_tolerance(reps):
+    """The kernel's order of the bf16 sums, emulated in f32 on the CPU: per
+    K slice of 9 k-steps, each rep's integer-valued dot (exact) added to the
+    slice's total with one round to nearest, then the slices' totals in
+    order. Exact at reps 1; within reps * 2^-24 * max|y| of the plain
+    version's whole dots added in order at 1024 reps, the bound [16] and the
+    card tests hold the kernel to."""
+    rng = np.random.default_rng(5)
+    a = torch.from_numpy(_s8(rng, (64, 1152)).astype(np.float32))
+    b = torch.from_numpy(_s8(rng, (1152, 64)).astype(np.float32))
+    plan = int8_mm_probe.geometry(64, 64, 2 * 1152, s8=False)
+    steps = 2 * 1152 // int8_mm_probe.STEP_BYTES
+    edges = [s * steps // plan["slices"] * 16 for s in range(plan["slices"] + 1)]
+    got = torch.zeros(64, 64)
+    for lo, hi in zip(edges, edges[1:]):
+        dot = a[:, lo:hi].double() @ b[lo:hi].double()
+        assert torch.equal(dot, dot.float().double())  # each slice's dot is exact in f32
+        total = torch.zeros(64, 64)
+        for _ in range(reps):
+            total += dot.float()
+        got += total
+    want = int8_mm_probe.mmf_plain(a.to(torch.bfloat16), b.to(torch.bfloat16), reps)
+    err = float((got - want).abs().max())
+    if reps == 1:
+        assert err == 0.0
+    else:
+        assert 0.0 < err <= reps * 2.0 ** -24 * float(want.abs().max())

@@ -1,8 +1,9 @@
 // The pieces of an s8 wgmma kernel for Hopper (sm_90a) shared by kernel A
-// (int8_conv.cu) and kernel C (fused_block2.cu): shared-memory addresses,
-// mbarriers, bulk and 16-byte asynchronous copies, the wgmma fences, waits,
-// matrix descriptors and m64nNk32 products (s8 in, s32 accumulate), the
-// requant epilogue, and vector shared-memory stores and loads.
+// (int8_conv.cu), kernel C (fused_block2.cu) and the probes conv_like.cu and
+// mm_probe.cu: shared-memory addresses, mbarriers, bulk and 16-byte
+// asynchronous copies, the wgmma fences, waits, matrix descriptors and
+// m64nNk32 products (s8 in, s32 accumulate), the requant epilogue, and vector
+// shared-memory stores and loads.
 
 #pragma once
 

@@ -4,12 +4,13 @@ names. Each module holds its CUDA kernels' wrappers, their plain PyTorch
 versions and a ``launches`` count per kernel, and a ``run(device)`` that
 prints the JAX script's report lines, timed on the card with CUDA events:
 
-- ``int8_isolate``  — kernel A of the int8 towers with its input copies or
-                      its shifted operand reads removed
-                      (``csrc/conv_like.cu``), beside a cuBLAS s8 GEMM;
-- ``int8_mm_probe`` — the s8 and bf16 rate of one ``mma.sync`` tiling with
-                      VMEM-style resident operands (``csrc/mm_probe.cu``),
-                      beside cuBLAS; bf16 also without its whole-dot pass;
+- ``int8_isolate``  — kernel A of the int8 towers (its s8 ``wgmma`` design)
+                      with its input copies or its tap-shifted operand
+                      removed (``csrc/conv_like.cu``), beside a cuBLAS s8
+                      GEMM;
+- ``int8_mm_probe`` — the s8 and bf16 rate that ``wgmma`` reaches with
+                      resident operands (``csrc/mm_probe.cu``), beside
+                      cuBLAS; bf16 also without its whole-dot pass;
 - ``mosaic_caps``   — the fused block kernels' layout probes
                       (``csrc/caps.cu``; the s8 dot on ``csrc/mm_probe.cu``).
 

@@ -5,21 +5,25 @@ of ``exp/int8_isolate.py``.
 
 The TPU script ran its int8 conv kernel with stages removed, to see where
 its time went. Those stages (DMA, patch build, one big dot) do not exist on
-Hopper, so the port decomposes the design of its first kernel A, a ``__dp4a``
-loop on the CUDA cores over 8 x 16-pixel x 64-channel tiles (since replaced
-in ``csrc/int8_conv.cu`` by s8 ``wgmma``), the same way, in
+Hopper, so the port decomposes its own kernel A (``csrc/int8_conv.cu``:
+persistent, warp-specialised, a producer warpgroup filling a ring of
+32-channel steps, two consumer warpgroups on s8 ``wgmma`` over the halo's
+tap-shifted descriptors, the requant epilogue), the same way, in
 ``csrc/conv_like.cu`` (replacing the Pallas TPU kernel
-``exp/int8_isolate.py:conv_like``). For xp int8 [B, H + 2, WP8, C] (the
-input pre-padded; columns >= W + 2 unused), wmat int8 [9C, N] (row
-(3 dy + dx) C + c) and m f32 [1, N]:
+``exp/int8_isolate.py:conv_like``): kernel A's design over 16 x 16-pixel x
+N-channel tiles, specialised to the probe's pre-padded input. For xp int8
+[B, H + 2, WP8, C] (columns >= W + 2 unused), wmat int8 [9C, N] (row (3 dy
++ dx) C + c) and m f32 [1, N], C and N multiples of 32:
 
   full     — y[b, h, w, n] = clip(round(float(sum_{dy, dx, c} xp[b, h + dy, w + dx, c]
              * wmat[(3 dy + dx) C + c, n]) * m[n]), 0, 127): the whole kernel;
-  nodma    — the input halo is never read from device memory (zero slab):
-             full - nodma is the cost of the input's copies;
-  nopatch  — the halo is copied in, but the dp4a loop reads its x operands
-             once per chunk from a zero buffer, not per tap: full - nopatch
-             is the cost of the shifted shared-memory reads;
+  nodma    — the producers copy no halo from device memory (zero planes; the
+             weights still arrive): full - nodma is the cost of the input's
+             copies;
+  nopatch  — the halo is copied in, but every tap's ``wgmma`` reads one
+             resident zero tile in place of the tap-shifted halo: full -
+             nopatch is what the shifted implicit-GEMM operand costs over a
+             resident one;
   torch_mm — ``torch._int_mm`` + the requant in torch ops at [65536 x 1152 x
              128], the cuBLAS GEMM yardstick (plain PyTorch, no kernel).
 
@@ -55,10 +59,11 @@ MODES = ("full", "nopatch", "nodma")  # the kernel's mode argument is the index
 # Kernel launches since the last reset, per mode (the card path's proof of use).
 launches = {mode: 0 for mode in MODES}
 
-# Output tile of one block, as kTileRows and kTileCo (int8_common.cuh) in
-# conv_like.cu, and the limit of the launch grid's y and z.
-TILE_ROWS, TILE_CO = 8, 64
-GRID_LIMIT = 65535
+# Output tile of one block (kTile in conv_like.cu) and its channels
+# (int8_conv.tile_n of N: 128 or 64).
+TILE_ROWS = TILE_COLS = 16
+CO_MAX = int8_conv.CO_MAX  # the kernel stages m, Co floats, in shared memory
+INDEX_LIMIT = 2 ** 31  # the kernel's int pixel and tile indices
 
 
 def pack_wmat(wmat: torch.Tensor) -> torch.Tensor:
@@ -82,52 +87,67 @@ def conv_like_plain(xp: torch.Tensor, wmat: torch.Tensor, m: torch.Tensor, mode:
     return int8_conv.requant(acc[:, 1:-1], m.reshape(-1), relu=True)
 
 
+def pack_wmat_wgmma(wmat: torch.Tensor) -> torch.Tensor:
+    """wmat int8 [9C, N] (C a multiple of 32) -> the kernel's weight table,
+    ``ops/int8_conv.pack_weights_wgmma`` of the same weights in torch ops
+    (on wmat's device): [N tiles, 9 C tile_n], N zero-padded to a multiple
+    of tile_n, per 32-channel step in the order the B descriptor reads."""
+    if wmat.ndim != 2 or wmat.shape[0] % (9 * int8_conv.STEP) or wmat.shape[1] % 32:
+        raise ValueError(f"expected wmat [9C, N] with C and N multiples of 32, got "
+                         f"{tuple(wmat.shape)}")
+    c, co = wmat.shape[0] // 9, wmat.shape[1]
+    n = int8_conv.tile_n(co)
+    ct = -(-co // n)
+    k = torch.zeros((9, c, ct * n), dtype=wmat.dtype, device=wmat.device)
+    k[:, :, :co] = wmat.reshape(9, c, co)
+    k = k.permute(2, 1, 0).reshape(ct, n // 8, 8, c // int8_conv.STEP, 2, 16, 9)
+    return k.permute(0, 3, 6, 1, 4, 2, 5).reshape(ct, -1).contiguous()
+
+
 @functools.lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
     lib = load_library("conv_like")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.witw_conv_like.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
+    lib.witw_conv_like.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]
     lib.witw_conv_like.restype = i32
     return lib
 
 
-@functools.lru_cache(maxsize=8)
-def _zero_bias(n: int, device: torch.device) -> torch.Tensor:
-    """Kernel A's epilogue adds bias_q; conv_like has none."""
-    return torch.zeros(n, dtype=torch.int32, device=device)
-
-
-def conv_like_kernel(xp: torch.Tensor, w_packed: torch.Tensor, m: torch.Tensor, mode: str,
+def conv_like_kernel(xp: torch.Tensor, w_wgmma: torch.Tensor, m: torch.Tensor, mode: str,
                      width: int) -> torch.Tensor:
-    """Launch the kernel: xp int8 [B, H + 2, WP, C], w_packed int8 [N, 3, 3, C]
-    (:func:`pack_wmat`), m f32 [1, N] -> int8 [B, H, width, N]. ValueError
-    for an input the kernel does not take."""
+    """Launch the kernel: xp int8 [B, H + 2, WP, C], w_wgmma int8
+    (:func:`pack_wmat_wgmma`), m f32 [1, N] -> int8 [B, H, width, N].
+    ValueError for an input the kernel does not take."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-    if xp.dtype != torch.int8 or w_packed.dtype != torch.int8 or m.dtype != torch.float32:
-        raise ValueError(f"xp and w must be int8 and m float32, got {xp.dtype}, "
-                         f"{w_packed.dtype} and {m.dtype}")
-    if xp.ndim != 4 or w_packed.ndim != 4 or tuple(w_packed.shape[1:3]) != (3, 3):
-        raise ValueError(f"expected xp [B, H + 2, WP, C] and w [N, 3, 3, C], got "
-                         f"{tuple(xp.shape)} and {tuple(w_packed.shape)}")
+    if xp.dtype != torch.int8 or w_wgmma.dtype != torch.int8 or m.dtype != torch.float32:
+        raise ValueError(f"xp and w_wgmma must be int8 and m float32, got {xp.dtype}, "
+                         f"{w_wgmma.dtype} and {m.dtype}")
+    if xp.ndim != 4:
+        raise ValueError(f"expected xp [B, H + 2, WP, C], got {tuple(xp.shape)}")
     b, hp, wp, c = xp.shape
-    n = w_packed.shape[0]
-    if w_packed.shape[3] != c or c % 4 or n % 4 or m.numel() != n:
-        raise ValueError(f"w {tuple(w_packed.shape)} and m {tuple(m.shape)} do not fit xp "
-                         f"{tuple(xp.shape)}: C and N must agree and be multiples of 4")
+    n = m.numel()
+    if c % 32 or n % 32 or not 0 < n <= CO_MAX or c == 0:
+        raise ValueError(f"C and N must be positive multiples of 32 (N <= {CO_MAX}), got "
+                         f"C={c} N={n}")
+    tile_n = int8_conv.tile_n(n)
+    if tuple(w_wgmma.shape) != (-(-n // tile_n), 9 * c * tile_n):
+        raise ValueError(f"w_wgmma {tuple(w_wgmma.shape)} does not fit C={c} N={n}: expected "
+                         f"{(-(-n // tile_n), 9 * c * tile_n)} (pack_wmat_wgmma)")
     if hp < 3 or not 1 <= width <= wp - 2:
         raise ValueError(f"xp {tuple(xp.shape)} does not hold a padded [H, {width}] input")
-    if -(-(hp - 2) // TILE_ROWS) > GRID_LIMIT or b * -(-n // TILE_CO) > GRID_LIMIT:
-        raise ValueError(f"xp {tuple(xp.shape)} with N={n} exceeds the launch grid")
-    device = check_cuda_tensors("conv_like", xp=xp, w=w_packed, m=m)
+    tiles = -(-n // tile_n) * -(-(hp - 2) // TILE_ROWS) * -(-width // TILE_COLS) * b
+    if b * hp * wp >= INDEX_LIMIT or tiles >= INDEX_LIMIT:
+        raise ValueError(f"xp {tuple(xp.shape)} has too many pixels or tiles for the kernel")
+    device = check_cuda_tensors("conv_like", xp=xp, w_wgmma=w_wgmma, m=m)
     out = torch.empty((b, hp - 2, width, n), dtype=torch.int8, device=device)
     if b == 0:
         return out
     lib = _lib()
     with torch.cuda.device(device):
-        err = lib.witw_conv_like(xp.data_ptr(), w_packed.data_ptr(), _zero_bias(n, device).data_ptr(),
-                                 m.data_ptr(), out.data_ptr(), b, hp - 2, wp, c, n, width,
-                                 MODES.index(mode), torch.cuda.current_stream(device).cuda_stream)
+        err = lib.witw_conv_like(xp.data_ptr(), w_wgmma.data_ptr(), m.data_ptr(), out.data_ptr(),
+                                 b, hp - 2, wp, c, n, width, tile_n, MODES.index(mode),
+                                 torch.cuda.current_stream(device).cuda_stream)
     check_launch(lib, err, "conv_like")
     launches[mode] += 1
     return out
@@ -139,10 +159,10 @@ def conv_like(xp: torch.Tensor, wmat: torch.Tensor, m: torch.Tensor, mode: str,
     int8 [B, H, width, N] (``mode`` full, nopatch or nodma)."""
     if xp.device.type == "cpu":
         return conv_like_plain(xp, wmat, m, mode, width)
-    if wmat.ndim != 2 or wmat.shape[0] != 9 * xp.shape[-1]:
-        raise ValueError(f"wmat {tuple(wmat.shape)} does not fit xp {tuple(xp.shape)}: "
-                         f"expected [9C, N]")
-    return conv_like_kernel(xp, pack_wmat(wmat), m, mode, width)
+    if wmat.ndim != 2 or wmat.shape[0] != 9 * xp.shape[-1] or wmat.shape[1] != m.numel():
+        raise ValueError(f"wmat {tuple(wmat.shape)} does not fit xp {tuple(xp.shape)} and m "
+                         f"{tuple(m.shape)}: expected [9C, N]")
+    return conv_like_kernel(xp, pack_wmat_wgmma(wmat), m, mode, width)
 
 
 def torch_mm(x2d: torch.Tensor, wmat_t: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
@@ -166,10 +186,10 @@ def run(device: Optional[torch.device] = None) -> Dict[str, float]:
                        dtype=torch.int8)
     wmat = torch.randint(-20, 21, (9 * C, N), generator=gen, device=device, dtype=torch.int8)
     m = torch.full((1, N), 0.001, dtype=torch.float32, device=device)
-    w_packed = pack_wmat(wmat)
+    w_wgmma = pack_wmat_wgmma(wmat)
     out = {}
     for mode in MODES:
-        out[mode] = step_ms(lambda x: conv_like_kernel(x, w_packed, m, mode, W), xs)
+        out[mode] = step_ms(lambda x: conv_like_kernel(x, w_wgmma, m, mode, W), xs)
         print(f"kernel {mode:8s}: {out[mode]:7.3f} ms/step  {FL / out[mode] / 1e9:6.1f} TOPS",
               flush=True)
     del xs

@@ -1,4 +1,4 @@
-"""The s8 and bf16 matmul rate that a hand-written ``mma.sync`` loop reaches
+"""The s8 and bf16 matmul rate that a hand-written ``wgmma`` loop reaches
 on the card: the port of ``exp/int8_mm_probe.py``.
 
     python3 -m witw_tpu_torch.exp.int8_mm_probe
@@ -8,16 +8,19 @@ int32) and ``:mmf`` (bf16 x bf16 -> f32), and ``exp/mosaic_caps.py:t3`` (an
 s8 dot with N = 64, which is ``mm`` with reps = 1), with one CUDA C++ kernel
 for Hopper (``csrc/mm_probe.cu``, built by ``witw_tpu_torch.kernels.build``).
 The TPU kernels keep both operands resident in VMEM and add ``reps`` dots
-into one accumulator; so does this one, with the operands in shared memory
-and the accumulator in registers:
+into one accumulator; so does this one, with a in registers, b in shared
+memory and the accumulator in registers:
 
     mm(a, b, reps)  = reps * (a @ b)    int32, mod 2^32 (the TPU's int32 sum wraps)
     mmf(a, b, reps) = the f32 sum of reps copies of a @ b
 
 a is [M, K], b is [K, N]; the kernel reads b as b^T [N, K] (K contiguous),
-which :func:`pack_b` builds once. M and N must be multiples of 64 and K of
-32. CPU tensors take the plain version; CUDA tensors launch the kernel or
-raise ValueError for an input it does not take.
+which :func:`pack_b` builds once. The kernel's blocks each take 64 rows, 2 x
+``tile_n`` columns and one slice of at most 288 bytes of K (:func:`geometry`);
+with more than one slice a second kernel adds the slices' partial products
+in order. M and N must be multiples of 64 and K of 32 bytes. CPU tensors
+take the plain version; CUDA tensors launch the kernel or raise ValueError
+for an input it does not take.
 """
 
 from __future__ import annotations
@@ -36,9 +39,10 @@ from witw_tpu_torch.utils.profiling import cuda_ms, graph_ms
 # Kernel launches since the last reset, per kernel (the card path's proof of use).
 launches = {"mm": 0, "mmf": 0}
 
-MAX_SMEM = 232448  # bytes of shared memory a block can use on an H100
-GRID_LIMIT = 65535
-TILE = 32  # output rows and columns of one block, as kTile in the source
+ROWS = 64  # rows of a per block: one wgmma M
+STEP_BYTES = 32  # bytes of K per wgmma (k32 of s8, k16 of bf16)
+STEPS = 9  # k-steps of a K slice, held in registers (kSteps in the source)
+GRID_LIMIT = (2 ** 31 - 1, 65535, 65535)
 
 # The TPU script's shapes and rep counts (rate() differences two of them).
 M, K, N, N2 = 2048, 1152, 128, 512
@@ -75,16 +79,33 @@ def mmf_plain(a: torch.Tensor, b: torch.Tensor, reps: int) -> torch.Tensor:
     return acc
 
 
+def geometry(m: int, n: int, k_bytes: int, s8: bool = True) -> dict:
+    """The kernel's tiling of an [m x k_bytes] x [k_bytes x n] product:
+    ``tile_n`` columns per warpgroup, two warpgroups a block (the largest of
+    256 (s8 only), 128, 64 and 32 whose double divides n), ``slices``, the
+    fewest K slices of at most :data:`STEPS` k-steps, and the launch
+    ``grid`` (row tiles, column tiles, slices). ValueError for a shape the
+    kernel does not take."""
+    if m <= 0 or n <= 0 or k_bytes <= 0 or m % ROWS or n % 64 or k_bytes % STEP_BYTES:
+        raise ValueError(f"M and N must be positive multiples of 64 and K of {STEP_BYTES} bytes, "
+                         f"got M={m} N={n} and {k_bytes} bytes of K")
+    steps = k_bytes // STEP_BYTES
+    tile_n = next(t for t in ((256, 128, 64, 32) if s8 else (128, 64, 32)) if n % (2 * t) == 0)
+    slices = -(-steps // STEPS)
+    grid = (m // ROWS, n // (2 * tile_n), slices)
+    if any(g > limit for g, limit in zip(grid, GRID_LIMIT)):
+        raise ValueError(f"M={m} N={n} and {k_bytes} bytes of K exceed the launch grid")
+    return {"tile_n": tile_n, "slices": slices, "grid": grid}
+
+
 @functools.lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
     lib = load_library("mm_probe")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.witw_mm_s8.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
-    lib.witw_mm_bf16.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
+    lib.witw_mm_s8.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
+    lib.witw_mm_bf16.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
     for entry in (lib.witw_mm_s8, lib.witw_mm_bf16):
         entry.restype = i32
-    lib.witw_mm_probe_smem_bytes.argtypes = [i32]
-    lib.witw_mm_probe_smem_bytes.restype = ctypes.c_size_t
     return lib
 
 
@@ -105,22 +126,20 @@ def mm_kernel(a: torch.Tensor, bt: torch.Tensor, reps: int,
         raise ValueError(f"expected a [M, K] and bt [N, K], got {tuple(a.shape)} and {tuple(bt.shape)}")
     m, k = a.shape
     n = bt.shape[0]
-    if m % 64 or n % 64 or k % 32 or m == 0 or n == 0 or k == 0:
-        raise ValueError(f"M and N must be multiples of 64 and K of 32, got M={m} N={n} K={k}")
-    if m // TILE > GRID_LIMIT:
-        raise ValueError(f"M={m} exceeds the launch grid")
+    plan = geometry(m, n, k * a.element_size(), name == "mm")
     if not isinstance(reps, int) or reps < 1:
         raise ValueError(f"reps must be a positive int, got {reps!r}")
     device = check_cuda_tensors(entry, a=a, bt=bt)
     lib = _lib()
-    smem = lib.witw_mm_probe_smem_bytes(k * a.element_size())
-    if smem > MAX_SMEM:
-        raise ValueError(f"K={k} does not fit in shared memory ({smem} > {MAX_SMEM} bytes)")
     out = torch.empty((m, n), dtype=out_dtype, device=device)
+    # the slices' partial products, summed in slice order by a second kernel
+    work = (torch.empty((plan["slices"], m, n), dtype=out_dtype, device=device)
+            if plan["slices"] > 1 else out)
     with torch.cuda.device(device):
         extra = (int(whole_dots),) if name == "mmf" else ()
-        err = getattr(lib, entry)(a.data_ptr(), bt.data_ptr(), out.data_ptr(), m, n, k, reps,
-                                  *extra, torch.cuda.current_stream(device).cuda_stream)
+        err = getattr(lib, entry)(a.data_ptr(), bt.data_ptr(), out.data_ptr(), work.data_ptr(),
+                                  m, n, k, reps, *extra, plan["tile_n"], plan["slices"],
+                                  torch.cuda.current_stream(device).cuda_stream)
     check_launch(lib, err, entry)
     launches[name] += 1
     return out
