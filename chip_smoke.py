@@ -87,7 +87,9 @@ Phases, each of which passes or raises:
    lines, failing on any spill of conv_like or mm_probe, where a conv_like
    function's SASS (cuobjdump) holds no IGMMA or any IDP.4A, where a
    mm_probe kernel holds no IGMMA (s8) or HGMMA (bf16) or any IMMA or HMMA,
-   and where a stripped conv_like mode issues fewer IGMMA than full.
+   where a stripped conv_like mode issues fewer IGMMA than full, and on any
+   spill of caps or a caps kernel without TMA tensor loads and stores
+   (UTMALDG, UTMASTG) or with a thread's own global loads or stores.
 16. Hold each against its plain PyTorch version: conv_like full bit-equal at
    the probe shape [32, 64, 256] x 128 -> 128 and at two ragged ones (one
    whose H and W are not multiples of its 16 x 16 tile), its stripped modes
@@ -95,14 +97,20 @@ Phases, each of which passes or raises:
    (the int32 sum wraps); mmf bit-equal at reps 1 and within
    1024 * 2^-24 * max|y| at reps 1024 (the kernel sums each rep's dot in
    another order), and bit-equal at reps 1 without its whole-dot pass;
-   t1-t4 bit-equal.
+   t1-t4 bit-equal, t1, t2 and t4 at the TPU script's shapes, at row counts
+   that fill no box of caps.cu's (rows of 96 and 1088 bytes, W 600) and at
+   kernel C's block-2 slab (int8 [128, 64, 256, 64] as t4's [4096, 256,
+   128], t1 and t2 on its rows).
 17. The three entry points, witw_tpu_torch.exp.{int8_isolate,
    int8_mm_probe, mosaic_caps}.run(), each of which must raise the launch
    count of every kernel it reaches; then each kernel timed beside its plain
    version, the library call (cuBLAS: one product's device time, from a
    CUDA graph, x reps for the rate probes; sum, roll and clone for t1, t2,
-   t4) and its bound. The layout probes are launch-bound: their kernel,
-   plain and library times are all device times from CUDA graphs. Kernel
+   t4) and its bound. The layout probes at the TPU script's shapes are
+   launch-bound: their kernel, plain and library times are device times from
+   CUDA graphs, in turns with the kernel without programmatic dependent
+   launch and with one kernel node's floor (zero_() on 16 bytes); at the
+   slab, from graphs of 4 calls (median of 5, in turns, cold). Kernel
    A's decomposition: full - nodma (the input's copies), full - nopatch
    (the shifted operand over a resident one) and full at C 128 - full at C
    512 on equal operations (what a tile costs beyond its ring steps).
@@ -505,14 +513,21 @@ def compare_kernel(name, o, s, data="random"):
     return max_abs
 
 
+def turns_ms(fns, timer, reps: int):
+    """The median of ``reps`` times of each function, timed in turns (a, b,
+    c, c, b, a, ...) by ``timer(fn) -> ms``."""
+    times = [[] for _ in fns]
+    for rep in range(reps):
+        order = list(enumerate(fns))
+        for i, fn in (order if rep % 2 == 0 else order[::-1]):
+            times[i].append(timer(fn))
+    return [statistics.median(t) for t in times]
+
+
 def interleaved_ms(plain, kernel, calls: int, reps: int):
     """Plain and kernel timed in turns (plain, kernel, kernel, plain, ...)."""
-    t_plain, t_kernel = [], []
-    for rep in range(reps):
-        order = [(plain, t_plain), (kernel, t_kernel)]
-        for fn, out in (order if rep % 2 == 0 else order[::-1]):
-            out.append(cuda_ms(fn, calls, 1))
-    return statistics.median(t_kernel), statistics.median(t_plain)
+    t_plain, t_kernel = turns_ms([plain, kernel], lambda fn: cuda_ms(fn, calls, 1), reps)
+    return t_kernel, t_plain
 
 
 def raw_batch(rng, cfg, b):
@@ -985,13 +1000,8 @@ def library_conv(x, w, bias, relu):
     return lambda: torch.nn.functional.conv2d(xn, wn, bias.to(x.dtype), 1, 1)
 
 
-def check_wgmma_build(name, built, mma, opcodes, forbidden=None):
-    """Fail on any register spill in ``name``'s ptxas lines, and where a
-    kernel function of its SASS holds no ``mma`` instruction (the warpgroup
-    MMA: HGMMA for bf16, IGMMA for int8) or any ``forbidden`` one (or any
-    of several). ``mma`` may be a dict {fragment of a function's name:
-    opcode} for a library whose kernels differ; a function that matches no
-    fragment (a plain reduction) needs none."""
+def check_no_spills(name, built):
+    """Fail on any register spill in ``name``'s ptxas lines; print its warnings."""
     lines = built[name][1].splitlines()
     if not any("ptxas info" in line for line in lines):
         raise AssertionError(f"{name} has no ptxas report to check (its build log is gone)")
@@ -1001,6 +1011,30 @@ def check_wgmma_build(name, built, mma, opcodes, forbidden=None):
     spills = [line.strip() for line in lines if re.search(r"[1-9]\d* bytes spill (stores|loads)", line)]
     if spills:
         raise AssertionError(f"{name} spills registers: {spills}")
+
+
+def check_tma_build(name, built):
+    """Fail on any register spill in ``name``, and where a kernel function of
+    its SASS issues no TMA tensor load (UTMALDG) or store (UTMASTG), or moves
+    bytes by a thread's own global loads or stores (LDG, STG)."""
+    check_no_spills(name, built)
+    counts = sass_counts(built[name][0], ("UTMALDG", "UTMASTG", "LDG", "STG"))
+    for fn, c in counts.items():
+        log(f"    SASS {fn}: {c}")
+    if not counts or not all(c["UTMALDG"] and c["UTMASTG"] and not c["LDG"] and not c["STG"]
+                             for c in counts.values()):
+        raise AssertionError(f"{name} has a kernel that does not move its bytes by the TMA: {counts}")
+    return counts
+
+
+def check_wgmma_build(name, built, mma, opcodes, forbidden=None):
+    """Fail on any register spill in ``name``'s ptxas lines, and where a
+    kernel function of its SASS holds no ``mma`` instruction (the warpgroup
+    MMA: HGMMA for bf16, IGMMA for int8) or any ``forbidden`` one (or any
+    of several). ``mma`` may be a dict {fragment of a function's name:
+    opcode} for a library whose kernels differ; a function that matches no
+    fragment (a plain reduction) needs none."""
+    check_no_spills(name, built)
     counts = sass_counts(built[name][0], opcodes)
     for fn, c in counts.items():
         log(f"    SASS {fn}: {c}")
@@ -1247,6 +1281,77 @@ def conv_like_case(gen, device, b, h, w, c, n):
     return xp, wmat, torch.full((1, n), 0.001, device=device)
 
 
+# Kernel C's block-2 input, int8 [128, 64, 256, 64] (134,217,728 bytes), in
+# t4's slab layout: two 64-channel pixels paired into one 128-byte row.
+CAPS_SLAB = (4096, 256, 128)
+CAPS_LIBRARY = {  # one PyTorch call that computes each layout probe's function
+    "t1": lambda x: x.view(x.shape[0], 2, -1).sum(1, dtype=torch.int32),
+    "t2": lambda x: torch.roll(x, x.shape[1] // 2, 1),
+    "t4": lambda x: x.reshape(-1, x.shape[-1]).clone(),
+}
+
+
+def caps_inputs(gen, device):
+    """The layout probes' inputs, {shape set: [(probe, input), ...]}: the TPU
+    script's shapes, row counts that fill no box (also with rows of 96 bytes,
+    whose 48-byte halves are one box of no power-of-two width, rows of 1088
+    bytes, whose halves take 17 column boxes each, and a W past one box's
+    256), and kernel C's block-2 slab (t1 and t2 on its rows)."""
+    def s8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=device, dtype=torch.int8)
+
+    x, slab = s8(256, 128), s8(8, 64, 128)
+    big = s8(*CAPS_SLAB)
+    rows = big.view(-1, CAPS_SLAB[-1])
+    ragged = [("t1", s8(37, 128)), ("t1", s8(1001, 96)), ("t1", s8(300, 1088)),
+              ("t2", s8(37, 128)), ("t2", s8(1001, 96)), ("t2", s8(300, 1088)),
+              ("t4", s8(5, 64, 128)), ("t4", s8(3, 100, 96)), ("t4", s8(2, 600, 64)),
+              ("t4", s8(7, 33, 1088))]
+    return {"probe": [("t1", x), ("t2", x), ("t4", slab)], "ragged": ragged,
+            "slab": [("t1", rows), ("t2", rows), ("t4", big)]}
+
+
+def caps_bytes(name, x):
+    """Bytes a layout probe must move: its input once, its output once (t1
+    writes int32 halves)."""
+    return x.numel() * (3 if name == "t1" else 2)
+
+
+def caps_timing(card, inputs):
+    """The layout probes' device times (ms) beside their plain versions and
+    library calls, and the one-kernel-node floor, all device time from CUDA
+    graphs (a host-launched call would count the wrapper's host time between
+    the events). The probe shapes are launch-bound: graphs of 64 calls, in
+    turns with the kernel without programmatic dependent launch and with
+    ``zero_()`` on 16 bytes (the floor). The slab: graphs of 4 calls, median
+    of 5 in turns; each call finds its 134 MB input cold (L2 holds 50 MB).
+    Returns {shape set: {probe: {"kernel", "nopdl" (probe shapes), "floor"
+    (probe shapes), "plain", "library", "bound"}}}."""
+    tiny = torch.empty(16, dtype=torch.uint8, device=inputs["probe"][0][1].device)
+    out = {}
+    for shapes in ("probe", "slab"):
+        out[shapes] = {}
+        for name, x in inputs[shapes]:
+            fn, plain = getattr(mosaic_caps, name), getattr(mosaic_caps, f"{name}_plain")
+            fns = {"kernel": lambda: fn(x), "plain": lambda: plain(x),
+                   "library": lambda: CAPS_LIBRARY[name](x)}
+            if shapes == "probe":
+                fns.update(nopdl=lambda: fn(x, pdl=False), floor=tiny.zero_)
+                times = turns_ms(list(fns.values()), graph_ms, reps=3)
+            else:
+                times = turns_ms(list(fns.values()), lambda f: graph_ms(f, calls=4, reps=1), reps=5)
+            t = dict(zip(fns, times), bound=bound(0.0, caps_bytes(name, x), PEAK_INT8_PER_MS)[0])
+            out[shapes][name] = t
+            extra = (f", without PDL {t['nopdl']:.4f} ms, one node's floor {t['floor']:.4f} ms "
+                     f"(device time from CUDA graphs of 64 calls)" if shapes == "probe" else
+                     f" ({100 * t['bound'] / t['kernel']:.1f}% of bound; device time from CUDA "
+                     f"graphs of 4 calls, cold)")
+            log(f"    {name} {tuple(x.shape)}: kernel {t['kernel']:.4f} ms, plain "
+                f"{t['plain']:.4f} ms, library {t['library']:.4f} ms, bound {t['bound']:.4f} ms"
+                f"{extra} ({card})")
+    return out
+
+
 def probe_phases(card, device, built):
     """Phases 15-17; returns the four records of the probes' kernels."""
     # 15. the three libraries, built in phase 2; wgmma in each kernel, and as
@@ -1263,6 +1368,7 @@ def probe_phases(card, device, built):
     per_mode = {(n, mode): next(c["IGMMA"] for f, c in counts.items()
                                 if f"conv_like_kernelILi{n}ELi{i}E" in f)
                 for n in (64, 128) for i, mode in enumerate(int8_isolate.MODES)}
+    check_tma_build("caps", built)
     log(f"    IGMMA per conv_like (channel tile, mode): {per_mode}")
     fewer = [k for k, c in per_mode.items() if c < per_mode[(k[0], "full")]]
     if fewer:
@@ -1314,14 +1420,14 @@ def probe_phases(card, device, built):
     e = check_equal(f"mmf [{mp.M}x{mp.K}x{mp.N}] reps 1, tensor-core accumulation",
                     mp.mm_kernel(ab, mp.pack_b(bb), 1, whole_dots=False), mp.mmf_plain(ab, bb, 1))
     err["mm_bf16"] = max(err["mm_bf16"], e)
-    x = torch.randint(-127, 128, (256, 128), generator=gen, device=device, dtype=torch.int8)
+    caps_cases = caps_inputs(gen, device)
+    for shapes, cases in caps_cases.items():
+        for name, x in cases:
+            e = check_equal(f"{name} {tuple(x.shape)} ({shapes})", getattr(mosaic_caps, name)(x),
+                            getattr(mosaic_caps, f"{name}_plain")(x))
+            err["caps"] = max(err["caps"], e)
+    x = caps_cases["probe"][0][1]
     w = torch.randint(-20, 21, (128, 64), generator=gen, device=device, dtype=torch.int8)
-    slab = torch.randint(-127, 128, (8, 64, 128), generator=gen, device=device, dtype=torch.int8)
-    caps_cases = {"t1": (x,), "t2": (x,), "t4": (slab,)}
-    for name, args in caps_cases.items():
-        e = check_equal(f"{name} {tuple(args[0].shape)}", getattr(mosaic_caps, name)(*args),
-                        getattr(mosaic_caps, f"{name}_plain")(*args))
-        err["caps"] = max(err["caps"], e)
     e = check_equal("t3 [256x128x64]", mosaic_caps.t3(x, w), mp.mm_plain(x, w, 1))
     err["mm_s8"] = max(err["mm_s8"], e)
 
@@ -1385,18 +1491,20 @@ def probe_phases(card, device, built):
         times[rec] = (t_k, t_p, t_lib)
         bounds[rec] = bound(2.0 * mp.M * mp.K * mp.N * reps,
                             size * (mp.M * mp.K + mp.K * mp.N) + 4 * mp.M * mp.N, peak)
-    caps_lib = {"t1": lambda x_: x_.view(x_.shape[0], 2, -1).sum(1, dtype=torch.int32),
-                "t2": lambda x_: torch.roll(x_, x_.shape[1] // 2, 1),
-                "t4": lambda x_: x_.reshape(-1, x_.shape[-1]).clone()}
-    caps_t = []  # launch-bound: device time from CUDA graphs of 64 calls
-    for name, (arg,) in caps_cases.items():
-        caps_t.append(tuple(graph_ms(lambda f=f: f(arg)) for f in (
-            getattr(mosaic_caps, name), getattr(mosaic_caps, f"{name}_plain"), caps_lib[name])))
-        log(f"    {name} {tuple(arg.shape)}: kernel {caps_t[-1][0]:.4f} ms, plain "
-            f"{caps_t[-1][1]:.4f} ms, library {caps_t[-1][2]:.4f} ms (device time) ({card})")
-    times["caps"] = tuple(sum(t[i] for t in caps_t) for i in range(3))
-    caps_bytes = x.numel() * (1 + 2) + x.numel() * 2 + slab.numel() * 2  # t1 writes int32 halves
-    bounds["caps"] = bound(0.0, caps_bytes, PEAK_INT8_PER_MS)
+    caps_t = caps_timing(card, caps_cases)
+    del caps_cases
+    probe_t, slab_t = caps_t["probe"].values(), caps_t["slab"].values()
+    times["caps"] = tuple(sum(t[k] for t in probe_t) for k in ("kernel", "plain", "library"))
+    bounds["caps"] = (sum(t["bound"] for t in probe_t), "bytes")
+    caps_extra = {"nopdl_ms": sum(t["nopdl"] for t in probe_t),
+                  "floor_ms": statistics.median(t["floor"] for t in probe_t),
+                  **{f"slab_{field}": sum(t[k] for t in slab_t) for field, k in (
+                      ("ms", "kernel"), ("plain_ms", "plain"), ("library_ms", "library"),
+                      ("bound_ms", "bound"))}}
+    log(f"    caps summed: probe shapes {times['caps'][0]:.4f} ms (without PDL "
+        f"{caps_extra['nopdl_ms']:.4f}; three nodes' floor {3 * caps_extra['floor_ms']:.4f}), "
+        f"slab {caps_extra['slab_ms']:.4f} ms (plain {caps_extra['slab_plain_ms']:.4f}, library "
+        f"{caps_extra['slab_library_ms']:.4f}, bound {caps_extra['slab_bound_ms']:.4f}) ({card})")
     records = []
     for rec, (source, replaces) in PROBE_KERNELS.items():
         t_k, t_p, t_lib = times[rec]
@@ -1407,6 +1515,7 @@ def probe_phases(card, device, built):
             "name": rec, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[rec], "max_abs_err": err[rec], "ms": t_k, "plain_ms": t_p,
             "bound_ms": bounds[rec][0], "bound_by": bounds[rec][1], "library_ms": t_lib,
+            **(caps_extra if rec == "caps" else {}),
         })
     return records
 

@@ -654,6 +654,81 @@ def test_caps_match_plain(probe_cuda):
     assert int8_mm_probe.launches["mm"] == 1
 
 
+_CAPS_RAGGED = [("t1", (37, 128)), ("t1", (1001, 96)), ("t1", (300, 1088)), ("t2", (37, 128)),
+                ("t2", (1001, 96)), ("t2", (300, 1088)), ("t2", (5000, 128)), ("t4", (5, 64, 128)),
+                ("t4", (3, 100, 96)), ("t4", (2, 600, 64)), ("t4", (7, 33, 1088)),
+                ("t4", (5, 257, 64))]
+
+
+@pytest.mark.parametrize("name,shape", _CAPS_RAGGED,
+                         ids=[f"{n}-{'x'.join(map(str, s))}" for n, s in _CAPS_RAGGED])
+def test_caps_ragged_match_plain(probe_cuda, name, shape):
+    """Rows that fill no box (the TMA clips the stores), halves of 48 bytes
+    and of 17 column chunks, W folded past a box's 256, with and without
+    programmatic dependent launch."""
+    gen = torch.Generator(device=probe_cuda).manual_seed(5)
+    x = _s8(gen, probe_cuda, *shape)
+    fn, plain = getattr(mosaic_caps, name), getattr(mosaic_caps, f"{name}_plain")
+    for pdl in (True, False):
+        got = fn(x, pdl=pdl)
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain(x))
+    assert mosaic_caps.launches[name] == 2
+
+
+def test_caps_slab_match_plain(probe_cuda):
+    """Kernel C's block-2 slab at batch 8 of 128 ([1024, 256, 128], 32 MB):
+    thousands of blocks, t4's W folded to 128 pixels a box."""
+    gen = torch.Generator(device=probe_cuda).manual_seed(6)
+    slab = _s8(gen, probe_cuda, 1024, 256, 128)
+    rows = slab.view(-1, 128)
+    for fn, plain, arg in ((mosaic_caps.t1, mosaic_caps.t1_plain, rows),
+                           (mosaic_caps.t2, mosaic_caps.t2_plain, rows),
+                           (mosaic_caps.t4, mosaic_caps.t4_plain, slab)):
+        got = fn(arg)
+        torch.cuda.synchronize()
+        assert got.dtype == plain(arg).dtype and torch.equal(got, plain(arg))
+    assert mosaic_caps.launches == {"t1": 1, "t2": 1, "t4": 1}
+
+
+@pytest.mark.parametrize("pdl", [True, False], ids=["pdl", "no-pdl"])
+def test_caps_graph_of_dependent_calls(probe_cuda, pdl):
+    """A CUDA graph of back-to-back calls, each reading the one before's
+    output (with PDL, a kernel's prologue overlaps the one before, and its
+    griddepcontrol.wait must hold its reads until that one has written),
+    replayed on new inputs."""
+    gen = torch.Generator(device=probe_cuda).manual_seed(7)
+    x = _s8(gen, probe_cuda, 512, 128)
+
+    def chain():
+        y = x
+        for _ in range(4):
+            y = mosaic_caps.t2(y, pdl=pdl)
+        z = mosaic_caps.t4(mosaic_caps.t2(y, pdl=pdl).view(8, 64, 128), pdl=pdl)
+        return mosaic_caps.t1(z, pdl=pdl)
+
+    def want():
+        y = x
+        for _ in range(5):
+            y = mosaic_caps.t2_plain(y)
+        return mosaic_caps.t1_plain(mosaic_caps.t4_plain(y.view(8, 64, 128)))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        chain()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = chain()
+    for _ in range(3):
+        x.copy_(_s8(gen, probe_cuda, 512, 128))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want())
+    assert mosaic_caps.launches == {"t1": 2, "t2": 10, "t4": 2}  # the warm-up and the capture
+
+
 def test_probe_kernels_reject_bad_inputs(probe_cuda):
     gen = torch.Generator(device=probe_cuda).manual_seed(4)
     for a_shape, b_shape in (((96, 64), (64, 64)),    # M not a multiple of 64

@@ -12,7 +12,10 @@ same numpy inputs as the JAX function under ``force_tpu_interpret_mode()``:
   (all-127 inputs, K=1152, reps=200); ``mmf`` bit-equal at reps <= 8, where
   every partial sum of the integer-valued bf16 inputs is exact in f32;
 - ``exp/mosaic_caps.py``'s four probes bit-equal, on the script's own inputs
-  (its ``probe`` is replaced by a recorder while its ``main`` runs).
+  (its ``probe`` is replaced by a recorder while its ``main`` runs); the
+  plain versions also at kernel C's slab layout and at ragged rows, against
+  the script's numpy expressions, and ``caps.cu``'s tiling
+  (``mosaic_caps.geometry``).
 
 The three scripts put an absolute checkout path first on ``sys.path`` and
 point JAX's compilation cache there when imported; the ``jax_exp`` fixture
@@ -289,3 +292,89 @@ def test_mmf_kernel_order_within_tolerance(reps):
         assert err == 0.0
     else:
         assert 0.0 < err <= reps * 2.0 ** -24 * float(want.abs().max())
+
+
+# caps.cu's tiling (boxes, column chunks, the ring's stages, the grid) and the
+# plain versions the kernels are held against, at the kernels' other shapes.
+
+_CAPS_PLANS = [  # name, shape, the plan's expected fields
+    ("t1", (256, 128), dict(chunk=64, chunks=1, box_rows=32, units=8)),
+    ("t2", (256, 128), dict(chunk=64, chunks=1, box_rows=32, units=8)),
+    ("t4", (8, 64, 128), dict(rows=8, width=64, box_rows=1, units=8)),
+    ("t1", (1048576, 128), dict(box_rows=64, units=16384)),
+    ("t2", (1048576, 128), dict(box_rows=128, units=8192)),
+    ("t4", (4096, 256, 128), dict(rows=8192, width=128, box_rows=1, units=8192)),
+    ("t2", (300, 128), dict(box_rows=38, units=8)),
+    ("t1", (37, 128), dict(box_rows=5, units=8)),
+    ("t1", (1001, 96), dict(chunk=48, box_rows=85, units=12)),
+    ("t1", (300, 1088), dict(chunk=32, chunks=17, box_rows=38, units=136)),
+    ("t2", (40, 1024), dict(chunk=256, chunks=2, box_rows=5, units=16)),
+    ("t2", (5000, 128), dict(box_rows=128, units=40)),
+    ("t4", (2, 600, 64), dict(rows=6, width=200, chunk=32, box_rows=1, units=6)),
+    ("t4", (7, 33, 1088), dict(width=33, chunk=32, chunks=17, box_rows=1, units=119)),
+    ("t4", (5, 257, 64), dict(rows=1285, width=1, box_rows=161, units=8)),
+]
+
+
+@pytest.mark.parametrize("name,shape,want", _CAPS_PLANS,
+                         ids=[f"{n}-{'x'.join(map(str, s))}" for n, s, _ in _CAPS_PLANS])
+def test_caps_geometry(name, shape, want):
+    plan = mosaic_caps.geometry(name, shape)
+    assert {k: plan[k] for k in want} == want
+    h = shape[-1] // 2
+    assert plan["chunk"] % 16 == 0 and plan["chunk"] <= 256 and plan["chunk"] * plan["chunks"] == h
+    assert plan["box_rows"] * plan["width"] <= 256  # one box dimension of t4's 2D store
+    assert plan["box_rows"] * plan["width"] * plan["chunk"] <= max(
+        mosaic_caps.HALF_BOX_BYTES[name], plan["width"] * plan["chunk"])
+    assert plan["rows"] * plan["width"] == int(np.prod(shape[:-1]))
+    assert plan["units"] == -(-plan["rows"] // plan["box_rows"]) * plan["chunks"]
+
+
+@pytest.mark.parametrize("name,shape,match", [
+    ("t1", (4, 48), "multiple of 32"),
+    ("t2", (4, 0), "multiple of 32"),
+    ("t1", (0, 128), "nothing to move"),
+    ("t4", (3, 0, 128), "nothing to move"),
+    ("t4", (4, 64), r"\[R, W, C\]"),
+    ("t1", (4, 8, 64), r"\[R, C\]"),
+    ("t3", (4, 64), "no caps kernel"),
+    ("t2", (2 ** 32, 64), r"2\^32"),
+    ("t4", (2 ** 24, 256, 64), r"2\^32"),
+], ids=["t1-c48", "t2-c0", "t1-empty", "t4-empty", "t4-rank", "t1-rank", "t3", "t2-rows",
+        "t4-rows"])
+def test_caps_geometry_rejects(name, shape, match):
+    with pytest.raises(ValueError, match=match):
+        mosaic_caps.geometry(name, shape)
+
+
+@pytest.mark.parametrize("r,w,c", [(16, 256, 128), (3, 100, 96), (5, 64, 128), (2, 33, 1088)],
+                         ids=["slab", "ragged-w100", "ragged-r5", "wide"])
+def test_caps_plain_at_kernel_shapes(r, w, c):
+    """t1, t2 (on the slab's rows) and t4 plain, bit-equal to the numpy
+    expressions exp/mosaic_caps.py checks its kernels with (want1, want2,
+    want4), at kernel C's block-2 slab layout of batch 1 ([16, 256, 128]:
+    rows 0-15 of image 0, two 64-channel pixels a row) and at rows that fill
+    no box of caps.cu's."""
+    slab = _s8(np.random.default_rng(r * w + c), (r, w, c))
+    x, h = slab.reshape(r * w, c), c // 2
+    want1 = x[:, :h].astype(np.int32) + x[:, h:].astype(np.int32)
+    want2 = np.concatenate([x[:, h:], x[:, :h]], axis=1)
+    want4 = np.concatenate([slab[:, :, :h].reshape(r * w, h), slab[:, :, h:].reshape(r * w, h)],
+                           axis=1)
+    for fn, arg, want in ((mosaic_caps.t1_plain, x, want1), (mosaic_caps.t2_plain, x, want2),
+                          (mosaic_caps.t4_plain, slab, want4)):
+        got = fn(torch.from_numpy(arg)).numpy()
+        assert got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(want4, x)  # row for row a reshape
+
+
+def test_caps_wrappers_take_the_plain_version_on_the_cpu():
+    x = torch.from_numpy(_s8(np.random.default_rng(9), (37, 96)))
+    slab = x[:36].reshape(3, 12, 96)
+    for fn, plain, arg in ((mosaic_caps.t1, mosaic_caps.t1_plain, x),
+                           (mosaic_caps.t2, mosaic_caps.t2_plain, x),
+                           (mosaic_caps.t4, mosaic_caps.t4_plain, slab)):
+        for pdl in (True, False):
+            assert torch.equal(fn(arg, pdl=pdl), plain(arg))
+    assert not any(mosaic_caps.launches.values())

@@ -12,10 +12,17 @@ functions, each a kernel that must build, launch and agree with numpy:
   [R*W, 64] each, which is row for row x.reshape(R*W, 128): a copy.
 
 ``t1``, ``t2`` and ``t4`` run on ``csrc/caps.cu`` (replacing the Pallas TPU
-kernels ``exp/mosaic_caps.py:t1``, ``t2``, ``t4``); ``t3`` is
-``int8_mm_probe.mm(x, w, 1)`` on ``csrc/mm_probe.cu``. CPU tensors take the
-plain version; CUDA tensors launch the kernel or raise ValueError for an
-input it does not take (rows of a multiple of 32 bytes).
+kernels ``exp/mosaic_caps.py:t1``, ``t2``, ``t4``), whose bytes move by the
+Tensor Memory Accelerator: TMA tensor-map loads of each half's box into
+shared memory and TMA stores back, one box of rows a block (:func:`geometry`
+gives the boxes and the grid); the kernels launch with programmatic
+dependent launch unless ``pdl=False``. The TPU question "does the compiler
+lower 64-lane slices and concats" becomes "does the TMA move boxes of half a
+row at a column offset of half a row, and 3D boxes stored as 2D" (t4). ``t3``
+is ``int8_mm_probe.mm(x, w, 1)`` on ``csrc/mm_probe.cu``. CPU tensors take
+the plain version; CUDA tensors launch the kernel or raise ValueError for an
+input it does not take: int8 rows of a multiple of 32 bytes, contiguous and
+16-byte aligned, no dimension of a tensor map past 2^32 elements.
 """
 
 from __future__ import annotations
@@ -51,51 +58,103 @@ def t4_plain(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([x[..., :h].reshape(-1, h), x[..., h:].reshape(-1, h)], dim=1)
 
 
+MAX_BOX = 256  # elements in one dimension of a TMA box
+MAX_DIM = 2 ** 32  # elements in one dimension of a tensor map
+HALF_BOX_BYTES = {"t1": 4096, "t2": 8192, "t4": 8192}  # one half's box at most
+SPREAD = 8  # units a small input is cut into at least, where its rows allow
+ENTRIES = {"t1": "witw_caps_half_sum", "t2": "witw_caps_swap_halves", "t4": "witw_caps_patches"}
+
+
+def geometry(name: str, shape) -> dict:
+    """``caps.cu``'s tiling of probe ``name`` ("t1", "t2" or "t4") on an
+    int8 input of ``shape`` ([R, C]; t4 [R, W, C]). A unit is a box of
+    ``box_rows`` rows (t4: rows of ``width`` pixels) by ``chunk`` columns of
+    each half, and one block takes one unit (``units`` is the grid).
+    ``chunk`` is the widest multiple of 16 that divides C / 2 and fits a box
+    dimension (256). t4 folds W into rows where W is past 256 or its boxes
+    would pass :data:`HALF_BOX_BYTES`: ``width`` is W's widest divisor that
+    fits, ``rows`` R * W / width. ``box_rows`` is the most rows whose
+    half-box holds :data:`HALF_BOX_BYTES` (t4: at most 256 / width), and at
+    most 1 / :data:`SPREAD` of the rows, so that a small input still spreads
+    over several SMs. ValueError for a shape the kernel does not take."""
+    if name not in ENTRIES:
+        raise ValueError(f"no caps kernel {name!r}")
+    dims = 3 if name == "t4" else 2
+    if len(shape) != dims:
+        raise ValueError(f"{name} takes int8 [{'R, W, C' if dims == 3 else 'R, C'}], got {tuple(shape)}")
+    rows, width, cols = (shape[0], 1, shape[1]) if dims == 2 else tuple(shape)
+    if cols <= 0 or cols % 32:
+        raise ValueError(f"{name} takes int8 rows of a multiple of 32 bytes, got {tuple(shape)}")
+    if rows <= 0 or width <= 0:
+        raise ValueError(f"{name}: nothing to move in {tuple(shape)}")
+    h = cols // 2
+    chunk = max(c for c in range(16, min(h, MAX_BOX) + 1, 16) if h % c == 0)
+    fold = max(d for d in range(1, min(width, MAX_BOX) + 1)
+               if width % d == 0 and d * chunk <= HALF_BOX_BYTES[name])
+    rows, width = rows * (width // fold), fold
+    box_rows = max(1, min(MAX_BOX // width, HALF_BOX_BYTES[name] // (width * chunk), -(-rows // SPREAD)))
+    units = -(-rows // box_rows) * (h // chunk)
+    if max(cols, rows * width) >= MAX_DIM or units >= 2 ** 31:
+        raise ValueError(f"{name}: {tuple(shape)} has a dimension past a tensor map's 2^32")
+    return {"rows": rows, "width": width, "chunk": chunk, "chunks": h // chunk,
+            "box_rows": box_rows, "units": units}
+
+
 @functools.lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
     lib = load_library("caps")
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for entry in (lib.witw_caps_half_sum, lib.witw_caps_swap_halves):
-        entry.argtypes = [ptr, ptr, i64, i32, ptr]
+        entry.argtypes = [ptr, ptr, i64] + [i32] * 4 + [ptr]
         entry.restype = i32
-    lib.witw_caps_copy.argtypes = [ptr, ptr, i64, ptr]
-    lib.witw_caps_copy.restype = i32
+    lib.witw_caps_patches.argtypes = [ptr, ptr, i64] + [i32] * 5 + [ptr]
+    lib.witw_caps_patches.restype = i32
     return lib
 
 
-def _launch(name: str, entry: str, x: torch.Tensor, out_shape, out_dtype, *sizes) -> torch.Tensor:
-    if x.dtype != torch.int8 or x.shape[-1] % 32 != 0 or x.shape[-1] == 0:
-        raise ValueError(f"{name} takes int8 rows of a multiple of 32 bytes, got {x.dtype} "
-                         f"{tuple(x.shape)}")
+@functools.lru_cache(maxsize=256)
+def _entry_args(name: str, shape) -> tuple:
+    """The library entry's size and tiling arguments for this input shape
+    (cached: the wrapper's host time is most of a call at the probes' sizes)."""
+    plan = geometry(name, shape)
+    return ((plan["rows"],) + ((plan["width"],) if name == "t4" else ())
+            + (shape[-1], plan["chunk"], plan["box_rows"]))
+
+
+def _launch(name: str, x: torch.Tensor, out_shape, out_dtype, pdl: bool) -> torch.Tensor:
+    if x.dtype != torch.int8:
+        raise ValueError(f"{name} takes int8, got {x.dtype}")
     device = check_cuda_tensors(name, x=x)
     out = torch.empty(out_shape, dtype=out_dtype, device=device)
+    if x.numel() == 0 and x.shape[-1] > 0 and x.shape[-1] % 32 == 0:  # nothing to move: no launch
+        return out
+    args = _entry_args(name, tuple(x.shape))
     lib = _lib()
     with torch.cuda.device(device):
-        err = getattr(lib, entry)(x.data_ptr(), out.data_ptr(), *sizes,
-                                  torch.cuda.current_stream(device).cuda_stream)
+        err = getattr(lib, ENTRIES[name])(x.data_ptr(), out.data_ptr(), *args, int(pdl),
+                                          torch.cuda.current_stream(device).cuda_stream)
     check_launch(lib, err, name)
     launches[name] += 1
     return out
 
 
-def t1(x: torch.Tensor) -> torch.Tensor:
+def t1(x: torch.Tensor, pdl: bool = True) -> torch.Tensor:
     """int8 [R, C] -> int32 [R, C/2] = x[:, :C/2] + x[:, C/2:]."""
     if x.device.type == "cpu":
         return t1_plain(x)
     if x.ndim != 2:
         raise ValueError(f"t1 takes int8 [R, C], got {tuple(x.shape)}")
     r, c = x.shape
-    return _launch("t1", "witw_caps_half_sum", x, (r, c // 2), torch.int32, r, c // 2)
+    return _launch("t1", x, (r, c // 2), torch.int32, pdl)
 
 
-def t2(x: torch.Tensor) -> torch.Tensor:
+def t2(x: torch.Tensor, pdl: bool = True) -> torch.Tensor:
     """int8 [R, C] -> int8 [R, C], the two halves of each row swapped."""
     if x.device.type == "cpu":
         return t2_plain(x)
     if x.ndim != 2:
         raise ValueError(f"t2 takes int8 [R, C], got {tuple(x.shape)}")
-    r, c = x.shape
-    return _launch("t2", "witw_caps_swap_halves", x, (r, c), torch.int8, r, c // 2)
+    return _launch("t2", x, tuple(x.shape), torch.int8, pdl)
 
 
 def t3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -103,7 +162,7 @@ def t3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return int8_mm_probe.mm(x, w, 1)
 
 
-def t4(x: torch.Tensor) -> torch.Tensor:
+def t4(x: torch.Tensor, pdl: bool = True) -> torch.Tensor:
     """int8 [R, W, C] -> int8 [R*W, C]: the halves of every pixel's channels,
     each gathered to [R*W, C/2], concatenated again."""
     if x.device.type == "cpu":
@@ -111,7 +170,7 @@ def t4(x: torch.Tensor) -> torch.Tensor:
     if x.ndim != 3:
         raise ValueError(f"t4 takes int8 [R, W, C], got {tuple(x.shape)}")
     r, w, c = x.shape
-    return _launch("t4", "witw_caps_copy", x, (r * w, c), torch.int8, x.numel())
+    return _launch("t4", x, (r * w, c), torch.int8, pdl)
 
 
 def probe(name: str, fn, *args, want: np.ndarray) -> bool:
