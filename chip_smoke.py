@@ -331,6 +331,21 @@ Phases, each of which passes or raises:
    its own metrics and FAIL against top_1 + 1 pt. Work files in
    .smoke_dataset/, removed. Every check runs and is logged, the phase
    failing at the end if any failed.
+33. The public names the port added last, on the card against the CPU,
+   each check with its seconds: (a) ops.resize_bilinear on a uint8
+   [128, 750, 750, 3] batch to 224 x 1232 (the baseline's shapes; float32
+   out, within 1e-4) and on a bf16 [128, 128, 512, 3] batch (bf16 out,
+   within one bf16 ulp); (b) match.orientation_estimate on tie-free
+   [128, 128, 64] data, int32, bit-equal; (c) match.match_scores, rtol
+   1e-6; (d) the materialized oracle (match.crop_overhead_materialized +
+   chord_distance_materialized) at G = Q = 128 on the main path's maps
+   [4, 64, 16] x [4, 64, 16]: the crop bit-equal to the CPU's, the
+   distances within rtol 1e-5 / atol 1e-6 of the CPU's and of the fused
+   match kernel's, the orientations bit-equal to the kernel's off near
+   ties; (e) FovGalleryEvaluator(device=cuda).metrics ==
+   metrics_from_ranks(ranks) on 1024 planted pairs whose ranks spread,
+   fused and FFT. Every check runs and is logged, the phase failing at the
+   end if any failed. Its fused-match launches compare, and are not counted.
 
 The launch counts are reset just before the path they count and read right
 after it: the fused match's and the conv kernel's before phase 4 and after
@@ -407,6 +422,8 @@ from witw_tpu_torch.evaluation.index import GalleryIndex
 from witw_tpu_torch.evaluation.vector_index import VectorIndex
 from witw_tpu_torch.exp import int8_isolate, int8_mm_probe, mosaic_caps
 from witw_tpu_torch.kernels.build import build_libraries, nvcc_path
+from witw_tpu_torch.match import (chord_distance_materialized, crop_overhead_materialized,
+                                   match_scores, orientation_estimate)
 from witw_tpu_torch.match.correlation import circular_correlation
 from witw_tpu_torch.match.losses import pairwise_sq_distances
 from witw_tpu_torch.models import convert_torch, quantize
@@ -415,7 +432,8 @@ from witw_tpu_torch.models.baseline import BaselineEncoder
 from witw_tpu_torch.models.backbones.vgg16 import VGG16_BLOCKS
 from witw_tpu_torch.models.fov_dsm import HEAD_CONVS, FovDsm
 from witw_tpu_torch.models.safa import VggSafa
-from witw_tpu_torch.ops import conv3x3, fused_block2, fused_match, int8_conv, maxpool, rotation
+from witw_tpu_torch.ops import (conv3x3, fused_block2, fused_match, int8_conv, maxpool,
+                                resize_bilinear, rotation)
 from witw_tpu_torch.ops.image import normalize_images
 from witw_tpu_torch.ops.polar import polar_transform
 from witw_tpu_torch.parallel import make_mesh
@@ -548,7 +566,7 @@ def synthetic_loader(cfg, n, batch, seed):
         }
 
 
-def planted_embeddings(rng, n, h, w, c, sw):
+def planted_embeddings(rng, n, h, w, c, sw, noise=0.1):
     """As tests/test_pallas_match.py plants them: each surface is a noisy
     window of its own overhead map."""
     o = rng.standard_normal((n, h, w, c)).astype(np.float32)
@@ -556,7 +574,7 @@ def planted_embeddings(rng, n, h, w, c, sw):
     for i in range(n):
         start = rng.integers(0, w)
         cols = [(start + k) % w for k in range(sw)]
-        s[i] = o[i][:, cols, :] + 0.1 * s[i]
+        s[i] = o[i][:, cols, :] + noise * s[i]
     return o, s
 
 
@@ -4831,6 +4849,129 @@ def phase_dataset(card, device):
     return launches
 
 
+RESIZE_CASES = {  # name: (input shape, dtype, output (height, width))
+    "uint8 [128, 750, 750, 3] -> 224 x 1232 (the baseline's shapes)":
+        ((128, 750, 750, 3), torch.uint8, (224, 1232)),
+    "bf16 [128, 128, 512, 3] -> 224 x 1232": ((128, 128, 512, 3), torch.bfloat16, (224, 1232)),
+}
+PUBLIC_PAIRS = 1024  # [33] (e)'s planted pairs
+PLANTED_NOISE = 16.0  # their noise: ranks spread over about 190 values
+
+
+def phase_public_names(card, device):
+    """[33] The public names the port added last, on the card, each held
+    against the same call on the CPU: (a) resize_bilinear on RESIZE_CASES
+    (f32 within 1e-4 on [0, 255] data, bf16 within one bf16 ulp); (b)
+    orientation_estimate on tie-free [128, 128, 64] data, bit-equal; (c)
+    match_scores, rtol 1e-6; (d) the materialized oracle
+    (crop_overhead_materialized + chord_distance_materialized) at G = Q = 128
+    on the main path's embedding shapes: the crop bit-equal to the CPU's, the
+    distances within rtol 1e-5 / atol 1e-6 of the CPU's and of the fused
+    match kernel's, its orientations bit-equal to the kernel's off near ties;
+    (e) FovGalleryEvaluator(device=cuda).metrics == metrics_from_ranks(ranks)
+    on PUBLIC_PAIRS planted pairs, fused and FFT. Each check prints its seconds; a
+    failed one raises at the end of the phase."""
+    t_phase = time.perf_counter()
+    log(f"[33] public names on the card ({card})")
+    failures = []
+
+    def check(ok: bool, what: str, t0: float) -> None:
+        torch.cuda.synchronize()
+        log(f"    {'ok' if ok else 'FAILED'}: {what} ({time.perf_counter() - t0:.3f} s)")
+        if not ok:
+            failures.append(what)
+
+    gen = torch.Generator().manual_seed(33)
+    # (a) resize_bilinear
+    for name, (shape, dtype, size) in RESIZE_CASES.items():
+        x = (torch.rand(shape, generator=gen) * 255.0).to(dtype)
+        t0 = time.perf_counter()
+        got = resize_bilinear(x.to(device), *size)
+        want = resize_bilinear(x, *size)
+        err = (got.float().cpu() - want.float()).abs()
+        if dtype == torch.bfloat16:
+            ok, tol = bool((bf16_ulps(got.cpu(), want) <= 1).all()), "one bf16 ulp"
+        else:
+            ok, tol = float(err.max()) <= 1e-4, "atol 1e-4"
+        want_dtype = dtype if dtype.is_floating_point else torch.float32
+        ok = ok and got.dtype == want.dtype == want_dtype and got.shape == want.shape
+        check(ok, f"(a) resize_bilinear {name}: {tuple(got.shape)} {got.dtype}, card vs CPU max "
+                  f"|d| {float(err.max()):.3e} ({tol})", t0)
+        del x, got, want, err
+    torch.cuda.empty_cache()
+
+    # (b) orientation_estimate
+    corr = torch.randn(128, 128, 64, generator=gen)
+    top = torch.topk(corr, 2, dim=-1).values
+    t0 = time.perf_counter()
+    got = orientation_estimate(corr.to(device))
+    want = orientation_estimate(corr)
+    check(bool((top[..., 0] > top[..., 1]).all()) and got.dtype == torch.int32
+          and torch.equal(got.cpu(), want),
+          "(b) orientation_estimate [128, 128, 64] (tie-free): int32, card == CPU", t0)
+
+    # (c) match_scores
+    d = torch.rand(128, 128, generator=gen) * 4.0
+    t0 = time.perf_counter()
+    errs = {t: float(((match_scores(d.to(device), t).cpu() - match_scores(d, t)).abs()
+                      / match_scores(d, t)).max()) for t in (10.0, 3.5)}
+    check(max(errs.values()) <= 1e-6,
+          f"(c) match_scores [128, 128], temperature 10 and 3.5: card vs CPU max rel |d| "
+          f"{max(errs.values()):.3e} (rtol 1e-6)", t0)
+
+    # (d) the materialized oracle against the CPU and the fused match kernel
+    g_, q_, h, w, c, sw = 128, 128, 4, 64, 16, 64  # fov_experiment("cvusa", 360)'s maps
+    o = torch.randn(g_, h, w, c, generator=gen)
+    s = torch.randn(q_, h, sw, c, generator=gen)
+    o_d, s_d = o.to(device), s.to(device)
+    t0 = time.perf_counter()
+    corr_d = circular_correlation(o_d, s_d)
+    orient = orientation_estimate(corr_d)
+    crop = crop_overhead_materialized(o_d, orient, sw)
+    d_oracle = chord_distance_materialized(crop, s_d)
+    torch.cuda.synchronize()
+    t_oracle = time.perf_counter() - t0
+    crop_cpu = crop_overhead_materialized(o, orient.cpu(), sw)
+    d_cpu = chord_distance_materialized(crop_cpu, s)
+    check(tuple(crop.shape) == (g_, q_, h, sw, c) and torch.equal(crop.cpu(), crop_cpu)
+          and bool(torch.isclose(d_oracle.cpu(), d_cpu, rtol=RTOL, atol=ATOL).all()),
+          f"(d) oracle at G = Q = {g_}, [{h}, {w}, {c}] x [{h}, {sw}, {c}]: crop "
+          f"{list(crop.shape)} card == CPU, distances card vs CPU max |d| "
+          f"{float((d_oracle.cpu() - d_cpu).abs().max()):.3e}; oracle on the card {t_oracle:.3f} s",
+          t0)
+    del crop, crop_cpu
+    t0 = time.perf_counter()
+    d_k, or_k = fused_match.fused_chord_distance_nhwc(o_d, s_d)
+    top = torch.topk(corr_d, 2, dim=-1).values
+    tie = ~((top[..., 0] - top[..., 1]) > TIE_REL * top[..., 0].abs())
+    close = torch.isclose(d_k, d_oracle, rtol=RTOL, atol=ATOL)
+    orient_bad = int(((or_k != orient) & ~tie).sum())
+    check(bool(close.all()) and orient_bad == 0 and or_k.dtype == orient.dtype == torch.int32,
+          f"(d) oracle vs the fused match kernel (csrc/fused_match.cu): distances max |d| "
+          f"{float((d_k - d_oracle).abs().max()):.3e} (rtol {RTOL}, atol {ATOL}), orientations "
+          f"equal on {int((~tie).sum())} of {tie.numel()} pairs, {orient_bad} differ "
+          f"(near ties excluded: {int(tie.sum())}, those differing: "
+          f"{int(((or_k != orient) & tie).sum())})", t0)
+    del o_d, s_d, corr_d, d_k, or_k, d_oracle
+
+    # (e) FovGalleryEvaluator.metrics
+    n = PUBLIC_PAIRS
+    o_pl, s_pl = planted_embeddings(np.random.default_rng(33), n, h, w, c, sw, PLANTED_NOISE)
+    for fused in (True, False):
+        evaluator = FovGalleryEvaluator(use_fused=fused, device=device)
+        t0 = time.perf_counter()
+        metrics = evaluator.metrics(o_pl, s_pl)
+        ranks = evaluator.ranks(o_pl, s_pl)
+        check(metrics == metrics_from_ranks(ranks) and ranks.min() >= 1 and ranks.max() <= n,
+              f"(e) FovGalleryEvaluator(use_fused={fused}, device={device}).metrics on {n} planted "
+              f"pairs == metrics_from_ranks(ranks) ({len(set(ranks.tolist()))} distinct ranks): "
+              f"{json.dumps(metrics)}", t0)
+
+    log(f"    [33] {time.perf_counter() - t_phase:.2f} s ({card})")
+    if failures:
+        raise AssertionError(f"[33] {len(failures)} check(s) failed: {failures}")
+
+
 def main() -> int:
     # 1. device
     device = require_cuda()
@@ -5079,6 +5220,7 @@ def main() -> int:
     sharded = phase_sharded(card, device, indexes, serve_params)
     dp_launches = phase_dp(card, device)
     parity_launches = phase_dataset(card, device)
+    phase_public_names(card, device)
     serving = {n: build_launches[p].get(n, 0) + daemon_launches[p].get(n, 0)
                + sweep_launches[p].get(n, 0)
                for p in ("bf16", "int8") for n in build_launches[p]}

@@ -1,7 +1,8 @@
 """Card tests of the port's CUDA kernels (the fused match, the three
 static-int8 kernels, the bf16 conv + bias + ReLU and the int8 profiling
 harness's three), of the baseline family's int8 convs on
-``torch._int_mm`` and of the sharded paths on a mesh of the card; each
+``torch._int_mm``, of the sharded paths on a mesh of the card and of the
+public names the port added last (against the CPU); each
 skips without a CUDA device (the two-card mesh without two cards). This file imports no JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -1073,3 +1074,40 @@ def test_density_on_the_card_matches_cpu(cuda):
     got = density.limit_density(table, 12.0, seed=4, device=cuda)
     want = density.limit_density(table, 12.0, seed=4, device="cpu")
     assert list(got["id"]) == list(want["id"])
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32, torch.bfloat16])
+def test_public_names_on_the_card_match_cpu(cuda, dtype):
+    """ops.resize_bilinear (NHWC and HWC; f32 within 1e-4 on [0, 255] data,
+    bf16 within one bf16 ulp), match.orientation_estimate (bit-equal on
+    tie-free data) and the materialized oracle (the crop bit-equal, the
+    distances within rtol 1e-5 / atol 1e-6) on the card against the CPU."""
+    from witw_tpu_torch.match import (chord_distance_materialized, crop_overhead_materialized,
+                                      orientation_estimate)
+    from witw_tpu_torch.ops import resize_bilinear
+
+    g = torch.Generator().manual_seed(3)
+    x = (torch.rand(2, 30, 41, 3, generator=g) * 255.0).to(dtype)
+    for inp, size in ((x, (17, 64)), (x[0], (45, 20))):
+        got, want = resize_bilinear(inp.to(cuda), *size), resize_bilinear(inp, *size)
+        assert got.dtype == want.dtype == (dtype if dtype.is_floating_point else torch.float32)
+        err = (got.cpu().float() - want.float()).abs()
+        if dtype == torch.bfloat16:
+            ulp = torch.exp2(torch.floor(torch.log2(want.float().abs().clamp_min(1e-30))) - 7)
+            assert bool((err <= ulp).all())
+        else:
+            assert float(err.max()) <= 1e-4
+
+    corr = torch.randn(5, 7, 16, generator=g)
+    top = torch.topk(corr, 2, dim=-1).values
+    assert bool((top[..., 0] > top[..., 1]).all())
+    orient = orientation_estimate(corr.to(cuda))
+    assert orient.dtype == torch.int32
+    assert torch.equal(orient.cpu(), orientation_estimate(corr))
+
+    o, s = torch.randn(5, 2, 16, 4, generator=g), torch.randn(7, 2, 9, 4, generator=g)
+    crop = crop_overhead_materialized(o.to(cuda), orient, 9)
+    crop_cpu = crop_overhead_materialized(o, orient.cpu(), 9)
+    assert torch.equal(crop.cpu(), crop_cpu)
+    torch.testing.assert_close(chord_distance_materialized(crop, s.to(cuda)).cpu(),
+                               chord_distance_materialized(crop_cpu, s), rtol=1e-5, atol=1e-6)

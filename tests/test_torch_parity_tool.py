@@ -2,9 +2,9 @@
 witw_tpu's run_parity on the same fake reference .pth towers (the key
 format of tests/test_pipeline_e2e.py) and the same CSV, on the CPU in f32:
 the metrics within 1e-6 and the gate's verdict equal, on pairs whose ranks
-spread from 1 to the gallery's size. Also the port's
-replacement of witw_tpu's materialized-crop oracle
-(witw_tpu/match/reference_impl.py), held bit-equal."""
+spread from 1 to the gallery's size. Also the port's materialized-crop
+oracle (witw_tpu_torch/match/reference_impl.py), which the embedding dump
+uses, held bit-equal to witw_tpu's."""
 
 import dataclasses
 import json
@@ -19,6 +19,8 @@ from witw_tpu.configs import fov_experiment as j_fov_experiment
 from witw_tpu.match.reference_impl import crop_overhead_materialized
 from witw_tpu.tools import parity as jparity
 from witw_tpu_torch.configs import fov_experiment
+from witw_tpu_torch.match.reference_impl import (
+    crop_overhead_materialized as t_crop_overhead_materialized)
 from witw_tpu_torch.models.backbones.vgg16 import VGG16_CONVS
 from witw_tpu_torch.models.fov_dsm import HEAD_CONVS
 from witw_tpu_torch.tools import parity as tparity
@@ -178,14 +180,17 @@ def test_parity_cli_writes_the_report(reports, tmp_path, capsys):
 @pytest.mark.parametrize("bo, bs, h, w, c, sw", [(3, 5, 2, 16, 4, 16), (4, 2, 1, 12, 3, 5),
                                                  (2, 3, 4, 64, 16, 16)])
 def test_aligned_crop_matches_reference_impl(rng, bo, bs, h, w, c, sw):
-    """loop._aligned_crop, which takes the place of
-    reference_impl.crop_overhead_materialized, crops each overhead map at
-    each query's orientation as the oracle does, bit for bit in f32."""
+    """The port's reference_impl.crop_overhead_materialized, which the
+    embedding dump crops with, crops each overhead map at each query's
+    orientation as witw_tpu's oracle does, bit for bit in f32: the whole
+    [Bo, Bs] crop and, as the dump calls it, one query at a time."""
     o_emb = rng.normal(size=(bo, h, w, c)).astype(np.float32)
     orientation = rng.integers(0, w, (bo, bs)).astype(np.int32)
     want = np.asarray(crop_overhead_materialized(jnp.asarray(o_emb), jnp.asarray(orientation), sw))
     o_t = torch.from_numpy(o_emb)
+    got = t_crop_overhead_materialized(o_t, torch.from_numpy(orientation), sw).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
     for q in range(bs):
-        got = loop._aligned_crop(o_t, torch.from_numpy(orientation[:, q]), sw).numpy()
-        assert got.dtype == np.float32
-        np.testing.assert_array_equal(got, want[:, q])
+        got = t_crop_overhead_materialized(o_t, torch.from_numpy(orientation[:, q:q + 1]), sw)
+        np.testing.assert_array_equal(got[:, 0].numpy(), want[:, q])

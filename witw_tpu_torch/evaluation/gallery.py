@@ -16,7 +16,6 @@ counted as +1, so kernel-batching roundoff cannot drop it.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Dict, Optional
 
 import numpy as np
@@ -31,7 +30,7 @@ from witw_tpu_torch.match.fft_matcher import (
 from witw_tpu_torch.ops.fused_match import fused_chord_distance_nhwc
 from witw_tpu_torch.parallel.collectives import all_reduce_sum
 from witw_tpu_torch.parallel.mesh import Mesh, Shard, gallery_shards, placement, replicate
-from witw_tpu_torch.utils.device import require_cuda
+from witw_tpu_torch.utils.device import full_precision_matmul, require_cuda
 
 
 def _paired_distance_batched(overhead: torch.Tensor, surface: torch.Tensor,
@@ -178,6 +177,11 @@ class FovGalleryEvaluator:
             counts = self._gallery_sharded(gal, sw, blocks, s_all, d_true, tm)
         return (counts + 1).cpu().numpy().astype(np.int32)
 
+    def metrics(self, overhead_embeds, surface_embeds,
+                true_match: Optional[np.ndarray] = None) -> Dict[str, float]:
+        """The reference metric suite of :meth:`ranks`."""
+        return metrics_from_ranks(self.ranks(overhead_embeds, surface_embeds, true_match))
+
     def _query_sharded(self, gal, sw, blocks, s_all, d_true, tm) -> torch.Tensor:
         """Query blocks dealt over the mesh positions, the gallery tables
         replicated to each of this process's devices (one copy per distinct
@@ -227,18 +231,6 @@ class FovGalleryEvaluator:
                 self._block_counts(tables, idx, shard.mask, chunk, s_rep[q0:q1], dt_rep[q0:q1],
                                    tm_rep[q0:q1]) for q0, q1 in blocks]))
         return all_reduce_sum(sum(p.to(home) for p in parts))
-
-
-@contextlib.contextmanager
-def full_precision_matmul():
-    """f32 matmuls without TF32 inside the block, whatever the global flag
-    says (restored on exit)."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def sq_distances(g: torch.Tensor, q: torch.Tensor, g_sq: torch.Tensor) -> torch.Tensor:

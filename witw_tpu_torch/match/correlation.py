@@ -49,3 +49,10 @@ def circular_correlation(
         prod = torch.einsum("ahfc,bhfc->abf", fo, fs.conj_physical())
         return torch.fft.irfft(prod, n=w, dim=-1)
     raise ValueError(f"unknown correlation method: {method}")
+
+
+def orientation_estimate(corr: torch.Tensor) -> torch.Tensor:
+    """Argmax over width, the first maximum on ties: the estimated relative
+    orientation of each pair (reference cvig_fov.py:312-313). corr
+    [Bo, Bs, W] -> int32 [Bo, Bs]."""
+    return torch.argmax(corr, dim=-1).to(torch.int32)

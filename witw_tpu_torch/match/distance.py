@@ -93,3 +93,9 @@ def paired_chord_distance_fft(
                         torch.conj(torch.fft.rfft(s_pad, dim=2)))
     corr = torch.fft.irfft(prod, n=w, dim=-1)  # [B, W]
     return _paired_from_corr(o, s, corr)
+
+
+def match_scores(distances: torch.Tensor, temperature: float = 10.0) -> torch.Tensor:
+    """Heatmap similarity score from chord distance: exp(t (1 - d))
+    (reference tools/heatmap/heatmap.py:177)."""
+    return torch.exp(temperature * (1.0 - distances))

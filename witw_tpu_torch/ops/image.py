@@ -1,11 +1,12 @@
-"""Batched NHWC image normalization and the baseline family's row repeat
-(port of witw_tpu/ops/image.py)."""
+"""Batched NHWC image normalization, bilinear resize and the baseline
+family's row repeat (port of witw_tpu/ops/image.py)."""
 
 from __future__ import annotations
 
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 
 
 def _scale(c: int, scale_channels: int | None, device) -> torch.Tensor:
@@ -66,6 +67,21 @@ def denormalize_images(x: torch.Tensor, mean: Sequence[float], std: Sequence[flo
     mean_t = torch.tensor(mean, dtype=torch.float32, device=x.device)
     std_t = torch.tensor(std, dtype=torch.float32, device=x.device)
     return x * std_t + mean_t
+
+
+def resize_bilinear(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """Bilinear resize of an NHWC batch or an HWC image with half-pixel
+    centers and no antialiasing (torchvision's ``functional.resize`` as the
+    reference uses it, e.g. cvig_fov.py:119,133), computed in f32. A float
+    input keeps its dtype; any other comes back as float32."""
+    if x.ndim not in (3, 4):
+        raise ValueError(f"expected HWC or NHWC, got shape {tuple(x.shape)}")
+    nchw = (x[None] if x.ndim == 3 else x).to(torch.float32).permute(0, 3, 1, 2)
+    out = F.interpolate(nchw, size=(height, width), mode="bilinear", align_corners=False,
+                        antialias=False).permute(0, 2, 3, 1)
+    if x.ndim == 3:
+        out = out[0]
+    return out.to(x.dtype) if x.is_floating_point() else out
 
 
 def repeat_rows(x: torch.Tensor, repeats: int = 2) -> torch.Tensor:

@@ -5,18 +5,18 @@ from witw_tpu_torch.parallel.mesh import (DATA_AXIS, GALLERY_AXIS, GlobalBatch, 
                                           shard_batch)
 
 __all__ = [
+    "make_mesh",
+    "shard_batch",
+    "global_batch_from_local",
+    "initialize_distributed",
     "DATA_AXIS",
     "GALLERY_AXIS",
     "GlobalBatch",
     "Mesh",
     "Shard",
     "gallery_shards",
-    "global_batch_from_local",
-    "initialize_distributed",
-    "make_mesh",
     "placement",
     "process_count",
     "process_index",
     "replicate",
-    "shard_batch",
 ]

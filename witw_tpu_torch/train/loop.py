@@ -45,6 +45,7 @@ from witw_tpu_torch.configs.base import ExperimentConfig
 from witw_tpu_torch.evaluation.gallery import (FovGalleryEvaluator, euclidean_ranks,
                                                metrics_from_ranks)
 from witw_tpu_torch.match.distance import paired_chord_distance
+from witw_tpu_torch.match.reference_impl import crop_overhead_materialized
 from witw_tpu_torch.ops.image import denormalize_images
 from witw_tpu_torch.parallel.collectives import any_process, broadcast_one_to_all, gather_rows
 from witw_tpu_torch.parallel.mesh import Mesh, global_batch_from_local
@@ -370,15 +371,6 @@ def embed_all(
     return torch.cat(surfaces), torch.cat(overheads)
 
 
-def _aligned_crop(o_emb: torch.Tensor, orientation: torch.Tensor, sw: int) -> torch.Tensor:
-    """Each overhead map's sw columns starting at its orientation,
-    circularly: [B, h, W, c] -> [B, h, sw, c]."""
-    w = o_emb.shape[2]
-    cols = (orientation.long()[:, None] + torch.arange(sw, device=o_emb.device)[None]) % w
-    index = cols[:, None, :, None].expand(o_emb.shape[0], o_emb.shape[1], sw, o_emb.shape[3])
-    return torch.gather(o_emb, 2, index)
-
-
 @torch.no_grad()
 def dump_val_embeddings(pipeline: Pipeline, params: Params, val_loader: Iterable,
                         writer: MetricWriter, epoch: int,
@@ -399,7 +391,7 @@ def dump_val_embeddings(pipeline: Pipeline, params: Params, val_loader: Iterable
     s_emb, o_emb = pipeline._towers(params, surface, polar, False, None)
     s_emb, o_emb = s_emb.float(), o_emb.float()
     _, orient = paired_chord_distance(o_emb, s_emb)
-    o_crop = _aligned_crop(o_emb, orient, s_emb.shape[2])
+    o_crop = crop_overhead_materialized(o_emb, orient[:, None], s_emb.shape[2])[:, 0]
     b = s_emb.shape[0]
     vectors = torch.cat([s_emb.reshape(b, -1), o_crop.reshape(b, -1)]).cpu().numpy()
     d = pipeline.cfg.data

@@ -82,6 +82,9 @@ class TrainState:
     params: Params
     optimizer: torch.optim.Optimizer
 
+    def trainable_params(self) -> Params:
+        return self.params
+
 
 class _TwinPipeline:
     """What the families share: params, Adam on the trainable names, the
