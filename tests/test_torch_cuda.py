@@ -1111,3 +1111,36 @@ def test_public_names_on_the_card_match_cpu(cuda, dtype):
     assert torch.equal(crop.cpu(), crop_cpu)
     torch.testing.assert_close(chord_distance_materialized(crop, s.to(cuda)).cpu(),
                                chord_distance_materialized(crop_cpu, s), rtol=1e-5, atol=1e-6)
+
+
+def test_span_device_stretch_encloses_its_kernels(cuda):
+    """Under the benchmark's CUDA-only profiler a span's device stretch holds
+    the device time of the kernels it launched, a child's stretch lies within
+    its parent's, and its host stamps (``time.time_ns``) enclose the
+    launches; a span opened without ``stretch`` has none."""
+    from witw_tpu_torch.utils.profiling import reset, span, spans
+
+    a = torch.randn(2048, 2048, device=cuda)
+    (a @ a).sum().item()
+    reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with span("outer", stretch=True):
+            with span("mm", stretch=True):
+                for _ in range(4):
+                    b = a @ a
+            with span("sum"):
+                b.sum()
+        torch.cuda.synchronize()
+    outer, mm, plain = spans()
+    assert (outer.parent, mm.parent, mm.root, plain.parent) == (None, 0, 0, 0)
+    assert plain.device_s is None and plain.end_ns <= outer.end_ns
+    events = list(prof.profiler.kineto_results.events())
+    on_card = torch.autograd.DeviceType.CUDA
+    gemms = [e for e in events if e.device_type() == on_card and not e.is_user_annotation()
+             and "gemm" in e.name().lower()]
+    launches = [e for e in events if e.device_type() != on_card and "Launch" in e.name()
+                and mm.start_ns <= e.start_ns() < mm.end_ns]
+    assert len(gemms) >= 4 and len(launches) >= 4
+    assert all(e.start_ns() + e.duration_ns() <= mm.end_ns for e in launches)
+    assert sum(e.duration_ns() for e in gemms) * 1e-9 <= mm.device_s * 1.001
+    assert 0 < mm.device_s <= outer.device_s

@@ -211,9 +211,11 @@ ALL_DIFFERS = {
     "parallel": (("batch_sharding", "replicated_sharding", "gallery_sharding"),
                  ("DATA_AXIS", "GALLERY_AXIS", "GlobalBatch", "Mesh", "Shard", "gallery_shards",
                   "placement", "process_count", "process_index", "replicate")),
+    "utils": ((), ("span", "spans", "reset")),
 }
 ALL_DIFFERS_WHY = ("the NamedSharding functions of NOT_PORTED are dropped; the port exports the "
-                   "mesh and placement helpers that take their place")
+                   "mesh and placement helpers that take their place; utils adds the program's "
+                   "spans, which witw_tpu does not have")
 
 
 def _top_level(body):

@@ -40,6 +40,7 @@ from witw_tpu_torch.models import quantize as tq
 from witw_tpu_torch.models.convert_jax import jax_params_to_state_dict
 from witw_tpu_torch.tools import build_index as tbuild
 from witw_tpu_torch.tools.serve import GeolocateService, serve
+from witw_tpu_torch.utils.profiling import reset, spans
 
 GEOMETRY = dict(surface_height=64, surface_width_max=128, overhead_size=32)
 
@@ -243,6 +244,14 @@ def test_geolocate_matches_jax_on_planted_data(towers, rng):
     assert [r["tile"] for r in approx] == [2, 4, 6]
     assert port.stats == {"requests": 2, "dispatches": 2, "errors": 0, "exact_searches": 1,
                           "approx_searches": 1}
+    # Under a profiler: the decode, and one dispatch whose spans share its root.
+    reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        port.geolocate(photo, k=5)
+    records = spans()
+    assert [(r.name, r.parent, r.root) for r in records] == [
+        ("serve.decode", None, 0), ("serve.dispatch", None, 1), ("serve.embed", 1, 1),
+        ("serve.search", 1, 1)]
 
 
 def test_serving_refuses_mismatched_index(towers, rng):

@@ -31,6 +31,7 @@ from witw_tpu_torch.ops.fused_match import fused_chord_distance_nhwc
 from witw_tpu_torch.parallel.collectives import all_reduce_sum
 from witw_tpu_torch.parallel.mesh import Mesh, Shard, gallery_shards, placement, replicate
 from witw_tpu_torch.utils.device import full_precision_matmul, require_cuda
+from witw_tpu_torch.utils.profiling import span, spanned
 
 
 def _paired_distance_batched(overhead: torch.Tensor, surface: torch.Tensor,
@@ -144,11 +145,14 @@ class FovGalleryEvaluator:
         return counts
 
     @torch.no_grad()
+    @spanned("rank", stretch=True)
     def ranks(self, overhead_embeds, surface_embeds,
               true_match: Optional[np.ndarray] = None) -> np.ndarray:
         """Rank of each query's true match in the gallery (ties count).
         ``true_match``: gallery index of each query's true match [Q]; None =
-        arange (paired test sets, Q == G). Returns int32 [Q]."""
+        arange (paired test sets, Q == G). Returns int32 [Q]. Spans: ``rank``
+        with ``rank.true``, one ``rank.block`` a query block (on one device)
+        and ``rank.fetch``."""
         gal = self._tensor(overhead_embeds)
         s_all = self._tensor(surface_embeds).to(gal.device)
         n = s_all.shape[0]
@@ -161,21 +165,26 @@ class FovGalleryEvaluator:
         else:
             tm = torch.as_tensor(np.asarray(true_match), dtype=torch.int64, device=gal.device)
             tm_rows = gal[tm]
-        d_true = _paired_distance_batched(tm_rows, s_all, self.fast_matmul)
+        with span("rank.true"):
+            d_true = _paired_distance_batched(tm_rows, s_all, self.fast_matmul)
         sw = s_all.shape[2]
         blocks = [(q0, min(q0 + self.query_block, n)) for q0 in range(0, n, self.query_block)]
 
         if self.mesh is None:
             tables = self._tables(gal, sw)
             idx = torch.arange(n_gal, device=gal.device)
-            counts = torch.cat([
-                self._block_counts(tables, idx, None, self.gallery_chunk, s_all[q0:q1],
-                                   d_true[q0:q1], tm[q0:q1]) for q0, q1 in blocks])
+            parts = []
+            for q0, q1 in blocks:
+                with span("rank.block"):
+                    parts.append(self._block_counts(tables, idx, None, self.gallery_chunk,
+                                                    s_all[q0:q1], d_true[q0:q1], tm[q0:q1]))
+            counts = torch.cat(parts)
         elif not self.shard_gallery:
             counts = self._query_sharded(gal, sw, blocks, s_all, d_true, tm)
         else:
             counts = self._gallery_sharded(gal, sw, blocks, s_all, d_true, tm)
-        return (counts + 1).cpu().numpy().astype(np.int32)
+        with span("rank.fetch"):
+            return (counts + 1).cpu().numpy().astype(np.int32)
 
     def metrics(self, overhead_embeds, surface_embeds,
                 true_match: Optional[np.ndarray] = None) -> Dict[str, float]:
@@ -241,6 +250,7 @@ def sq_distances(g: torch.Tensor, q: torch.Tensor, g_sq: torch.Tensor) -> torch.
 
 
 @torch.no_grad()
+@spanned("rank", stretch=True)
 def euclidean_ranks(gallery_embeds, query_embeds, block: int = 1024,
                     true_match: Optional[np.ndarray] = None, mesh: Optional[Mesh] = None,
                     device: Optional[torch.device] = None) -> np.ndarray:
@@ -257,7 +267,9 @@ def euclidean_ranks(gallery_embeds, query_embeds, block: int = 1024,
     the gallery resident in mesh.size shards: each device computes its
     shard's GEMM against the replicated query block, the true match's
     distance is read off the shard that holds it, and the per-shard counts
-    are summed, so the ranks equal one device's. Returns int32 [Q]."""
+    are summed, so the ranks equal one device's. Returns int32 [Q]. Spans:
+    ``rank`` with one ``rank.block`` a query block (in it ``rank.true``, the
+    true matches' distances read off the block) and ``rank.fetch``."""
 
     def tensor(x):
         if isinstance(x, torch.Tensor):
@@ -290,29 +302,33 @@ def euclidean_ranks(gallery_embeds, query_embeds, block: int = 1024,
     with full_precision_matmul():
         for q0 in range(0, nq, block):
             q1 = min(q0 + block, nq)
-            d2s, is_tms, d_true = [], [], 0
-            for shard, (idx, g_sq), q, t in zip(shards, tables, queries, tms):
-                d2 = sq_distances(shard.data, q[q0:q1], g_sq)  # [G(shard), Qb]
-                is_tm = idx[:, None] == t[None, q0:q1]
-                d2s.append(d2)
-                is_tms.append(is_tm)
-                # exactly one shard holds each true match; the others add 0
-                d_true = d_true + torch.where(is_tm, d2, torch.zeros((), device=d2.device)
-                                              ).sum(dim=0).to(g.device)
-            if mesh is not None:
-                d_true = all_reduce_sum(d_true)
-            count = 0
-            for shard, d2, is_tm in zip(shards, d2s, is_tms):
-                le = (d2 <= d_true.to(d2.device)[None, :]) & ~is_tm
-                if shard.mask is not None:
-                    le &= shard.mask[:, None]
-                count = count + le.sum(dim=0).to(g.device)
-            counts.append(count if mesh is None else all_reduce_sum(count))
-    return (torch.cat(counts) + 1).cpu().numpy().astype(np.int32)
+            with span("rank.block"):
+                d2s, is_tms, d_true = [], [], 0
+                for shard, (idx, g_sq), q, t in zip(shards, tables, queries, tms):
+                    d2 = sq_distances(shard.data, q[q0:q1], g_sq)  # [G(shard), Qb]
+                    is_tm = idx[:, None] == t[None, q0:q1]
+                    d2s.append(d2)
+                    is_tms.append(is_tm)
+                    # exactly one shard holds each true match; the others add 0
+                    with span("rank.true"):
+                        d_true = d_true + torch.where(is_tm, d2, torch.zeros(
+                            (), device=d2.device)).sum(dim=0).to(g.device)
+                if mesh is not None:
+                    d_true = all_reduce_sum(d_true)
+                count = 0
+                for shard, d2, is_tm in zip(shards, d2s, is_tms):
+                    le = (d2 <= d_true.to(d2.device)[None, :]) & ~is_tm
+                    if shard.mask is not None:
+                        le &= shard.mask[:, None]
+                    count = count + le.sum(dim=0).to(g.device)
+                counts.append(count if mesh is None else all_reduce_sum(count))
+    with span("rank.fetch"):
+        return (torch.cat(counts) + 1).cpu().numpy().astype(np.int32)
 
 
+@spanned("recall")
 def metrics_from_ranks(ranks: np.ndarray) -> Dict[str, float]:
-    """Reference metric suite (cvig_fov.py:553-567)."""
+    """Reference metric suite (cvig_fov.py:553-567); span ``recall``."""
     count = len(ranks)
     return {
         "top_1": float(np.sum(ranks <= 1) / count * 100.0),

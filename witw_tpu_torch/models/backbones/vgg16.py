@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from witw_tpu_torch.ops.conv3x3 import conv3x3_bias_relu
+from witw_tpu_torch.utils.profiling import span
 
 # (torch feature index, out_channels); pools sit at torch indices 4, 9, 16.
 VGG16_CONVS: Tuple[Tuple[int, int], ...] = (
@@ -110,9 +111,10 @@ def draw_keep_mask(generator: torch.Generator, b: int, channels: int, rate: floa
     """A whole-channel dropout keep mask, bool [b, channels, 1, 1], each
     element kept with probability 1 - rate, drawn on ``generator``'s
     device."""
-    return torch.bernoulli(
-        torch.full((b, channels, 1, 1), 1.0 - rate, device=generator.device),
-        generator=generator).to(torch.bool)
+    with span("draw"):
+        return torch.bernoulli(
+            torch.full((b, channels, 1, 1), 1.0 - rate, device=generator.device),
+            generator=generator).to(torch.bool)
 
 
 class DropoutMasks:

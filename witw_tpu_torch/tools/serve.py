@@ -76,6 +76,7 @@ from witw_tpu_torch.parallel.mesh import make_mesh
 from witw_tpu_torch.tools.build_index import (FAMILIES, VECTOR_FAMILIES, check_family,
                                               family_config, int8_tower, load_params)
 from witw_tpu_torch.utils.hashing import params_fingerprint
+from witw_tpu_torch.utils.profiling import span, spanned
 
 
 class _Pending:
@@ -250,6 +251,7 @@ class GeolocateService:
             emb = forward(self._sq, x, False)
         return emb.cpu().numpy()
 
+    @spanned("serve.decode")
     def _decode(self, image_bytes: bytes) -> np.ndarray:
         return resize_host(decode_image_bytes(image_bytes), *self._surface_hw)
 
@@ -376,13 +378,17 @@ class GeolocateService:
             return x
         return np.concatenate([x, np.broadcast_to(x[:1], (bucket - n,) + x.shape[1:])])
 
+    @spanned("serve.dispatch")
     def _run_group(self, group) -> None:
+        """One device dispatch of ``group``'s requests: span
+        ``serve.dispatch`` with ``serve.embed`` and ``serve.search``."""
         try:
             b = len(group)
             with self._stats_lock:
                 self.stats["requests"] += b
                 self.stats["dispatches"] += 1
-            s_emb = self._embed(self._pad_pow2(np.stack([r.img for r in group])))[:b]
+            with span("serve.embed"):
+                s_emb = self._embed(self._pad_pow2(np.stack([r.img for r in group])))[:b]
             # the vector family serves every request exactly: its exact
             # search is one GEMM, no sweep cost to approximate away
             for approx in (False, True):
@@ -399,10 +405,12 @@ class GeolocateService:
                     # a larger pool than requested only improves recall; the
                     # cap bounds what the rerank gathers onto the device
                     cand = min(1 << (cand - 1).bit_length(), len(self.index), self.max_candidates)
-                    idx, dist, orient = self.index.search_approx(
-                        embs, k=min(k_max, cand), candidates=cand, fast=self._fast)
+                    with span("serve.search"):
+                        idx, dist, orient = self.index.search_approx(
+                            embs, k=min(k_max, cand), candidates=cand, fast=self._fast)
                 else:
-                    idx, dist, orient = self._search(embs, self._k_bucket(k_max))
+                    with span("serve.search"):
+                        idx, dist, orient = self._search(embs, self._k_bucket(k_max))
                 for out_row, i in enumerate(rows):
                     r = group[i]
                     r.result = self._format(idx[out_row], dist[out_row],

@@ -53,7 +53,7 @@ from witw_tpu_torch.train.checkpoint import Checkpointer
 from witw_tpu_torch.train.metrics import MetricWriter
 from witw_tpu_torch.train.pipeline import (FovPipeline, Params, Pipeline, TrainState,
                                            spread_draws)
-from witw_tpu_torch.utils.profiling import StepTimer
+from witw_tpu_torch.utils.profiling import StepTimer, spanned
 
 PHASES = {"train": 0, "val": 1, "dump": 2}
 BATCH_KEYS = ("surface", "overhead", "valid")
@@ -317,6 +317,7 @@ def train(
     return state
 
 
+@spanned("eval")
 def embed_all(
     pipeline: Pipeline,
     params: Params,
@@ -337,7 +338,8 @@ def embed_all(
     gets every embedding), with the padded rows dropped. The random draws
     are made for each global batch's real rows from ``generator``, as
     without a mesh, then spread over the rows and split, so the embeddings
-    do not depend on the mesh or the process count."""
+    do not depend on the mesh or the process count. Span ``eval`` (a child
+    of :func:`test_ranks`'s when it calls)."""
     if mesh is None:
         surfaces, overheads = [], []
         for data, _ in device_prefetch(loader, pipeline.device):
@@ -408,6 +410,7 @@ def dump_val_embeddings(pipeline: Pipeline, params: Params, val_loader: Iterable
     writer.embedding("val_embedding", vectors, label_imgs[..., :3], step=epoch + 1)
 
 
+@spanned("eval")
 def test_ranks(
     cfg: ExperimentConfig,
     pipeline: Pipeline,
@@ -432,7 +435,8 @@ def test_ranks(
     devices: the query axis, or with ``cfg.eval.shard_gallery`` the
     gallery, resident (``FovGalleryEvaluator``); the SAFA and baseline
     galleries always resident (``euclidean_ranks``). ``shard_gallery``
-    without a mesh warns and sweeps on one device, as witw_tpu's."""
+    without a mesh warns and sweeps on one device, as witw_tpu's. Span
+    ``eval``, the root of the eval's spans."""
     if params is None:
         if checkpointer is None:
             checkpointer = Checkpointer(cfg.train.checkpoint_dir)

@@ -67,6 +67,7 @@ from witw_tpu_torch.parallel.collectives import (all_reduce_sum, gather_rows, pr
                                                  sum_across_processes)
 from witw_tpu_torch.parallel.mesh import GlobalBatch
 from witw_tpu_torch.utils.device import require_cuda
+from witw_tpu_torch.utils.profiling import span, spanned
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 TOWERS = ("surface", "overhead")
@@ -166,7 +167,8 @@ class _TwinPipeline:
             return None
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        return random_fov_starts(generator, b, d.surface_width_max)
+        with span("draw"):
+            return random_fov_starts(generator, b, d.surface_width_max)
 
     def preprocess(
         self, batch, generator: Optional[torch.Generator] = None,
@@ -209,12 +211,15 @@ class _TwinPipeline:
 
     def _towers(self, params: Params, surface, polar, train: bool,
                 generator: Optional[torch.Generator]):
-        s_emb = functional_call(self.surface_model, params["surface"], (surface,),
-                                {"train": train, "generator": generator}, strict=True)
-        o_emb = functional_call(self.overhead_model, params["overhead"], (polar,),
-                                {"train": train, "generator": generator}, strict=True)
+        with span("tower.surface"):
+            s_emb = functional_call(self.surface_model, params["surface"], (surface,),
+                                    {"train": train, "generator": generator}, strict=True)
+        with span("tower.overhead"):
+            o_emb = functional_call(self.overhead_model, params["overhead"], (polar,),
+                                    {"train": train, "generator": generator}, strict=True)
         return s_emb, o_emb
 
+    @spanned("train.step")
     def train_step(self, state: TrainState, batch,
                    generator: torch.Generator) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One Adam step on ``batch`` (train-mode dropout); updates ``state``
@@ -226,11 +231,14 @@ class _TwinPipeline:
         processes before the one Adam step, so every process steps alike and
         the step equals one device's on the whole batch."""
         state.optimizer.zero_grad(set_to_none=True)
-        loss = self._batch_loss(state.params, batch, generator, train=True)
-        loss.backward()
-        if isinstance(batch, GlobalBatch):
-            _sum_grads_across_processes(state.optimizer)
-        state.optimizer.step()
+        with span("train.forward"):
+            loss = self._batch_loss(state.params, batch, generator, train=True)
+        with span("train.backward"):
+            loss.backward()
+            if isinstance(batch, GlobalBatch):
+                _sum_grads_across_processes(state.optimizer)
+        with span("train.optimizer"):
+            state.optimizer.step()
         state.step += 1
         return state, {"loss": loss.detach()}
 
@@ -258,7 +266,8 @@ class _TwinPipeline:
 
     def _embed(self, params: Params, batch, generator: Optional[torch.Generator],
                train: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-        surface, polar = self.preprocess(batch, generator)
+        with span("preprocess", stretch=True):
+            surface, polar = self.preprocess(batch, generator)
         return self._towers(params, surface, polar, train, generator)
 
     def _draw_masks(self, generator: torch.Generator, b: int) -> List[torch.Tensor]:
@@ -324,6 +333,7 @@ class _TwinPipeline:
         return s_parts, o_parts
 
     @torch.no_grad()
+    @spanned("embed")
     def embed_step(
         self, params: Params, batch, generator: Optional[torch.Generator] = None,
         draws: Optional[torch.Tensor] = None,
@@ -333,7 +343,8 @@ class _TwinPipeline:
         [B, M·512], baseline vectors [B, 1536]. ``draws``: the batch's
         random draw (:meth:`draw`), made by the caller, in place of one from
         ``generator``."""
-        surface, polar = self.preprocess(batch, generator, draws)
+        with span("preprocess", stretch=True):
+            surface, polar = self.preprocess(batch, generator, draws)
         return self._towers(params, surface, polar, False, None)
 
 
@@ -424,7 +435,8 @@ class BaselinePipeline(_TwinPipeline):
         seeded 0 when None)."""
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        return rotation.rotation_degrees(generator, b)
+        with span("draw"):
+            return rotation.rotation_degrees(generator, b)
 
     def preprocess(
         self, batch, generator: Optional[torch.Generator] = None,
@@ -451,10 +463,12 @@ class BaselinePipeline(_TwinPipeline):
     def _towers(self, params: Params, surface, overhead, train: bool,
                 generator: Optional[torch.Generator], valid=None):
         kwargs = {"train": train, "valid": valid}
-        s_emb = functional_call(self.surface_model, params["surface"], (surface,), kwargs,
-                                strict=True)
-        o_emb = functional_call(self.overhead_model, params["overhead"], (overhead,), kwargs,
-                                strict=True)
+        with span("tower.surface"):
+            s_emb = functional_call(self.surface_model, params["surface"], (surface,), kwargs,
+                                    strict=True)
+        with span("tower.overhead"):
+            o_emb = functional_call(self.overhead_model, params["overhead"], (overhead,),
+                                    kwargs, strict=True)
         return s_emb, o_emb
 
     def _embed(self, params: Params, batch, generator: Optional[torch.Generator],
@@ -462,7 +476,8 @@ class BaselinePipeline(_TwinPipeline):
         """Preprocess, both towers (train mode: BatchNorm on the batch's
         statistics over ``batch["valid"]`` rows, the running buffers in
         ``params`` updated)."""
-        surface, overhead = self.preprocess(batch, generator)
+        with span("preprocess", stretch=True):
+            surface, overhead = self.preprocess(batch, generator)
         return self._towers(params, surface, overhead, train, None, self._valid(batch))
 
     def _draw_masks(self, generator: torch.Generator, b: int) -> List[torch.Tensor]:

@@ -1,5 +1,6 @@
-"""The public names of witw_tpu_torch.utils, as witw_tpu.utils exports them."""
+"""The public names of witw_tpu_torch.utils, as witw_tpu.utils exports them,
+and the program's spans (``profiling.span``, ``spans``, ``reset``)."""
 
-from witw_tpu_torch.utils.profiling import StepTimer, trace_profile
+from witw_tpu_torch.utils.profiling import StepTimer, reset, span, spans, trace_profile
 
-__all__ = ["StepTimer", "trace_profile"]
+__all__ = ["StepTimer", "trace_profile", "span", "spans", "reset"]

@@ -1,18 +1,50 @@
 """Step-time / pairs-per-second counter (port of
-witw_tpu/utils/profiling.py:StepTimer) and a device timer. Host clock: on
-the card, a step's time is right only where the loop synchronizes once a
-step (the train loop fetches each loss one step late). :func:`cuda_ms` times
-device work with CUDA events, :func:`graph_ms` launch-bound work;
-:func:`trace_profile` records a torch.profiler trace of a run."""
+witw_tpu/utils/profiling.py:StepTimer), device timers and the program's
+spans. Host clock: on the card, a step's time is right only where the loop
+synchronizes once a step (the train loop fetches each loss one step late).
+:func:`cuda_ms` times device work with CUDA events, :func:`graph_ms`
+launch-bound work; :func:`trace_profile` records a torch.profiler trace of a
+run.
+
+:func:`span` marks a layer of the program (``with span("rank"):``). It
+records only while a torch profiler records (``trace_profile``, or any
+``torch.profiler.profile``); otherwise it returns one shared no-op object,
+at the cost of a flag read. While one records, a span keeps its name, its
+parent and root spans (a per-thread stack: every span of one batch or
+request shares its root), its start and end on ``time.time_ns()`` (the
+profiler's clock), a range of its name in the trace where the profiler
+records host activity (``trace_profile`` does), and, for a span opened with
+``stretch=True`` where CUDA is initialised, two timing events on the
+current stream, whose elapsed time is the span's device stretch: the part
+of the in-order stream between its markers, busy or waiting. Records go
+into one bounded buffer of ``SPAN_CAPACITY``; past it spans are counted in
+:func:`dropped` and not kept. :func:`spans` returns the records,
+:func:`reset` clears them; :func:`spanned` runs each call of a function in
+a span.
+
+Spans of the program (* with a device stretch): ``eval``
+(``train.loop.embed_all``, ``test_ranks``); ``embed`` (``embed_step``) with
+``preprocess`` *, ``tower.surface``, ``tower.overhead``; ``rank`` *
+(``FovGalleryEvaluator.ranks``, ``euclidean_ranks``) with ``rank.true``,
+``rank.block`` (one a query block; the FOV sweep's on one device only) and
+``rank.fetch``; ``recall`` (``metrics_from_ranks``); ``train.step`` with
+``train.forward`` (in it ``preprocess`` and the towers), ``train.backward``,
+``train.optimizer``; ``draw`` (the crop origins or rotations, in training
+and eval alike, and the dropout masks); ``serve.decode``, and
+``serve.dispatch`` with ``serve.embed`` and ``serve.search``
+(``tools.serve.GeolocateService``)."""
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import statistics
+import threading
 import time
-from typing import Callable, Dict, Iterator, List, Optional
+from typing import Callable, Dict, Iterator, List, NamedTuple, Optional
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 
 def cuda_ms(fn: Callable[[], object], calls: int, reps: int) -> float:
@@ -111,3 +143,148 @@ class StepTimer:
             "steps_per_sec": self.steps_per_sec,
             "items_per_sec": self.items_per_sec,
         }
+
+
+SPAN_CAPACITY = 1 << 17  # records kept between resets; past it spans are counted as dropped
+
+_records: List["_Span"] = []  # the kept spans, in the order they opened
+_dropped = 0
+_lock = threading.Lock()
+_local = threading.local()  # .stack: the thread's open spans
+# A profiler range that costs a flag check unless the profiler records host
+# activity (the benchmark's CUDA-only trace does not); torch.profiler's
+# record_function costs a dispatcher call on every entry.
+_Range = torch._C._profiler._RecordFunctionFast
+
+
+class SpanRecord(NamedTuple):
+    """One span: ``parent`` and ``root`` are indices into the same list
+    (None for a root's parent, or where that span was not kept); the
+    stamps are ``time.time_ns()``; ``device_s`` is the device stretch in
+    seconds (None without CUDA events, or while the span is open)."""
+
+    name: str
+    parent: Optional[int]
+    root: Optional[int]
+    start_ns: int
+    end_ns: Optional[int]
+    device_s: Optional[float]
+
+
+def _stack() -> List["_Span"]:
+    try:
+        return _local.stack
+    except AttributeError:
+        _local.stack = []
+        return _local.stack
+
+
+def _keep(s: "_Span") -> None:
+    global _dropped
+    with _lock:
+        if len(_records) < SPAN_CAPACITY:
+            _records.append(s)
+        else:
+            _dropped += 1
+
+
+class _NoSpan:
+    """What :func:`span` returns while no profiler records."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> "_NoSpan":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_OFF = _NoSpan()
+
+
+class _Span:
+    __slots__ = ("name", "parent", "root", "start_ns", "end_ns", "device_s", "_range",
+                 "_stretch", "_events")
+
+    def __init__(self, name: str, stretch: bool):
+        self.name = name
+        self._stretch = stretch
+        self.end_ns = self.device_s = self._events = None
+
+    def __enter__(self) -> "_Span":
+        stack = _stack()
+        self.parent = stack[-1] if stack else None
+        self.root = self if self.parent is None else self.parent.root
+        _keep(self)
+        stack.append(self)
+        self.start_ns = time.time_ns()
+        self._range = _Range(self.name)
+        self._range.__enter__()
+        if self._stretch and torch.cuda.is_initialized():
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            self._events = (start, None)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        if self._events is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            self._events = (self._events[0], end)
+        self._range.__exit__(*exc)
+        self.end_ns = time.time_ns()
+        _stack().pop()
+        return False
+
+
+def span(name: str, stretch: bool = False):
+    """A context manager marking one layer's work as the span ``name``
+    (module docstring); a shared no-op while no torch profiler records.
+    ``stretch``: also time the span's device stretch (two timing events,
+    some 25 us of host time a span beside an H100, so only where read)."""
+    return _Span(name, stretch) if _autograd_profiler._is_profiler_enabled else _OFF
+
+
+def spans() -> List[SpanRecord]:
+    """The kept spans in the order they opened, their device stretches
+    resolved (one synchronisation of each device they were recorded on)."""
+    with _lock:
+        kept = list(_records)
+    pending = [s for s in kept if s._events is not None and s._events[1] is not None]
+    for device in {s._events[1].device for s in pending}:
+        torch.cuda.synchronize(device)
+    for s in pending:
+        start, end = s._events
+        s.device_s = start.elapsed_time(end) * 1e-3
+        s._events = None
+    index = {id(s): i for i, s in enumerate(kept)}
+    return [SpanRecord(s.name, None if s.parent is None else index.get(id(s.parent)),
+                       index.get(id(s.root)), s.start_ns, s.end_ns, s.device_s) for s in kept]
+
+
+def dropped() -> int:
+    """Spans not kept since the last :func:`reset`: the buffer was full."""
+    return _dropped
+
+
+def reset() -> None:
+    """Forget every kept span and the dropped count."""
+    global _dropped
+    with _lock:
+        _records.clear()
+        _dropped = 0
+
+
+def spanned(name: str, stretch: bool = False) -> Callable[[Callable], Callable]:
+    """A decorator: each call of the function runs in ``span(name, stretch)``."""
+
+    def decorate(fn: Callable) -> Callable:
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            with span(name, stretch):
+                return fn(*args, **kwargs)
+
+        return wrapper
+
+    return decorate
