@@ -1144,3 +1144,74 @@ def test_span_device_stretch_encloses_its_kernels(cuda):
     assert all(e.start_ns() + e.duration_ns() <= mm.end_ns for e in launches)
     assert sum(e.duration_ns() for e in gemms) * 1e-9 <= mm.device_s * 1.001
     assert 0 < mm.device_s <= outer.device_s
+
+
+def _preset_batch(cfg, b, seed):
+    """A raw uint8 batch and crop origins at ``cfg``'s full input sizes."""
+    d = cfg.data
+    gen = torch.Generator().manual_seed(seed)
+    batch = {"surface": torch.randint(0, 256, (b, d.surface_height, d.surface_width_max,
+                                                d.channels), generator=gen, dtype=torch.uint8),
+             "overhead": torch.randint(0, 256, (b, d.overhead_size, d.overhead_size, d.channels),
+                                       generator=gen, dtype=torch.uint8)}
+    return batch, torch.randint(0, d.surface_width_max, (b,), generator=gen)
+
+
+def _presets():
+    from witw_tpu_torch.configs import fov_experiment, safa_experiment
+
+    return {"fov_dsm": fov_experiment("cvusa", 360), "safa": safa_experiment("cvusa")}
+
+
+@pytest.mark.parametrize("preset", ["fov_dsm", "safa"])
+def test_warm_preprocess_on_the_card_makes_no_sync(cuda, preset):
+    """After one warm call, ``preprocess`` of a batch already on the card
+    runs under ``set_sync_debug_mode("error")`` (no host-device copy, no
+    stream sync) and builds no normalization constants; its outputs equal
+    the CPU's within the preprocessing ops' tolerances (rtol 1e-5, atol
+    1e-4)."""
+    from witw_tpu_torch.ops import image
+    from witw_tpu_torch.train.pipeline import make_pipeline
+
+    cfg = _presets()[preset]
+    batch, starts = _preset_batch(cfg, 4, seed=11)
+    pipeline = make_pipeline(cfg, cuda)
+    on_card = {k: v.to(cuda) for k, v in batch.items()}
+    draws = starts.to(cuda)
+    pipeline.preprocess(on_card, draws=draws)
+    torch.cuda.synchronize()
+    uploads = image.constant_uploads
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = pipeline.preprocess(on_card, draws=draws)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert image.constant_uploads == uploads
+    want = make_pipeline(cfg, "cpu").preprocess(batch, draws=starts)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("preset", ["fov_dsm", "safa"])
+def test_warm_embed_step_on_the_card_makes_no_sync(cuda, preset):
+    """A warm ``embed_step`` (preprocess, then both bf16 towers on the
+    port's kernels) makes no host-device copy or stream sync either."""
+    from witw_tpu_torch.ops import image
+    from witw_tpu_torch.train.pipeline import make_pipeline
+
+    cfg = _presets()[preset]
+    batch, starts = _preset_batch(cfg, 4, seed=12)
+    pipeline = make_pipeline(cfg, cuda)
+    params = pipeline.init(torch.Generator().manual_seed(0))
+    on_card = {k: v.to(cuda) for k, v in batch.items()}
+    draws = starts.to(cuda)
+    pipeline.embed_step(params, on_card, draws=draws)
+    torch.cuda.synchronize()
+    uploads, launches = image.constant_uploads, conv3x3.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        s_emb, o_emb = pipeline.embed_step(params, on_card, draws=draws)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert image.constant_uploads == uploads and conv3x3.launches > launches
+    assert bool(torch.isfinite(s_emb).all()) and bool(torch.isfinite(o_emb).all())

@@ -62,6 +62,85 @@ def test_normalize_images_masked_bias_matches_jax(rng, channels, scale_channels)
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
 
 
+def _per_call_constants(c, mean, std, scale_channels):
+    """The constants as the normalization built them on every call before
+    they were cached: (scale, mean_t, std_t)."""
+    sc = c if scale_channels is None else scale_channels
+    scale = torch.where(torch.arange(c) < sc, torch.tensor(1.0 / 255.0, dtype=torch.float32),
+                        torch.tensor(1.0, dtype=torch.float32))
+    return (scale, torch.tensor(mean, dtype=torch.float32),
+            torch.tensor(std, dtype=torch.float32))
+
+
+@pytest.mark.parametrize("fn", ["normalize_images", "normalize_images_masked_bias",
+                                "denormalize_images"])
+@pytest.mark.parametrize("channels,scale_channels", [(3, None), (5, 3)])
+def test_normalization_bit_equal_to_per_call_formula(rng, fn, channels, scale_channels):
+    """The cached constants give the same bits as the per-call formula, on a
+    cold cache and on a warm one."""
+    mean, std = (MEAN, STD) if channels == 3 else (MEAN5, STD5)
+    x = torch.from_numpy(rng.uniform(0, 255, (2, 8, 12, channels)).astype(np.float32))
+    mask = torch.from_numpy((rng.uniform(size=(8, 12)) > 0.2).astype(np.float32))
+    scale, mean_t, std_t = _per_call_constants(channels, mean, std, scale_channels)
+    if fn == "normalize_images":
+        want = (x * scale - mean_t) / std_t
+        call = lambda: timage.normalize_images(x, mean, std, scale_channels)  # noqa: E731
+    elif fn == "normalize_images_masked_bias":
+        k = scale / std_t
+        b = -mean_t / std_t
+        want = x * k + mask[..., None] * b
+        call = lambda: timage.normalize_images_masked_bias(  # noqa: E731
+            x, mean, std, mask, scale_channels)
+    else:
+        want = x * std_t + mean_t
+        call = lambda: timage.denormalize_images(x, mean, std)  # noqa: E731
+    timage._constants.cache_clear()
+    for _ in range(2):
+        got = call()
+        assert got.dtype == torch.float32 and torch.equal(got, want)
+
+
+def test_normalization_constants_built_once_per_key(rng):
+    """Calls with a key already built upload nothing; a new mean, channel
+    count or ``scale_channels`` builds exactly one new set, and every
+    function shares the set of its key."""
+    timage._constants.cache_clear()
+    x3 = torch.from_numpy(rng.uniform(0, 255, (2, 4, 6, 3)).astype(np.float32))
+    x5 = torch.from_numpy(rng.uniform(0, 255, (2, 4, 6, 5)).astype(np.float32))
+    mask = torch.ones(4, 6)
+    count = timage.constant_uploads
+    timage.normalize_images(x3, MEAN, STD)
+    assert timage.constant_uploads == count + 1
+    for _ in range(3):
+        timage.normalize_images(x3, MEAN, STD)
+        timage.normalize_images_masked_bias(x3, MEAN, STD, mask)
+        timage.denormalize_images(x3, MEAN, STD)
+        timage.normalize_images(x3, list(MEAN), np.asarray(STD, np.float64))
+    assert timage.constant_uploads == count + 1
+    for args, n in (((x3, (0.5, 0.5, 0.5), STD), 2),  # another mean
+                    ((x5, MEAN5, STD5), 3),  # another channel count
+                    ((x5, MEAN5, STD5, 3), 4)):  # another scale_channels
+        for _ in range(2):
+            timage.normalize_images(*args)
+            timage.normalize_images_masked_bias(*args[:3], mask, *args[3:])
+        assert timage.constant_uploads == count + n
+
+
+def test_normalization_constants_built_in_inference_mode_serve_autograd(rng):
+    """Constants first built under ``torch.inference_mode`` (an eval) are
+    ordinary tensors: a later step may save them for backward."""
+    timage._constants.cache_clear()
+    x = torch.from_numpy(rng.uniform(0, 255, (2, 4, 6, 3)).astype(np.float32))
+    with torch.inference_mode():
+        timage.normalize_images(x, MEAN, STD)
+        timage.denormalize_images(x, MEAN, STD)
+    assert not any(t.is_inference() for t in timage._constants_for(x, MEAN, STD))
+    xg = x.clone().requires_grad_(True)
+    timage.normalize_images_masked_bias(xg, MEAN, STD, torch.ones(4, 6)).sum().backward()
+    timage.denormalize_images(timage.normalize_images(xg, MEAN, STD), MEAN, STD).sum().backward()
+    assert xg.grad is not None and bool(torch.isfinite(xg.grad).all())
+
+
 @pytest.mark.parametrize("geometry", [(128, 512, 256), (32, 64, 32), (16, 40, 24)])
 def test_polar_grid_copy_equals_jax(geometry):
     want = jpolar.polar_grid(*geometry)

@@ -3,21 +3,47 @@ family's row repeat (port of witw_tpu/ops/image.py)."""
 
 from __future__ import annotations
 
-from typing import Sequence
+import functools
+from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
+# Normalization constant sets built since the last reset, one per new key
+# (the card path's proof that a warm batch uploads nothing).
+constant_uploads = 0
 
-def _scale(c: int, scale_channels: int | None, device) -> torch.Tensor:
+
+@functools.lru_cache(maxsize=None)
+def _constants(
+    c: int, scale_channels: int | None, mean: Tuple[float, ...], std: Tuple[float, ...],
+    device: torch.device,
+) -> Tuple[torch.Tensor, ...]:
+    """(scale, mean_t, std_t, k, b) float32 on ``device``, built once per
+    key: the per-channel scale (1/255 on the first ``scale_channels`` of the
+    ``c`` channels, 1 on the rest), ``mean`` and ``std`` in one host-to-device
+    copy, then ``k = scale / std_t`` and ``b = -mean_t / std_t`` there.
+    Every call with the key shares them, so nothing writes them in place;
+    they are built outside inference mode, so that a training step may save
+    them for its backward pass."""
+    global constant_uploads
     if scale_channels is None:
         scale_channels = c
-    ar = torch.arange(c, device=device)
-    return torch.where(
-        ar < scale_channels,
-        torch.tensor(1.0 / 255.0, dtype=torch.float32, device=device),
-        torch.tensor(1.0, dtype=torch.float32, device=device),
-    )
+    scale = [1.0 / 255.0 if i < scale_channels else 1.0 for i in range(c)]
+    with torch.inference_mode(False):
+        flat = torch.tensor(scale + list(mean) + list(std), dtype=torch.float32).to(device)
+        scale_t, mean_t, std_t = flat.split([c, len(mean), len(std)])
+        k = scale_t / std_t
+        b = -mean_t / std_t
+    constant_uploads += 1
+    return scale_t, mean_t, std_t, k, b
+
+
+def _constants_for(x: torch.Tensor, mean: Sequence[float], std: Sequence[float],
+                   scale_channels: int | None = None) -> Tuple[torch.Tensor, ...]:
+    """:func:`_constants` for ``x``'s channel count and device."""
+    return _constants(x.shape[-1], scale_channels, tuple(float(v) for v in mean),
+                      tuple(float(v) for v in std), x.device)
 
 
 def normalize_images(
@@ -34,9 +60,7 @@ def normalize_images(
     parity).
     """
     x = x.to(torch.float32)
-    scale = _scale(x.shape[-1], scale_channels, x.device)
-    mean_t = torch.tensor(mean, dtype=torch.float32, device=x.device)
-    std_t = torch.tensor(std, dtype=torch.float32, device=x.device)
+    scale, mean_t, std_t, _, _ = _constants_for(x, mean, std, scale_channels)
     return (x * scale - mean_t) / std_t
 
 
@@ -53,19 +77,14 @@ def normalize_images_masked_bias(
     (see witw_tpu/ops/image.py). bias_mask: [H, W] 0/1 float mask.
     """
     x = x.to(torch.float32)
-    scale = _scale(x.shape[-1], scale_channels, x.device)
-    mean_t = torch.tensor(mean, dtype=torch.float32, device=x.device)
-    std_t = torch.tensor(std, dtype=torch.float32, device=x.device)
-    k = scale / std_t
-    b = -mean_t / std_t
+    _, _, _, k, b = _constants_for(x, mean, std, scale_channels)
     mask = torch.as_tensor(bias_mask, dtype=torch.float32, device=x.device)
     return x * k + mask[..., None] * b
 
 
 def denormalize_images(x: torch.Tensor, mean: Sequence[float], std: Sequence[float]) -> torch.Tensor:
     """Inverse of the standardization step (reference cvig_fov.py:151-154)."""
-    mean_t = torch.tensor(mean, dtype=torch.float32, device=x.device)
-    std_t = torch.tensor(std, dtype=torch.float32, device=x.device)
+    _, mean_t, std_t, _, _ = _constants_for(x, mean, std)
     return x * std_t + mean_t
 
 
