@@ -1215,3 +1215,41 @@ def test_warm_embed_step_on_the_card_makes_no_sync(cuda, preset):
         torch.cuda.set_sync_debug_mode("default")
     assert image.constant_uploads == uploads and conv3x3.launches > launches
     assert bool(torch.isfinite(s_emb).all()) and bool(torch.isfinite(o_emb).all())
+
+
+def test_warm_sample4geo_embed_step_on_the_card(cuda):
+    """The Sample4Geo family at the preset's geometry and published widths on
+    the card: a warm ``embed_step`` makes no host-device copy or stream sync,
+    launches no kernel of the port (cuDNN and cuBLAS only), and its unit
+    embeddings are within the bf16 tolerance of tests/test_torch_convnext.py
+    (0.03 of an embedding) of the float32 reference's."""
+    from benchmark import reference
+    from benchmark.reference import convnext as ref
+    from benchmark.reference import preprocess as ref_pre
+    from benchmark.traffic.eval_global import make_weights
+    from witw_tpu_torch.configs import sample4geo_experiment
+    from witw_tpu_torch.train.pipeline import make_pipeline
+
+    cfg = sample4geo_experiment("cvusa")
+    d = cfg.data
+    g = torch.Generator(device=cuda).manual_seed(3)
+    batch = {"surface": torch.randint(0, 256, (4, d.surface_height, d.surface_width_max, 3),
+                                      generator=g, device=cuda, dtype=torch.uint8),
+             "overhead": torch.randint(0, 256, (4, d.overhead_size, d.overhead_size, 3),
+                                       generator=g, device=cuda, dtype=torch.uint8)}
+    pipeline = make_pipeline(cfg, cuda)
+    params = make_weights(cfg.model, 5, cuda)
+    pipeline.embed_step(params, batch)
+    torch.cuda.synchronize()
+    launches = conv3x3.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        s_emb, o_emb = pipeline.embed_step(params, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert conv3x3.launches == launches and s_emb.shape == o_emb.shape == (4, 1024)
+    with torch.no_grad(), reference.exact():
+        for got, view in ((s_emb, "surface"), (o_emb, "overhead")):
+            x = ref_pre.normalize(batch[view], d.img_mean, d.img_std).permute(0, 3, 1, 2)
+            want = ref.encoder(x.contiguous(), params["surface"], cfg.model.depths)
+            assert float(((got - want).norm(dim=1) / want.norm(dim=1)).max()) < 0.03

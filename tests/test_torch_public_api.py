@@ -212,10 +212,12 @@ ALL_DIFFERS = {
                  ("DATA_AXIS", "GALLERY_AXIS", "GlobalBatch", "Mesh", "Shard", "gallery_shards",
                   "placement", "process_count", "process_index", "replicate")),
     "utils": ((), ("span", "spans", "reset")),
+    "configs": ((), ("Sample4GeoModelConfig", "sample4geo_experiment")),
 }
 ALL_DIFFERS_WHY = ("the NamedSharding functions of NOT_PORTED are dropped; the port exports the "
                    "mesh and placement helpers that take their place; utils adds the program's "
-                   "spans, which witw_tpu does not have")
+                   "spans, which witw_tpu does not have; configs adds the Sample4Geo preset "
+                   "and model config: the port's own family; witw_tpu has no ConvNeXt")
 
 
 def _top_level(body):

@@ -6,7 +6,8 @@
   thread on its own stack; the host stamps, on ``time.time_ns()``, enclose
   the profiler's own events of an op run inside; past its bound the buffer
   keeps nothing more and counts what it dropped.
-- The span trees of ``embed_step`` (the FOV, SAFA and baseline families),
+- The span trees of ``embed_step`` (the FOV, SAFA, baseline and
+  Sample4Geo families, the last with its ConvNeXt blocks' spans),
   ``FovGalleryEvaluator.ranks``, ``euclidean_ranks``, ``test_ranks`` and
   ``train_step`` at tiny sizes; spans leave the results as they were.
 """
@@ -18,7 +19,8 @@ import numpy as np
 import pytest
 import torch
 
-from witw_tpu_torch.configs import baseline_experiment, fov_experiment, safa_experiment
+from witw_tpu_torch.configs import (baseline_experiment, fov_experiment, safa_experiment,
+                                    sample4geo_experiment)
 from witw_tpu_torch.evaluation.gallery import FovGalleryEvaluator, euclidean_ranks
 from witw_tpu_torch.train import loop
 from witw_tpu_torch.train.pipeline import make_pipeline
@@ -174,6 +176,55 @@ def test_embed_step_tree(make):
     _, records = _recorded(lambda: pipeline.embed_step(params, batch, torch.Generator()))
     assert _tree(records) == EMBED_TREE[:2] + [("draw", "preprocess", "embed")] \
         + EMBED_TREE[2:]
+
+
+def _sample4geo(depths):
+    """The Sample4Geo preset at narrow widths and a small geometry, and its
+    pipeline and params on the CPU."""
+    cfg = sample4geo_experiment("cvusa")
+    model = dataclasses.replace(cfg.model, dims=(8, 16, 32, 64), depths=depths,
+                                compute_dtype="float32")
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data, **GEOMETRY), model=model)
+    pipeline = make_pipeline(cfg, "cpu")
+    return cfg, pipeline, pipeline.init(torch.Generator().manual_seed(0))
+
+
+def test_embed_step_tree_of_the_sample4geo_blocks():
+    """Each ConvNeXt block's ``convnext.mixer`` and ``convnext.mlp`` nest
+    under the tower of the view it embeds; the one encoder runs twice."""
+    cfg, pipeline, params = _sample4geo((1, 1, 2, 1))
+    batch = _batch(cfg)
+    want = pipeline.embed_step(params, batch)
+    got, records = _recorded(lambda: pipeline.embed_step(params, batch))
+    blocks = [("convnext.mixer", "tower.{}", "embed"), ("convnext.mlp", "tower.{}", "embed")] * 5
+    assert _tree(records) == EMBED_TREE[:3] + [(n, p.format("surface"), r) for n, p, r in blocks] \
+        + EMBED_TREE[3:] + [(n, p.format("overhead"), r) for n, p, r in blocks]
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_span_capacity_holds_a_traced_sample4geo_window():
+    """The buffer keeps every span of the Sample4Geo cell's traced 30-s
+    window at the published depths: 148 spans a batch of 64 (two spans a
+    block, 36 blocks, both views), 139 batches an eval of 8,884 pairs, and
+    at most as many evals as fit in the window at the bf16 peak (an eval's
+    FLOPs at 989 TFLOP/s: 1.36 s)."""
+    from benchmark.work import convnext as convnext_work
+
+    cfg, pipeline, params = _sample4geo((3, 3, 27, 3))
+    _, records = _recorded(lambda: pipeline.embed_step(params, _batch(cfg)))
+    per_batch = len(records)
+    assert per_batch == 4 + 2 * 2 * 36
+    d, m = sample4geo_experiment("cvusa").data, sample4geo_experiment("cvusa").model
+    pairs, batch, window_s = 8884, 64, 30.0
+    flops = sum(2 * convnext_work.multiply_adds(h, w, m.depths, m.dims)
+                for h, w in ((d.surface_height, d.surface_width_max),
+                             (d.overhead_size, d.overhead_size)))
+    least_eval_s = pairs * flops / 989e12
+    assert 1.3 < least_eval_s < 1.4
+    evals = int(window_s / least_eval_s) + 2  # the last eval runs to its end
+    per_eval = -(-pairs // batch) * per_batch + 64  # and the rank and recall spans
+    assert evals * per_eval <= profiling.SPAN_CAPACITY
 
 
 def test_embed_step_tree_of_the_baseline_preprocess():

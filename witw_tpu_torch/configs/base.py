@@ -10,6 +10,7 @@ with one dataclass tree that the CLIs build and override.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Sequence, Tuple
 
 
@@ -128,6 +129,26 @@ class SafaModelConfig:
     reduction: int = 2
     freeze_backbone: bool = True
     compute_dtype: str = "bfloat16"
+
+
+@dataclasses.dataclass(frozen=True)
+class Sample4GeoModelConfig:
+    """Sample4Geo's shared ConvNeXt encoder (Deuser, Habel, Oswald, ICCV 2023;
+    ConvNeXt-B, Liu et al., CVPR 2022): one encoder with shared weights embeds
+    both views into unit vectors; trained with the symmetric InfoNCE loss.
+    The port's own family: witw_tpu has no counterpart."""
+
+    kind: str = "sample4geo"
+    in_channels: int = 3
+    depths: Tuple[int, int, int, int] = (3, 3, 27, 3)
+    dims: Tuple[int, int, int, int] = (128, 256, 512, 1024)
+    kernel_size: int = 7  # the depthwise token mixer
+    mlp_ratio: int = 4
+    ln_eps: float = 1e-6
+    compute_dtype: str = "bfloat16"
+    # InfoNCE: logits exp(s) * f_g f_a^T, s learnable from log(1 / 0.07).
+    logit_scale_init: float = math.log(1.0 / 0.07)
+    label_smoothing: float = 0.1
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2,7 +2,8 @@
 of ``dataset_config``, ``baseline_experiment``, ``fov_experiment``,
 ``semantic_experiment`` and ``safa_experiment`` from
 witw_tpu/configs/registry.py;
-tests/test_torch_slice.py holds them equal).
+tests/test_torch_slice.py holds them equal), and the port's own
+``sample4geo_experiment``.
 
 CVUSA is a headerless CSV with [overhead, surface] in columns 0/1 and
 panoramic surface photos; WITW has a 17-column CSV with header where columns
@@ -23,6 +24,7 @@ from witw_tpu_torch.configs.base import (
     MatchConfig,
     OptimConfig,
     SafaModelConfig,
+    Sample4GeoModelConfig,
     TrainConfig,
 )
 
@@ -129,5 +131,24 @@ def safa_experiment(dataset: str = "cvusa", fov: int = 360, **overrides) -> Expe
         match=MatchConfig(alpha=10.0),
         train=TrainConfig(batch_size=32, optim=OptimConfig(learning_rate=1e-5)),
         eval=EvalConfig(batch_size=32),
+    )
+    return cfg.replace(**overrides) if overrides else cfg
+
+
+def sample4geo_experiment(dataset: str = "cvusa", **overrides) -> ExperimentConfig:
+    """Sample4Geo's CVUSA setting (Deuser et al., ICCV 2023): a ConvNeXt-B
+    encoder shared by both views; the panorama resized to 140 x 768
+    (round(224 / 1232 * 768) = 140), the 384 x 384 aerial tile as it is, no
+    polar transform and no heading draw, ImageNet statistics; train batch
+    128 (AdamW at 1e-3 in the paper; the port's optimizer is Adam), eval
+    batch 64."""
+    data = DataConfig(dataset=dataset_config(dataset), surface_height=140,
+                      surface_width_max=768, overhead_size=384, fov=360,
+                      random_orientation=False)
+    cfg = ExperimentConfig(
+        data=data,
+        model=Sample4GeoModelConfig(),
+        train=TrainConfig(batch_size=128, optim=OptimConfig(learning_rate=1e-3)),
+        eval=EvalConfig(batch_size=64),
     )
     return cfg.replace(**overrides) if overrides else cfg

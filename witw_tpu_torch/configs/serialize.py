@@ -29,11 +29,12 @@ from witw_tpu_torch.configs.base import (
     MeshConfig,
     OptimConfig,
     SafaModelConfig,
+    Sample4GeoModelConfig,
     TrainConfig,
 )
 
 _MODEL_KINDS = {"baseline": BaselineModelConfig, "fov_dsm": FovDsmModelConfig,
-                "vgg_safa": SafaModelConfig}
+                "vgg_safa": SafaModelConfig, "sample4geo": Sample4GeoModelConfig}
 
 
 def _to_plain(obj: Any) -> Any:
@@ -64,8 +65,7 @@ def config_from_dict(data: dict) -> ExperimentConfig:
 
     model_d = dict(data["model"])
     model_cls = _MODEL_KINDS[model_d.get("kind", "fov_dsm")]
-    if "head_channels" in model_d:
-        model_d["head_channels"] = tup(model_d["head_channels"])
+    model_d = {k: tup(v) for k, v in model_d.items()}
     model_cfg = model_cls(**model_d)
 
     train_d = dict(data["train"])

@@ -1,6 +1,6 @@
-"""The FOV-DSM, SAFA and baseline pipelines: train, eval and embed steps
-(port of witw_tpu/train/pipeline.py: FovPipeline, SafaPipeline,
-BaselinePipeline, make_pipeline).
+"""The FOV-DSM, SAFA, baseline and Sample4Geo pipelines: train, eval and
+embed steps (port of witw_tpu/train/pipeline.py: FovPipeline, SafaPipeline,
+BaselinePipeline, make_pipeline; Sample4GeoPipeline is the port's own).
 
 Raw uint8-scale batches go in; FOV crop, normalization and the polar
 transform run on the pipeline's device, then the twin towers, then the
@@ -27,6 +27,11 @@ towers (``models.baseline.BaselineEncoder``) hold BatchNorm running
 statistics as buffers in ``params[tower]`` beside the weights; a train step
 updates them in place, the eval and embed steps read them, and Adam leaves
 them out. Its loss is the exhaustive minibatch triplet loss.
+
+``Sample4GeoPipeline`` runs one ConvNeXt encoder, its weights held once,
+on both views as they come (normalized, in bf16 channels_last; no crop,
+polar map or draw), and the symmetric InfoNCE loss at the params' learnable
+logit scale.
 
 A ``parallel.GlobalBatch`` (``train.loop.device_prefetch`` with a mesh)
 takes the data-parallel step of any family: the draws made for the global
@@ -57,6 +62,7 @@ from witw_tpu_torch.models.baseline import (BaselineEncoder, baseline_trainable_
                                             forward_sharded)
 from witw_tpu_torch.models.fov_dsm import FovDsm, fov_dsm_trainable_mask
 from witw_tpu_torch.models.safa import VggSafa, safa_trainable_mask
+from witw_tpu_torch.models.sample4geo import Sample4Geo, symmetric_infonce
 from witw_tpu_torch.ops.fov import fov_crop, random_fov_starts
 from witw_tpu_torch.ops.fused_match import fused_chord_distance_nhwc
 from witw_tpu_torch.ops import rotation
@@ -92,7 +98,7 @@ class _TwinPipeline:
     preprocessing (crop, normalization, polar transform; the baseline family
     gives its own) and the steps, on one device or data-parallel over a
     mesh's shards. A family gives ``_tower(circ)``, ``trainable_names`` and
-    ``_loss``."""
+    ``_loss(s_emb, o_emb, valid, params)``."""
 
     kind = None
 
@@ -128,14 +134,15 @@ class _TwinPipeline:
         params, which it marks ``requires_grad``; the frozen ones are
         marked not to need a gradient."""
         o = self.cfg.train.optim
-        trainable = []
+        trainable = {}  # by id: a tensor both towers share is stepped once
         for tower in TOWERS:
             names = set(self.trainable_names(params[tower]))
             for name, p in params[tower].items():
                 p.requires_grad_(name in names)
                 if name in names:
-                    trainable.append(p)
-        return torch.optim.Adam(trainable, lr=o.learning_rate, betas=(o.b1, o.b2), eps=o.eps)
+                    trainable.setdefault(id(p), p)
+        return torch.optim.Adam(list(trainable.values()), lr=o.learning_rate, betas=(o.b1, o.b2),
+                                eps=o.eps)
 
     def init_state(self, generator: torch.Generator) -> TrainState:
         """Fresh params (:meth:`init`) and a fresh optimizer, at step 0."""
@@ -262,7 +269,7 @@ class _TwinPipeline:
         """One device: the batch's embeddings (:meth:`_embed`), then the
         family's loss over ``batch["valid"]``'s rows (all when absent)."""
         s_emb, o_emb = self._embed(params, batch, generator, train)
-        return self._loss(s_emb, o_emb, self._valid(batch))
+        return self._loss(s_emb, o_emb, self._valid(batch), params)
 
     def _embed(self, params: Params, batch, generator: Optional[torch.Generator],
                train: bool) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -306,7 +313,7 @@ class _TwinPipeline:
         home = self.device
         s_emb = gather_rows(torch.cat([x.to(home) for x in s_parts]), batch.start, batch.rows)
         o_emb = gather_rows(torch.cat([x.to(home) for x in o_parts]), batch.start, batch.rows)
-        return self._loss(s_emb, o_emb, valid.to(home))
+        return self._loss(s_emb, o_emb, valid.to(home), params)
 
     def _replicas(self, params: Params, devices) -> Dict[torch.device, Tuple]:
         """(this pipeline on the device, ``params`` copied there with
@@ -340,9 +347,9 @@ class _TwinPipeline:
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Embed a batch: (surface embeddings, overhead embeddings), float32:
         FOV maps [B, h, sw', 16] and [B, h, W', 16] NHWC, SAFA vectors
-        [B, M·512], baseline vectors [B, 1536]. ``draws``: the batch's
-        random draw (:meth:`draw`), made by the caller, in place of one from
-        ``generator``."""
+        [B, M·512], baseline vectors [B, 1536], Sample4Geo vectors
+        [B, dims[-1]]. ``draws``: the batch's random draw (:meth:`draw`),
+        made by the caller, in place of one from ``generator``."""
         with span("preprocess", stretch=True):
             surface, polar = self.preprocess(batch, generator, draws)
         return self._towers(params, surface, polar, False, None)
@@ -361,8 +368,8 @@ class FovPipeline(_TwinPipeline):
     def trainable_names(self, tower_params: Dict[str, torch.Tensor]) -> List[str]:
         return fov_dsm_trainable_mask(tower_params, self.cfg.model)
 
-    def _loss(self, s_emb: torch.Tensor, o_emb: torch.Tensor,
-              valid: Optional[torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def _loss(self, s_emb: torch.Tensor, o_emb: torch.Tensor, valid: Optional[torch.Tensor],
+              params: Params) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Matmul correlation, chord distance, DSM triplet loss (``valid``
         masking padded rows)."""
         corr = circular_correlation(o_emb, s_emb, method="matmul")
@@ -400,8 +407,8 @@ class SafaPipeline(_TwinPipeline):
     def trainable_names(self, tower_params: Dict[str, torch.Tensor]) -> List[str]:
         return safa_trainable_mask(tower_params, self.cfg.model)
 
-    def _loss(self, s_emb: torch.Tensor, o_emb: torch.Tensor,
-              valid: Optional[torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def _loss(self, s_emb: torch.Tensor, o_emb: torch.Tensor, valid: Optional[torch.Tensor],
+              params: Params) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Squared Euclidean distances [B_o, B_s], DSM triplet loss
         (``valid`` masking padded rows)."""
         d2 = pairwise_sq_distances(o_emb, s_emb)
@@ -512,8 +519,8 @@ class BaselinePipeline(_TwinPipeline):
                                shards.valid, n_real, gather, [params[t] for t in TOWERS])
         return tuple(embs)
 
-    def _loss(self, s_emb: torch.Tensor, o_emb: torch.Tensor,
-              valid: Optional[torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def _loss(self, s_emb: torch.Tensor, o_emb: torch.Tensor, valid: Optional[torch.Tensor],
+              params: Params) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The exhaustive minibatch triplet loss (``valid`` masking padded
         rows)."""
         m = self.cfg.match
@@ -522,7 +529,67 @@ class BaselinePipeline(_TwinPipeline):
         return loss, {"surface": s_emb, "overhead": o_emb}
 
 
-Pipeline = Union[FovPipeline, SafaPipeline, BaselinePipeline]
+class Sample4GeoPipeline(_TwinPipeline):
+    """Sample4Geo (Deuser et al., ICCV 2023) on ``device`` (the CUDA device
+    when None): one ConvNeXt encoder (``models.sample4geo.Sample4Geo``)
+    with its weights held once embeds both views, the panorama and the
+    aerial tile as they come (normalized, no crop, polar map or heading
+    draw), into unit vectors; the symmetric InfoNCE loss; Euclidean
+    retrieval eval (``euclidean_ranks``: on unit vectors, cosine order).
+    Params are ``{"surface": sd, "overhead": sd}`` with one state dict
+    ``sd`` under both keys."""
+
+    kind = "sample4geo"
+
+    def __init__(self, cfg: ExperimentConfig, device=None):
+        self._encoder = None
+        super().__init__(cfg, device)
+
+    def _tower(self, circ: bool) -> Sample4Geo:
+        """The one encoder, for either view."""
+        if self._encoder is None:
+            self._encoder = Sample4Geo(self.cfg.model)
+        return self._encoder
+
+    def init(self, generator: torch.Generator) -> Params:
+        """Fresh params (timm's init, the logit scale at its init), drawn
+        from a CPU ``generator``, one state dict under both towers."""
+        model = Sample4Geo(self.cfg.model)
+        model.reset_parameters(generator)
+        shared = {k: v.to(self.device) for k, v in model.state_dict().items()}
+        return {"surface": shared, "overhead": shared}
+
+    def trainable_names(self, tower_params: Dict[str, torch.Tensor]) -> List[str]:
+        return list(tower_params)
+
+    def preprocess(
+        self, batch, generator: Optional[torch.Generator] = None,
+        draws: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Raw {"surface": [B, H, W, C], "overhead": [B, S, S, C]} -> both
+        normalized, in the compute dtype, as NCHW channels_last views.
+        Nothing is drawn: ``generator`` and ``draws`` are unused."""
+        d = self.cfg.data
+        dtype = getattr(torch, self.cfg.model.compute_dtype)
+        return tuple(normalize_images(self._input(batch[view]), d.img_mean, d.img_std)
+                     .to(dtype).permute(0, 3, 1, 2) for view in TOWERS)
+
+    def _draw_masks(self, generator: torch.Generator, b: int) -> List[torch.Tensor]:
+        return []  # no dropout
+
+    def _loss(self, s_emb: torch.Tensor, o_emb: torch.Tensor, valid: Optional[torch.Tensor],
+              params: Params) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The symmetric InfoNCE loss over ``valid``'s rows (all when None),
+        at the params' ``logit_scale``."""
+        if valid is not None:
+            keep = valid.to(device=s_emb.device, dtype=torch.bool)
+            s_emb, o_emb = s_emb[keep], o_emb[keep]
+        loss = symmetric_infonce(s_emb, o_emb, params["surface"]["logit_scale"],
+                                 self.cfg.model.label_smoothing)
+        return loss, {"surface": s_emb, "overhead": o_emb}
+
+
+Pipeline = Union[FovPipeline, SafaPipeline, BaselinePipeline, Sample4GeoPipeline]
 
 
 def make_pipeline(cfg: ExperimentConfig, device=None) -> Pipeline:
@@ -535,6 +602,8 @@ def make_pipeline(cfg: ExperimentConfig, device=None) -> Pipeline:
         return SafaPipeline(cfg, device)
     if kind == "baseline":
         return BaselinePipeline(cfg, device)
+    if kind == "sample4geo":
+        return Sample4GeoPipeline(cfg, device)
     raise TypeError(f"unknown model config: {type(cfg.model)}")
 
 

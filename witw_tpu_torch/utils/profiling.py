@@ -30,8 +30,9 @@ Spans of the program (* with a device stretch): ``eval``
 ``rank.fetch``; ``recall`` (``metrics_from_ranks``); ``train.step`` with
 ``train.forward`` (in it ``preprocess`` and the towers), ``train.backward``,
 ``train.optimizer``; ``draw`` (the crop origins or rotations, in training
-and eval alike, and the dropout masks); ``serve.decode``, and
-``serve.dispatch`` with ``serve.embed`` and ``serve.search``
+and eval alike, and the dropout masks); ``convnext.mixer`` * and
+``convnext.mlp`` * (each ConvNeXt block's, under ``tower.*``);
+``serve.decode``, and ``serve.dispatch`` with ``serve.embed`` and ``serve.search``
 (``tools.serve.GeolocateService``)."""
 
 from __future__ import annotations
@@ -145,7 +146,7 @@ class StepTimer:
         }
 
 
-SPAN_CAPACITY = 1 << 17  # records kept between resets; past it spans are counted as dropped
+SPAN_CAPACITY = 1 << 19  # records kept between resets; past it spans are counted as dropped
 
 _records: List["_Span"] = []  # the kept spans, in the order they opened
 _dropped = 0
