@@ -5,7 +5,7 @@
 
 Phases, each of which passes or raises:
 1. Require a CUDA device; print the card's name and power limit.
-2. Build all eight CUDA libraries from witw_tpu_torch/csrc with nvcc
+2. Build all nine CUDA libraries from witw_tpu_torch/csrc with nvcc
    (sm_90a), one nvcc per source started together; print the build seconds
    and the fused match's ptxas register/shared-memory use, failing on any
    spill, and its SASS HGMMA (tf32 wgmma) count, failing where it is 0.
@@ -346,6 +346,24 @@ Phases, each of which passes or raises:
    metrics_from_ranks(ranks) on 1024 planted pairs whose ranks spread,
    fused and FFT. Every check runs and is logged, the phase failing at the
    end if any failed. Its fused-match launches compare, and are not counted.
+34. The ConvNeXt mixer (convnext_mixer, built in phase 2): print ptxas'
+   lines, failing on any spill; a warm Sample4Geo embed_step at the preset's
+   geometry and published widths (sample4geo_experiment("cvusa"), batch 4,
+   random weights from a seed) must launch it 72 times (once a block, 36
+   blocks an encoder call, two calls). Then the kernel against its plain
+   version (cuDNN's f32 conv on the bf16-rounded operands, TF32 off, and
+   ATen's LayerNorm) at every stage's map of both views, f32 and bf16 block
+   inputs, batch 2 (rtol 2^-7, one bf16 rounding; atol 1e-4 near 0; over
+   99% bit-equal). At each block shape of an encoder call of each view at
+   the eval's batch 64 (f32 input, bf16 in a stage's first block), the same
+   check, then the device time of the kernel, the plain version and the
+   library path (the bf16 block's mixer before the kernel: cuDNN's bf16
+   depthwise conv, the bias into an f32 upcast, F.layer_norm, the casts),
+   each from a CUDA graph of 16 calls cycling over 256 MB of inputs so that
+   L2 holds none, beside the bound: the bytes (the input read once, the bf16
+   output written once, the weights) at 3.35 TB/s and the multiply-adds at
+   the f32 FMA peak of 67 TFLOP/s. The record sums each over the blocks of
+   one embed_step of both views at batch 64.
 
 The launch counts are reset just before the path they count and read right
 after it: the fused match's and the conv kernel's before phase 4 and after
@@ -375,7 +393,9 @@ kernel's before each DP step, train(mesh=) and loop.test(mesh=) of phase 31,
 read after each, plus the counts its two worker processes report (the
 records' `dp_launches` sum them); every kernel's before the first
 run_parity of phase 32, read after it, which must raise the conv kernel's
-and the fused match's (the records' `parity_launches`). The
+and the fused match's (the records' `parity_launches`); the mixer's before
+the warm Sample4Geo embed_step of phase 34, read after it (its record's
+`launches`). The
 second-to-last line is the
 kernels' JSON record; the last line is {"ok": true, "device": {...}}.
 Without a GPU, or without the repo beside it, the script exits non-zero and
@@ -413,7 +433,7 @@ from torch.func import functional_call
 from witw_tpu_torch.cli import common as cli_common
 from witw_tpu_torch.cli import cvig_baseline, cvig_fov, cvig_safa
 from witw_tpu_torch.configs import (baseline_experiment, fov_experiment, safa_experiment,
-                                    semantic_experiment, serialize)
+                                    sample4geo_experiment, semantic_experiment, serialize)
 from witw_tpu_torch.data import loader, synthetic
 from witw_tpu_torch.data.csv_registry import read_pair_paths
 from witw_tpu_torch.evaluation import gallery
@@ -432,8 +452,8 @@ from witw_tpu_torch.models.baseline import BaselineEncoder
 from witw_tpu_torch.models.backbones.vgg16 import VGG16_BLOCKS
 from witw_tpu_torch.models.fov_dsm import HEAD_CONVS, FovDsm
 from witw_tpu_torch.models.safa import VggSafa
-from witw_tpu_torch.ops import (conv3x3, fused_block2, fused_match, int8_conv, maxpool,
-                                resize_bilinear, rotation)
+from witw_tpu_torch.ops import (conv3x3, convnext_mixer, fused_block2, fused_match, int8_conv,
+                                maxpool, resize_bilinear, rotation)
 from witw_tpu_torch.ops.image import normalize_images
 from witw_tpu_torch.ops.polar import polar_transform
 from witw_tpu_torch.parallel import make_mesh
@@ -443,7 +463,8 @@ from witw_tpu_torch.tools.cities import strip_filename
 from witw_tpu_torch.tools import serve as serve_tool
 from witw_tpu_torch.train import loop
 from witw_tpu_torch.train.checkpoint import Checkpointer
-from witw_tpu_torch.train.pipeline import BaselinePipeline, FovPipeline, SafaPipeline, TrainState
+from witw_tpu_torch.train.pipeline import (BaselinePipeline, FovPipeline, SafaPipeline,
+                                           Sample4GeoPipeline, TrainState)
 from witw_tpu_torch.utils.device import require_cuda
 from witw_tpu_torch.utils.hashing import params_fingerprint
 from witw_tpu_torch.utils.profiling import cuda_ms, graph_ms
@@ -454,7 +475,8 @@ TIE_REL = 1e-5  # plain top-2 correlation gap under which a pair is a near tie
 KERNEL_SOURCE = "witw_tpu_torch/csrc/fused_match.cu"
 KERNEL_REPLACES = "witw_tpu/ops/pallas/fused_match.py:83"
 PROBE_LIBRARIES = ["conv_like", "mm_probe", "caps"]
-LIBRARIES = ["fused_match", "int8_conv", "maxpool", "fused_block2", "conv3x3_bf16"] + PROBE_LIBRARIES
+LIBRARIES = (["fused_match", "int8_conv", "maxpool", "fused_block2", "conv3x3_bf16"]
+             + PROBE_LIBRARIES + ["convnext_mixer"])
 # Published peaks of one H100 SXM (dense, at 700 W) for the bound_ms column.
 PEAK_BYTES_PER_MS = 3.35e9          # 3.35 TB/s
 PEAK_F32_PER_MS = 67e9              # CUDA cores
@@ -4972,6 +4994,135 @@ def phase_public_names(card, device):
         raise AssertionError(f"[33] {len(failures)} check(s) failed: {failures}")
 
 
+# --- the ConvNeXt mixer (phase 34) -----------------------------------------
+
+MIXER_SOURCE = "witw_tpu_torch/csrc/convnext_mixer.cu"
+MIXER_BUFFER_BYTES = 256 << 20  # the inputs a timed graph cycles over: more than L2
+
+
+def mixer_shapes(cfg):
+    """(view, stage, C, H, W, input dtype, blocks) of the mixers of an encoder
+    call of each view: the stem's stride 4, each downsample's 2; a stage's
+    first block takes the downsample's bf16 output, the others the f32
+    residual stream."""
+    d, m = cfg.data, cfg.model
+    for view, (h, w) in (("surface", (d.surface_height, d.surface_width_max)),
+                         ("overhead", (d.overhead_size, d.overhead_size))):
+        h, w = h // 4, w // 4
+        for i, (c, depth) in enumerate(zip(m.dims, m.depths)):
+            if i:
+                h, w = h // 2, w // 2
+                yield view, i, c, h, w, torch.bfloat16, 1
+            yield view, i, c, h, w, torch.float32, depth - (1 if i else 0)
+
+
+def mixer_inputs(gen, device, b, h, w, c, dtype, n=1):
+    """``n`` inputs [b, h, w, c] in ``dtype`` and one set of the mixer's f32
+    weights: the depthwise weight at the scale of 1 / 7, a LayerNorm weight
+    near 1, small biases."""
+    xs = [torch.randn(b, h, w, c, generator=gen, device=device).to(dtype) for _ in range(n)]
+    weight = torch.randn(c, 1, 7, 7, generator=gen, device=device) / 7.0
+    bias = 0.02 * torch.randn(c, generator=gen, device=device)
+    ln_w = 1.0 + 0.2 * torch.randn(c, generator=gen, device=device)
+    ln_b = 0.02 * torch.randn(c, generator=gen, device=device)
+    return xs, (weight, bias, ln_w, ln_b)
+
+
+def check_mixer(name, x, rest):
+    """The kernel against its plain version: within rtol 2^-7 and atol 1e-4,
+    over 99% bit-equal; returns (max |diff|, the bit-equal share)."""
+    got = convnext_mixer.convnext_mixer_kernel(x, *rest, 1e-6)
+    want = convnext_mixer.convnext_mixer_plain(x, *rest, 1e-6)
+    diff = (got.float() - want.float()).abs()
+    ok = bool((diff <= 1e-4 + 2.0 ** -7 * want.float().abs()).all())
+    equal = float((got == want).float().mean())
+    if not ok or equal <= 0.99 or got.shape != x.shape:
+        raise AssertionError(f"convnext_mixer disagrees with its plain version at {name}: max "
+                             f"|diff| {float(diff.max()):.3e}, bit-equal {equal:.4f}")
+    return float(diff.max()), equal
+
+
+def mixer_phase(card, device, built):
+    """Phase 34; returns the ConvNeXt mixer's JSON record."""
+    log("[34] convnext_mixer (built in phase 2): ptxas")
+    print_ptxas(built["convnext_mixer"][1])
+    check_no_spills("convnext_mixer", built)
+    cfg = sample4geo_experiment("cvusa")
+    d = cfg.data
+    pipeline = Sample4GeoPipeline(cfg, device)
+    params = pipeline.init(torch.Generator().manual_seed(0))
+    gen = torch.Generator(device=device).manual_seed(34)
+    batch = {v: torch.randint(0, 256, (4, h, w, 3), generator=gen, device=device,
+                              dtype=torch.uint8)
+             for v, (h, w) in (("surface", (d.surface_height, d.surface_width_max)),
+                               ("overhead", (d.overhead_size, d.overhead_size)))}
+    pipeline.embed_step(params, batch)
+    torch.cuda.synchronize()
+    convnext_mixer.launches = 0
+    embs = pipeline.embed_step(params, batch)
+    torch.cuda.synchronize()
+    launches, want = convnext_mixer.launches, 2 * sum(cfg.model.depths)
+    if launches != want or not all(bool(e.isfinite().all()) for e in embs):
+        raise AssertionError(f"a warm Sample4Geo embed_step launched the mixer {launches} times "
+                             f"(want {want}); embeddings finite "
+                             f"{[bool(e.isfinite().all()) for e in embs]}")
+    log(f"    warm Sample4Geo embed_step (published widths, {d.surface_height} x "
+        f"{d.surface_width_max} and {d.overhead_size}^2, batch 4): {launches} mixer launches")
+    del pipeline, params, embs
+    torch.cuda.empty_cache()
+
+    max_err, min_equal = 0.0, 1.0
+    maps = sorted({(c, h, w) for _, _, c, h, w, _, _ in mixer_shapes(cfg)})
+    for c, h, w in maps:
+        for dtype in (torch.float32, torch.bfloat16):
+            xs, rest = mixer_inputs(gen, device, 2, h, w, c, dtype)
+            err, equal = check_mixer(f"B=2 C={c} {h}x{w} {dtype}", xs[0], rest)
+            max_err, min_equal = max(max_err, err), min(min_equal, equal)
+    log(f"    kernel vs plain at {len(maps)} maps x (f32, bf16) inputs, batch 2: max |diff| "
+        f"{max_err:.3e}, bit-equal share >= {min_equal:.6f} (rtol 2^-7, atol 1e-4)")
+
+    b = cfg.eval.batch_size
+    totals = dict.fromkeys(("kernel", "plain", "library", "bound"), 0.0)
+    by_time = {"operations": 0.0, "bytes": 0.0}
+    fns = {"kernel": convnext_mixer.convnext_mixer_kernel,
+           "plain": convnext_mixer.convnext_mixer_plain,
+           "library": convnext_mixer.convnext_mixer_library}
+    for view, stage, c, h, w, dtype, count in mixer_shapes(cfg):
+        n = max(2, -(-MIXER_BUFFER_BYTES // (b * h * w * c * dtype.itemsize)))
+        xs, rest = mixer_inputs(gen, device, b, h, w, c, dtype, n)
+        err, equal = check_mixer(f"B={b} C={c} {h}x{w} {dtype}", xs[0], rest)
+        max_err, min_equal = max(max_err, err), min(min_equal, equal)
+
+        def cycling(fn):
+            inputs = itertools.cycle(xs)
+            return lambda: fn(next(inputs), *rest, 1e-6)
+
+        ms = dict(zip(fns, turns_ms([cycling(f) for f in fns.values()],
+                                    lambda f: graph_ms(f, calls=16, reps=3), reps=3)))
+        px = b * h * w
+        ms["bound"], by = bound(2.0 * px * c * 49,
+                                px * c * (dtype.itemsize + 2) + 4.0 * c * (49 + 3), PEAK_F32_PER_MS)
+        for k in totals:
+            totals[k] += count * ms[k]
+        by_time[by] += count * ms["bound"]
+        log(f"    {view} stage {stage} B={b} C={c} {h}x{w} {str(dtype)[6:]} x{count}: kernel "
+            f"{ms['kernel']:.4f} ms ({100 * ms['bound'] / ms['kernel']:.1f}% of the bound), plain "
+            f"{ms['plain']:.4f} ms, library {ms['library']:.4f} ms, bound {ms['bound']:.4f} ms "
+            f"({by}); bit-equal {equal:.4f}")
+        del xs
+        torch.cuda.empty_cache()
+    log(f"    an embed_step's mixers (both views, batch {b}): kernel {totals['kernel']:.4f} ms, "
+        f"plain {totals['plain']:.4f} ms, library {totals['library']:.4f} ms, bound "
+        f"{totals['bound']:.4f} ms ({card})")
+    return {
+        "name": "convnext_mixer", "route": "cuda", "source": MIXER_SOURCE,
+        "replaces": None, "launches": launches, "max_abs_err": max_err,
+        "min_bit_equal": min_equal, "ms": totals["kernel"], "plain_ms": totals["plain"],
+        "bound_ms": totals["bound"], "bound_by": max(by_time, key=by_time.get),
+        "library_ms": totals["library"],
+    }
+
+
 def main() -> int:
     # 1. device
     device = require_cuda()
@@ -5221,6 +5372,7 @@ def main() -> int:
     dp_launches = phase_dp(card, device)
     parity_launches = phase_dataset(card, device)
     phase_public_names(card, device)
+    mixer_record = mixer_phase(card, device, built)
     serving = {n: build_launches[p].get(n, 0) + daemon_launches[p].get(n, 0)
                + sweep_launches[p].get(n, 0)
                for p in ("bf16", "int8") for n in build_launches[p]}
@@ -5271,7 +5423,7 @@ def main() -> int:
         "sharded_launches": sharded["fused_match"],
         "dp_launches": dp_launches["fused_match"],
         "parity_launches": parity_launches["fused_match"],
-    }] + int8_records + [conv_record] + probe_records}))
+    }] + int8_records + [conv_record] + probe_records + [mixer_record]}))
     log(f"smoke total: {time.perf_counter() - T_START:.2f} s")
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

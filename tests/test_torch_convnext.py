@@ -17,6 +17,14 @@ LayerNorm affines and the biases away from 1 and 0). Tolerances:
   the measured error is 0.015.
 - the loss and its gradients in float32: rtol 1e-4, atol 1e-6 (the
   reference normalizes the unit embeddings again, a no-op to f32 ulps).
+- the bf16 mixer (``ops.convnext_mixer``) against the reference's float32
+  mixer on the same bf16-rounded input and weight: rtol 2^-8, one bf16
+  rounding of the output, atol 1e-5 of its scale for the f32 sums' order.
+- a bf16 block against its output before the mixer was fused (the conv's
+  sum rounded to bf16 on its way into the LayerNorm, as autocast ran it):
+  relative error 0.01 of the block's change to its input. That one extra
+  rounding (2^-9 relative) moves some mixer outputs by a bf16 ulp, which
+  fc1 and fc2 carry at bf16 precision; measured 0.0049.
 """
 
 import dataclasses
@@ -34,7 +42,9 @@ from benchmark.traffic.eval_global import make_weights
 from witw_tpu_torch.configs import Sample4GeoModelConfig, sample4geo_experiment
 from witw_tpu_torch.configs.serialize import load_config, save_config
 from witw_tpu_torch.evaluation.gallery import euclidean_ranks
+from witw_tpu_torch.models.backbones import convnext
 from witw_tpu_torch.models.backbones.convnext import Block, Stage
+from witw_tpu_torch.ops import convnext_mixer as mixer_ops
 from witw_tpu_torch.models.sample4geo import Sample4Geo
 from witw_tpu_torch.train import loop
 from witw_tpu_torch.train.pipeline import Sample4GeoPipeline, make_pipeline
@@ -114,6 +124,102 @@ def test_stage_rounds_odd_sizes_down():
         want = ref.block(want, w, f"{name}.blocks.0")
     assert got.shape == want.shape == (2, 32, 17, 6)
     _close(got, want, **F32_TOL)
+
+
+def _bf16(t):
+    return t.to(torch.bfloat16).float()
+
+
+def _mixer_case(b, h, w, c, seed):
+    """An NHWC input and a block's mixer weights from the benchmark's draw,
+    at C channels (stage 2's block 1 of a model whose third width is C)."""
+    wts = _weights(Sample4GeoModelConfig(dims=(16, 32, c, 128), depths=DEPTHS))
+    name = "model.stages.2.blocks.1"
+    x = torch.randn(b, h, w, c, generator=torch.Generator().manual_seed(seed))
+    return x, wts, name
+
+
+@pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w,c", [
+    (2, 35, 192, 32),  # the panorama's stage-0 map at reduced C
+    (2, 17, 96, 64),  # and stage 1's, after the downsample rounds 35 down
+    (1, 7, 9, 96),  # a map smaller than the 7x7 window's reach; C not a power of 2
+    (2, 4, 24, 128),  # the panorama's last stage map, fewer rows than the window
+])
+def test_mixer_plain_against_reference(in_dtype, b, h, w, c):
+    """The plain mixer against the reference's float32 depthwise conv and
+    LayerNorm: in bf16 on the bf16-rounded input and weight (one rounding
+    of the output apart), in f32 on the input as given."""
+    x, wts, name = _mixer_case(b, h, w, c, seed=3)
+    x = x.to(in_dtype)
+    args = (wts[f"{name}.conv_dw.weight"], wts[f"{name}.conv_dw.bias"],
+            wts[f"{name}.norm.weight"], wts[f"{name}.norm.bias"], 1e-6)
+    for dtype, quantize in ((torch.bfloat16, _bf16), (torch.float32, None)):
+        got = mixer_ops.convnext_mixer_plain(x, *args, dtype=dtype)
+        assert got.dtype == dtype and got.shape == (b, h, w, c)
+        with torch.no_grad():
+            want = ref.conv(x.float().permute(0, 3, 1, 2), wts, f"{name}.conv_dw", padding=3,
+                            groups=c, quantize=quantize)
+            want = ref.layer_norm_channels(want, wts, f"{name}.norm").permute(0, 2, 3, 1)
+        if dtype == torch.bfloat16:
+            _close(got.float(), want, rtol=2.0 ** -8, atol=1e-5)
+        else:
+            _close(got, want, **F32_TOL)
+    # the CPU path of the public wrapper is the bf16 plain version
+    torch.testing.assert_close(mixer_ops.convnext_mixer(x, *args),
+                               mixer_ops.convnext_mixer_plain(x, *args), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype,in_dtype", [
+    (torch.float32, torch.float32),
+    (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16),  # a stage's first block, after the downsample
+])
+def test_block_against_its_previous_output(monkeypatch, dtype, in_dtype):
+    """A block on the CPU against its output before the mixer was fused:
+    the same in f32 bit for bit; in bf16 within 0.01 of the block's change
+    (the conv's sum no longer rounded to bf16 before the LayerNorm)."""
+    x, wts, name = _mixer_case(2, 17, 23, 64, seed=4)
+    block = Block(64, 7, 4, 1e-6, dtype)
+    block.load_state_dict(_sub(wts, name))
+    x = x.to(in_dtype).permute(0, 3, 1, 2)
+    with torch.no_grad():
+        got = block(x)
+        monkeypatch.setattr(convnext, "convnext_mixer", mixer_ops.convnext_mixer_library)
+        monkeypatch.setattr(convnext, "convnext_mixer_plain", mixer_ops.convnext_mixer_library)
+        before = block(x)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, before, rtol=0, atol=0)
+        return
+    change = (before - x.float()).flatten(1)
+    err = float(((got - before).flatten(1).norm(dim=1) / change.norm(dim=1)).max())
+    assert 0 < err < 0.01
+
+
+@pytest.mark.parametrize("needs", ["all", "input", "weights"])
+def test_mixer_backward_is_the_plain_versions(monkeypatch, needs):
+    """The autograd Function's backward (the plain version recomputed under
+    autograd) gives autograd's gradients of the plain version, for whichever
+    inputs want one. Its forward's kernel is the plain version here."""
+    monkeypatch.setattr(mixer_ops, "convnext_mixer_kernel", mixer_ops.convnext_mixer_plain)
+    x, wts, name = _mixer_case(2, 9, 11, 32, seed=5)
+    tensors = [x, *(wts[f"{name}.{k}"] for k in ("conv_dw.weight", "conv_dw.bias",
+                                                    "norm.weight", "norm.bias"))]
+    want_grad = {"all": [True] * 5, "input": [True] + [False] * 4,
+                 "weights": [False] + [True] * 4}[needs]
+    g = torch.randn(2, 9, 11, 32, generator=torch.Generator().manual_seed(6)).to(torch.bfloat16)
+    grads = []
+    for fn in (mixer_ops._ConvNeXtMixer.apply, mixer_ops.convnext_mixer_plain):
+        ins = [t.detach().clone().requires_grad_(w) for t, w in zip(tensors, want_grad)]
+        y = fn(*ins, 1e-6)
+        assert y.dtype == torch.bfloat16
+        y.backward(g)
+        grads.append([t.grad for t in ins])
+    for got, want, w in zip(*grads, want_grad):
+        assert (got is None) == (not w)
+        if w:
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+            assert float(want.abs().max()) > 0
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -1,6 +1,6 @@
 """Card tests of the port's CUDA kernels (the fused match, the three
-static-int8 kernels, the bf16 conv + bias + ReLU and the int8 profiling
-harness's three), of the baseline family's int8 convs on
+static-int8 kernels, the bf16 conv + bias + ReLU, the ConvNeXt mixer and
+the int8 profiling harness's three), of the baseline family's int8 convs on
 ``torch._int_mm``, of the sharded paths on a mesh of the card and of the
 public names the port added last (against the CPU); each
 skips without a CUDA device (the two-card mesh without two cards). This file imports no JAX, so it also runs where JAX is absent:
@@ -23,7 +23,8 @@ from witw_tpu_torch.exp import int8_isolate, int8_mm_probe, mosaic_caps
 from witw_tpu_torch.match.correlation import circular_correlation
 from witw_tpu_torch.models import quantize
 from witw_tpu_torch.models.fov_dsm import FovDsm
-from witw_tpu_torch.ops import conv3x3, fused_block2, fused_match, int8_conv, maxpool
+from witw_tpu_torch.ops import (conv3x3, convnext_mixer, fused_block2, fused_match, int8_conv,
+                                maxpool)
 from witw_tpu_torch.train.pipeline import FovPipeline
 
 pytestmark = pytest.mark.cuda
@@ -560,6 +561,155 @@ def test_bf16_train_step_on_gpu_matches_cpu(conv_cuda):
         losses.append(float(metrics["loss"]))
     assert conv3x3.launches == 22  # 11 fused convs per tower
     np.testing.assert_allclose(losses[1], losses[0], rtol=2e-2)
+
+
+# The ConvNeXt mixer kernel against its plain version on the card, TF32 off
+# (the plain conv in f32 on the same bf16-rounded operands): the two f32
+# results differ only in the order of their sums (the conv's 49 taps, the
+# LayerNorm's reductions), so the bf16 outputs agree to one rounding step
+# (rtol 2^-7) with atol 1e-4 for values near 0, and nearly all bit for bit.
+
+
+@pytest.fixture
+def mixer_cuda(cuda, monkeypatch):
+    monkeypatch.setattr(convnext_mixer, "launches", 0)
+    return cuda
+
+
+def _mixer_inputs(device, b, h, w, c, in_dtype, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(b, h, w, c, generator=gen, device=device).to(in_dtype)
+    weight = torch.randn(c, 1, 7, 7, generator=gen, device=device) / 7.0
+    bias = 0.02 * torch.randn(c, generator=gen, device=device)
+    ln_w = 1.0 + 0.2 * torch.randn(c, generator=gen, device=device)
+    ln_b = 0.02 * torch.randn(c, generator=gen, device=device)
+    return x, weight, bias, ln_w, ln_b
+
+
+@pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,h,w", [
+    (128, 35, 192), (128, 96, 96),  # stage 0: the panorama's and the tile's maps
+    (256, 17, 96), (256, 48, 48),
+    (512, 8, 48), (512, 24, 24),
+    (1024, 4, 24), (1024, 12, 12),
+])
+def test_convnext_mixer_matches_plain(mixer_cuda, c, h, w, in_dtype):
+    """The kernel at every stage's width and both views' map sizes (Sample4Geo
+    at 140 x 768 and 384^2), f32 block inputs and bf16 ones (a stage's first
+    block), against the plain version."""
+    args = _mixer_inputs(mixer_cuda, 2, h, w, c, in_dtype, seed=c + h)
+    got = convnext_mixer.convnext_mixer(*args, 1e-6)
+    want = convnext_mixer.convnext_mixer_plain(*args, 1e-6)
+    torch.cuda.synchronize()
+    assert convnext_mixer.launches == 1 and got.dtype == torch.bfloat16
+    assert got.shape == want.shape == (2, h, w, c)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7, atol=1e-4)
+    assert float((got == want).float().mean()) > 0.99
+
+
+def test_convnext_mixer_geometry(mixer_cuda):
+    """The library's tiling: every ConvNeXt width from 96 to 1024 splits into
+    at most 8 slices of at most 128 channels and each of the 8 warps takes
+    one micro-tile; each map of the Sample4Geo cell takes the tile that
+    computes and stages the fewest pixels, and below C 1024 its block fits
+    two to an SM (2 x (smem + 1 KB) within the H100's 228 KB); widths with
+    no such split raise."""
+    for c in (96, 128, 192, 256, 384, 512, 768, 1024):
+        for h, w in ((35, 192), (17, 96), (8, 48)):
+            geo = convnext_mixer.geometry(c, h, w)
+            (tr, tc), (th, tw) = geo["tile"], geo["micro"]
+            assert geo["ranks"] * geo["slice"] == c and geo["slice"] % 32 == 0
+            assert geo["slice"] <= 128 and geo["ranks"] <= 8
+            assert tr % th == 0 and tc % tw == 0 and (tr // th) * (tc // tw) == 8
+            assert geo["tiles"] == (-(-h // tr), -(-w // tc))
+            bf16 = convnext_mixer.geometry(c, h, w, torch.bfloat16)
+            assert bf16["slice"] == geo["slice"] and bf16["smem_bytes"] < geo["smem_bytes"]
+    stages = {(128, 35, 192): (12, 8), (128, 96, 96): (12, 8), (256, 17, 96): (4, 24),
+              (256, 48, 48): (12, 8), (512, 8, 48): (8, 12), (512, 24, 24): (12, 8),
+              (1024, 4, 24): (4, 24), (1024, 12, 12): (12, 8)}
+    assert {k: convnext_mixer.geometry(*k)["tile"] for k in stages} == stages
+    for c, h, w in stages:  # two blocks an SM below C 1024
+        geo = convnext_mixer.geometry(c, h, w)
+        assert (2 * (geo["smem_bytes"] + 1024) <= 228 * 1024) == (c < 1024), (c, h, w, geo)
+    assert [convnext_mixer.geometry(c, 24, 24)["ranks"] for c in (128, 256, 512, 1024)] == [
+        2, 4, 8, 8]
+    for c in (0, 48, 1056, 1280, 2048):
+        with pytest.raises(ValueError):
+            convnext_mixer.geometry(c, 8, 8)
+
+
+def test_convnext_mixer_rejects_bad_inputs(mixer_cuda):
+    x, weight, bias, ln_w, ln_b = _mixer_inputs(mixer_cuda, 1, 4, 4, 64, torch.float32, seed=1)
+    bad = [
+        _mixer_inputs(mixer_cuda, 1, 4, 4, 48, torch.float32, seed=1),  # C not a multiple of 32
+        _mixer_inputs(mixer_cuda, 1, 4, 4, 1056, torch.float32, seed=1),  # no 8 slices of 32k
+        (x.half(), weight, bias, ln_w, ln_b),  # fp16 input
+        (x.transpose(1, 2), weight, bias, ln_w, ln_b),  # not contiguous
+        (x, weight.to(torch.bfloat16), bias, ln_w, ln_b),  # weights are f32
+        (x, weight, bias.cpu(), ln_w, ln_b),  # one CUDA device for every input
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            convnext_mixer.convnext_mixer(*args, 1e-6)
+    assert convnext_mixer.launches == 0
+
+
+def _planted_mixer(x, weight, bias, ln_weight, ln_bias, eps):
+    """A faulty mixer forward: the plain version with its normalized output
+    scaled up by one bf16 rounding step (2^-8), as a LayerNorm whose
+    variance came out a step too small would give."""
+    return convnext_mixer.convnext_mixer_plain(x, weight, bias, ln_weight * (1 + 2.0 ** -8),
+                                               ln_bias, eps)
+
+
+def test_sample4geo_gradients_on_the_kernel_path(mixer_cuda, monkeypatch):
+    """One train step's gradients at small widths on the card, with the
+    mixer's kernel forward (its backward recomputes the plain version)
+    against the plain mixer throughout: each weight's gradient within 0.025
+    of its norm. The forwards differ by a bf16 rounding step here and there
+    (test_convnext_mixer_matches_plain), which the bf16 towers carry through
+    later roundings: on the H100 the largest gap read 0.0133 here (0.0149
+    and 0.0200 with the batch and weights of two other seeds). A forward
+    whose output is one rounding step off throughout (_planted_mixer) read
+    0.0416 here, and must fail the same limit. The loss is not held: its
+    gap, 0.0023 on the kernel path, grows only to 0.008 under that fault."""
+    from benchmark.traffic.eval_global import make_weights
+    from witw_tpu_torch.configs import Sample4GeoModelConfig, sample4geo_experiment
+    from witw_tpu_torch.models.backbones import convnext
+    from witw_tpu_torch.train.pipeline import make_pipeline
+
+    cfg = sample4geo_experiment("cvusa")
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data, surface_height=140,
+                                               surface_width_max=128, overhead_size=96),
+                      model=Sample4GeoModelConfig(dims=(64, 128, 256, 512), depths=(1, 1, 2, 1)))
+    pipeline = make_pipeline(cfg, mixer_cuda)
+    gen = torch.Generator(device=mixer_cuda).manual_seed(7)
+    batch = {"surface": torch.randint(0, 256, (4, 140, 128, 3), generator=gen,
+                                      device=mixer_cuda, dtype=torch.uint8),
+             "overhead": torch.randint(0, 256, (4, 96, 96, 3), generator=gen,
+                                       device=mixer_cuda, dtype=torch.uint8)}
+    params = make_weights(cfg.model, 9, mixer_cuda)
+
+    def grads():
+        w = {k: v.detach().clone().requires_grad_(True) for k, v in params["surface"].items()}
+        loss, _ = pipeline._forward_loss({"surface": w, "overhead": w}, batch, None, train=True)
+        return torch.autograd.grad(loss, list(w.values()))
+
+    def gaps(got, want):
+        return {name: float((g - p).norm() / p.norm().clamp_min(1e-30))
+                for name, g, p in zip(params["surface"], got, want)}
+
+    grads_k = grads()
+    assert convnext_mixer.launches == 2 * sum(cfg.model.depths)
+    with monkeypatch.context() as m:
+        m.setattr(convnext_mixer, "convnext_mixer_kernel", _planted_mixer)
+        grads_f = grads()
+    monkeypatch.setattr(convnext, "convnext_mixer", convnext_mixer.convnext_mixer_plain)
+    grads_p = grads()
+    assert convnext_mixer.launches == 2 * sum(cfg.model.depths)
+    kernel, planted = gaps(grads_k, grads_p), gaps(grads_f, grads_p)
+    assert max(kernel.values()) < 0.025, kernel
+    assert max(planted.values()) >= 0.025, planted
 
 
 # The int8 profiling harness (witw_tpu_torch.exp) against the plain
@@ -1220,9 +1370,10 @@ def test_warm_embed_step_on_the_card_makes_no_sync(cuda, preset):
 def test_warm_sample4geo_embed_step_on_the_card(cuda):
     """The Sample4Geo family at the preset's geometry and published widths on
     the card: a warm ``embed_step`` makes no host-device copy or stream sync,
-    launches no kernel of the port (cuDNN and cuBLAS only), and its unit
-    embeddings are within the bf16 tolerance of tests/test_torch_convnext.py
-    (0.03 of an embedding) of the float32 reference's."""
+    launches the ConvNeXt mixer kernel once a block (36 an encoder call, two
+    calls) and no other kernel of the port, and its unit embeddings are
+    within the bf16 tolerance of tests/test_torch_convnext.py (0.03 of an
+    embedding) of the float32 reference's."""
     from benchmark import reference
     from benchmark.reference import convnext as ref
     from benchmark.reference import preprocess as ref_pre
@@ -1241,13 +1392,14 @@ def test_warm_sample4geo_embed_step_on_the_card(cuda):
     params = make_weights(cfg.model, 5, cuda)
     pipeline.embed_step(params, batch)
     torch.cuda.synchronize()
-    launches = conv3x3.launches
+    launches, mixers = conv3x3.launches, convnext_mixer.launches
     torch.cuda.set_sync_debug_mode("error")
     try:
         s_emb, o_emb = pipeline.embed_step(params, batch)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert conv3x3.launches == launches and s_emb.shape == o_emb.shape == (4, 1024)
+    assert sum(cfg.model.depths) == 36 and convnext_mixer.launches - mixers == 2 * 36
     with torch.no_grad(), reference.exact():
         for got, view in ((s_emb, "surface"), (o_emb, "overhead")):
             x = ref_pre.normalize(batch[view], d.img_mean, d.img_std).permute(0, 3, 1, 2)

@@ -18,15 +18,21 @@ state dict fits.
 
 Precision, with the bf16 compute dtype, as ``torch.autocast`` runs timm's
 model: convs and linears in bf16 (f32 accumulation), their weights and
-biases cast per call (the depthwise conv's bias is added in f32, on the
-way into its LayerNorm); every LayerNorm in f32; the residual stream in f32
+biases cast per call; every LayerNorm in f32; the residual stream in f32
 (the f32 ``gamma`` promotes each block's branch; a stage's first block adds
-its branch to the bf16 output of the downsample conv). Activations are NCHW
+its branch to the bf16 output of the downsample conv). A block's mixer (the
+depthwise conv, its bias and the LayerNorm) is ``ops.convnext_mixer``: the
+input and the depthwise weight rounded to bf16, the conv's f32 sums, the
+bias and the LayerNorm in f32, one rounding to bf16; on CUDA tensors one
+hand-written kernel (``csrc/convnext_mixer.cu``) that reads the block input
+as stored. The conv's sum goes into the LayerNorm unrounded, where autocast
+rounds cuDNN's output to bf16 first. With the f32 compute dtype the mixer
+is the plain PyTorch version, on either device. Activations are NCHW
 tensors in the channels_last memory format, so a block's NCHW <-> NHWC
 permutes are views.
 
 Spans (``utils.profiling``), each block's with a device stretch:
-``convnext.mixer`` (the depthwise conv and the LayerNorm) and
+``convnext.mixer`` (the mixer's one launch on the card) and
 ``convnext.mlp`` (fc1, GELU, fc2, gamma and the residual add).
 """
 
@@ -38,6 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from witw_tpu_torch.ops.convnext_mixer import convnext_mixer, convnext_mixer_plain
 from witw_tpu_torch.utils.profiling import span
 
 LS_INIT = 1e-6  # timm's layer-scale init
@@ -90,14 +97,11 @@ class Block(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """NCHW channels_last in (f32, or bf16 after a downsample) -> f32."""
-        dt, c = self.dtype, self.gamma.shape[0]
+        dt = self.dtype
         with span("convnext.mixer", stretch=True):
-            w = self.conv_dw.weight.to(dt)
-            y = F.conv2d(x.to(dt), w, None, padding=w.shape[-1] // 2, groups=c)
-            # The bias added in f32 is the LayerNorm's upcast: one pass, not
-            # cuDNN's separate bf16 bias add and then a cast.
-            y = y.permute(0, 2, 3, 1) + self.conv_dw.bias
-            y = F.layer_norm(y, (c,), self.norm.weight, self.norm.bias, self.eps).to(dt)
+            args = (x.permute(0, 2, 3, 1), self.conv_dw.weight, self.conv_dw.bias,
+                    self.norm.weight, self.norm.bias, self.eps)
+            y = convnext_mixer(*args) if dt == torch.bfloat16 else convnext_mixer_plain(*args, dt)
         with span("convnext.mlp", stretch=True):
             y = F.gelu(F.linear(y, *_cast(self.mlp.fc1, dt)))
             y = F.linear(y, *_cast(self.mlp.fc2, dt))
