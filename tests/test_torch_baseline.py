@@ -13,6 +13,8 @@ angles equal but at pixels within 1e-4 of a rounding tie (f32 cos / sin may
 differ in the last bit); each other test states its own.
 """
 
+import torch_workers  # noqa: F401  (first: the workers' thread budget)
+
 import dataclasses
 
 import jax

@@ -18,6 +18,8 @@ The two root ``exp`` scripts put an absolute checkout path first on
 ``jax_exp`` fixture imports them and undoes both before anything compiles.
 """
 
+import torch_workers  # noqa: F401  (first: the workers' thread budget)
+
 import importlib
 import sys
 import types

@@ -14,6 +14,8 @@ passes ``cfg.train.async_checkpoints`` on and closes its writer and loaders
 when the checkpointer's ``close`` raises.
 """
 
+import torch_workers  # noqa: F401  (first: the workers' thread budget)
+
 import shutil
 import signal
 import threading

@@ -13,6 +13,8 @@ tests/test_torch_data.py); f32 towers rtol 1e-3, atol 1e-4
 orientations equal; ranks equal on planted data.
 """
 
+import torch_workers  # noqa: F401  (first: the workers' thread budget)
+
 import dataclasses
 import json
 import os

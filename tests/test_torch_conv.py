@@ -16,6 +16,8 @@ gradients against autograd through the plain version, the dropout mask, and
 the kernel's packed weight layout and tile choice.
 """
 
+import torch_workers  # noqa: F401  (first: the workers' thread budget)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -14,6 +14,8 @@ witw_tpu's converted params at the f32 towers' cross-framework tolerances
 2e-4, atol 2e-5 as tests/test_torch_baseline.py).
 """
 
+import torch_workers  # noqa: F401  (first: the workers' thread budget)
+
 import dataclasses
 
 import jax

@@ -27,6 +27,8 @@ LayerNorm affines and the biases away from 1 and 0). Tolerances:
   fc1 and fc2 carry at bf16 precision; measured 0.0049.
 """
 
+import torch_workers  # noqa: F401  (first: the workers' thread budget)
+
 import dataclasses
 import json
 from pathlib import Path

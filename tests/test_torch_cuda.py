@@ -12,6 +12,8 @@ orientations, except at near ties (plain top-2 correlation gap <= 1e-5 of
 the max), where the two summation orders may pick different shifts.
 """
 
+import torch_workers  # noqa: F401  (first: the workers' thread budget)
+
 import dataclasses
 
 import numpy as np

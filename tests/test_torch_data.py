@@ -5,6 +5,8 @@ Inputs come from numpy ``default_rng`` (and witw_tpu's synthetic dataset
 writer). Each test states its tolerance: equal unless said otherwise.
 """
 
+import torch_workers  # noqa: F401  (first: the workers' thread budget)
+
 import dataclasses
 import io
 

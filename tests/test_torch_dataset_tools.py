@@ -12,6 +12,8 @@ atol 2e-4 of cv2's (its uint8 within 1 on <= 0.5% of the pixels), the
 checkpoint masks equal.
 """
 
+import torch_workers  # noqa: F401  (first: the workers' thread budget)
+
 import importlib.util
 import json
 import math

@@ -34,6 +34,8 @@ process on the CPU.
   ``GrainPairLoader`` against its contract and witw_tpu's decoded batches.
 """
 
+import torch_workers  # noqa: F401  (first: the workers' thread budget)
+
 import dataclasses
 import shutil
 
@@ -61,17 +63,6 @@ CPU = torch.device("cpu")
 LR = 1e-4
 BASELINE_HW = (384, 384)
 BASELINE_SURFACE_HW = (384, 416)  # towers of different sizes at every layer
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    """Two intra-op threads while this module runs: the suite runs several
-    workers on one host's cores, and torch's one thread per core then
-    oversubscribes them (these tests took 10-30 times their time alone)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 _INITS = {}

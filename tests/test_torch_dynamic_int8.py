@@ -15,6 +15,8 @@ in the message); the embeddings within rtol 1e-5, atol 1e-6 of witw_tpu's
 bar, tests/test_quantize.py:28).
 """
 
+import torch_workers  # noqa: F401  (first: the workers' thread budget)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

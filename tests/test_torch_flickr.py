@@ -4,6 +4,8 @@ the reference config.yaml shape read without PyYAML, the bbox partition,
 a scrape, resume after a kill, replay and the local downloader. Also the
 YAML reader's ``nested`` shapes against PyYAML."""
 
+import torch_workers  # noqa: F401  (first: the workers' thread budget)
+
 import dataclasses
 import json
 import os

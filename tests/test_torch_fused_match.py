@@ -17,6 +17,8 @@ shared memory a block, and ``query_columns`` (the query layout the kernel's
 bulk copies read) against the queries it lays out.
 """
 
+import torch_workers  # noqa: F401  (first: the workers' thread budget)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -6,6 +6,8 @@ each other: each reads the other's files identically and
 the compiler's output; nothing falls back.
 """
 
+import torch_workers  # noqa: F401  (first: the workers' thread budget)
+
 import ctypes
 import struct
 import zlib

@@ -10,6 +10,8 @@ bf16 towers as test_torch_serve.py:219 (rtol 5e-2, atol 5e-3); the int8
 sweep, given witw_tpu's calibrated scales, within 1e-5.
 """
 
+import torch_workers  # noqa: F401  (first: the workers' thread budget)
+
 import csv
 import dataclasses
 

@@ -9,6 +9,8 @@ distances within rtol 1e-5 / atol 1e-6, orientations and indices equal;
 planted top-1 equal and distances within 8e-2 of the exact ones.
 """
 
+import torch_workers  # noqa: F401  (first: the workers' thread budget)
+
 import numpy as np
 import pytest
 

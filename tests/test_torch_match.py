@@ -8,6 +8,8 @@ Evaluator ranks are compared on planted-structure data, where distances are
 well separated, and must be equal.
 """
 
+import torch_workers  # noqa: F401  (first: the workers' thread budget)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

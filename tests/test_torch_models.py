@@ -7,6 +7,8 @@ Tower tolerance: rtol 1e-3, atol 1e-4 in float32 at small geometry
 The bridge round trip must be exact.
 """
 
+import torch_workers  # noqa: F401  (first: the workers' thread budget)
+
 import math
 
 import jax

@@ -23,6 +23,8 @@ ranks and top-k indices equal, every process's params and Adam state
 bit-identical, both checkpoint checks at max |diff| 0.0.
 """
 
+import torch_workers  # noqa: F401  (first: the workers' thread budget)
+
 import hashlib
 import json
 import os
@@ -151,7 +153,6 @@ def _max_diff(a, b) -> float:
 
 
 def worker(process_id: int, count: int, port: int, workdir: str) -> None:
-    torch.set_num_threads(2)
     import torch.distributed as dist
 
     from tests.mp_common import tiny_global_batch
@@ -286,7 +287,9 @@ def _run_workers(workdir, meanwhile, count=2):
     """Start the workers, call ``meanwhile()`` while they run, then wait for
     them (killing both at TIMEOUT); returns (process 0's results, what
     ``meanwhile`` returned)."""
-    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    # The repository for `tests.*`, tests/ for torch_workers, which this file imports first.
+    path = [REPO, os.path.join(REPO, "tests"), os.environ.get("PYTHONPATH", "")]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(path))
     port = _free_port()
     deadline = time.monotonic() + TIMEOUT
     procs = [subprocess.Popen(
@@ -354,15 +357,9 @@ def _reference(workdir):
 
 
 def test_two_processes_match_one(tmp_path):
-    def reference():
-        before = torch.get_num_threads()
-        torch.set_num_threads(2)  # as the workers: the suite's workers share the host's cores
-        try:
-            return _reference(tmp_path)
-        finally:
-            torch.set_num_threads(before)
-
-    got, ref = _run_workers(tmp_path, reference)
+    # The workers run at this process's thread count: they import
+    # torch_workers and inherit this process's environment.
+    got, ref = _run_workers(tmp_path, lambda: _reference(tmp_path))
     assert got["process_count"] == 2 and got["same_on_every_process"]
     np.testing.assert_allclose(got["loss"], ref["loss"], rtol=1e-5)
     grads = torch.load(tmp_path / "grads.pt")

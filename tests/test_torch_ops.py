@@ -6,6 +6,8 @@ another order by each framework). Index-only ops and the numpy table
 builders must be exactly equal.
 """
 
+import torch_workers  # noqa: F401  (first: the workers' thread budget)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

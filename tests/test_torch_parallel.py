@@ -12,6 +12,8 @@ distances within rtol 1e-5, atol 1e-6. Gallery sizes (41, 53, 45, 67) do not
 divide the meshes, so every sharded path meets padded rows.
 """
 
+import torch_workers  # noqa: F401  (first: the workers' thread budget)
+
 import dataclasses
 
 import jax

@@ -6,6 +6,8 @@ spread from 1 to the gallery's size. Also the port's materialized-crop
 oracle (witw_tpu_torch/match/reference_impl.py), which the embedding dump
 uses, held bit-equal to witw_tpu's."""
 
+import torch_workers  # noqa: F401  (first: the workers' thread budget)
+
 import dataclasses
 import json
 

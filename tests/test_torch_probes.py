@@ -22,6 +22,8 @@ point JAX's compilation cache there when imported; the ``jax_exp`` fixture
 imports them and undoes both before anything compiles.
 """
 
+import torch_workers  # noqa: F401  (first: the workers' thread budget)
+
 import importlib
 import sys
 import types

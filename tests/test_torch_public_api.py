@@ -16,6 +16,8 @@
   resolves every exported name and builds or loads no CUDA library.
 """
 
+import torch_workers  # noqa: F401  (first: the workers' thread budget)
+
 import ast
 import subprocess
 import sys

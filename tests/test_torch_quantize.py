@@ -11,6 +11,8 @@ it: op-by-op dispatch on XLA:CPU compiles every op of every new shape and
 takes several times as long.
 """
 
+import torch_workers  # noqa: F401  (first: the workers' thread budget)
+
 import dataclasses
 import functools
 

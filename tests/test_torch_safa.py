@@ -9,6 +9,8 @@ max|y|; two Adam steps as tests/test_torch_train.py holds four; ranks equal
 on planted and exactly tied data.
 """
 
+import torch_workers  # noqa: F401  (first: the workers' thread budget)
+
 import dataclasses
 
 import jax

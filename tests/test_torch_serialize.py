@@ -10,6 +10,8 @@ The reader refuses what it does not read, PyYAML's folding of long strings
 and the plain forms that YAML 1.1 reads as other types included.
 """
 
+import torch_workers  # noqa: F401  (first: the workers' thread budget)
+
 import dataclasses
 import math
 

@@ -11,6 +11,8 @@ tables and the same input (as tests/test_torch_quantize.py); served tiles
 and orientations equal on planted galleries.
 """
 
+import torch_workers  # noqa: F401  (first: the workers' thread budget)
+
 import dataclasses
 import io
 import json

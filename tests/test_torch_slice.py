@@ -9,6 +9,8 @@ through a normalized distance). Retrieval ranks must be equal, on inputs
 whose distances are separated by far more than that bound (checked).
 """
 
+import torch_workers  # noqa: F401  (first: the workers' thread budget)
+
 import dataclasses
 import subprocess
 import sys

@@ -12,6 +12,8 @@
   ``train_step`` at tiny sizes; spans leave the results as they were.
 """
 
+import torch_workers  # noqa: F401  (first: the workers' thread budget)
+
 import dataclasses
 import threading
 

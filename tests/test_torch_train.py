@@ -14,6 +14,8 @@
   a resume; ``best`` follows the val loss.
 """
 
+import torch_workers  # noqa: F401  (first: the workers' thread budget)
+
 import dataclasses
 
 import jax

@@ -5,6 +5,8 @@ within rtol 1e-5, atol 1e-6) and ``score_all``, resident and streamed.
 Galleries come from a numpy seed.
 """
 
+import torch_workers  # noqa: F401  (first: the workers' thread budget)
+
 import numpy as np
 import pytest
 import torch

@@ -47,11 +47,14 @@
 
 #include <cstdint>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace witw;
 
 constexpr int kSumThreads = 256;   // t1: threads that widen and add
 constexpr int kCopyThreads = 1;    // t2, t4: one thread issues every copy
-constexpr int kEncodeError = 100000;  // + CUresult: cuTensorMapEncodeTiled refused a map
 
 // What geometry() chose, and what follows from it. Block u takes unit u.
 struct Plan {
@@ -64,29 +67,6 @@ struct Plan {
   int half_bytes;  // one half's box in shared memory, padded to 128 bytes
   int out_bytes;   // t1: the int32 output box, padded to 128 bytes
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-// Spins until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred done;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n"
-      "}\n" ::"r"(bar), "r"(parity)
-      : "memory");
-}
 
 __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
@@ -117,10 +97,6 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, 
 __device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
 // Until every bulk group has completed, its writes included.
 __device__ __forceinline__ void bulk_wait_all() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
-// Orders this thread's shared-memory accesses before the async proxy's (the TMA's).
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
 // Waits for the grids this one depends on to complete and flush (a no-op
 // without PDL); then lets the next grid launch.
 __device__ __forceinline__ void grid_dependency_wait() { asm volatile("griddepcontrol.wait;\n" ::: "memory"); }
@@ -130,10 +106,6 @@ __device__ __forceinline__ uint32_t lds32(uint32_t addr) {
   uint32_t v;
   asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
   return v;
-}
-__device__ __forceinline__ void sts128(uint32_t addr, int a, int b, int c, int d) {
-  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(a), "r"(b), "r"(c), "r"(d)
-               : "memory");
 }
 __device__ __forceinline__ int byte_at(uint32_t w, int k) {  // signed byte k of w
   return static_cast<int>(w << (24 - 8 * k)) >> 24;
@@ -261,7 +233,7 @@ template <typename Kernel>
 int launch(Kernel kernel, int threads, const Plan& p, int pdl, cudaStream_t stream, const CUtensorMap& in,
            const CUtensorMap& out) {
   const int smem = smem_bytes(p);
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t e = set_smem(kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
@@ -348,11 +320,6 @@ int witw_caps_patches(const void* x, void* out, long long rows, int width, int c
   if (e != 0) return e;
   return launch(copy_halves_kernel<3, false>, kCopyThreads, p, pdl, static_cast<cudaStream_t>(stream),
                 in_map, out_map);
-}
-
-const char* witw_cuda_error_string(int e) {
-  if (e >= kEncodeError) return "cuTensorMapEncodeTiled refused a tensor map (CUresult = code - 100000)";
-  return cudaGetErrorString(static_cast<cudaError_t>(e));
 }
 
 }  // extern "C"

@@ -61,7 +61,11 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace witw;
 
 constexpr int kConsumers = 256;      // two warpgroups of wgmma
 constexpr int kProducers = 128;      // one warpgroup of copies
@@ -87,86 +91,12 @@ struct Ring {
   static_assert(kSmemBytes <= 232448, "fits the 227 KB a block may use");
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-// Spins until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred done;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n"
-      "}\n" ::"r"(bar), "r"(parity)
-      : "memory");
-}
-// One bulk copy of `bytes` (a multiple of 16) into shared memory, counted on `bar`.
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-// 16 bytes from global memory, or 16 zeros when `src_bytes` is 0.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, uint32_t src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes)
-               : "memory");
-}
 // Four 8 x 8 bf16 matrices from the mma fragment layout into shared memory.
 __device__ __forceinline__ void stmatrix_x4(uint32_t addr, uint32_t r0, uint32_t r1, uint32_t r2, uint32_t r3) {
   asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(r0),
                "r"(r1), "r"(r2), "r"(r3)
                : "memory");
 }
-__device__ __forceinline__ uint4 lds128(uint32_t addr) {
-  uint4 v;
-  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-               : "r"(addr)
-               : "memory");
-  return v;
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int Pending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending) : "memory");
-}
-// Orders this thread's generic-proxy shared-memory writes (cp.async, st.shared)
-// before the async-proxy reads of wgmma.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// No-swizzle K-major matrix descriptor: start address, LBO (bytes to the next
-// core matrix along K) and SBO (bytes to the next 8 rows of M or N).
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int Pending>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(Pending) : "memory");
-}
-// Keeps the compiler from moving register uses across a wgmma wait.
-__device__ __forceinline__ void fence_operand(float& r) { asm volatile("" : "+f"(r)::"memory"); }
-
 // d[64 x N] += a[64 x 16] * b[16 x N], both read from shared memory through descriptors.
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b);
@@ -457,20 +387,15 @@ int launch(const void* x, const void* w, const void* bias, void* out, int B, int
            int cin_p, int Co, int tc_log2, int circular, int relu, cudaStream_t stream) {
   const auto kernel = conv3x3_bf16_kernel<N>;
   const int smem = static_cast<int>(Ring<N>::kSmemBytes) + Co * 4;  // the ring, the bias
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  int device = 0, sms = 0, per_sm = 0;
-  if (e == cudaSuccess) e = cudaGetDevice(&device);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
   const int tc = 1 << tc_log2;
   const int tr = kTilePix / tc;
   const int tiles_x = (W + tc - 1) / tc;
   const int sp_tiles = ((H + tr - 1) / tr) * tiles_x;
   const long long tiles = static_cast<long long>((Co + N - 1) / N) * sp_tiles * B;
+  int grid = 0;
+  const cudaError_t e = persistent_grid(kernel, kThreads, smem, tiles, &grid);
+  if (e != cudaSuccess) return static_cast<int>(e);
   if (tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  // Persistent: one block per resident slot, each walking tiles blockIdx.x + i * gridDim.x.
-  const int grid = static_cast<int>(tiles < 1LL * sms * per_sm ? tiles : 1LL * sms * per_sm);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
       static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out), H, W, Cin, cin_p, Co,
@@ -500,10 +425,6 @@ int witw_conv3x3_bf16(const void* x, const void* w, const void* bias, void* out,
     case 16: return launch<16>(x, w, bias, out, B, H, W, Cin, cin_p, Co, tc_log2, circular, relu, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-const char* witw_cuda_error_string(int e) {
-  return cudaGetErrorString(static_cast<cudaError_t>(e));
 }
 
 }  // extern "C"

@@ -296,18 +296,13 @@ int launch(const void* xp, const void* w, const void* m, void* out, int B, int H
   const int stages = fit < kMaxStages ? fit : kMaxStages;
   if (fixed > kSmemLimit || stages < 3) return static_cast<int>(cudaErrorInvalidValue);
   const int smem = stages * stage_bytes + fixed;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  int device = 0, sms = 0, per_sm = 0;
-  if (e == cudaSuccess) e = cudaGetDevice(&device);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
   const int tiles_x = (W + kTile - 1) / kTile;
   const int sp_tiles = ((H + kTile - 1) / kTile) * tiles_x;
   const long long tiles = static_cast<long long>((Co + N - 1) / N) * sp_tiles * B;
+  int grid = 0;
+  const cudaError_t e = persistent_grid(kernel, kThreads, smem, tiles, &grid);
+  if (e != cudaSuccess) return static_cast<int>(e);
   if (tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  // Persistent: one block per resident slot, each walking tiles blockIdx.x + i * gridDim.x.
-  const int grid = static_cast<int>(tiles < 1LL * sms * per_sm ? tiles : 1LL * sms * per_sm);
   kernel<<<grid, kThreads, smem, stream>>>(static_cast<const int8_t*>(xp), static_cast<const int8_t*>(w),
                                            static_cast<const float*>(m), static_cast<int8_t*>(out), H + 2, WP,
                                            C, Co, H, W, tiles_x, sp_tiles, static_cast<int>(tiles), stages);
@@ -345,10 +340,6 @@ int witw_conv_like(const void* xp, const void* w, const void* m, void* out, int 
     case 64: return dispatch<64>(xp, w, m, out, B, H, WP, C, Co, W, mode, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-const char* witw_cuda_error_string(int e) {
-  return cudaGetErrorString(static_cast<cudaError_t>(e));
 }
 
 }  // extern "C"

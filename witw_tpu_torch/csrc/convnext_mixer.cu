@@ -67,9 +67,13 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "hopper.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
+
+using namespace witw;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -82,19 +86,6 @@ constexpr int kMaxCluster = 8;
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// 16 bytes from global memory, or 16 zeros when `src_bytes` is 0.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, uint32_t src_bytes) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // A staged run of the window, as f32 values on the bf16 grid: f32 stages
@@ -280,7 +271,7 @@ convnext_mixer_kernel(const T* __restrict__ x, const float* __restrict__ dw_w,
   for (int tile = first; tile < n_tiles; tile += n_clusters) {
     origin(tile, b, r0, c0);
     for (int k = 0; k < n_chunks; ++k) {
-      cp_async_wait_all();
+      cp_async_wait<0>();
       copies.round(s_in + stage * kStage);
       __syncthreads();  // chunk k is in; every warp is done with the other stage
       // The next chunk's copies fly while this one computes: the next chunk
@@ -436,8 +427,7 @@ int launch(const void* x, const float* dw_w, const float* dw_b, const float* ln_
   cudaError_t e = cudaSuccess;
   static bool configured[kMaxDevices] = {};  // the kernel's attributes, set once a device
   if (!configured[dev]) {
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+    e = set_smem(kernel, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
@@ -579,10 +569,6 @@ int witw_convnext_mixer_geometry(int C, int H, int W, int x_dtype, long long* ou
                           static_cast<long long>(smem_bytes(t, x_dtype == 0 ? 4 : 2, c.slice))};
   for (int i = 0; i < 8; ++i) out[i] = v[i];
   return 0;
-}
-
-const char* witw_cuda_error_string(int e) {
-  return cudaGetErrorString(static_cast<cudaError_t>(e));
 }
 
 }  // extern "C"

@@ -187,7 +187,7 @@ __device__ __forceinline__ uint32_t requant_relu(int acc, int bias_q, float m) {
 // Bytes 0 of a and b as bytes 0 and 1.
 __device__ __forceinline__ uint32_t pack2(uint32_t a, uint32_t b) { return __byte_perm(a, b, 0x0040); }
 
-// A 2-byte shared-memory store that, unlike int8_wgmma.cuh's sts16, lets the
+// A 2-byte shared-memory store that, unlike hopper.cuh's sts16, lets the
 // compiler move the epilogue tables' loads ahead of it: after the prologue
 // nothing the consumers load with plain loads is ever stored to, and the
 // stores stay ordered with the volatile fences, barriers and lds128.
@@ -506,27 +506,15 @@ int witw_fused_block2(const void* x, const void* w1, const void* b1, const void*
   const int tiles_y = (Hp + kPoolTile - 1) / kPoolTile;
   const long long tiles = 1LL * B * tiles_x * tiles_y;
   if (tiles > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e = cudaFuncSetAttribute(fused_block2_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  int device = 0, sms = 0, per_sm = 0;
-  if (e == cudaSuccess) e = cudaGetDevice(&device);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (e == cudaSuccess) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_block2_kernel, kThreads, kSmemBytes);
-  }
+  int grid = 0;
+  const cudaError_t e = persistent_grid(fused_block2_kernel, kThreads, kSmemBytes, tiles, &grid);
   if (e != cudaSuccess) return static_cast<int>(e);
-  // Persistent: one block per resident slot, each walking tiles blockIdx.x + i * gridDim.x.
-  const int grid = static_cast<int>(tiles < 1LL * sms * per_sm ? tiles : 1LL * sms * per_sm);
   fused_block2_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(x), static_cast<const int8_t*>(w1), static_cast<const int*>(b1),
       static_cast<const float*>(m1), static_cast<const int8_t*>(w2), static_cast<const int*>(b2),
       static_cast<const float*>(m2), static_cast<int8_t*>(out), H, W, Hp, Wp, tiles_x, tiles_y,
       static_cast<int>(tiles), circular);
   return static_cast<int>(cudaGetLastError());
-}
-
-const char* witw_cuda_error_string(int e) {
-  return cudaGetErrorString(static_cast<cudaError_t>(e));
 }
 
 }  // extern "C"

@@ -97,7 +97,11 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace witw;
 
 constexpr int kConsumers = 256;  // two warpgroups, one gallery map each
 constexpr int kThreads = kConsumers + 128;  // and one producer warpgroup
@@ -117,51 +121,10 @@ static_assert(kProducerRegs * (kThreads - kConsumers) + kConsumerRegs * kConsume
                   kLaunchRegs * kThreads,
               "setmaxnreg may only redistribute the block's registers");
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-// Spins until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred done;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n"
-      "}\n" ::"r"(bar), "r"(parity)
-      : "memory");
-}
-// One bulk copy of `bytes` (a multiple of 16) into shared memory, counted on `bar`.
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-__device__ __forceinline__ void sts128(uint32_t addr, uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
-  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(a), "r"(b), "r"(c), "r"(d)
-               : "memory");
-}
 __device__ __forceinline__ float2 lds64(uint32_t addr) {
   float2 v;
   asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr) : "memory");
   return v;
-}
-// Orders this thread's generic-proxy shared-memory writes before the
-// async-proxy reads of wgmma.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 // The 128 threads of consumer warpgroup wg (named barrier 1 + wg).
 template <int wg>
@@ -181,25 +144,6 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& sma
   big = tf32_rna(x);
   small = tf32_rna(__fsub_rn(x, __uint_as_float(big)));
 }
-
-// No-swizzle K-major matrix descriptor: start address, LBO (bytes to the next
-// core matrix along K) and SBO (bytes to the next 8 rows of N).
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int Pending>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(Pending) : "memory");
-}
-// Keep the compiler from moving register uses across a wgmma wait.
-__device__ __forceinline__ void fence_operand(float& r) { asm volatile("" : "+f"(r)::"memory"); }
-__device__ __forceinline__ void fence_operand(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
 
 // d[64 x 64] (+)= a[64 x 8] * b[8 x 64] in tf32, f32 accumulate; a from
 // registers (wgmma's fragment layout), b through a descriptor. scale_d 0
@@ -524,8 +468,7 @@ int launch(dim3 grid, size_t smem, cudaStream_t stream, const float* o, const fl
            const float* wsq, float* d, int* orient, int G, int W, int hc, int chunks, int pitch, int Q,
            int sw, int stages, int kcols) {
   const auto kernel = fused_corr_distance_kernel<kSteps>;
-  const cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  const cudaError_t e = set_smem(kernel, static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   kernel<<<grid, kThreads, smem, stream>>>(o, s, wsq, d, orient, G, W, hc, chunks, pitch, Q, sw, stages,
                                            kcols);
@@ -570,10 +513,6 @@ int witw_fused_corr_distance(const void* o, const void* s, const void* wsq, void
                                                        launch<5>, launch<6>, launch<7>, launch<8>};
   return kLaunch[hc_pad / 8 - 1](grid, smem, st, o_, s_, wsq_, d_, orient_, G, W, hc, chunks, pitch, Q, sw,
                                  stages, kcols);
-}
-
-const char* witw_cuda_error_string(int e) {
-  return cudaGetErrorString(static_cast<cudaError_t>(e));
 }
 
 }  // extern "C"

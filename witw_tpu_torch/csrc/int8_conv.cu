@@ -364,18 +364,13 @@ int launch(const void* x, const void* w, const void* t1, const void* t2, void* o
   const int stages = fit < kMaxStages ? fit : kMaxStages;
   if (fixed > kSmemLimit || stages < 3) return static_cast<int>(cudaErrorInvalidValue);
   const int smem = stages * stage_bytes + fixed;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  int device = 0, sms = 0, per_sm = 0;
-  if (e == cudaSuccess) e = cudaGetDevice(&device);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
   const int tiles_x = (Wo + tc - 1) / tc;
   const int sp_tiles = ((Ho + tr - 1) / tr) * tiles_x;
   const long long tiles = static_cast<long long>((Co + N - 1) / N) * sp_tiles * B;
+  int grid = 0;
+  const cudaError_t e = persistent_grid(kernel, kThreads, smem, tiles, &grid);
+  if (e != cudaSuccess) return static_cast<int>(e);
   if (tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  // Persistent: one block per resident slot, each walking tiles blockIdx.x + i * gridDim.x.
-  const int grid = static_cast<int>(tiles < 1LL * sms * per_sm ? tiles : 1LL * sms * per_sm);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const int8_t*>(x), static_cast<const int8_t*>(w), static_cast<const uint32_t*>(t1),
       static_cast<const float*>(t2), out, H, W, Cin, cin_p, Co, Ho, Wo, sh, pad_w, tc_log2, tiles_x,
@@ -424,10 +419,6 @@ int witw_conv3x3_int8_dequant(const void* x, const void* w, const void* dequant,
                               int pad_w, int tile_n, int tc_log2, void* stream) {
   return dispatch<true>(x, w, dequant, bias_f, out, B, H, W, Cin, cin_p, Co, sh, pad_w, tile_n, tc_log2,
                         0.f, stream);
-}
-
-const char* witw_cuda_error_string(int e) {
-  return cudaGetErrorString(static_cast<cudaError_t>(e));
 }
 
 }  // extern "C"

@@ -21,6 +21,8 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -104,10 +106,6 @@ int witw_maxpool2x2(const void* x, void* out, int dtype, int B, int H, int W, in
     case 2: return launch<float>(x, out, B, H, W, C, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-const char* witw_cuda_error_string(int e) {
-  return cudaGetErrorString(static_cast<cudaError_t>(e));
 }
 
 }  // extern "C"

@@ -217,9 +217,6 @@ __device__ __forceinline__ void wgmma_rs<Bf16, 128>(float (&d)[64], const uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
-__device__ __forceinline__ void fence_acc(int& r) { fence_operand(r); }
-__device__ __forceinline__ void fence_acc(float& r) { asm volatile("" : "+f"(r)::"memory"); }
-
 __device__ __forceinline__ uint32_t bits(int x) { return static_cast<uint32_t>(x); }
 __device__ __forceinline__ uint32_t bits(float x) { return __float_as_uint(x); }
 
@@ -291,7 +288,7 @@ mm_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ bt, typenam
       wgmma_wait<0>();
 #pragma unroll
       for (int i = 0; i < kAcc; ++i) {
-        fence_acc(part[i]);
+        fence_operand(part[i]);
         acc[i] = __fadd_rn(acc[i], part[i]);
       }
     }
@@ -305,7 +302,7 @@ mm_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ bt, typenam
     }
     wgmma_wait<0>();
 #pragma unroll
-    for (int i = 0; i < kAcc; ++i) fence_acc(acc[i]);
+    for (int i = 0; i < kAcc; ++i) fence_operand(acc[i]);
   }
 
   // The partial tile, into out (one slice) or slice `slice` of the workspace.
@@ -350,7 +347,7 @@ int launch(const void* a, const void* bt, void* out, void* work, int M, int N, i
   using Acc = typename T::Acc;
   const auto kernel = mm_kernel<T, WN, kWholeDots>;
   const int smem = 2 * WN * kSteps * kStepBytes;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t e = set_smem(kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   Acc* part = static_cast<Acc*>(slices > 1 ? work : out);
   kernel<<<dim3(M / kRows, N / (2 * WN), slices), kThreads, smem, stream>>>(
@@ -411,10 +408,6 @@ int witw_mm_bf16(const void* a, const void* bt, void* out, void* work, int M, in
                  int whole_dots, int wn, int slices, void* stream) {
   return whole_dots ? dispatch<Bf16, true>(a, bt, out, work, M, N, 2 * K, reps, wn, slices, stream)
                     : dispatch<Bf16, false>(a, bt, out, work, M, N, 2 * K, reps, wn, slices, stream);
-}
-
-const char* witw_cuda_error_string(int e) {
-  return cudaGetErrorString(static_cast<cudaError_t>(e));
 }
 
 }  // extern "C"
